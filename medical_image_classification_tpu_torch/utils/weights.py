@@ -1,0 +1,88 @@
+"""Carry MedMamba weights from the JAX package to the port.
+
+The reverse of ``medical_image_classification_tpu/utils/torch_import.py::
+import_medmamba_state_dict``: the JAX ``params`` and ``batch_stats`` trees
+(nested dicts of numpy arrays) become the port's ``state_dict``, ready for
+``load_state_dict(strict=True)``.  The port names its parameters as the
+reference ``state_dict`` does, so ``import_medmamba_state_dict`` maps a
+port ``state_dict()`` back to the JAX trees.
+
+Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv HWIO ->
+OIHW; ``A_logs`` [K, d_inner, N] -> [K * d_inner, N]; ``Ds`` [K, d_inner]
+-> [K * d_inner].
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _count(tree, prefix: str) -> int:
+    return sum(1 for k in tree if k.startswith(prefix))
+
+
+def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
+                                                              torch.Tensor]:
+    """JAX MedMamba (params, batch_stats) -> the port's ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+
+    def dense(prefix, p):
+        put(prefix + ".weight", np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            put(prefix + ".bias", p["bias"])
+
+    def conv(prefix, p):
+        put(prefix + ".weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in p:
+            put(prefix + ".bias", p["bias"])
+
+    def ln(prefix, p):
+        put(prefix + ".weight", p["scale"])
+        put(prefix + ".bias", p["bias"])
+
+    def bn(prefix, p, s):
+        ln(prefix, p)
+        put(prefix + ".running_mean", s["mean"])
+        put(prefix + ".running_var", s["var"])
+        sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("patch_embed.proj", params["patch_embed"]["proj"])
+    ln("patch_embed.norm", params["patch_embed"]["norm"])
+    for i in range(_count(params, "layers_")):
+        layer = params[f"layers_{i}"]
+        stats = batch_stats[f"layers_{i}"]
+        for j in range(_count(layer, "blocks_")):
+            blk = layer[f"blocks_{j}"]
+            p = f"layers.{i}.blocks.{j}"
+            ln(p + ".ln_1", blk["ln_1"])
+            sa, q = blk["self_attention"], p + ".self_attention"
+            dense(q + ".in_proj", sa["in_proj"])
+            conv(q + ".conv2d", sa["conv2d"])
+            for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
+                put(f"{q}.{name}", sa[name])
+            A = np.asarray(sa["A_logs"])
+            put(q + ".A_logs", A.reshape(-1, A.shape[-1]))
+            put(q + ".Ds", np.asarray(sa["Ds"]).reshape(-1))
+            ln(q + ".out_norm", sa["out_norm"])
+            dense(q + ".out_proj", sa["out_proj"])
+            cb = blk["conv_branch"]
+            cs = stats[f"blocks_{j}"]["conv_branch"]
+            c = p + ".conv33conv33conv11"
+            bn(c + ".0", cb["bn0"], cs["bn0"])
+            conv(c + ".1", cb["conv1"])
+            bn(c + ".2", cb["bn1"], cs["bn1"])
+            conv(c + ".4", cb["conv2"])
+            bn(c + ".5", cb["bn2"], cs["bn2"])
+            conv(c + ".7", cb["conv3"])
+        if "downsample" in layer:
+            ln(f"layers.{i}.downsample.norm", layer["downsample"]["norm"])
+            put(f"layers.{i}.downsample.reduction.weight",
+                np.asarray(layer["downsample"]["reduction"]["kernel"]).T)
+    dense("head", params["classifier"]["head"])
+    return sd
