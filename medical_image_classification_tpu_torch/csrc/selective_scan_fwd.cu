@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel
 //   medical_image_classification_tpu/kernels/selective_scan_pallas_v2.py
 //   ::_scan_kernel_v2 (launched by fwd_folded_v2), with want_state=False
-//   and no initial state.
+//   and no initial state, including its xsave output.
 //
 // Computes, for every sequence g and channel d (param group k = g % K):
 //   dt_t = softplus(delta_t + bias)          (softplus optional)
@@ -14,6 +14,12 @@
 //
 // Layout: u, delta, y [G, L, Dm]; B, C [G, L, N] (fp32 or bf16, all the same
 // type); A [K, Dm, N], D, bias [K, Dm] fp32.  State and arithmetic are fp32.
+//
+// xsave (optional, for the backward, csrc/selective_scan_bwd.cu): the fp32
+// state entering each chunk of kChunk timesteps, [G, ceil(L / kChunk), N, Dm],
+// indexed by the chunk's position in memory.  A reverse scan enters a chunk
+// from the right, so its chunks are written last to first, as the TPU
+// kernel's mirrored index maps wrote them.  Null on the eval path.
 //
 // What bounds it on this card: bytes.  At MedMamba stage 0 (G 32, L 3136,
 // Dm 96, N 16, bf16) a call moves about 64 MB (u, delta, y, B, C), about
@@ -40,7 +46,9 @@
 namespace {
 
 constexpr int kThreads = 32;  // channels per block: one warp
-constexpr int kChunk = 32;    // timesteps staged per pass
+// timesteps staged per pass, and the chunk of xsave: the backward kernel and
+// kernels/selective_scan_fwd.py::CHUNK use the same value
+constexpr int kChunk = 32;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -69,8 +77,9 @@ __global__ void __launch_bounds__(kThreads)
     scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
                     const float* __restrict__ A, const T* __restrict__ Bm,
                     const T* __restrict__ Cm, const float* __restrict__ Dskip,
-                    const float* __restrict__ bias, T* __restrict__ y, int L,
-                    int Dm, int K, int N, bool reverse, bool softplus) {
+                    const float* __restrict__ bias, T* __restrict__ y,
+                    float* __restrict__ xsave, int L, int Dm, int K, int N,
+                    bool reverse, bool softplus) {
   __shared__ float sB[kChunk][NMAX];
   __shared__ float sC[kChunk][NMAX];
   __shared__ float sU[kChunk][kThreads];
@@ -99,8 +108,16 @@ __global__ void __launch_bounds__(kThreads)
 
   const int nchunks = (L + kChunk - 1) / kChunk;
   for (int c = 0; c < nchunks; ++c) {
-    const int t0 = (reverse ? nchunks - 1 - c : c) * kChunk;
+    const int ci = reverse ? nchunks - 1 - c : c;
+    const int t0 = ci * kChunk;
     const int tl = min(kChunk, L - t0);
+    if (xsave != nullptr && active) {
+      float* xs = xsave + (static_cast<size_t>(g) * nchunks + ci) * N * Dm + d;
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < N) xs[static_cast<size_t>(n) * Dm] = x[n];
+      }
+    }
     for (int i = lane; i < tl * N; i += kThreads) {
       const int r = i / N;
       const int n = i - r * N;
@@ -142,8 +159,9 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t launch(const void* u, const void* delta, const void* A,
                    const void* B, const void* C, const void* D,
-                   const void* bias, void* y, int G, int L, int Dm, int K,
-                   int N, bool reverse, bool softplus, cudaStream_t stream) {
+                   const void* bias, void* y, float* xsave, int G, int L,
+                   int Dm, int K, int N, bool reverse, bool softplus,
+                   cudaStream_t stream) {
   const dim3 grid((Dm + kThreads - 1) / kThreads, G);
   const T* u_ = static_cast<const T*>(u);
   const T* dt_ = static_cast<const T*>(delta);
@@ -155,7 +173,7 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
   T* y_ = static_cast<T*>(y);
 #define SCAN_LAUNCH(NM)                                                    \
   scan_fwd_kernel<T, NM><<<grid, kThreads, 0, stream>>>(                   \
-      u_, dt_, A_, B_, C_, D_, b_, y_, L, Dm, K, N, reverse, softplus)
+      u_, dt_, A_, B_, C_, D_, b_, y_, xsave, L, Dm, K, N, reverse, softplus)
   if (N <= 8) {
     SCAN_LAUNCH(8);
   } else if (N <= 16) {
@@ -174,22 +192,24 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Returns cudaGetLastError() after
-// the launch (0 on success).  is_bf16 selects the type of u, delta, B, C, y.
+// the launch (0 on success).  is_bf16 selects the type of u, delta, B, C, y;
+// xsave may be null.
 extern "C" int selective_scan_fwd(const void* u, const void* delta,
                                   const void* A, const void* B, const void* C,
                                   const void* D, const void* bias, void* y,
-                                  int G, int L, int Dm, int K, int N,
-                                  int is_bf16, int reverse, int softplus,
-                                  void* stream) {
+                                  void* xsave, int G, int L, int Dm, int K,
+                                  int N, int is_bf16, int reverse,
+                                  int softplus, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* xs = static_cast<float*>(xsave);
   if (is_bf16) {
     return static_cast<int>(launch<__nv_bfloat16>(
-        u, delta, A, B, C, D, bias, y, G, L, Dm, K, N, reverse != 0,
+        u, delta, A, B, C, D, bias, y, xs, G, L, Dm, K, N, reverse != 0,
         softplus != 0, s));
   }
-  return static_cast<int>(launch<float>(u, delta, A, B, C, D, bias, y, G, L,
-                                        Dm, K, N, reverse != 0, softplus != 0,
-                                        s));
+  return static_cast<int>(launch<float>(u, delta, A, B, C, D, bias, y, xs, G,
+                                        L, Dm, K, N, reverse != 0,
+                                        softplus != 0, s));
 }
 
 extern "C" const char* selective_scan_fwd_error_string(int code) {

@@ -80,3 +80,14 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name).path))
         _LOADED[name] = lib
     return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if a launch through ``lib.<name>`` returned a CUDA error code;
+    the library exports ``<name>_error_string``."""
+    if rc != 0:
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")

@@ -73,20 +73,65 @@ def channel_shuffle(x, groups: int):
     return torch.stack(parts, dim=-1).reshape(b, h, w, c)
 
 
-class DropPath(nn.Module):
-    """Per-sample stochastic depth; the identity in eval mode."""
+class SeededGenerators:
+    """One ``torch.Generator`` per device, each seeded with ``seed`` when
+    first asked for: a model's own source of random masks, so that a run is
+    repeatable from its seed whatever else draws from torch's global RNG."""
 
-    def __init__(self, rate: float = 0.0):
+    def __init__(self, seed: int = 0):
+        self.manual_seed(seed)
+
+    def manual_seed(self, seed: int):
+        self.seed = seed
+        self._gens = {}
+
+    def get(self, device) -> torch.Generator:
+        key = str(torch.device(device))
+        gen = self._gens.get(key)
+        if gen is None:
+            gen = torch.Generator(device=key).manual_seed(self.seed)
+            self._gens[key] = gen
+        return gen
+
+    def get_state(self):
+        return {key: gen.get_state() for key, gen in self._gens.items()}
+
+    def set_state(self, states):
+        for key, state in states.items():
+            # a generator's state is a CPU byte tensor, whatever its device
+            self.get(key).set_state(state.cpu())
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth; the identity in eval mode.
+
+    Masks come from ``rng`` (a ``SeededGenerators`` the model owns and
+    shares among its blocks; a private one seeded 0 if none is given)."""
+
+    def __init__(self, rate: float = 0.0, rng: SeededGenerators | None = None):
         super().__init__()
         self.rate = rate
+        self.rng = rng if rng is not None else SeededGenerators(0)
 
-    def forward(self, x):
+    def mask(self, x):
+        """A keep mask [B, 1, ...] drawn for ``x``, or None when the path is
+        the identity (eval, or rate 0)."""
         if not self.training or self.rate == 0.0:
+            return None
+        return torch.empty((x.shape[0],) + (1,) * (x.dim() - 1),
+                           device=x.device).bernoulli_(
+            1.0 - self.rate, generator=self.rng.get(x.device))
+
+    def drop(self, x, mask):
+        """Zero the samples ``mask`` drops and scale the kept ones by
+        1 / keep; None is the identity."""
+        if mask is None:
             return x
         keep = 1.0 - self.rate
-        mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1),
-                           device=x.device).bernoulli_(keep)
         return torch.where(mask.bool(), x / keep, 0.0).to(x.dtype)
+
+    def forward(self, x):
+        return self.drop(x, self.mask(x))
 
 
 class PatchEmbed(nn.Module):
@@ -142,15 +187,37 @@ class ConvBranch(nn.Sequential):
                          nn.ReLU(), nn.Conv2d(dim, dim, 1), nn.ReLU())
         self.dtype = dtype
 
-    def forward(self, x):
+    def _batch_norm(self, mod, x, update_stats):
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, mod.running_mean, mod.running_var,
+                                mod.weight, mod.bias, False, 0.0, mod.eps)
+        # Flax's train mode: the biased batch statistics in fp32, the
+        # variance as E[x^2] - E[x]^2 clipped at 0 (use_fast_variance);
+        # F.batch_norm would update running_var with the unbiased n/(n-1)
+        dims = (0, 2, 3)
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        if update_stats:
+            # the running stats are buffers: updated in place, outside
+            # autograd, ra = (1 - m) ra + m stat (Flax: 0.9 ra + 0.1 stat)
+            with torch.no_grad():
+                m = mod.momentum
+                mod.running_mean.copy_((1 - m) * mod.running_mean + m * mean)
+                mod.running_var.copy_((1 - m) * mod.running_var + m * var)
+                mod.num_batches_tracked.add_(1)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + mod.eps) * mod.weight
+        return (x - mean.view(shape)) * mul.view(shape) + mod.bias.view(shape)
+
+    def forward(self, x, update_stats: bool = True):
+        """``update_stats=False`` leaves the running stats alone in train
+        mode (an activation-checkpoint recompute of the same forward)."""
         x = x.permute(0, 3, 1, 2)          # NCHW view, channels-last memory
         for mod in self:
             cd = _compute_dtype(self.dtype, x)
             if isinstance(mod, nn.BatchNorm2d):
-                x = F.batch_norm(x.float(), mod.running_mean,
-                                 mod.running_var, mod.weight, mod.bias,
-                                 self.training, mod.momentum,
-                                 mod.eps).to(cd)
+                x = self._batch_norm(mod, x, update_stats).to(cd)
             elif isinstance(mod, nn.Conv2d):
                 x = F.conv2d(x.to(cd), mod.weight.to(cd), mod.bias.to(cd),
                              mod.stride, mod.padding)

@@ -4,6 +4,13 @@ Port of ``medical_image_classification_tpu/models/vssm.py``: PatchEmbed
 -> stages of SS-Conv blocks with PatchMerging between them -> global
 average pool (fp32) -> linear head.  NHWC float input [B, H, W, 3] ->
 logits [B, num_classes] (fp32).
+
+``use_checkpoint`` wraps each SS-Conv block in
+``torch.utils.checkpoint.checkpoint`` (the JAX package's ``nn.remat``): the
+block's activations are recomputed in the backward.  Its DropPath mask is
+drawn once, outside the checkpointed region, and handed to both runs, and
+the recompute leaves the BatchNorm running stats alone, so a checkpointed
+step gives the same numbers as an unchecked one.
 """
 
 from __future__ import annotations
@@ -13,12 +20,14 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from medical_image_classification_tpu_torch.models.common import (
     ConvBranch,
     DropPath,
     PatchEmbed,
     PatchMerging,
+    SeededGenerators,
     kaiming_conv_,
     layer_norm,
     trunc_normal_02_,
@@ -36,23 +45,40 @@ class SSConvBlock(nn.Module):
     (channel_shuffle with 2 groups); add the residual."""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
-                 d_state: int = 16, scan_impl: str = "auto", dtype=None):
+                 d_state: int = 16, scan_impl: str = "auto", dtype=None,
+                 use_checkpoint: bool = False,
+                 rng: SeededGenerators | None = None):
         super().__init__()
         half = hidden_dim // 2
+        self.use_checkpoint = use_checkpoint
         self.ln_1 = nn.LayerNorm(half, eps=1e-6)          # parity: Flax eps
         self.self_attention = SS2D(d_model=half, d_state=d_state,
                                    scan_impl=scan_impl, dtype=dtype)
-        self.drop_path = DropPath(drop_path)
+        self.drop_path = DropPath(drop_path, rng=rng)
         self.conv33conv33conv11 = ConvBranch(half, dtype=dtype)
 
-    def forward(self, x):
+    def _block(self, x, mask, update_stats=True):
         left, right = x.chunk(2, dim=-1)
-        r = self.drop_path(self.self_attention(layer_norm(self.ln_1, right)))
-        l = self.conv33conv33conv11(left)
+        r = self.drop_path.drop(
+            self.self_attention(layer_norm(self.ln_1, right)), mask)
+        l = self.conv33conv33conv11(left, update_stats=update_stats)
         b, h, w, half = l.shape
         # channel_shuffle(cat([l, r]), 2) is the plain interleave
         out = torch.stack([l, r], dim=-1).reshape(b, h, w, 2 * half)
         return out + x
+
+    def forward(self, x):
+        mask = self.drop_path.mask(x)
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            return self._block(x, mask)
+        runs = []
+
+        def body(x, mask):
+            # the first call is the forward, any later one the recompute
+            runs.append(None)
+            return self._block(x, mask, update_stats=len(runs) == 1)
+
+        return checkpoint(body, x, mask, use_reentrant=False)
 
 
 class VSSLayer(nn.Module):
@@ -61,11 +87,14 @@ class VSSLayer(nn.Module):
 
     def __init__(self, dim: int, drop_paths: Sequence[float],
                  d_state: int = 16, downsample: bool = True,
-                 scan_impl: str = "auto", dtype=None):
+                 scan_impl: str = "auto", dtype=None,
+                 use_checkpoint: bool = False,
+                 rng: SeededGenerators | None = None):
         super().__init__()
         self.blocks = nn.ModuleList(
             SSConvBlock(dim, drop_path=dp, d_state=d_state,
-                        scan_impl=scan_impl, dtype=dtype)
+                        scan_impl=scan_impl, dtype=dtype,
+                        use_checkpoint=use_checkpoint, rng=rng)
             for dp in drop_paths)
         self.downsample = PatchMerging(dim, dtype=dtype) if downsample \
             else None
@@ -83,7 +112,9 @@ class VSSM(nn.Module):
 
     ``dtype`` is the compute dtype (bf16 on the card); parameters stay fp32.
     ``scan_impl`` picks the selective scan: "auto" (by the tensor's
-    device), "cuda" or "torch".  ``generator`` seeds the init."""
+    device), "cuda" or "torch".  ``generator`` seeds the init.  The model
+    owns ``drop_path_rng``, the source of every DropPath mask; a trainer
+    seeds it with ``seed_drop_path``."""
 
     def __init__(self, num_classes: int,
                  depths: Sequence[int] = (2, 2, 4, 2),
@@ -91,6 +122,7 @@ class VSSM(nn.Module):
                  d_state: int = 16, core: str = "mamba1",
                  drop_path_rate: float = 0.1, head: str = "linear",
                  scan_impl: str = "auto", dtype=None,
+                 use_checkpoint: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if core != "mamba1":
@@ -98,12 +130,14 @@ class VSSM(nn.Module):
                 f"core {core!r} is not ported yet (ROADMAP.md Queue 1, "
                 "item 7: the SSD slice)")
         self.dtype = dtype
+        self.drop_path_rng = SeededGenerators(0)
         self.patch_embed = PatchEmbed(dims[0], dtype=dtype)
         dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList(
             VSSLayer(dims[i], dpr[sum(depths[:i]):sum(depths[:i + 1])],
-                     d_state=d_state, downsample=i < len(depths) - 1, scan_impl=scan_impl,
-                     dtype=dtype)
+                     d_state=d_state, downsample=i < len(depths) - 1,
+                     scan_impl=scan_impl, dtype=dtype,
+                     use_checkpoint=use_checkpoint, rng=self.drop_path_rng)
             for i in range(len(depths)))
         self.head = ClassifierHead(dims[-1], num_classes, kind=head)
         self.reset_parameters(generator)
@@ -124,6 +158,10 @@ class VSSM(nn.Module):
                 m.reset_parameters()
             elif isinstance(m, SS2D):
                 m.reset_scan_parameters(generator)
+
+    def seed_drop_path(self, seed: int):
+        """Restart every DropPath mask stream from ``seed``."""
+        self.drop_path_rng.manual_seed(seed)
 
     def forward(self, x):
         if self.dtype is not None:

@@ -1,6 +1,6 @@
-"""The port's eval CLI on a tiny ImageFolder, its import hygiene (no JAX),
-the scan wrapper's refusals on the CPU, and chip_smoke.py's refusal to run
-without a CUDA device."""
+"""The port's eval CLI on a tiny ImageFolder, its import hygiene (no JAX on
+the eval or the train path), the scan wrapper's refusals on the CPU, and
+chip_smoke.py's refusal to run without a CUDA device."""
 
 import logging
 import os
@@ -57,15 +57,38 @@ def test_eval_cli_on_image_folder(tmp_path, monkeypatch, caplog):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port imports, and a train epoch and an eval pass
+    through run_train and run_eval run, without jax, flax, optax or the JAX
+    package."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import torch\n"
         "import medical_image_classification_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from medical_image_classification_tpu_torch.cli.test import "
+        "run_eval\n"
+        "from medical_image_classification_tpu_torch.cli.train import "
+        "run_train\n"
+        "from medical_image_classification_tpu_torch.data.loader import "
+        "SyntheticLoader\n"
+        "from medical_image_classification_tpu_torch.models import "
+        "create_model\n"
+        "from medical_image_classification_tpu_torch.train.optim import "
+        "make_lr_scheduler, make_optimizer, make_schedule\n"
+        "model = create_model('medmamba', 2, depths=(1, 1), dims=(16, 32), "
+        "d_state=4)\n"
+        "opt = make_optimizer('adam', model.named_parameters())\n"
+        "sched = make_lr_scheduler(opt, make_schedule('constant', 1e-3))\n"
+        "loader = SyntheticLoader(2, 32, 2, steps=2)\n"
+        "m = run_train(model, opt, sched, loader, torch.device('cpu'))\n"
+        "assert m['steps'] == 2 and m['loss'] == m['loss'], m\n"
+        "run_eval(model, loader, torch.device('cpu'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'optax', 'medical_image_classification_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'medical_image_classification_tpu_torch.cli.test' in "
+        "for m in ('cli.test', 'cli.train'):\n"
+        "    assert 'medical_image_classification_tpu_torch.' + m in "
         "sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
