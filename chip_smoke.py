@@ -4,36 +4,39 @@
     python3 chip_smoke.py [--out FILE.json]
 
 Phases, one line each; any failure raises and the exit code is non-zero:
-  1. device and build: the card's name and power limit (nvidia-smi), both
-     selective-scan kernels compiled from csrc/ into build/torch_kernels/
-     (one nvcc each, started together), with each kernel's registers,
-     shared memory and spills as ptxas reports them;
-  2. forward kernel vs plain: the CUDA selective-scan forward against its
-     plain PyTorch version at MedMamba's four stage shapes (G 32, N 16),
-     forward and reverse, fp32 and bf16: y, and the saved chunk states
-     (xsave) the backward reads, with times from CUDA events;
-  2b. backward kernel vs plain: the CUDA backward against the plain
-     backward on the same inputs and xsave at the same 16 cases, all seven
-     gradients; a second launch must give the same bits; times from CUDA
-     events; then, at one shape, ScanFolded's gradients against
-     torch.autograd through the plain forward;
-  3. eval: medmamba (224x224, batch 32, 8 classes, seeded random weights
-     with the scan parameters drawn away from init, bf16 compute, fp32
-     params) through cli.test.run_eval; counts the forward kernel's
-     launches, checks the logits against the same model with the plain
-     scan (bf16, and fp32 on one batch), times eval, and profiles one eval
-     forward (device time by kernel);
-  4. training: the same model in train mode through cli.train.run_train
-     with Adam (lr 1e-4), one warm-up step then 4 timed steps; counts 40
-     forward and 40 backward scan launches per step, checks a finite loss
-     and that every parameter (the scan's included) moved; on one batch of
-     4, every parameter's gradient with the kernels against the same
-     weights with the plain scan (fp32 and bf16, leaf-wise rel-norm and
-     cosine); train img/s and a profile of one step.
-Then one JSON line describing the kernels, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.  Without a CUDA device
-it exits non-zero before printing any result.  ``--out`` writes the
-per-case numbers and the profiles as JSON.
+  1. device and build: the card's name and power limit (nvidia-smi), the
+     four kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
+     each, all started together), with each kernel's registers, shared
+     memory and spills as ptxas reports them;
+  2. selective-scan forward kernel vs plain: MedMamba's four stage shapes
+     (G 32, N 16), forward and reverse, fp32 and bf16: y, and the saved chunk
+     states (xsave) the backward reads, with times from CUDA events;
+  2b. selective-scan backward kernel vs plain, the same 16 cases, all seven
+     gradients, a second launch bit-identical; at one shape ScanFolded's
+     gradients against torch.autograd through the plain forward;
+  2c. four-direction fused SSD forward kernel vs its plain twin at MedSSD's
+     stages 0 and 1 (B 32; L 3136, l 224, H4 8 and L 784, l 196, H4 16;
+     P 64, N 512), fp32 and bf16: y and Ssave, times from CUDA events;
+  2d. its backward kernel vs the plain backward at the same 4 cases, all six
+     cotangents, a second launch bit-identical; at stage 1 fp32,
+     SSDFusedDirs against torch.autograd through the plain forward;
+  3. medmamba eval and 4. medmamba training, 5. medssd eval and
+     6. medssd training, each model at full width (224x224, batch 32, 8
+     classes, seeded random weights with the scan parameters drawn away
+     from init, bf16 compute, fp32 params).  Eval runs through
+     cli.test.run_eval: the kernel's launches per forward, the logits
+     against the same model with the plain versions (bf16, and fp32 on one
+     batch), img/s and a profile of one forward.  Training runs through
+     cli.train.run_train with Adam (lr 1e-4), one warm-up step then 4 timed
+     steps: forward and backward launches per step, a finite loss, every
+     parameter moved, every parameter's gradient
+     at batch 4 against the plain versions (fp32 and bf16), img/s and a
+     profile of one step.
+Then one JSON line describing the kernels (launches in the training runs,
+errors, times, the bound of each from this run's shapes), the card's name
+and power limit, and as the last line {"ok": true, "device": {...}}.  Without
+a CUDA device it exits non-zero before printing any result.  ``--out``
+writes the per-case numbers and the profiles as JSON.
 """
 
 from __future__ import annotations
@@ -50,7 +53,26 @@ STAGES = ((3136, 96), (784, 192), (196, 384), (49, 768))  # (L, Dm) at 224²
 G, N = 32, 16
 BATCH, SIZE, CLASSES, STEPS = 32, 224, 8, 4
 SCAN_CALLS_PER_FORWARD = 4 * (2 + 2 + 4 + 2)       # 4 directions x blocks
-KERNELS = ("selective_scan_fwd", "selective_scan_bwd")
+KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "ssd_fused_dirs_fwd",
+           "ssd_fused_dirs_bwd")
+# MedSSD's stages on the fused dirs path at 224x224: (L, chunk l, H4,
+# d_ssm); P 64, gn 128 (N 512).  Stages 2-3 take the einsum path
+SSD_STAGES = ((3136, 224, 8, 128), (784, 196, 16, 256))
+SSD_P, SSD_GN = 64, 128
+SSD_CALLS_PER_FORWARD = 2 + 2                      # blocks of stages 0-1
+# SSD kernels vs plain twin: |k - p| <= atol x max|p| + rtol |p|.  fp32
+# differs in summation order (sums of up to l + N products); bf16 also
+# where a rounded operand (M, dtx, S) or output lands one bf16 step from
+# the plain twin's, the same rounding points on both sides
+SSD_TOL = {"fp32": (2e-3, 2e-3), "bf16": (3e-2, 2e-2)}
+SSD_GRAD_TOL = {"fp32": (3e-3, 3e-3), "bf16": (6e-2, 3e-2)}
+SSD_GRAD_NAMES = ("dstack", "dacum", "ddte", "dcdec", "ddtp", "dD")
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes
+# per second, and operations per second by operand type (bf16 products on
+# the tensor cores; fp32 on the CUDA cores, as the kernels and the plain
+# versions compute fp32 without TF32)
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 # forward kernel vs plain, per element: |k - p| <= atol + rtol * |p|
 TOL = {"fp32": (2e-3, 2e-3), "bf16": (3e-2, 5e-2)}
 # backward kernel vs plain, all seven gradients (rtol, atol): the ladder of
@@ -258,31 +280,240 @@ def phase_bwd_vs_plain():
     return dict(cases=cases, autograd_err=auto_err)
 
 
-def _model(dtype, scan_impl, state_dict=None):
-    """Seeded medmamba on the card.  Without ``state_dict``, the scan
-    parameters are then drawn away from their init: at init D = 1 and
-    Δ is small, so y ≈ u and a bf16 scan output rounds back to u whatever
-    the state term; D ~ U(-1, 1), Δ ~ U(0.05, 0.5) and a 4x x_proj make
-    the state term show in the logits."""
+def _ssd_cases():
+    """The 4 SSD stage cases: (L, l, dtype name, args, d_ssm, dy), args the
+    kernel's (stackr, acum, dte, cdec, dtp, Dsk) on the card, built as
+    ssd_chunked_dirs builds them (dtp a softplus, acum its cumsum against
+    A = -U(1, 4))."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    for i, (L, l, H4, d_ssm) in enumerate(SSD_STAGES):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+        nc = L // l
+        C2 = 2 * (d_ssm + 2 * SSD_GN + H4 // 4)
+        stack = 0.5 * rnd(BATCH, nc, l, C2)
+        dtp = F.softplus(0.5 * rnd(BATCH, nc, H4, l) - 3.0)
+        A = -(1.0 + 3.0 * torch.rand(H4, device=dev, generator=gen))
+        acum = torch.cumsum(dtp * A[:, None], dim=-1)
+        dte = torch.exp(acum[..., -1:] - acum)
+        cdec = torch.exp(acum[..., -1])
+        D = 2.0 * torch.rand(H4, device=dev, generator=gen) - 1.0
+        dy = rnd(BATCH, nc, l, H4 * SSD_P)
+        for dt_name, dtype in (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            yield L, l, dt_name, (stack.to(dtype).contiguous(), acum, dte,
+                                  cdec, dtp, D), d_ssm, dy.to(dtype)
+
+
+def _check_scaled(what, got, want, rtol, atol_rel):
+    """|got - want| <= atol_rel max|want| + rtol |want|; returns the max
+    abs error."""
+    scale = max(float(want.float().abs().max()), 1e-30)
+    return _check_close(what, got, want, rtol, atol_rel * scale)
+
+
+def phase_ssd_fwd_vs_plain():
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_fused_dirs as sfd)
+    cases = []
+    for L, l, dt_name, args, d_ssm, _ in _ssd_cases():
+        run_k = lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, SSD_GN,
+                                               impl="cuda")
+        run_p = lambda: sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN)
+        yk = run_k()
+        yk2, Sk = sfd.ssd_fused_dirs_fwd(*args, d_ssm, SSD_GN,
+                                         want_save=True, impl="cuda")
+        yp, Sp = sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN,
+                                            want_save=True)
+        torch.cuda.synchronize()
+        what = f"SSD forward kernel vs plain L={L} l={l} {dt_name}"
+        if not torch.equal(yk, yk2):
+            raise AssertionError(f"{what}: y changes when Ssave is written")
+        rtol, atol = SSD_TOL[dt_name]
+        err = _check_scaled(what + " y", yk, yp, rtol, atol)
+        serr = _check_scaled(what + " Ssave", Sk, Sp, rtol, atol)
+        k_ms = _events_ms(run_k, 5)
+        save_ms = _events_ms(lambda: sfd.ssd_fused_dirs_fwd(
+            *args, d_ssm, SSD_GN, want_save=True, impl="cuda"), 5)
+        p_ms = _events_ms(run_p, 2)
+        cases.append(dict(L=L, l=l, dtype=dt_name, max_abs_err=err,
+                          ssave_err=serr, y_max=float(yp.float().abs().max()),
+                          ms=k_ms, save_ms=save_ms, plain_ms=p_ms,
+                          bound=_ssd_bound(args, d_ssm, dt_name, False)))
+    summary = "; ".join(
+        f"{c['L']}/{c['l']} {c['dtype']} err={c['max_abs_err']:.2e} "
+        f"(max|y| {c['y_max']:.1f}) Ssave_err={c['ssave_err']:.2e} "
+        f"kernel={c['ms']:.3f}ms with_save={c['save_ms']:.3f}ms "
+        f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
+        f"({c['bound'][1]})" for c in cases)
+    print(f"phase 2c SSD dirs forward kernel vs plain: {len(cases)}/4 cases "
+          f"within {SSD_TOL} (rtol, atol x max|plain|), y and Ssave "
+          f"(B={BATCH} P={SSD_P} N={4 * SSD_GN}) | {summary}", flush=True)
+    return cases
+
+
+def phase_ssd_bwd_vs_plain():
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_fused_dirs as sfd)
+    cases = []
+    for L, l, dt_name, args, d_ssm, dy in _ssd_cases():
+        _, Ssave = sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN,
+                                              want_save=True)
+        run_k = lambda: sfd.ssd_fused_dirs_bwd(*args, d_ssm, SSD_GN, Ssave,
+                                               dy, impl="cuda")
+        run_p = lambda: sfd.ssd_fused_dirs_bwd_ref(*args, d_ssm, SSD_GN,
+                                                   Ssave, dy)
+        gk, gk2, gp = run_k(), run_k(), run_p()
+        torch.cuda.synchronize()
+        what = f"SSD backward kernel vs plain L={L} l={l} {dt_name}"
+        if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
+            raise AssertionError(f"{what}: two launches differ in the bits")
+        rtol, atol = SSD_GRAD_TOL[dt_name]
+        errs = {nm: _check_scaled(f"{what} {nm}", a, b, rtol, atol)
+                for nm, a, b in zip(SSD_GRAD_NAMES, gk, gp)}
+        k_ms = _events_ms(run_k, 3)
+        p_ms = _events_ms(run_p, 1)
+        cases.append(dict(L=L, l=l, dtype=dt_name, errs=errs,
+                          max_abs_err=max(errs.values()), ms=k_ms,
+                          plain_ms=p_ms,
+                          bound=_ssd_bound(args, d_ssm, dt_name, True)))
+
+    # SSDFusedDirs (kernels) against torch.autograd through the plain
+    # forward, at stage 1 in fp32
+    L, l, dt_name, args, d_ssm, dy = next(
+        c for c in _ssd_cases() if c[0] == SSD_STAGES[1][0]
+        and c[2] == "fp32")
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    sfd.ssd_fused_dirs(*leaves, d_ssm, SSD_GN, impl="cuda").backward(dy)
+    got = [a.grad for a in leaves]
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(
+        sfd.ssd_fused_dirs_fwd_ref(*leaves, d_ssm, SSD_GN), leaves, dy)
+    rtol, atol = SSD_GRAD_TOL[dt_name]
+    auto_err = max(_check_scaled(f"SSDFusedDirs vs autograd {nm}", a, b,
+                                 rtol, atol)
+                   for nm, a, b in zip(SSD_GRAD_NAMES, got, want))
+    summary = "; ".join(
+        f"{c['L']}/{c['l']} {c['dtype']} " + " ".join(
+            f"{k}={v:.2e}" for k, v in c["errs"].items())
+        + f" kernel={c['ms']:.3f}ms plain={c['plain_ms']:.1f}ms "
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]})" for c in cases)
+    print(f"phase 2d SSD dirs backward kernel vs plain: {len(cases)}/4 cases "
+          f"within {SSD_GRAD_TOL} (rtol, atol x max|plain|) on all 6 "
+          f"cotangents, second launch bit-identical | SSDFusedDirs vs "
+          f"torch.autograd through the plain forward at L={L} fp32: max err "
+          f"{auto_err:.2e} | {summary}", flush=True)
+    return dict(cases=cases, autograd_err=auto_err)
+
+
+def _bound(nbytes, ops, dtype):
+    """The least time of the work on this card: (ms, what bounds it)."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ssd_bound(args, d_ssm, dtype, backward):
+    """Bytes each input read once and each output written once, and the
+    products the function does (per chunk: scores 2 l^2 N; per head
+    2 l^2 P + 4 l N P forward; the backward recomputes the scores and adds
+    dscores' two products, 4 l^2 P + 10 l N P per head)."""
+    stack, acum = args[0], args[1]
+    B, nc, l, C2 = stack.shape
+    H4 = acum.shape[2]
+    N, P = 4 * SSD_GN, d_ssm // (H4 // 4)
+    isz = stack.element_size()
+    rows = 3 * acum.numel() * 4 + H4 * 4 * (1 + B * nc)
+    y = B * nc * l * H4 * P * isz
+    if not backward:
+        nbytes = stack.numel() * isz + rows + y
+        ops = B * nc * (2 * l * l * N + H4 * (2 * l * l * P + 4 * l * N * P))
+    else:
+        ssave = B * nc * H4 * P * N * isz
+        # in: stack, rows, Ssave, dy; out: dstack, the row and scalar grads
+        nbytes = 2 * stack.numel() * isz + 2 * rows + ssave + y
+        ops = B * nc * (3 * 2 * l * l * N
+                        + H4 * (4 * l * l * P + 10 * l * N * P))
+    return _bound(nbytes, ops, dtype)
+
+
+def _scan_bound(L, Dm, dtype, backward):
+    """The selective scan at G sequences: bytes of u, Δ, B, C in and y out
+    (backward: also dy and xsave in, du, dΔ, dB, dC out), and ~7 fp32
+    operations per state per step forward (~20 backward: the state
+    recompute and the adjoint), on the CUDA cores."""
+    isz = 4 if dtype == "fp32" else 2
+    seq = G * L * (3 * Dm + 2 * N) * isz       # u, Δ, B, C and y (or dy)
+    ops = (20 if backward else 7) * G * L * Dm * N
+    if backward:
+        xsave = G * -(-L // 32) * N * Dm * 4
+        out = G * L * (2 * Dm + 2 * N) * isz     # du, dΔ, dB, dC
+        return _bound(seq + xsave + out, ops, "fp32")
+    return _bound(seq, ops, "fp32")
+
+
+def _perturb_scan_params(model, gen):
+    """Draw the scan parameters away from their init, so that the logit
+    checks see the state term: at init D = 1 and Δ is small, so each scan
+    output rounds back to its input in bf16."""
+    import torch
+    from medical_image_classification_tpu_torch.models.ss2d_modules import (
+        SS2D, SS2DSSD)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SS2D):
+                m.Ds.uniform_(-1.0, 1.0, generator=gen)
+                dt = torch.empty(m.dt_projs_bias.shape).uniform_(
+                    0.05, 0.5, generator=gen)
+                m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+                m.x_proj_weight.mul_(4.0)
+            elif isinstance(m, SS2DSSD):
+                m.Ds.uniform_(-1.0, 1.0, generator=gen)
+                dt = torch.empty(m.dt_bias.shape).uniform_(
+                    0.05, 0.5, generator=gen)
+                m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+                m.A_logs.copy_(torch.empty(m.A_logs.shape).uniform_(
+                    1.0, 16.0, generator=gen).log())
+
+
+def _model(name, dtype, scan_impl, state_dict=None):
+    """Seeded ``name`` on the card, in eval mode; without ``state_dict``
+    its scan parameters are drawn away from init."""
     import torch
     from medical_image_classification_tpu_torch.models import create_model
-    from medical_image_classification_tpu_torch.models.ss2d_modules import (
-        SS2D)
     gen = torch.Generator().manual_seed(0)
-    model = create_model("medmamba", CLASSES, dtype=dtype,
-                         scan_impl=scan_impl, generator=gen)
+    model = create_model(name, CLASSES, dtype=dtype, scan_impl=scan_impl,
+                         generator=gen)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:
-        with torch.no_grad():
-            for m in model.modules():
-                if isinstance(m, SS2D):
-                    m.Ds.uniform_(-1.0, 1.0, generator=gen)
-                    dt = torch.empty(m.dt_projs_bias.shape).uniform_(
-                        0.05, 0.5, generator=gen)
-                    m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
-                    m.x_proj_weight.mul_(4.0)
+        _perturb_scan_params(model, gen)
     return model.cuda().eval()
+
+
+def _path(name):
+    """What the phases of model ``name`` count and split: (launch counter
+    of the forward kernel, of the backward kernel, forward calls per model
+    forward, {profile share: kernel name patterns})."""
+    if name == "medmamba":
+        from medical_image_classification_tpu_torch.kernels.selective_scan_bwd import (  # noqa: E501
+            scan_folded_bwd)
+        from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (  # noqa: E501
+            scan_folded_fwd)
+        return (scan_folded_fwd, scan_folded_bwd, SCAN_CALLS_PER_FORWARD,
+                {"scan forward": ("scan_fwd_kernel",),
+                 "scan backward": ("scan_bwd_kernel",)})
+    from medical_image_classification_tpu_torch.kernels.ssd_fused_dirs import (
+        ssd_fused_dirs_bwd, ssd_fused_dirs_fwd)
+    return (ssd_fused_dirs_fwd, ssd_fused_dirs_bwd, SSD_CALLS_PER_FORWARD,
+            {"ssd scores": ("scores_kernel",),
+             "ssd forward": ("fwd_walk_kernel",),
+             "ssd backward": ("intra_kernel", "bwd_walk_kernel",
+                              "flush_kernel")})
 
 
 def _check_logits(name, got, want, tol):
@@ -297,45 +528,44 @@ def _check_logits(name, got, want, tol):
     return err
 
 
-def phase_full_model(card):
+def phase_full_model(card, name, num):
     import torch
     from medical_image_classification_tpu_torch.cli.test import run_eval
     from medical_image_classification_tpu_torch.data.loader import (
         SyntheticLoader)
-    from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (  # noqa: E501
-        scan_folded_fwd)
+    counter, _, calls, _ = _path(name)
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    model = _model(bf16, "auto")
+    model = _model(name, bf16, "auto")
     run_eval(model, SyntheticLoader(BATCH, SIZE, CLASSES, steps=1, seed=1),
              dev)                                      # warm-up
     loader = SyntheticLoader(BATCH, SIZE, CLASSES, steps=STEPS, seed=0)
     torch.cuda.synchronize()
-    scan_folded_fwd.launches = 0
+    counter.launches = 0
     t0 = time.perf_counter()
     n_correct, labels, logits = run_eval(model, loader, dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = scan_folded_fwd.launches
-    if launches != SCAN_CALLS_PER_FORWARD * STEPS:
-        raise AssertionError(f"scan kernel launched {launches} times in "
-                             f"{STEPS} forwards, expected "
-                             f"{SCAN_CALLS_PER_FORWARD} per forward")
+    launches = counter.launches
+    if launches != calls * STEPS:
+        raise AssertionError(f"{name}: kernel launched {launches} times in "
+                             f"{STEPS} forwards, expected {calls} per "
+                             "forward")
     if logits.shape != (BATCH * STEPS, CLASSES):
         raise AssertionError(f"logits shape {logits.shape}")
     img_s = BATCH * STEPS / seconds
 
-    # the same weights with the plain scan, on the first batch
+    # the same weights with the plain versions, on the first batch
     sd = model.state_dict()
     one = SyntheticLoader(BATCH, SIZE, CLASSES, steps=1, seed=0)
-    _, _, ref16 = run_eval(_model(bf16, "torch", sd), one, dev)
+    _, _, ref16 = run_eval(_model(name, bf16, "torch", sd), one, dev)
     err16 = _check_logits("bf16", logits[:BATCH], ref16, LOGIT_TOL["bf16"])
-    _, _, k32 = run_eval(_model(None, "cuda", sd), one, dev)
-    _, _, ref32 = run_eval(_model(None, "torch", sd), one, dev)
+    _, _, k32 = run_eval(_model(name, None, "cuda", sd), one, dev)
+    _, _, ref32 = run_eval(_model(name, None, "torch", sd), one, dev)
     err32 = _check_logits("fp32", k32, ref32, LOGIT_TOL["fp32"])
-    if scan_folded_fwd.launches != launches + SCAN_CALLS_PER_FORWARD:
-        raise AssertionError("the plain-scan models launched the kernel, or "
-                             "the fp32 kernel model did not")
+    if counter.launches != launches + calls:
+        raise AssertionError("the plain models launched the kernel, or the "
+                             "fp32 kernel model did not")
 
     from medical_image_classification_tpu_torch.train.eval_step import (
         make_eval_step)
@@ -348,10 +578,10 @@ def phase_full_model(card):
     total_us = sum(r["device_us"] for r in kernel_us)
     top = ", ".join(f"{r['name'][:48]} {r['device_us'] / 1e3:.2f} ms"
                     for r in kernel_us[:4])
-    print(f"phase 3 medmamba {SIZE}x{SIZE} b{BATCH} bf16 via run_eval: "
-          f"{STEPS} batches, {launches} scan-kernel launches "
+    print(f"phase {num} {name} {SIZE}x{SIZE} b{BATCH} bf16 via run_eval: "
+          f"{STEPS} batches, {launches} kernel launches "
           f"({launches // STEPS} per forward), logits {logits.shape} finite "
-          f"| kernel vs plain-scan logits max err bf16 {err16:.3e} "
+          f"| kernel vs plain logits max err bf16 {err16:.3e} "
           f"(tol {LOGIT_TOL['bf16']} x max|logit|), fp32 {err32:.3e} "
           f"(tol {LOGIT_TOL['fp32']} x max|logit|) | eval {img_s:.2f} img/s "
           f"({seconds:.3f} s for {BATCH * STEPS} images, host data and "
@@ -359,7 +589,8 @@ def phase_full_model(card):
           f"device time in kernels; top: {top}", flush=True)
     return dict(launches=launches, img_s=img_s, seconds=seconds,
                 logit_err_bf16=err16, logit_err_fp32=err32,
-                top1=n_correct / len(labels), profile=prof_rows)
+                top1=n_correct / len(labels), device_forward_ms=total_us / 1e3,
+                profile=prof_rows)
 
 
 def _profile(fn):
@@ -424,23 +655,20 @@ def _check_grad_tree(what, got, want, rtol, min_cos, abs_floor):
     return worst_rel, worst_cos
 
 
-def phase_train(card):
+def phase_train(card, name, num):
     import math
 
     import torch
     from medical_image_classification_tpu_torch.cli.train import run_train
     from medical_image_classification_tpu_torch.data.loader import (
         SyntheticLoader)
-    from medical_image_classification_tpu_torch.kernels.selective_scan_bwd import (  # noqa: E501
-        scan_folded_bwd)
-    from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (  # noqa: E501
-        scan_folded_fwd)
     from medical_image_classification_tpu_torch.train.optim import (
         make_lr_scheduler, make_optimizer, make_schedule)
     from medical_image_classification_tpu_torch.train.train_step import (
         TrainState, make_train_step)
+    fwd, bwd, calls, split = _path(name)
     dev = torch.device("cuda")
-    model = _model(torch.bfloat16, "auto")
+    model = _model(name, torch.bfloat16, "auto")
     model.seed_drop_path(1)
     opt = make_optimizer("adam", model.named_parameters())
     sched = make_lr_scheduler(opt, make_schedule("constant", 1e-4))
@@ -451,15 +679,13 @@ def phase_train(card):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     loader = SyntheticLoader(BATCH, SIZE, CLASSES, steps=STEPS, seed=2)
     torch.cuda.synchronize()
-    scan_folded_fwd.launches = scan_folded_bwd.launches = 0
+    fwd.launches = bwd.launches = 0
     m = run_train(model, opt, sched, loader, dev, state=state)
-    launches = (scan_folded_fwd.launches, scan_folded_bwd.launches)
-    want = SCAN_CALLS_PER_FORWARD * STEPS
-    if launches != (want, want):
-        raise AssertionError(f"{STEPS} train steps launched the forward and "
-                             f"backward scan kernels {launches} times, "
-                             f"expected {SCAN_CALLS_PER_FORWARD} each per "
-                             "step")
+    launches = (fwd.launches, bwd.launches)
+    if launches != (calls * STEPS, calls * STEPS):
+        raise AssertionError(f"{name}: {STEPS} train steps launched the "
+                             f"forward and backward kernels {launches} "
+                             f"times, expected {calls} each per step")
     if not math.isfinite(m["loss"]) or state.step != 1 + STEPS:
         raise AssertionError(f"train loss {m['loss']}, step {state.step}")
     still = sorted(n for n, p in model.named_parameters()
@@ -468,7 +694,7 @@ def phase_train(card):
         raise AssertionError(f"{len(still)} parameters did not move in "
                              f"{STEPS} Adam steps: {still[:5]}")
 
-    # every parameter's gradient: kernels against the plain scan, same
+    # every parameter's gradient: kernels against the plain versions, same
     # weights, same batch of GRAD_BATCH, same DropPath masks
     sd = model.state_dict()
     imgs, labels = next(SyntheticLoader(GRAD_BATCH, SIZE, CLASSES, steps=1,
@@ -479,7 +705,7 @@ def phase_train(card):
     for dt_name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
         for impl in ("cuda", "torch"):
             loss[dt_name, impl], grads[dt_name, impl] = _param_grads(
-                _model(dtype, impl, sd), imgs, labels, 7)
+                _model(name, dtype, impl, sd), imgs, labels, 7)
     ref = grads["fp32", "torch"]
     rel32, cos32 = _check_grad_tree("fp32 param grad", grads["fp32", "cuda"],
                                     ref, *PARAM_GRAD_TOL)
@@ -490,7 +716,7 @@ def phase_train(card):
         raise AssertionError(
             f"bf16 param grads: the kernels' median leaf distance from the "
             f"fp32 plain gradients {med16['cuda']:.3e} exceeds "
-            f"{BF16_GRAD_RATIO} x the plain scan's {med16['torch']:.3e}")
+            f"{BF16_GRAD_RATIO} x the plain versions' {med16['torch']:.3e}")
     grad_check = dict(
         loss={f"{d} {i}": v for (d, i), v in loss.items()},
         fp32_worst_rel=rel32, fp32_worst_cos=cos32, leaves=len(ref),
@@ -510,14 +736,12 @@ def phase_train(card):
     torch.cuda.synchronize()
     resident_ms = (time.perf_counter() - t0) / STEPS * 1e3
     rows = [r for r in _profile(lambda: step(x, y)) if r["cpu_us"] == 0.0]
-    split = {"scan forward": "scan_fwd_kernel",
-             "scan backward": "scan_bwd_kernel"}
-    times = {k: sum(r["device_us"] for r in rows if pat in r["name"]) / 1e3
-             for k, pat in split.items()}
+    hit = lambda r, pats: any(p in r["name"] for p in pats)
+    times = {k: sum(r["device_us"] for r in rows if hit(r, pats)) / 1e3
+             for k, pats in split.items()}
     total_ms = sum(r["device_us"] for r in rows) / 1e3
     times["rest"] = total_ms - sum(times.values())
-    rest = [r for r in rows
-            if not any(p in r["name"] for p in split.values())]
+    rest = [r for r in rows if not any(hit(r, p) for p in split.values())]
     top = ", ".join(f"{r['name'][:40]} {r['device_us'] / 1e3:.2f} ms"
                     for r in rest[:4])
     gc = (f"fp32 loss {loss['fp32', 'cuda']:.6f} vs "
@@ -528,13 +752,13 @@ def phase_train(card):
           f"{med16['torch']:.3e} ({max(dist['torch']):.3e}), ratio "
           f"{med16['cuda'] / max(med16['torch'], 1e-30):.3f} (max "
           f"{BF16_GRAD_RATIO})")
-    print(f"phase 4 medmamba {SIZE}x{SIZE} b{BATCH} bf16 training via "
-          f"run_train, Adam 1e-4: {STEPS} steps after 1 warm-up, scan "
+    print(f"phase {num} {name} {SIZE}x{SIZE} b{BATCH} bf16 training via "
+          f"run_train, Adam 1e-4: {STEPS} steps after 1 warm-up, kernel "
           f"launches fwd {launches[0]} bwd {launches[1]} ({launches[0] // STEPS}"
           f" + {launches[1] // STEPS} per step), loss {m['loss']:.4f} finite, "
           f"all {len(before)} parameters moved | train {m['img_s']:.2f} img/s "
           f"({m['seconds']:.3f} s for {BATCH * STEPS} images, host data and "
-          f"copies included) on {card} | param grads kernel vs plain scan, "
+          f"copies included) on {card} | param grads kernels vs plain, "
           f"batch {GRAD_BATCH}: {gc} | step wall time: "
           f"{m['seconds'] / STEPS * 1e3:.2f} ms through run_train, "
           f"{resident_ms:.2f} ms on a batch already on the card | one step: "
@@ -546,6 +770,19 @@ def phase_train(card):
                 loss=m["loss"], img_s=m["img_s"], seconds=m["seconds"],
                 resident_step_ms=resident_ms, device_step_ms=total_ms,
                 grad_check=grad_check, step_ms=times, profile=rows)
+
+
+def _entry(name, replaces, cases, launches, head, bound):
+    """One kernel's record for the kernels line; ``head`` picks the case
+    whose times it reports."""
+    c = next(c for c in cases if head(c))
+    return {"name": name, "route": "cuda",
+            "source": f"medical_image_classification_tpu_torch/csrc/{name}.cu",
+            "replaces": f"medical_image_classification_tpu/kernels/{replaces}",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
 
 
 def main(argv=None):
@@ -561,35 +798,43 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     cases = phase_kernel_vs_plain()
     bwd = phase_bwd_vs_plain()
-    full = phase_full_model(card)
-    train = phase_train(card)
+    ssd_cases = phase_ssd_fwd_vs_plain()
+    ssd_bwd = phase_ssd_bwd_vs_plain()
+    full = phase_full_model(card, "medmamba", 3)
+    train = phase_train(card, "medmamba", 4)
+    ssd_full = phase_full_model(card, "medssd", 5)
+    ssd_train = phase_train(card, "medssd", 6)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
                     or m.split(".")[0] == "medical_image_classification_tpu")
     if leaked:
         raise AssertionError(f"the port's path imported {leaked[:5]}")
-    src = "medical_image_classification_tpu_torch/csrc/"
-    jax_kernels = "medical_image_classification_tpu/kernels/"
-    entries = []
-    for name, replaces, case_list, launches in (
-            ("selective_scan_fwd", "selective_scan_pallas_v2.py:36", cases,
-             train["launches_fwd"]),
-            ("selective_scan_bwd", "selective_scan_pallas_bwd_v2.py:57",
-             bwd["cases"], train["launches_bwd"])):
-        head = next(c for c in case_list
-                    if c["L"] == STAGES[0][0] and c["dtype"] == "bf16"
-                    and not c["reverse"])
-        entries.append({
-            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
-            "replaces": jax_kernels + replaces, "launches": launches,
-            "max_abs_err": max(c["max_abs_err"] for c in case_list),
-            "ms": head["ms"], "plain_ms": head["plain_ms"]})
+    # times and bounds at stage 0 in bf16 (the forward scan's direction 0)
+    scan_head = lambda c: (c["L"] == STAGES[0][0] and c["dtype"] == "bf16"
+                           and not c["reverse"])
+    ssd_head = lambda c: c["L"] == SSD_STAGES[0][0] and c["dtype"] == "bf16"
+    entries = [
+        _entry("selective_scan_fwd", "selective_scan_pallas_v2.py:36", cases,
+               train["launches_fwd"], scan_head,
+               _scan_bound(*STAGES[0], "bf16", False)),
+        _entry("selective_scan_bwd", "selective_scan_pallas_bwd_v2.py:57",
+               bwd["cases"], train["launches_bwd"], scan_head,
+               _scan_bound(*STAGES[0], "bf16", True)),
+        _entry("ssd_fused_dirs_fwd", "ssd_fused_dirs_pallas.py:178",
+               ssd_cases, ssd_train["launches_fwd"], ssd_head,
+               next(c for c in ssd_cases if ssd_head(c))["bound"]),
+        _entry("ssd_fused_dirs_bwd", "ssd_fused_dirs_pallas.py:240",
+               ssd_bwd["cases"], ssd_train["launches_bwd"], ssd_head,
+               next(c for c in ssd_bwd["cases"] if ssd_head(c))["bound"])]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, cases=cases, bwd=bwd, full_model=full,
-                           train=train), f, indent=1)
+            json.dump(dict(card=card, cases=cases, bwd=bwd,
+                           ssd_cases=ssd_cases, ssd_bwd=ssd_bwd,
+                           full_model=full, train=train,
+                           medssd_eval=ssd_full, medssd_train=ssd_train),
+                      f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

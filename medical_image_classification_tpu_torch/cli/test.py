@@ -17,6 +17,10 @@ import logging
 import numpy as np
 import torch
 
+from medical_image_classification_tpu_torch.data.image_folder import (
+    scan_image_folder,
+)
+from medical_image_classification_tpu_torch.data.loader import BatchLoader
 from medical_image_classification_tpu_torch.models import create_model
 from medical_image_classification_tpu_torch.train.eval_step import (
     make_eval_step,
@@ -52,12 +56,6 @@ def run_eval(model, loader, device, epoch: int = 0):
 
 
 def main(args) -> float:
-    # the JAX package's numpy/C++ ImageFolder pipeline; imported here so
-    # that run_eval's callers need nothing of the JAX package
-    from medical_image_classification_tpu.data.image_folder import (
-        scan_image_folder)
-    from medical_image_classification_tpu.data.loader import BatchLoader
-
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device")

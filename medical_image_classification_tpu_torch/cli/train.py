@@ -25,6 +25,11 @@ import numpy as np
 import torch
 
 from medical_image_classification_tpu_torch.cli.test import run_eval
+from medical_image_classification_tpu_torch.data.image_folder import (
+    dump_class_indices,
+    scan_image_folder,
+)
+from medical_image_classification_tpu_torch.data.loader import BatchLoader
 from medical_image_classification_tpu_torch.models import create_model
 from medical_image_classification_tpu_torch.train.checkpoint import (
     restore_checkpoint,
@@ -85,12 +90,6 @@ def run_train(model, optimizer, scheduler, loader, device, epoch: int = 0,
 
 
 def main(cfg: TrainConfig) -> float:
-    # the JAX package's numpy/C++ ImageFolder pipeline; imported here so
-    # that run_train's callers need nothing of the JAX package
-    from medical_image_classification_tpu.data.image_folder import (
-        dump_class_indices, scan_image_folder)
-    from medical_image_classification_tpu.data.loader import BatchLoader
-
     check_ported(cfg)
     device = torch.device(cfg.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  It is
-compiled at first use for ``sm_90a`` into ``build/torch_kernels/`` at the
-root of the checkout, under a name that carries a hash of the source and
-the flags, so an edited source is rebuilt.  A failed compile raises with
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it may
+include the shared ``csrc/*.cuh`` headers).  It is compiled at first use for
+``sm_90a`` into ``build/torch_kernels/`` at the root of the checkout, under
+a name that carries a hash of the source, the headers and the flags, so an
+edited source is rebuilt.  A failed compile raises with
 the compiler's output; nothing falls back to another implementation.
 """
 
@@ -50,7 +51,10 @@ def build(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source
     and these flags is already in the build directory."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers count too: a source includes them by name
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")

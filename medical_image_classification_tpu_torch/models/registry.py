@@ -1,8 +1,8 @@
 """Model zoo of the port: the registry names ported so far.
 
 Port of ``medical_image_classification_tpu/models/registry.py`` for the
-Mamba-1 MedMamba configurations.  The other names of the JAX registry come
-with later slices (ROADMAP.md Queue 1).
+Mamba-1 MedMamba configurations and MedSSD.  The other names of the JAX
+registry come with later slices (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -62,3 +62,12 @@ def medmamba_s(num_classes, **kw):
 def medmamba_b(num_classes, **kw):
     return _build(num_classes, dict(depths=(2, 2, 12, 2),
                   dims=(128, 256, 512, 1024), d_state=16), kw)
+
+
+@register("medssd")
+def medssd(num_classes, **kw):
+    """MedSSD (Mamba-2 / SSD core): depths 2-2-4-2, dims 128..1024,
+    d_state 128 (with the directions coupled through the state, N = 512),
+    headdim 64."""
+    return _build(num_classes, dict(depths=(2, 2, 4, 2),
+                  dims=(128, 256, 512, 1024), d_state=128, core="ssd"), kw)

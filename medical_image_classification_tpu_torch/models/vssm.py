@@ -1,4 +1,5 @@
-"""The VSSM classifier skeleton, Mamba-1 core.
+"""The VSSM classifier skeleton, Mamba-1 (``core="mamba1"``) and SSD
+(``core="ssd"``) cores.
 
 Port of ``medical_image_classification_tpu/models/vssm.py``: PatchEmbed
 -> stages of SS-Conv blocks with PatchMerging between them -> global
@@ -35,7 +36,10 @@ from medical_image_classification_tpu_torch.models.common import (
 from medical_image_classification_tpu_torch.models.kan_modules import (
     ClassifierHead,
 )
-from medical_image_classification_tpu_torch.models.ss2d_modules import SS2D
+from medical_image_classification_tpu_torch.models.ss2d_modules import (
+    SS2D,
+    SS2DSSD,
+)
 
 
 class SSConvBlock(nn.Module):
@@ -45,15 +49,24 @@ class SSConvBlock(nn.Module):
     (channel_shuffle with 2 groups); add the residual."""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
-                 d_state: int = 16, scan_impl: str = "auto", dtype=None,
+                 d_state: int = 16, core: str = "mamba1",
+                 ssd_chunk_size: int = 256, ssd_headdim: int = 64,
+                 scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
                  rng: SeededGenerators | None = None):
         super().__init__()
         half = hidden_dim // 2
         self.use_checkpoint = use_checkpoint
         self.ln_1 = nn.LayerNorm(half, eps=1e-6)          # parity: Flax eps
-        self.self_attention = SS2D(d_model=half, d_state=d_state,
-                                   scan_impl=scan_impl, dtype=dtype)
+        if core == "mamba1":
+            self.self_attention = SS2D(d_model=half, d_state=d_state,
+                                       scan_impl=scan_impl, dtype=dtype)
+        elif core == "ssd":
+            self.self_attention = SS2DSSD(
+                d_model=half, d_state=d_state, headdim=ssd_headdim,
+                chunk_size=ssd_chunk_size, scan_impl=scan_impl, dtype=dtype)
+        else:
+            raise ValueError(f"unknown core: {core!r}")
         self.drop_path = DropPath(drop_path, rng=rng)
         self.conv33conv33conv11 = ConvBranch(half, dtype=dtype)
 
@@ -86,14 +99,17 @@ class VSSLayer(nn.Module):
     PatchMerging."""
 
     def __init__(self, dim: int, drop_paths: Sequence[float],
-                 d_state: int = 16, downsample: bool = True,
-                 scan_impl: str = "auto", dtype=None,
-                 use_checkpoint: bool = False,
+                 d_state: int = 16, core: str = "mamba1",
+                 ssd_chunk_size: int = 256, ssd_headdim: int = 64,
+                 downsample: bool = True, scan_impl: str = "auto",
+                 dtype=None, use_checkpoint: bool = False,
                  rng: SeededGenerators | None = None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            SSConvBlock(dim, drop_path=dp, d_state=d_state,
-                        scan_impl=scan_impl, dtype=dtype,
+            SSConvBlock(dim, drop_path=dp, d_state=d_state, core=core,
+                        ssd_chunk_size=ssd_chunk_size,
+                        ssd_headdim=ssd_headdim, scan_impl=scan_impl,
+                        dtype=dtype,
                         use_checkpoint=use_checkpoint, rng=rng)
             for dp in drop_paths)
         self.downsample = PatchMerging(dim, dtype=dtype) if downsample \
@@ -108,34 +124,35 @@ class VSSLayer(nn.Module):
 
 
 class VSSM(nn.Module):
-    """VSSM image classifier, Mamba-1 core.  NHWC [B, H, W, 3] -> logits.
+    """VSSM image classifier.  NHWC [B, H, W, 3] -> logits.
 
-    ``dtype`` is the compute dtype (bf16 on the card); parameters stay fp32.
-    ``scan_impl`` picks the selective scan: "auto" (by the tensor's
-    device), "cuda" or "torch".  ``generator`` seeds the init.  The model
-    owns ``drop_path_rng``, the source of every DropPath mask; a trainer
-    seeds it with ``seed_drop_path``."""
+    ``core`` is "mamba1" (SS2D) or "ssd" (SS2DSSD, with ``ssd_chunk_size``
+    and ``ssd_headdim``).  ``dtype`` is the compute dtype (bf16 on the
+    card); parameters stay fp32.  ``scan_impl`` picks the implementation of
+    the core's kernel (the selective scan, or the fused dirs SSD scan):
+    "auto" (by the tensor's device), "cuda" or "torch".  ``generator``
+    seeds the init.  The model owns ``drop_path_rng``, the source of every
+    DropPath mask; a trainer seeds it with ``seed_drop_path``."""
 
     def __init__(self, num_classes: int,
                  depths: Sequence[int] = (2, 2, 4, 2),
                  dims: Sequence[int] = (96, 192, 384, 768),
                  d_state: int = 16, core: str = "mamba1",
+                 ssd_chunk_size: int = 256, ssd_headdim: int = 64,
                  drop_path_rate: float = 0.1, head: str = "linear",
                  scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if core != "mamba1":
-            raise NotImplementedError(
-                f"core {core!r} is not ported yet (ROADMAP.md Queue 1, "
-                "item 7: the SSD slice)")
         self.dtype = dtype
         self.drop_path_rng = SeededGenerators(0)
         self.patch_embed = PatchEmbed(dims[0], dtype=dtype)
         dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList(
             VSSLayer(dims[i], dpr[sum(depths[:i]):sum(depths[:i + 1])],
-                     d_state=d_state, downsample=i < len(depths) - 1,
+                     d_state=d_state, core=core,
+                     ssd_chunk_size=ssd_chunk_size, ssd_headdim=ssd_headdim,
+                     downsample=i < len(depths) - 1,
                      scan_impl=scan_impl, dtype=dtype,
                      use_checkpoint=use_checkpoint, rng=self.drop_path_rng)
             for i in range(len(depths)))
@@ -145,7 +162,8 @@ class VSSM(nn.Module):
     def reset_parameters(self, generator=None):
         """The JAX package's init distributions, drawn from ``generator``:
         Linear trunc-normal(0.02) with zero bias, conv kaiming-normal
-        (fan_out), norms (1, 0), SS2D's scan parameters."""
+        (fan_out) with zero bias, norms (1, 0), the SS2D / SS2DSSD scan
+        parameters."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 trunc_normal_02_(m.weight, generator)
@@ -153,10 +171,11 @@ class VSSM(nn.Module):
                     nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Conv2d):
                 kaiming_conv_(m.weight, generator)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
                 m.reset_parameters()
-            elif isinstance(m, SS2D):
+            elif isinstance(m, (SS2D, SS2DSSD)):
                 m.reset_scan_parameters(generator)
 
     def seed_drop_path(self, seed: int):

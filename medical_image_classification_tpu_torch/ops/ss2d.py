@@ -1,18 +1,32 @@
-"""Functional SS2D core: the Mamba-1 four-direction 2-D selective scan.
+"""Functional SS2D cores: the four-direction 2-D scans.
 
-Port of the flip-free branch of
-``medical_image_classification_tpu/ops/ss2d.py::ss2d_core_mamba1``.  The
-directions are k = rev * 2 + layout (0 = row, 1 = column, 2 = row reversed,
-3 = column reversed).  Directions 2 and 3 scan in reverse over the same
-unflipped bytes as directions 0 and 1, so no flipped copy is made.
+Port of ``medical_image_classification_tpu/ops/ss2d.py``:
+``ss2d_core_mamba1`` (its flip-free branch), ``ss2d_core_ssd`` (merge=True,
+ref_flat, one group) and ``rmsnorm_gated``.  The directions are
+k = rev * 2 + layout (0 = row, 1 = column, 2 = row reversed, 3 = column
+reversed).  Directions 2 and 3 read the same unflipped bytes as directions
+0 and 1 wherever a kernel can: the Mamba-1 scan runs in reverse, the fused
+SSD kernel mirrors its chunk indices.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (
     scan_folded_fwd,
+)
+from medical_image_classification_tpu_torch.kernels.ssd import (
+    ssd_chunked,
+    ssd_chunked_dirs,
+    ssd_dirs_chunk,
+)
+from medical_image_classification_tpu_torch.ops.cross_scan import (
+    cross_merge_noflip_time_major,
+    cross_merge_time_major,
+    cross_scan_time_major,
+    cross_scan_time_major2_roles,
 )
 
 
@@ -77,3 +91,69 @@ def ss2d_core_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds, *,
 
     y = y00 + y10 + un_col(y01 + y11)
     return y.reshape(Bb, H, W, D)
+
+
+def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
+                  nheads: int, headdim: int, chunk_size: int = 256,
+                  stack_scan_order: bool = False,
+                  bc_layout: str = "ref_flat", seq_axis=None,
+                  impl: str = "auto"):
+    """Mamba-2 (SSD) four-direction 2-D scan.
+
+    xBCdt  : [B, H, W, d_ssm + 2 d_state + nheads] (post depthwise conv +
+             SiLU; channels [x | B | C | dt], one B/C group)
+    A_log, dt_bias, Ds : [4, nheads]
+    impl   : the fused dirs kernel's implementation (see
+             ``kernels/ssd_fused_dirs.py::ssd_fused_dirs``)
+
+    The directions fold into the head axis (direction-major).  B and C are
+    one group whose state is K d_state wide and shared by every head
+    (ref_flat: the reference's flattening couples the directions through
+    the state).  Where ``ssd_dirs_chunk`` finds a pad-free chunk in the
+    window (and, for a CUDA tensor, a shape the CUDA kernels take), only
+    the d0/d1 stack is built and the fused dirs kernel reads directions 2/3
+    from it; otherwise the four-direction stack goes through
+    ``ssd_chunked``.  Returns [B, H, W, d_ssm] in xBCdt's dtype.
+    """
+    for name, val, ok in (("stack_scan_order", stack_scan_order, False),
+                          ("bc_layout", bc_layout, "ref_flat"),
+                          ("seq_axis", seq_axis, None)):
+        if val != ok:
+            raise NotImplementedError(
+                f"ss2d_core_ssd {name}={val!r} is not ported yet (ROADMAP.md "
+                "Queue 1: the stack scan order, the SP scans, "
+                "per_direction)")
+    Bb, H, W, Cc = xBCdt.shape
+    L = H * W
+    K = 4
+    gn = d_state
+    A = -torch.exp(A_log.float()).reshape(K * nheads)
+    Df = Ds.float().reshape(-1)
+    dtb = dt_bias.float().reshape(K * nheads)
+
+    eff_c = ssd_dirs_chunk(L, chunk_size, K * d_state, headdim, K * nheads,
+                           d_ssm, card=xBCdt.is_cuda)
+    if eff_c is not None:
+        stackr = cross_scan_time_major2_roles(xBCdt, d_ssm, gn)
+        y = ssd_chunked_dirs(stackr, A, Df, dtb, eff_c, d_ssm=d_ssm, gn=gn,
+                             nheads=nheads, headdim=headdim, impl=impl)
+        return cross_merge_noflip_time_major(
+            y.reshape(Bb, L, K, d_ssm), H, W)
+
+    xs_all = cross_scan_time_major(xBCdt)                 # [B, L, 4, Cc]
+    xh = xs_all[..., :d_ssm].reshape(Bb, L, K * nheads, headdim)
+    Bh = xs_all[..., d_ssm:d_ssm + gn].reshape(Bb, L, 1, K * d_state)
+    Ch = xs_all[..., d_ssm + gn:d_ssm + 2 * gn].reshape(Bb, L, 1,
+                                                         K * d_state)
+    dth = xs_all[..., d_ssm + 2 * gn:].reshape(Bb, L, K * nheads)
+    y = ssd_chunked(xh, dth, A, Bh, Ch, chunk_size, Df, dtb)
+    return cross_merge_time_major(y.reshape(Bb, L, K, d_ssm), H, W)
+
+
+def rmsnorm_gated(x, z, weight, *, eps: float = 1e-5):
+    """Gated RMSNorm in fp32, returned in x's dtype: rmsnorm(x * silu(z))
+    over the last axis, times ``weight`` (the JAX function with the models'
+    settings: the gate before the norm, one group)."""
+    g = x.float() * F.silu(z.float())
+    y = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps)
+    return (y * weight.float()).to(x.dtype)

@@ -1,15 +1,17 @@
-"""Carry MedMamba weights from the JAX package to the port.
+"""Carry MedMamba and MedSSD weights from the JAX package to the port.
 
 The reverse of ``medical_image_classification_tpu/utils/torch_import.py::
-import_medmamba_state_dict``: the JAX ``params`` and ``batch_stats`` trees
-(nested dicts of numpy arrays) become the port's ``state_dict``, ready for
-``load_state_dict(strict=True)``.  The port names its parameters as the
-reference ``state_dict`` does, so ``import_medmamba_state_dict`` maps a
-port ``state_dict()`` back to the JAX trees.
+import_medmamba_state_dict`` and ``import_medssd_state_dict``: the JAX
+``params`` and ``batch_stats`` trees (nested dicts of numpy arrays) become
+the port's ``state_dict``, ready for ``load_state_dict(strict=True)``.  The
+port names its parameters as the reference ``state_dict`` does, so the JAX
+importers map a port ``state_dict()`` back to the JAX trees.
 
 Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv HWIO ->
-OIHW; ``A_logs`` [K, d_inner, N] -> [K * d_inner, N]; ``Ds`` [K, d_inner]
--> [K * d_inner].
+OIHW; MedMamba ``A_logs`` [K, d_inner, N] -> [K * d_inner, N] and ``Ds``
+[K, d_inner] -> [K * d_inner]; MedSSD ``A_logs`` and ``Ds`` [K, nheads] ->
+[K * nheads], ``dt_bias`` [K, nheads] as it is, ``norm_weight`` ->
+``norm.weight``.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ def _count(tree, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix))
 
 
-def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
-                                                              torch.Tensor]:
-    """JAX MedMamba (params, batch_stats) -> the port's ``state_dict``."""
+def _vssm_state_dict(params, batch_stats, self_attention):
+    """The skeleton's keys; ``self_attention(put, dense, conv, ln, q, sa)``
+    writes one block's scan layer under the prefix ``q``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr):
@@ -61,16 +63,8 @@ def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
             blk = layer[f"blocks_{j}"]
             p = f"layers.{i}.blocks.{j}"
             ln(p + ".ln_1", blk["ln_1"])
-            sa, q = blk["self_attention"], p + ".self_attention"
-            dense(q + ".in_proj", sa["in_proj"])
-            conv(q + ".conv2d", sa["conv2d"])
-            for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
-                put(f"{q}.{name}", sa[name])
-            A = np.asarray(sa["A_logs"])
-            put(q + ".A_logs", A.reshape(-1, A.shape[-1]))
-            put(q + ".Ds", np.asarray(sa["Ds"]).reshape(-1))
-            ln(q + ".out_norm", sa["out_norm"])
-            dense(q + ".out_proj", sa["out_proj"])
+            self_attention(put, dense, conv, ln, p + ".self_attention",
+                           blk["self_attention"])
             cb = blk["conv_branch"]
             cs = stats[f"blocks_{j}"]["conv_branch"]
             c = p + ".conv33conv33conv11"
@@ -86,3 +80,37 @@ def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
                 np.asarray(layer["downsample"]["reduction"]["kernel"]).T)
     dense("head", params["classifier"]["head"])
     return sd
+
+
+def _ss2d(put, dense, conv, ln, q, sa):
+    dense(q + ".in_proj", sa["in_proj"])
+    conv(q + ".conv2d", sa["conv2d"])
+    for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
+        put(f"{q}.{name}", sa[name])
+    A = np.asarray(sa["A_logs"])
+    put(q + ".A_logs", A.reshape(-1, A.shape[-1]))
+    put(q + ".Ds", np.asarray(sa["Ds"]).reshape(-1))
+    ln(q + ".out_norm", sa["out_norm"])
+    dense(q + ".out_proj", sa["out_proj"])
+
+
+def _ss2d_ssd(put, dense, conv, ln, q, sa):
+    dense(q + ".in_proj", sa["in_proj"])
+    conv(q + ".conv2d", sa["conv2d"])
+    put(q + ".dt_bias", sa["dt_bias"])
+    put(q + ".A_logs", np.asarray(sa["A_logs"]).reshape(-1))
+    put(q + ".Ds", np.asarray(sa["Ds"]).reshape(-1))
+    put(q + ".norm.weight", sa["norm_weight"])
+    dense(q + ".out_proj", sa["out_proj"])
+
+
+def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
+                                                              torch.Tensor]:
+    """JAX MedMamba (params, batch_stats) -> the port's ``state_dict``."""
+    return _vssm_state_dict(params, batch_stats, _ss2d)
+
+
+def medssd_state_dict_from_jax(params, batch_stats) -> Dict[str,
+                                                            torch.Tensor]:
+    """JAX MedSSD (params, batch_stats) -> the port's ``state_dict``."""
+    return _vssm_state_dict(params, batch_stats, _ss2d_ssd)

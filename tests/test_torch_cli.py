@@ -1,6 +1,8 @@
-"""The port's eval CLI on a tiny ImageFolder, its import hygiene (no JAX on
-the eval or the train path), the scan wrapper's refusals on the CPU, and
-chip_smoke.py's refusal to run without a CUDA device."""
+"""The port's CLIs on a tiny ImageFolder, its copy of the ImageFolder
+pipeline against the JAX package's, its import hygiene (no JAX on the eval
+or the train path, the CLIs' ``main()`` included), the scan wrapper's
+refusals on the CPU, and chip_smoke.py's refusal to run without a CUDA
+device."""
 
 import logging
 import os
@@ -93,6 +95,85 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("model,tiny", [
+    ("medmamba", "depths=(1, 1), dims=(16, 32), d_state=4"),
+    ("medssd", "depths=(1, 1), dims=(32, 64), d_state=8, ssd_headdim=8")])
+def test_cli_mains_on_image_folder_import_no_jax(tmp_path, model, tiny):
+    """cli.train.main (one epoch, then its val pass) and cli.test.main on a
+    generated 3-class ImageFolder, in a fresh interpreter, with a tiny
+    ``model`` put in the registry: both run, and afterwards no module of
+    jax, flax, optax or the JAX package is loaded."""
+    root = tmp_path / "oct"
+    for split in ("train", "val"):
+        d = root / split
+        d.mkdir(parents=True)
+        _make_dataset(str(d), n=4, size=24)
+        os.makedirs(d / "c", exist_ok=True)
+        import cv2
+        for i in range(4):
+            cv2.imwrite(str(d / "c" / f"{i}.png"),
+                        np.full((24, 24, 3), 40 * i, np.uint8))
+    save = tmp_path / "runs" / "m.ckpt"
+    code = (
+        "import sys\n"
+        "import medical_image_classification_tpu_torch.models.registry as r\n"
+        f"orig = r._REGISTRY[{model!r}]\n"
+        "def tiny(num_classes, **kw):\n"
+        f"    kw.update({tiny})\n"
+        "    return orig(num_classes, **kw)\n"
+        f"r._REGISTRY[{model!r}] = tiny\n"
+        "from medical_image_classification_tpu_torch.cli import test, train\n"
+        f"train.main(train.parse_args(['--data-path', {str(root / 'train')!r},"
+        f" '--model', {model!r}, '--num-classes', '3', '--epochs', '1',"
+        " '--batch-size', '4', '--image-size', '16', '--device', 'cpu',"
+        f" '--num-workers', '1', '--save-path', {str(save)!r}]))\n"
+        f"acc = test.main(test.parse_args(['--data-path', "
+        f"{str(root / 'val')!r}, '--model', {model!r}, '--num-classes', '3',"
+        f" '--weights', {str(save) + '.best'!r}, '--batch-size', '4',"
+        " '--image-size', '16', '--device', 'cpu']))\n"
+        "assert 0.0 <= acc <= 1.0, acc\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'optax', "
+        "'medical_image_classification_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('CLI_OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLI_OK" in proc.stdout
+    assert os.path.exists(str(save) + ".best")
+    assert (tmp_path / "runs" / "class_indices.json").exists()
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_image_folder_pipeline_matches_jax(tmp_path, train):
+    """The port's copy of the ImageFolder pipeline against the JAX
+    package's OpenCV path: the same scan and class_indices.json, and
+    byte-identical batches over two epochs (shuffle and crop draws from the
+    same seeds)."""
+    from medical_image_classification_tpu.data import image_folder as jif
+    from medical_image_classification_tpu.data import loader as jld
+    from medical_image_classification_tpu_torch.data import image_folder as tif
+    from medical_image_classification_tpu_torch.data import loader as tld
+    root = str(tmp_path / "data")
+    _make_dataset(root, n=5, size=40)
+    jds, tds = jif.scan_image_folder(root), tif.scan_image_folder(root)
+    assert (tds.samples, tds.classes) == (jds.samples, jds.classes)
+    assert tif.dump_class_indices(tds, str(tmp_path / "t.json")) == \
+        jif.dump_class_indices(jds, str(tmp_path / "j.json"))
+    kw = dict(batch_size=4, image_size=24, train=train, seed=3,
+              num_threads=2)
+    jl = jld.BatchLoader(jds, use_native=False, **kw)
+    tl = tld.BatchLoader(tds, **kw)
+    assert tl.steps_per_epoch() == jl.steps_per_epoch()
+    for epoch in (0, 1):
+        got, want = list(tl.epoch(epoch)), list(jl.epoch(epoch))
+        assert len(got) == len(want) == tl.steps_per_epoch()
+        for (gi, gl), (wi, wl) in zip(got, want):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gl, wl)
 
 
 def _cpu_scan_args(G=2, L=8, Dm=32, N=4, K=1):
