@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device and build: the card's name and power limit (nvidia-smi), the
-     four kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
+     seven kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
      each, all started together), with each kernel's registers, shared
      memory and spills as ptxas reports them;
   2. selective-scan forward kernel vs plain: MedMamba's four stage shapes
@@ -20,11 +20,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2d. its backward kernel vs the plain backward at the same 4 cases, all six
      cotangents, a second launch bit-identical; at stage 1 fp32,
      SSDFusedDirs against torch.autograd through the plain forward;
+  2e. SSD Y_diag forward kernel vs plain at ST-SSD's stage 0 (BC 448 =
+     32 x 14 chunks of l 224, H 8, N 64, P 64), fp32 and bf16;
+  2f. STL token-mixer kernel vs plain at ST-SSD's stages 0 and 1 (BB 128;
+     L = P 3136, C 128 and L = P 784, C 256), fp32 and bf16;
+  2g. STF gate kernel vs plain at stages 0 and 1 (BB 32; P 3136, C 128 and
+     P 784, C 256), fp32 and bf16; 2e-2g each with a second launch
+     bit-identical and times from CUDA events;
   3. medmamba eval and 4. medmamba training, 5. medssd eval and
-     6. medssd training, each model at full width (224x224, batch 32, 8
-     classes, seeded random weights with the scan parameters drawn away
-     from init, bf16 compute, fp32 params).  Eval runs through
-     cli.test.run_eval: the kernel's launches per forward, the logits
+     6. medssd training, 7. st_ssd eval, each model at full width
+     (224x224, batch 32, 8 classes, seeded random weights with the scan
+     parameters drawn away from init, bf16 compute, fp32 params).  Eval
+     runs through cli.test.run_eval: every kernel's launches (each counter
+     set to 0 just before the run and read just after: the path's kernels
+     exactly their calls per forward, the others none), the logits
      against the same model with the plain versions (bf16, and fp32 on one
      batch), img/s and a profile of one forward.  Training runs through
      cli.train.run_train with Adam (lr 1e-4), one warm-up step then 4 timed
@@ -32,8 +41,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      parameter moved, every parameter's gradient
      at batch 4 against the plain versions (fp32 and bf16), img/s and a
      profile of one step.
-Then one JSON line describing the kernels (launches in the training runs,
-errors, times, the bound of each from this run's shapes), the card's name
+  8. st_ssd training on the card raises NotImplementedError (its three
+     kernels have no backward yet).
+Then one JSON line describing the kernels (launches in the main-path runs:
+the training runs for the four MedMamba and MedSSD kernels, st_ssd eval
+for its three; errors, times, the bound of each from this run's shapes;
+times and bounds at stage 0 in bf16), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -54,7 +67,8 @@ G, N = 32, 16
 BATCH, SIZE, CLASSES, STEPS = 32, 224, 8, 4
 SCAN_CALLS_PER_FORWARD = 4 * (2 + 2 + 4 + 2)       # 4 directions x blocks
 KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "ssd_fused_dirs_fwd",
-           "ssd_fused_dirs_bwd")
+           "ssd_fused_dirs_bwd", "ssd_ydiag_fwd", "stl_mixer_fwd",
+           "stf_zgate_fwd")
 # MedSSD's stages on the fused dirs path at 224x224: (L, chunk l, H4,
 # d_ssm); P 64, gn 128 (N 512).  Stages 2-3 take the einsum path
 SSD_STAGES = ((3136, 224, 8, 128), (784, 196, 16, 256))
@@ -67,6 +81,22 @@ SSD_CALLS_PER_FORWARD = 2 + 2                      # blocks of stages 0-1
 SSD_TOL = {"fp32": (2e-3, 2e-3), "bf16": (3e-2, 2e-2)}
 SSD_GRAD_TOL = {"fp32": (3e-3, 3e-3), "bf16": (6e-2, 3e-2)}
 SSD_GRAD_NAMES = ("dstack", "dacum", "ddte", "dcdec", "ddtp", "dD")
+# ST-SSD at 224x224 (d_state 16, N = 4 x 16 = 64, headdim 64): the Y_diag
+# kernel's stage-0 shape (BC = B x 14 chunks, l 224, H 8 heads over the
+# four directions); the (L = P, C) of the STL mixer (BB = 4 B, the
+# directions folded in) and the STF gate (BB = B) at stages 0-1
+ST_YDIAG = (BATCH * 14, 224, 8, 64, 64)             # BC, l, H, N, P
+ST_STAGES = ((3136, 128), (784, 256))
+# st_ssd's kernel launches per forward: Y_diag in stage 0's two blocks,
+# the mixer and the gate in the blocks of stages 0-1
+ST_CALLS_PER_FORWARD = {"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4,
+                        "stf_zgate_fwd": 4}
+# ST kernels vs plain: |k - p| <= atol x max|p| + rtol |p|.  fp32 differs
+# in summation order (sums of up to 3136 products; the mixer's softmax
+# sum also rescales online); bf16 also where a rounded operand (M, E, Z)
+# or output lands one bf16 step from the plain version's, the same
+# rounding points on both sides
+ST_TOL = {"fp32": (2e-3, 2e-3), "bf16": (3e-2, 2e-2)}
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes
 # per second, and operations per second by operand type (bf16 products on
 # the tensor cores; fp32 on the CUDA cores, as the kernels and the plain
@@ -410,6 +440,132 @@ def phase_ssd_bwd_vs_plain():
     return dict(cases=cases, autograd_err=auto_err)
 
 
+def _st_case(what, run_k, run_p, dt_name, reps):
+    """One ST-SSD kernel case: two launches bit-identical, the kernel
+    against its plain version within ST_TOL, times from CUDA events
+    (``reps`` = kernel, plain repetitions)."""
+    import torch
+    yk, yk2, yp = run_k(), run_k(), run_p()
+    torch.cuda.synchronize()
+    if not torch.equal(yk, yk2):
+        raise AssertionError(f"{what}: two launches differ in the bits")
+    err = _check_scaled(what, yk, yp, *ST_TOL[dt_name])
+    out_max = float(yp.float().abs().max())
+    del yk, yk2, yp
+    return dict(dtype=dt_name, max_abs_err=err, out_max=out_max,
+                ms=_events_ms(run_k, reps[0]),
+                plain_ms=_events_ms(run_p, reps[1]))
+
+
+def _st_summary(cases):
+    return "; ".join(
+        f"{c['shape']} {c['dtype']} err={c['max_abs_err']:.2e} (max|out| "
+        f"{c['out_max']:.2f}) kernel={c['ms']:.3f}ms "
+        f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
+        f"({c['bound'][1]})" for c in cases)
+
+
+def phase_ydiag_vs_plain():
+    """2e: the Y_diag kernel at ST-SSD's stage 0, inputs built as
+    ssd_chunked builds them (acum the cumsum of softplus steps against
+    A = -U(1, 4))."""
+    import torch
+    import torch.nn.functional as F
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_ydiag as yd)
+    dev = torch.device("cuda")
+    BC, l, H, N, P = ST_YDIAG
+    gen = torch.Generator(device=dev).manual_seed(200)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    Cc, Bc = 0.5 * rnd(BC, l, N), 0.5 * rnd(BC, l, N)
+    dtp = F.softplus(0.5 * rnd(BC, H, l) - 3.0)
+    A = -(1.0 + 3.0 * torch.rand(H, 1, device=dev, generator=gen))
+    acum = torch.cumsum(dtp * A, dim=-1)
+    dtx = rnd(BC, H, l, P)
+    cases = []
+    for dt_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (Cc.to(dtype), Bc.to(dtype), acum, dtx.to(dtype))
+        c = _st_case(f"Y_diag kernel vs plain {dt_name}",
+                     lambda: yd.ydiag_fused(*args, impl="cuda"),
+                     lambda: yd.ydiag_fused_ref(*args), dt_name, (5, 2))
+        isz = args[0].element_size()
+        pairs = l * (l + 1) // 2                  # the causal (i, j <= i)
+        c.update(shape=f"BC{BC} l{l} H{H} N{N} P{P}", bound=_bound(
+            2 * BC * l * N * isz + BC * H * l * 4 + 2 * BC * H * l * P * isz,
+            BC * (2 * pairs * N + H * 2 * pairs * P), dt_name))
+        cases.append(c)
+    print(f"phase 2e Y_diag forward kernel vs plain: {len(cases)}/2 cases "
+          f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
+          f"bit-identical | {_st_summary(cases)}", flush=True)
+    return cases
+
+
+def phase_stl_vs_plain():
+    """2f: the STL mixer kernel at ST-SSD's stages 0-1 (BB = 4 B, the
+    directions folded in; u1 and u2 U[0, 1) as at init, V = w u2)."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        stl_mixer as stl)
+    dev = torch.device("cuda")
+    BB = 4 * BATCH
+    cases = []
+    for i, (L, C) in enumerate(ST_STAGES):
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        w = 0.5 * torch.randn(BB, L, C, device=dev, generator=gen)
+        u1 = torch.rand(C, L, device=dev, generator=gen)
+        u2 = torch.rand(C, C, device=dev, generator=gen)
+        for dt_name, dtype in (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            wd, u1d = w.to(dtype), u1.to(dtype)
+            V = wd @ u2.to(dtype)
+            reps = (2, 1) if dt_name == "fp32" and i == 0 else (5, 2)
+            c = _st_case(f"STL mixer kernel vs plain L=P={L} C={C} "
+                         f"{dt_name}",
+                         lambda: stl.stl_mixer_fwd(wd, u1d, V, impl="cuda"),
+                         lambda: stl.stl_mixer_fwd_ref(wd, u1d, V), dt_name,
+                         reps)
+            isz = wd.element_size()
+            c.update(L=L, shape=f"BB{BB} L=P{L} C{C}", bound=_bound(
+                (3 * BB * L * C + C * L) * isz, 4 * BB * L * L * C, dt_name))
+            cases.append(c)
+            del wd, u1d, V
+    print(f"phase 2f STL mixer forward kernel vs plain: {len(cases)}/4 cases "
+          f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
+          f"bit-identical | {_st_summary(cases)}", flush=True)
+    return cases
+
+
+def phase_stf_vs_plain():
+    """2g: the STF gate kernel at ST-SSD's stages 0-1 (BB = B; lz U[0, 1)
+    as at init)."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        stf_zgate as stf)
+    dev = torch.device("cuda")
+    cases = []
+    for i, (P, C) in enumerate(ST_STAGES):
+        gen = torch.Generator(device=dev).manual_seed(400 + i)
+        pT = 0.5 * torch.randn(BATCH, P, C, device=dev, generator=gen)
+        lz = torch.rand(C, P, device=dev, generator=gen)
+        U = torch.randn(BATCH, P, C, device=dev, generator=gen)
+        for dt_name, dtype in (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            args = (pT.to(dtype), lz.to(dtype), U.to(dtype))
+            c = _st_case(f"STF gate kernel vs plain P={P} C={C} {dt_name}",
+                         lambda: stf.stf_zgate_fwd(*args, impl="cuda"),
+                         lambda: stf.stf_zgate_fwd_ref(*args), dt_name,
+                         (5, 2))
+            isz = args[0].element_size()
+            c.update(L=P, shape=f"BB{BATCH} P{P} C{C}", bound=_bound(
+                (3 * BATCH * P * C + C * P) * isz, 4 * BATCH * P * P * C,
+                dt_name))
+            cases.append(c)
+    print(f"phase 2g STF gate forward kernel vs plain: {len(cases)}/4 cases "
+          f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
+          f"bit-identical | {_st_summary(cases)}", flush=True)
+    return cases
+
+
 def _bound(nbytes, ops, dtype):
     """The least time of the work on this card: (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BPS * 1e3
@@ -495,25 +651,49 @@ def _model(name, dtype, scan_impl, state_dict=None):
     return model.cuda().eval()
 
 
+def _counters():
+    """Every kernel's wrapper by kernel name; each carries the count of its
+    launches (``.launches``)."""
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_bwd as ssb, selective_scan_fwd as ssf,
+        ssd_fused_dirs as sfd, ssd_ydiag as yd, stf_zgate as stf,
+        stl_mixer as stl)
+    return {"selective_scan_fwd": ssf.scan_folded_fwd,
+            "selective_scan_bwd": ssb.scan_folded_bwd,
+            "ssd_fused_dirs_fwd": sfd.ssd_fused_dirs_fwd,
+            "ssd_fused_dirs_bwd": sfd.ssd_fused_dirs_bwd,
+            "ssd_ydiag_fwd": yd.ydiag_fused,
+            "stl_mixer_fwd": stl.stl_mixer_fwd,
+            "stf_zgate_fwd": stf.stf_zgate_fwd}
+
+
 def _path(name):
-    """What the phases of model ``name`` count and split: (launch counter
-    of the forward kernel, of the backward kernel, forward calls per model
-    forward, {profile share: kernel name patterns})."""
+    """What the phases of model ``name`` count and split: ({kernel name:
+    launches per model forward}, the names of its forward and backward
+    kernels in training (None: it does not train on the card yet),
+    {profile share: kernel name patterns})."""
     if name == "medmamba":
-        from medical_image_classification_tpu_torch.kernels.selective_scan_bwd import (  # noqa: E501
-            scan_folded_bwd)
-        from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (  # noqa: E501
-            scan_folded_fwd)
-        return (scan_folded_fwd, scan_folded_bwd, SCAN_CALLS_PER_FORWARD,
+        return ({"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
+                ("selective_scan_fwd", "selective_scan_bwd"),
                 {"scan forward": ("scan_fwd_kernel",),
                  "scan backward": ("scan_bwd_kernel",)})
-    from medical_image_classification_tpu_torch.kernels.ssd_fused_dirs import (
-        ssd_fused_dirs_bwd, ssd_fused_dirs_fwd)
-    return (ssd_fused_dirs_fwd, ssd_fused_dirs_bwd, SSD_CALLS_PER_FORWARD,
-            {"ssd scores": ("scores_kernel",),
-             "ssd forward": ("fwd_walk_kernel",),
-             "ssd backward": ("intra_kernel", "bwd_walk_kernel",
-                              "flush_kernel")})
+    if name == "medssd":
+        return ({"ssd_fused_dirs_fwd": SSD_CALLS_PER_FORWARD},
+                ("ssd_fused_dirs_fwd", "ssd_fused_dirs_bwd"),
+                {"ssd scores": ("scores_kernel",),
+                 "ssd forward": ("fwd_walk_kernel",),
+                 "ssd backward": ("intra_kernel", "bwd_walk_kernel",
+                                  "flush_kernel")})
+    if name == "st_ssd":
+        return (dict(ST_CALLS_PER_FORWARD), None,
+                {"ssd ydiag": ("ydiag_kernel",),
+                 "stl mixer": ("stats_kernel", "mix_kernel"),
+                 "stf gate": ("zgate_kernel",)})
+    raise ValueError(f"chip_smoke has no path for model {name!r}")
+
+
+def _launches(counters):
+    return {k: c.launches for k, c in counters.items()}
 
 
 def _check_logits(name, got, want, tol):
@@ -533,7 +713,8 @@ def phase_full_model(card, name, num):
     from medical_image_classification_tpu_torch.cli.test import run_eval
     from medical_image_classification_tpu_torch.data.loader import (
         SyntheticLoader)
-    counter, _, calls, _ = _path(name)
+    calls, _, split = _path(name)
+    counters = _counters()
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     model = _model(name, bf16, "auto")
@@ -541,16 +722,17 @@ def phase_full_model(card, name, num):
              dev)                                      # warm-up
     loader = SyntheticLoader(BATCH, SIZE, CLASSES, steps=STEPS, seed=0)
     torch.cuda.synchronize()
-    counter.launches = 0
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     n_correct, labels, logits = run_eval(model, loader, dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = counter.launches
-    if launches != calls * STEPS:
-        raise AssertionError(f"{name}: kernel launched {launches} times in "
-                             f"{STEPS} forwards, expected {calls} per "
-                             "forward")
+    launches = _launches(counters)
+    want = {k: calls.get(k, 0) * STEPS for k in counters}
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches in {STEPS} forwards "
+                             f"{launches}, expected {want}")
     if logits.shape != (BATCH * STEPS, CLASSES):
         raise AssertionError(f"logits shape {logits.shape}")
     img_s = BATCH * STEPS / seconds
@@ -563,9 +745,11 @@ def phase_full_model(card, name, num):
     _, _, k32 = run_eval(_model(name, None, "cuda", sd), one, dev)
     _, _, ref32 = run_eval(_model(name, None, "torch", sd), one, dev)
     err32 = _check_logits("fp32", k32, ref32, LOGIT_TOL["fp32"])
-    if counter.launches != launches + calls:
-        raise AssertionError("the plain models launched the kernel, or the "
-                             "fp32 kernel model did not")
+    after = {k: want[k] + calls.get(k, 0) for k in counters}
+    if _launches(counters) != after:
+        raise AssertionError(f"the plain models launched a kernel, or the "
+                             f"fp32 kernel model did not launch its own: "
+                             f"{_launches(counters)}, expected {after}")
 
     from medical_image_classification_tpu_torch.train.eval_step import (
         make_eval_step)
@@ -573,23 +757,42 @@ def phase_full_model(card, name, num):
     x = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
                       device=dev)
     y = torch.zeros(BATCH, dtype=torch.long, device=dev)
+    # forwards on a batch already on the card: no host data, no copy
+    step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        step(x, y)
+    torch.cuda.synchronize()
+    resident_ms = (time.perf_counter() - t0) / STEPS * 1e3
     prof_rows = _profile(lambda: step(x, y))
     kernel_us = [r for r in prof_rows if r["cpu_us"] == 0.0]
-    total_us = sum(r["device_us"] for r in kernel_us)
+    total_ms = sum(r["device_us"] for r in kernel_us) / 1e3
+    hit = lambda r, pats: any(p in r["name"] for p in pats)
+    times = {k: sum(r["device_us"] for r in kernel_us if hit(r, pats)) / 1e3
+             for k, pats in split.items()}
+    times["rest"] = total_ms - sum(times.values())
     top = ", ".join(f"{r['name'][:48]} {r['device_us'] / 1e3:.2f} ms"
                     for r in kernel_us[:4])
+    per_fwd = ", ".join(f"{k} {v} ({v // STEPS} per forward)"
+                        for k, v in launches.items() if v)
     print(f"phase {num} {name} {SIZE}x{SIZE} b{BATCH} bf16 via run_eval: "
-          f"{STEPS} batches, {launches} kernel launches "
-          f"({launches // STEPS} per forward), logits {logits.shape} finite "
+          f"{STEPS} batches, kernel launches {per_fwd}, the other kernels "
+          f"none; logits {logits.shape} finite "
           f"| kernel vs plain logits max err bf16 {err16:.3e} "
           f"(tol {LOGIT_TOL['bf16']} x max|logit|), fp32 {err32:.3e} "
           f"(tol {LOGIT_TOL['fp32']} x max|logit|) | eval {img_s:.2f} img/s "
           f"({seconds:.3f} s for {BATCH * STEPS} images, host data and "
-          f"copies included) on {card} | one forward: {total_us / 1e3:.2f} ms "
-          f"device time in kernels; top: {top}", flush=True)
+          f"copies included) on {card} | forward wall time on a batch "
+          f"already on the card {resident_ms:.2f} ms | one forward: "
+          f"{total_ms:.2f} ms device time in kernels ("
+          f"{100 * total_ms / resident_ms:.1f}% of the resident forward): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+          + f"; top: {top}", flush=True)
     return dict(launches=launches, img_s=img_s, seconds=seconds,
                 logit_err_bf16=err16, logit_err_fp32=err32,
-                top1=n_correct / len(labels), device_forward_ms=total_us / 1e3,
+                top1=n_correct / len(labels), device_forward_ms=total_ms,
+                resident_forward_ms=resident_ms, forward_ms=times,
                 profile=prof_rows)
 
 
@@ -666,7 +869,9 @@ def phase_train(card, name, num):
         make_lr_scheduler, make_optimizer, make_schedule)
     from medical_image_classification_tpu_torch.train.train_step import (
         TrainState, make_train_step)
-    fwd, bwd, calls, split = _path(name)
+    calls, (fwd_name, bwd_name), split = _path(name)
+    counters = _counters()
+    fwd, bwd, calls = counters[fwd_name], counters[bwd_name], calls[fwd_name]
     dev = torch.device("cuda")
     model = _model(name, torch.bfloat16, "auto")
     model.seed_drop_path(1)
@@ -772,6 +977,44 @@ def phase_train(card, name, num):
                 grad_check=grad_check, step_ms=times, profile=rows)
 
 
+def phase_train_refused(name, num):
+    """Training ``name`` on the card through run_train raises
+    NotImplementedError before any optimizer step: its kernels have no
+    backward yet, and nothing falls back to the plain versions."""
+    import torch
+    from medical_image_classification_tpu_torch.cli.train import run_train
+    from medical_image_classification_tpu_torch.data.loader import (
+        SyntheticLoader)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        TrainState)
+    model = _model(name, torch.bfloat16, "auto")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = make_optimizer("adam", model.named_parameters())
+    sched = make_lr_scheduler(opt, make_schedule("constant", 1e-4))
+    state = TrainState()
+    try:
+        run_train(model, opt, sched, SyntheticLoader(GRAD_BATCH, SIZE,
+                                                     CLASSES, steps=1,
+                                                     seed=1),
+                  torch.device("cuda"), state=state)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"{name} trained on the card, but its kernels "
+                             "have no backward yet")
+    moved = [n for n, p in model.named_parameters()
+             if not torch.equal(p, before[n])]
+    if "ROADMAP" not in msg or moved or state.step:
+        raise AssertionError(f"{name} training: refusal {msg!r}, step "
+                             f"{state.step}, parameters moved: {moved[:5]}")
+    print(f"phase {num} {name} training on the card via run_train refused "
+          f"before any step (no parameter moved): NotImplementedError: "
+          f"{msg}", flush=True)
+    return msg
+
+
 def _entry(name, replaces, cases, launches, head, bound):
     """One kernel's record for the kernels line; ``head`` picks the case
     whose times it reports."""
@@ -800,10 +1043,15 @@ def main(argv=None):
     bwd = phase_bwd_vs_plain()
     ssd_cases = phase_ssd_fwd_vs_plain()
     ssd_bwd = phase_ssd_bwd_vs_plain()
+    yd_cases = phase_ydiag_vs_plain()
+    stl_cases = phase_stl_vs_plain()
+    stf_cases = phase_stf_vs_plain()
     full = phase_full_model(card, "medmamba", 3)
     train = phase_train(card, "medmamba", 4)
     ssd_full = phase_full_model(card, "medssd", 5)
     ssd_train = phase_train(card, "medssd", 6)
+    st_full = phase_full_model(card, "st_ssd", 7)
+    st_refusal = phase_train_refused("st_ssd", 8)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -827,13 +1075,27 @@ def main(argv=None):
         _entry("ssd_fused_dirs_bwd", "ssd_fused_dirs_pallas.py:240",
                ssd_bwd["cases"], ssd_train["launches_bwd"], ssd_head,
                next(c for c in ssd_bwd["cases"] if ssd_head(c))["bound"])]
+    # the ST-SSD kernels: launches in st_ssd eval, times and bounds at
+    # stage 0 in bf16
+    st_head = lambda c: c.get("L", ST_STAGES[0][0]) == ST_STAGES[0][0] \
+        and c["dtype"] == "bf16"
+    for name, replaces, st_cases in (
+            ("ssd_ydiag_fwd", "ssd_ydiag_pallas.py:153", yd_cases),
+            ("stl_mixer_fwd", "stl_mixer_pallas.py:85", stl_cases),
+            ("stf_zgate_fwd", "stf_zgate_pallas.py:76", stf_cases)):
+        head = next(c for c in st_cases if st_head(c))
+        entries.append(_entry(name, replaces, st_cases,
+                              st_full["launches"][name], st_head,
+                              head["bound"]))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, cases=cases, bwd=bwd,
                            ssd_cases=ssd_cases, ssd_bwd=ssd_bwd,
-                           full_model=full, train=train,
-                           medssd_eval=ssd_full, medssd_train=ssd_train),
+                           ydiag_cases=yd_cases, stl_cases=stl_cases,
+                           stf_cases=stf_cases, full_model=full, train=train,
+                           medssd_eval=ssd_full, medssd_train=ssd_train,
+                           st_ssd_eval=st_full, st_ssd_train=st_refusal),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

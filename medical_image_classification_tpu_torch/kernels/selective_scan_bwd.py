@@ -21,6 +21,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from medical_image_classification_tpu_torch.kernels._dispatch import (
+    call,
+    resolve_impl,
+)
 from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (
     CHUNK,
     _check_cuda_args,
@@ -118,13 +122,6 @@ def _bwd_kernel(u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part,
                 dC_part, dA_part, dD_part, dbias_part, reverse, softplus):
     """Launch csrc/selective_scan_bwd.cu on the current stream; raises if
     the launch fails."""
-    from medical_image_classification_tpu_torch.kernels import _build
-
-    lib = _build.library(_KERNEL)
-    fn = lib.selective_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     G, L, Dm = u.shape
     K, _, N = A.shape
     ptrs = [t.data_ptr() for t in (u, delta, A, B, C, D, bias, xsave, dy, du,
@@ -132,9 +129,10 @@ def _bwd_kernel(u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part,
                                    dbias_part)]
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = fn(*ptrs, G, L, Dm, K, N, int(u.dtype == torch.bfloat16),
-                int(reverse), int(softplus), stream)
-    _build.raise_on_error(lib, _KERNEL, rc)
+        call(_KERNEL, [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p],
+             ptrs + [G, L, Dm, K, N, int(u.dtype == torch.bfloat16),
+                     int(reverse), int(softplus), stream])
 
 
 def _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse, softplus):
@@ -166,16 +164,9 @@ def scan_folded_bwd(u, delta, A, B, C, D, bias, xsave, dy,
     ``impl`` as in ``scan_folded_fwd``: the CUDA kernel for CUDA tensors
     ("auto"/"cuda", which raises rather than fall back) or the plain
     version ("torch", or "auto" on the CPU)."""
-    if impl == "auto":
-        impl = "cuda" if u.is_cuda else "torch"
-    if impl == "torch":
+    if resolve_impl(impl, u, "scan") == "torch":
         return scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
                                    reverse=reverse, softplus=softplus)
-    if impl != "cuda":
-        raise ValueError(f"unknown scan impl: {impl!r} "
-                         "(expected 'auto', 'cuda' or 'torch')")
-    if not u.is_cuda:
-        raise ValueError(f"impl='cuda' needs CUDA tensors; u is on {u.device}")
     return _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse,
                         softplus)
 

@@ -23,6 +23,10 @@ import ctypes
 
 import torch
 
+from medical_image_classification_tpu_torch.kernels._dispatch import (
+    call,
+    resolve_impl,
+)
 from medical_image_classification_tpu_torch.kernels.selective_scan import (
     selective_scan_seq,
 )
@@ -124,23 +128,17 @@ def _check_cuda_args(u, delta, A, B, C, D, bias):
 def _fwd_kernel(u, delta, A, B, C, D, bias, y, xsave, reverse, softplus):
     """Launch csrc/selective_scan_fwd.cu on the current stream; raises if
     the launch fails.  ``xsave`` may be None (no saved states)."""
-    from medical_image_classification_tpu_torch.kernels import _build
-
-    lib = _build.library(_KERNEL)
-    fn = lib.selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     G, L, Dm = u.shape
     K, _, N = A.shape
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = fn(u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
-                C.data_ptr(), D.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                None if xsave is None else xsave.data_ptr(),
-                G, L, Dm, K, N, int(u.dtype == torch.bfloat16), int(reverse),
-                int(softplus), stream)
-    _build.raise_on_error(lib, _KERNEL, rc)
+        call(_KERNEL, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p],
+             [u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
+              C.data_ptr(), D.data_ptr(), bias.data_ptr(), y.data_ptr(),
+              None if xsave is None else xsave.data_ptr(),
+              G, L, Dm, K, N, int(u.dtype == torch.bfloat16), int(reverse),
+              int(softplus), stream])
 
 
 def _launch_cuda(u, delta, A, B, C, D, bias, reverse, softplus,
@@ -173,13 +171,7 @@ def scan_folded_fwd(u, delta, A, B, C, D, bias, reverse: bool = False,
     backward by the same ``impl``); otherwise (eval, ``no_grad``,
     ``inference_mode``) only the forward runs, without saved states.
     """
-    if impl == "auto":
-        impl = "cuda" if u.is_cuda else "torch"
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"unknown scan impl: {impl!r} "
-                         "(expected 'auto', 'cuda' or 'torch')")
-    if impl == "cuda" and not u.is_cuda:
-        raise ValueError(f"impl='cuda' needs CUDA tensors; u is on {u.device}")
+    impl = resolve_impl(impl, u, "scan")
     A, D, bias = (t.float().contiguous() for t in (A, D, bias))
     args = (u, delta, A, B, C, D, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

@@ -5,10 +5,12 @@ Port of ``medical_image_classification_tpu/kernels/ssd.py``:
 ``ssd_dirs_chunk`` (the gate of the four-direction fused path, without the
 TPU-only terms), ``ssd_chunked_dirs`` (the dt rows of that path, then
 ``kernels/ssd_fused_dirs.py``), ``ssd_chunked`` (the einsum path with
-padding and the unrolled chunk walk, taken where the fused path is not) and
-``ssd_seq_ref`` (the golden per-token recurrence).  The cumsum is
-``torch.cumsum`` and reversals are index flips: the triangular-ones and
-anti-identity matmuls of the JAX module were TPU workarounds.
+padding and the unrolled chunk walk, taken where the fused path is not;
+its intra-chunk Y_diag goes to ``kernels/ssd_ydiag.py`` where that gate
+says so) and ``ssd_seq_ref`` (the golden per-token recurrence).  The
+cumsum is ``torch.cumsum`` and reversals are index flips: the
+triangular-ones and anti-identity matmuls of the JAX module were TPU
+workarounds.
 
 Shapes (Mamba-2 convention):
   x  : [B, L, H, P]   (H heads, P headdim)
@@ -26,6 +28,10 @@ from medical_image_classification_tpu_torch.kernels.ssd_fused_dirs import (
     MAX_N as _CARD_MAX_N,
     PT as _CARD_TILE,
     ssd_fused_dirs,
+)
+from medical_image_classification_tpu_torch.kernels.ssd_ydiag import (
+    ydiag_fused,
+    ydiag_supported,
 )
 
 # The fused four-direction path's chunk window and shape terms.  Module
@@ -130,7 +136,8 @@ def ssd_chunked_dirs(stackr, A, D, dt_bias, chunk_size: int, *, d_ssm: int,
     return y.reshape(Bsz, L, H4, P).to(out_dtype)
 
 
-def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias):
+def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
+                impl: str = "auto"):
     """Chunked block-matmul SSD scan (the JAX package's einsum path, with
     the models' settings: the step is softplus(dt + dt_bias), the chunk is
     ``_pick_chunk``'s, the scan starts from a zero state and adds the D
@@ -141,7 +148,10 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias):
       4. state contribution    : Y_off  = C S_in * decay_from_start
     Matmul operands are in x's dtype with the same outputs as the JAX
     einsums (the chunk states accumulate in fp32); dt, the cumsums and the
-    carried state are fp32.  D is [H]."""
+    carried state are fp32.  D is [H].  Where ``ydiag_supported`` takes
+    the chunk, Y_diag is ``ydiag_fused`` (the CUDA kernel by ``impl``, see
+    ``kernels/ssd_ydiag.py``), which rounds M = scores x decay once where
+    the einsum rounds the scores and the decay each."""
     mm = x.dtype
     f32 = torch.float32
     Bsz, L, H, P = x.shape
@@ -172,14 +182,22 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias):
     Bc_h = Bc.movedim(2, 3).to(mm)                          # [B,nc,G,l,N]
 
     # 1. intra-chunk: scores once per group, modulated per head
-    seg = A_cum_t[..., :, None] - A_cum_t[..., None, :]
-    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
-    Lmat = torch.exp(seg.masked_fill(~causal, float("-inf"))).to(mm)
-    Lmat_r = Lmat.reshape(Bsz, nc, G, rep, l, l)
-    scores = torch.einsum("bclgn,bcsgn->bcgls", Cc.to(mm), Bc.to(mm))
-    M = scores[:, :, :, None] * Lmat_r
-    Y_diag = torch.einsum("bcgrls,bcsgrp->bclgrp", M, dtx_r)
-    Y_diag = Y_diag.reshape(Bsz, nc, l, H, P)
+    if ydiag_supported(l, N, P, G):
+        BC = Bsz * nc
+        Ydh = ydiag_fused(Cc.to(mm).reshape(BC, l, N),
+                          Bc.to(mm).reshape(BC, l, N),
+                          A_cum_t.reshape(BC, H, l),
+                          dtx_h.reshape(BC, H, l, P), impl=impl)
+        Y_diag = Ydh.reshape(Bsz, nc, H, l, P).transpose(2, 3)
+    else:
+        seg = A_cum_t[..., :, None] - A_cum_t[..., None, :]
+        causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+        Lmat = torch.exp(seg.masked_fill(~causal, float("-inf"))).to(mm)
+        Lmat_r = Lmat.reshape(Bsz, nc, G, rep, l, l)
+        scores = torch.einsum("bclgn,bcsgn->bcgls", Cc.to(mm), Bc.to(mm))
+        M = scores[:, :, :, None] * Lmat_r
+        Y_diag = torch.einsum("bcgrls,bcsgrp->bclgrp", M, dtx_r)
+        Y_diag = Y_diag.reshape(Bsz, nc, l, H, P)
 
     # 2. per-chunk end states, fp32 accumulation
     decay_to_end_t = torch.exp(A_cum_t[..., -1:] - A_cum_t).to(mm)

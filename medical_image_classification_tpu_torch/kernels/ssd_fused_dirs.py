@@ -34,6 +34,11 @@ import ctypes
 
 import torch
 
+from medical_image_classification_tpu_torch.kernels._dispatch import (
+    call,
+    resolve_impl,
+)
+
 _FWD_KERNEL = "ssd_fused_dirs_fwd"
 _BWD_KERNEL = "ssd_fused_dirs_bwd"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -270,16 +275,6 @@ def _check_cuda_args(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
         raise ValueError(f"B * nc = {B * nc} exceeds the grid limit 65535")
 
 
-def _call(name, argtypes, args):
-    from medical_image_classification_tpu_torch.kernels import _build
-
-    lib = _build.library(name)
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    _build.raise_on_error(lib, name, fn(*args))
-
-
 def _launch_fwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
                      want_save=False):
     """The forward kernel's wrapper: checks, allocates y (and Ssave) and
@@ -293,13 +288,13 @@ def _launch_fwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
     scores = torch.empty(B, nc, l, l, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _call(_FWD_KERNEL, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-              + [ctypes.c_void_p],
-              [stackr.data_ptr(), acum.data_ptr(), dte.data_ptr(),
-               cdec.data_ptr(), dtp.data_ptr(), Dsk.data_ptr(), y.data_ptr(),
-               None if Ssave is None else Ssave.data_ptr(),
-               scores.data_ptr(), B, nc, l, H4, P, d_ssm, gn,
-               int(stackr.dtype == torch.bfloat16), stream])
+        call(_FWD_KERNEL, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p],
+             [stackr.data_ptr(), acum.data_ptr(), dte.data_ptr(),
+              cdec.data_ptr(), dtp.data_ptr(), Dsk.data_ptr(), y.data_ptr(),
+              None if Ssave is None else Ssave.data_ptr(),
+              scores.data_ptr(), B, nc, l, H4, P, d_ssm, gn,
+              int(stackr.dtype == torch.bfloat16), stream])
     ssd_fused_dirs_fwd.launches += 1
     return (y, Ssave) if want_save else y
 
@@ -333,10 +328,10 @@ def _launch_bwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn, Ssave,
         dcdec_part, dBC)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _call(_BWD_KERNEL, [ctypes.c_void_p] * len(ptrs)
-              + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-              ptrs + [B, nc, l, H4, P, d_ssm, gn, int(mm == torch.bfloat16),
-                      stream])
+        call(_BWD_KERNEL, [ctypes.c_void_p] * len(ptrs)
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+             ptrs + [B, nc, l, H4, P, d_ssm, gn, int(mm == torch.bfloat16),
+                     stream])
     ssd_fused_dirs_bwd.launches += 1
     dacum = row_part.sum(3) - col_part.sum(3) + off_part.sum(3)
     dB_dir, dC_dir, dB_flip, dC_flip = dBC
@@ -349,25 +344,13 @@ def _launch_bwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn, Ssave,
 # dispatchers
 
 
-def _resolve(impl, stackr):
-    if impl == "auto":
-        impl = "cuda" if stackr.is_cuda else "torch"
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"unknown SSD impl: {impl!r} "
-                         "(expected 'auto', 'cuda' or 'torch')")
-    if impl == "cuda" and not stackr.is_cuda:
-        raise ValueError(f"impl='cuda' needs CUDA tensors; stackr is on "
-                         f"{stackr.device}")
-    return impl
-
-
 def ssd_fused_dirs_fwd(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int,
                        gn: int, want_save: bool = False, impl: str = "auto"):
     """The forward: y, and Ssave when ``want_save``.  ``impl`` "auto" takes
     the CUDA kernel for a CUDA tensor and the plain version for a CPU
     tensor; "cuda" launches the kernel or raises; "torch" runs the plain
     version on any device."""
-    if _resolve(impl, stackr) == "torch":
+    if resolve_impl(impl, stackr, "SSD") == "torch":
         return ssd_fused_dirs_fwd_ref(stackr, acum, dte, cdec, dtp, Dsk,
                                       d_ssm, gn, want_save)
     return _launch_fwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
@@ -378,7 +361,7 @@ def ssd_fused_dirs_bwd(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int,
                        gn: int, Ssave, dy, impl: str = "auto"):
     """The backward: the cotangents of (stackr, acum, dte, cdec, dtp, Dsk).
     ``impl`` as in ``ssd_fused_dirs_fwd``."""
-    if _resolve(impl, stackr) == "torch":
+    if resolve_impl(impl, stackr, "SSD") == "torch":
         return ssd_fused_dirs_bwd_ref(stackr, acum, dte, cdec, dtp, Dsk,
                                       d_ssm, gn, Ssave, dy)
     return _launch_bwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
@@ -421,7 +404,7 @@ def ssd_fused_dirs(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int, gn: int,
     call goes through ``SSDFusedDirs``; otherwise only the forward runs,
     without saved states.  acum, dte, cdec, dtp and Dsk are taken to fp32
     here, as the JAX caller builds them."""
-    impl = _resolve(impl, stackr)
+    impl = resolve_impl(impl, stackr, "SSD")
     acum, dte, cdec, dtp, Dsk = (t.float().contiguous()
                                  for t in (acum, dte, cdec, dtp, Dsk))
     stackr = stackr.contiguous()

@@ -172,6 +172,35 @@ class PatchMerging(nn.Module):
         return linear(self.reduction, x, self.dtype)
 
 
+def batch_norm(mod: nn.BatchNorm2d, x, training: bool,
+               update_stats: bool = True):
+    """``mod`` on an NCHW tensor, in fp32, returned in fp32 (Flax's
+    BatchNorm with fp32 parameters).  Eval normalises with the running
+    stats.  Train uses Flax's batch statistics: biased, the variance as
+    E[x^2] - E[x]^2 clipped at 0 (``use_fast_variance``; F.batch_norm
+    would update running_var with the unbiased n/(n-1)); the running stats
+    move by ``mod.momentum`` unless ``update_stats`` is False (an
+    activation-checkpoint recompute of the same forward)."""
+    x = x.float()
+    if not training:
+        return F.batch_norm(x, mod.running_mean, mod.running_var,
+                            mod.weight, mod.bias, False, 0.0, mod.eps)
+    dims = (0, 2, 3)
+    mean = x.mean(dims)
+    var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+    if update_stats:
+        # the running stats are buffers: updated in place, outside
+        # autograd, ra = (1 - m) ra + m stat (Flax: 0.9 ra + 0.1 stat)
+        with torch.no_grad():
+            m = mod.momentum
+            mod.running_mean.copy_((1 - m) * mod.running_mean + m * mean)
+            mod.running_var.copy_((1 - m) * mod.running_var + m * var)
+            mod.num_batches_tracked.add_(1)
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(var + mod.eps) * mod.weight
+    return (x - mean.view(shape)) * mul.view(shape) + mod.bias.view(shape)
+
+
 class ConvBranch(nn.Sequential):
     """The SS-Conv block's conv half: BN-3x3-BN-ReLU-3x3-BN-ReLU-1x1-ReLU.
 
@@ -187,29 +216,6 @@ class ConvBranch(nn.Sequential):
                          nn.ReLU(), nn.Conv2d(dim, dim, 1), nn.ReLU())
         self.dtype = dtype
 
-    def _batch_norm(self, mod, x, update_stats):
-        x = x.float()
-        if not self.training:
-            return F.batch_norm(x, mod.running_mean, mod.running_var,
-                                mod.weight, mod.bias, False, 0.0, mod.eps)
-        # Flax's train mode: the biased batch statistics in fp32, the
-        # variance as E[x^2] - E[x]^2 clipped at 0 (use_fast_variance);
-        # F.batch_norm would update running_var with the unbiased n/(n-1)
-        dims = (0, 2, 3)
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
-        if update_stats:
-            # the running stats are buffers: updated in place, outside
-            # autograd, ra = (1 - m) ra + m stat (Flax: 0.9 ra + 0.1 stat)
-            with torch.no_grad():
-                m = mod.momentum
-                mod.running_mean.copy_((1 - m) * mod.running_mean + m * mean)
-                mod.running_var.copy_((1 - m) * mod.running_var + m * var)
-                mod.num_batches_tracked.add_(1)
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + mod.eps) * mod.weight
-        return (x - mean.view(shape)) * mul.view(shape) + mod.bias.view(shape)
-
     def forward(self, x, update_stats: bool = True):
         """``update_stats=False`` leaves the running stats alone in train
         mode (an activation-checkpoint recompute of the same forward)."""
@@ -217,7 +223,7 @@ class ConvBranch(nn.Sequential):
         for mod in self:
             cd = _compute_dtype(self.dtype, x)
             if isinstance(mod, nn.BatchNorm2d):
-                x = self._batch_norm(mod, x, update_stats).to(cd)
+                x = batch_norm(mod, x, self.training, update_stats).to(cd)
             elif isinstance(mod, nn.Conv2d):
                 x = F.conv2d(x.to(cd), mod.weight.to(cd), mod.bias.to(cd),
                              mod.stride, mod.padding)

@@ -1,8 +1,8 @@
 """Model zoo of the port: the registry names ported so far.
 
 Port of ``medical_image_classification_tpu/models/registry.py`` for the
-Mamba-1 MedMamba configurations and MedSSD.  The other names of the JAX
-registry come with later slices (ROADMAP.md Queue 1).
+Mamba-1 MedMamba configurations, MedSSD and ST-SSD.  The other names of
+the JAX registry come with later slices (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -71,3 +71,13 @@ def medssd(num_classes, **kw):
     headdim 64."""
     return _build(num_classes, dict(depths=(2, 2, 4, 2),
                   dims=(128, 256, 512, 1024), d_state=128, core="ssd"), kw)
+
+
+@register("st_ssd")
+def st_ssd(num_classes, **kw):
+    """ST-SSD: the SSD core (d_state 16, coupled over the four directions
+    to N 64) with the semantic-token STL / STF / WMF tail; p = 56, 28, 14,
+    7 tokens per side at 224x224."""
+    return _build(num_classes, dict(depths=(2, 2, 4, 2),
+                  dims=(128, 256, 512, 1024), d_state=16, core="ssd",
+                  st_tokens=(56, 28, 14, 7)), kw)

@@ -1,8 +1,9 @@
 """The SS2D layers: four-direction 2-D scans (NHWC in and out).
 
 Port of ``medical_image_classification_tpu/models/ss2d_modules.py``:
-``SS2D`` (Mamba-1 core), ``SS2DSSD`` (Mamba-2 / SSD core, linear in_proj)
-and their init helpers.  Init follows the JAX modules: Δ-projection weight
+``SS2D`` (Mamba-1 core), ``SS2DSSD`` (Mamba-2 / SSD core, linear in_proj,
+with the ST-SSD tail: ``STL``, ``STF`` and the WMF merge) and their init
+helpers.  Init follows the JAX modules: Δ-projection weight
 U(-r^-0.5, r^-0.5), Δ-bias the softplus-inverse of a log-uniform draw in
 [dt_min, dt_max] (one draw repeated over the K directions), A = -exp(A_log)
 with S4D-real A_log (Mamba-1) or log U(1, 16) per head (SSD, one draw
@@ -11,13 +12,23 @@ repeated over K), D = 1.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from medical_image_classification_tpu_torch.kernels.stf_zgate import (
+    stf_zgate_fwd,
+    stf_zgate_supported,
+)
+from medical_image_classification_tpu_torch.kernels.stl_mixer import (
+    stl_mixer,
+    stl_mixer_supported,
+)
 from medical_image_classification_tpu_torch.models.common import (
+    batch_norm,
     conv_nhwc,
     layer_norm,
     linear,
@@ -123,6 +134,124 @@ class RMSNormGated(nn.Module):
         self.weight = nn.Parameter(torch.ones(d))
 
 
+def lecun_normal_(w, fan_in: int, generator=None):
+    """Flax's default Dense kernel init (``lecun_normal``): a normal of
+    variance 1 / fan_in cut at +-2 std, the std corrected for the cut."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+def _mix(conv1d: nn.Conv1d, a, b, dtype):
+    """The reference's Conv1d(2 -> 1, k 1) over the pair (a, b) of [..., 1]
+    statistics: the JAX module's Dense(2 -> 1) on their concatenation, in
+    the compute dtype."""
+    cd = dtype if dtype is not None else a.dtype
+    return F.linear(torch.cat([a, b], dim=-1).to(cd),
+                    conv1d.weight.view(1, 2).to(cd), conv1d.bias.to(cd))
+
+
+class STL(nn.Module):
+    """Semantic token learner: max+mean-pooled channel attention, then a
+    softmax token mixer that makes p^2 semantic tokens from L positions,
+    through the fused mixer (``kernels/stl_mixer.py``) where its gate
+    says so.  y [B, L, C] -> U [B, p^2, C]."""
+
+    def __init__(self, p: int, channels: int, impl: str = "auto",
+                 dtype=None):
+        super().__init__()
+        self.p, self.impl, self.dtype = p, impl, dtype
+        self.learnable_u1 = nn.Parameter(torch.empty(channels, p * p))
+        self.learnable_u2 = nn.Parameter(torch.empty(channels, channels))
+        self.conv1d = nn.Conv1d(2, 1, 1)
+
+    def reset_parameters(self, generator=None):
+        nn.init.uniform_(self.learnable_u1, 0.0, 1.0, generator=generator)
+        nn.init.uniform_(self.learnable_u2, 0.0, 1.0, generator=generator)
+        lecun_normal_(self.conv1d.weight, 2, generator)
+        nn.init.zeros_(self.conv1d.bias)
+
+    def forward(self, y):
+        u1, u2 = self.learnable_u1, self.learnable_u2
+        if self.dtype is not None:
+            u1, u2, y = (t.to(self.dtype) for t in (u1, u2, y))
+        m = _mix(self.conv1d, y.amax(-1, keepdim=True),
+                 y.mean(-1, keepdim=True), self.dtype)
+        w = torch.sigmoid(m) * y                           # [B, L, C]
+        if stl_mixer_supported(w.shape[1], self.p ** 2, w.shape[-1]):
+            return stl_mixer(w, u1.to(w.dtype), u2.to(w.dtype),
+                             impl=self.impl)
+        # the softmax in fp32 over the rows of the mixer in w's dtype
+        A = torch.softmax((w @ u1.to(w.dtype)).float(), dim=-1).to(w.dtype)
+        V = w @ u2.to(w.dtype)
+        return torch.einsum("blp,blc->bpc", A, V)          # [B, p^2, C]
+
+
+@functools.lru_cache(maxsize=None)
+def _adaptive_bins(n_in: int, n_out: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """torch's AdaptiveAvgPool bins as a [n_in, n_out] matrix:
+    out[i] = mean(x[floor(i n_in / n_out) : ceil((i + 1) n_in / n_out)]).
+    Cached per device and dtype: a constant of the model, as in the JAX
+    module, not a host-to-device copy on every forward."""
+    M = torch.zeros(n_in, n_out)
+    for i in range(n_out):
+        a = (i * n_in) // n_out
+        b = -(-((i + 1) * n_in) // n_out)
+        M[a:b, i] = 1.0 / (b - a)
+    return M.to(device, dtype)
+
+
+class STF(nn.Module):
+    """Semantic token fuser: a learned gate over pooled original features,
+    applied to the tokens U, through the fused gate
+    (``kernels/stf_zgate.py``) where its gate says so.
+
+    The reference's pooling is transposed (it permutes a [B, C, L] input
+    as if it were [B, L, C]), so its AdaptiveAvgPool2d((d_ssm, p^2)) maps
+    the LENGTH axis to d_ssm "channels" and the CHANNEL axis to p^2
+    "tokens"; trained checkpoints depend on it, and the JAX module keeps
+    it, as static bin matrices.  So does this one."""
+
+    def __init__(self, p: int, channels: int, impl: str = "auto",
+                 dtype=None):
+        super().__init__()
+        self.p, self.channels = p, channels
+        self.impl, self.dtype = impl, dtype
+        self.learnable_z = nn.Parameter(torch.empty(channels, p * p))
+        self.conv1d = nn.Conv1d(2, 1, 1)
+
+    def reset_parameters(self, generator=None):
+        nn.init.uniform_(self.learnable_z, 0.0, 1.0, generator=generator)
+        lecun_normal_(self.conv1d.weight, 2, generator)
+        nn.init.zeros_(self.conv1d.bias)
+
+    def forward(self, z_feat, U, u_scale):
+        """z_feat [B, L, Cin] (the block's d_model features), U [B, p^2,
+        d_ssm].  STF is affine in U, so the caller passes the WMF-merged
+        tokens and the sum of the merge weights as ``u_scale``:
+        sum_k w_k STF(z, U_k) = u_scale * weighted + Z (sum_k w_k U_k)."""
+        P = self.p ** 2
+        B, L, Cin = z_feat.shape
+        cd = self.dtype if self.dtype is not None else z_feat.dtype
+        Mr = _adaptive_bins(L, self.channels, z_feat.device, cd)
+        Mc = _adaptive_bins(Cin, P, z_feat.device, cd)
+        lz, z_feat, U = (t.to(cd) for t in (self.learnable_z, z_feat, U))
+        # [B, L, Cin] -> [B, channels, P]: L -> channels, Cin -> P
+        pooled = torch.einsum("boc,cp->bop",
+                              torch.einsum("blc,lo->boc", z_feat, Mr), Mc)
+        pooled = F.silu(pooled)
+        m = torch.sigmoid(_mix(self.conv1d,
+                               pooled.amax(1).unsqueeze(-1),
+                               pooled.mean(1).unsqueeze(-1), cd))  # [B,P,1]
+        pooledT = pooled.transpose(1, 2)                   # [B, P, C]
+        weighted = m * pooledT * u_scale.to(cd)
+        if stf_zgate_supported(P, pooledT.shape[-1]):
+            return weighted + stf_zgate_fwd(pooledT, lz, U, impl=self.impl)
+        Z = torch.sigmoid(pooledT @ lz)                    # [B, P, P]
+        return weighted + Z @ U
+
+
 class SS2DSSD(nn.Module):
     """Mamba-2 (SSD) four-direction 2-D scan layer (NHWC in/out).
 
@@ -132,18 +261,26 @@ class SS2DSSD(nn.Module):
     all of d_inner scanned, RMSNorm on, conv bias only.  ``A_logs`` and
     ``Ds`` are stored flattened to [K * nheads] and ``dt_bias`` as
     [K, nheads], as in the reference ``state_dict``.  ``scan_impl`` drives
-    the fused dirs SSD kernel ("auto", "cuda", "torch").  The KAN
-    projections, the ST-SSD tail and dropout are not ported yet
-    (ROADMAP.md Queue 1)."""
+    the kernels of the layer ("auto", "cuda", "torch").
+
+    ``st_tokens`` = p adds the ST-SSD tail: the core returns the four
+    direction outputs (scan order), one ``STL`` over them (directions
+    folded into the batch), the WMF merge (softmax of ``k_weights``)
+    folded into one ``STF`` over the ``o_norm`` (BatchNorm) ->
+    ``o_linear`` (1x1 conv) features of the layer's input.  The KAN
+    projections and dropout are not ported yet (ROADMAP.md Queue 1)."""
 
     def __init__(self, d_model: int, d_state: int = 64, headdim: int = 64,
-                 chunk_size: int = 256, scan_impl: str = "auto", dtype=None):
+                 chunk_size: int = 256, st_tokens: int | None = None,
+                 scan_impl: str = "auto", dtype=None):
         super().__init__()
+        self.d_model = d_model
         self.d_ssm = d_ssm = 2 * d_model                   # expand 2
         self.headdim = headdim
         self.nheads = nheads = d_ssm // headdim
         self.d_state = d_state
         self.chunk_size = chunk_size
+        self.st_tokens = st_tokens
         self.scan_impl = scan_impl
         self.dtype = dtype
         conv_dim = d_ssm + 2 * d_state + nheads
@@ -155,24 +292,55 @@ class SS2DSSD(nn.Module):
         self.Ds = nn.Parameter(torch.ones(K * nheads))
         self.norm = RMSNormGated(d_ssm)
         self.out_proj = nn.Linear(d_ssm, d_model, bias=False)
+        if st_tokens is not None:
+            self.stl = STL(st_tokens, d_ssm, scan_impl, dtype)
+            self.stf = STF(st_tokens, d_ssm, scan_impl, dtype)
+            self.o_norm = nn.BatchNorm2d(d_model, eps=1e-5, momentum=0.1)
+            self.o_linear = nn.Conv2d(d_model, d_model, 1)
+            self.k_weights = nn.Parameter(torch.full((K,), 0.25))
 
     def reset_scan_parameters(self, generator=None):
         a_log_init_uniform_(self.A_logs, generator)
         dt_bias_init_(self.dt_bias, generator)
         nn.init.ones_(self.Ds)
         nn.init.ones_(self.norm.weight)
+        if self.st_tokens is not None:
+            self.stl.reset_parameters(generator)
+            self.stf.reset_parameters(generator)
+            nn.init.constant_(self.k_weights, 0.25)
 
-    def forward(self, u):
+    def forward(self, u, update_stats: bool = True):
+        """``update_stats``: whether a train-mode forward moves the running
+        stats of ``o_norm`` (False in an activation-checkpoint recompute)."""
         zxbcdt = linear(self.in_proj, u, self.dtype)
         z, xBCdt = zxbcdt.split([self.d_ssm, zxbcdt.shape[-1] - self.d_ssm],
                                 dim=-1)
         xBCdt = F.silu(conv_nhwc(self.conv2d, xBCdt, self.dtype))
+        st = self.st_tokens is not None
         y = ss2d_core_ssd(
             xBCdt, self.A_logs.view(K, self.nheads), self.dt_bias,
             self.Ds.view(K, self.nheads), d_ssm=self.d_ssm,
             d_state=self.d_state, nheads=self.nheads, headdim=self.headdim,
-            chunk_size=self.chunk_size, impl=self.scan_impl)
+            chunk_size=self.chunk_size, merge=not st, stack_scan_order=st,
+            impl=self.scan_impl)
+        if st:
+            y = self._st_tail(u, y, update_stats)
         # the core returns the compute dtype; the layer continues in u's
         # (fp32 after the block's LayerNorm) until out_proj casts
         y = rmsnorm_gated(y.to(u.dtype), z, self.norm.weight)
         return linear(self.out_proj, y, self.dtype)
+
+    def _st_tail(self, u, ys, update_stats):
+        """ys [B, 4, L, d_ssm] (scan order) -> [B, H, W, d_ssm]."""
+        Bb, H, W, _ = u.shape
+        L, p = H * W, self.st_tokens
+        if p * p != L:
+            raise ValueError(f"st_tokens^2 ({p * p}) must equal L ({L})")
+        u_bn = batch_norm(self.o_norm, u.permute(0, 3, 1, 2), self.training,
+                          update_stats).permute(0, 2, 3, 1)
+        z_feat = conv_nhwc(self.o_linear, u_bn, self.dtype).reshape(Bb, L, -1)
+        U4 = self.stl(ys.to(u.dtype).reshape(Bb * K, L, -1))
+        U4 = U4.reshape(Bb, K, L, -1)
+        w = torch.softmax(self.k_weights, dim=0)
+        U_m = torch.einsum("k,bkpc->bpc", w.to(U4.dtype), U4)
+        return self.stf(z_feat, U_m, w.sum()).reshape(Bb, H, W, -1)

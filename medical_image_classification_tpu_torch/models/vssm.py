@@ -51,6 +51,7 @@ class SSConvBlock(nn.Module):
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
                  d_state: int = 16, core: str = "mamba1",
                  ssd_chunk_size: int = 256, ssd_headdim: int = 64,
+                 st_tokens: int | None = None,
                  scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
                  rng: SeededGenerators | None = None):
@@ -64,7 +65,8 @@ class SSConvBlock(nn.Module):
         elif core == "ssd":
             self.self_attention = SS2DSSD(
                 d_model=half, d_state=d_state, headdim=ssd_headdim,
-                chunk_size=ssd_chunk_size, scan_impl=scan_impl, dtype=dtype)
+                chunk_size=ssd_chunk_size, st_tokens=st_tokens,
+                scan_impl=scan_impl, dtype=dtype)
         else:
             raise ValueError(f"unknown core: {core!r}")
         self.drop_path = DropPath(drop_path, rng=rng)
@@ -72,8 +74,10 @@ class SSConvBlock(nn.Module):
 
     def _block(self, x, mask, update_stats=True):
         left, right = x.chunk(2, dim=-1)
-        r = self.drop_path.drop(
-            self.self_attention(layer_norm(self.ln_1, right)), mask)
+        sa, r = self.self_attention, layer_norm(self.ln_1, right)
+        # the ST-SSD tail's BatchNorm moves its running stats once per step
+        r = sa(r, update_stats) if isinstance(sa, SS2DSSD) else sa(r)
+        r = self.drop_path.drop(r, mask)
         l = self.conv33conv33conv11(left, update_stats=update_stats)
         b, h, w, half = l.shape
         # channel_shuffle(cat([l, r]), 2) is the plain interleave
@@ -101,6 +105,7 @@ class VSSLayer(nn.Module):
     def __init__(self, dim: int, drop_paths: Sequence[float],
                  d_state: int = 16, core: str = "mamba1",
                  ssd_chunk_size: int = 256, ssd_headdim: int = 64,
+                 st_tokens: int | None = None,
                  downsample: bool = True, scan_impl: str = "auto",
                  dtype=None, use_checkpoint: bool = False,
                  rng: SeededGenerators | None = None):
@@ -108,8 +113,8 @@ class VSSLayer(nn.Module):
         self.blocks = nn.ModuleList(
             SSConvBlock(dim, drop_path=dp, d_state=d_state, core=core,
                         ssd_chunk_size=ssd_chunk_size,
-                        ssd_headdim=ssd_headdim, scan_impl=scan_impl,
-                        dtype=dtype,
+                        ssd_headdim=ssd_headdim, st_tokens=st_tokens,
+                        scan_impl=scan_impl, dtype=dtype,
                         use_checkpoint=use_checkpoint, rng=rng)
             for dp in drop_paths)
         self.downsample = PatchMerging(dim, dtype=dtype) if downsample \
@@ -126,12 +131,13 @@ class VSSLayer(nn.Module):
 class VSSM(nn.Module):
     """VSSM image classifier.  NHWC [B, H, W, 3] -> logits.
 
-    ``core`` is "mamba1" (SS2D) or "ssd" (SS2DSSD, with ``ssd_chunk_size``
-    and ``ssd_headdim``).  ``dtype`` is the compute dtype (bf16 on the
-    card); parameters stay fp32.  ``scan_impl`` picks the implementation of
-    the core's kernel (the selective scan, or the fused dirs SSD scan):
-    "auto" (by the tensor's device), "cuda" or "torch".  ``generator``
-    seeds the init.  The model owns ``drop_path_rng``, the source of every
+    ``core`` is "mamba1" (SS2D) or "ssd" (SS2DSSD, with ``ssd_chunk_size``,
+    ``ssd_headdim`` and, for ST-SSD, ``st_tokens``: the p of each stage).
+    ``dtype`` is the compute dtype (bf16 on the card); parameters stay
+    fp32.  ``scan_impl`` picks the implementation of the core's kernels
+    (the selective scan; the SSD kernels and ST-SSD's): "auto" (by the
+    tensor's device), "cuda" or "torch".  ``generator`` seeds the
+    init.  The model owns ``drop_path_rng``, the source of every
     DropPath mask; a trainer seeds it with ``seed_drop_path``."""
 
     def __init__(self, num_classes: int,
@@ -139,6 +145,7 @@ class VSSM(nn.Module):
                  dims: Sequence[int] = (96, 192, 384, 768),
                  d_state: int = 16, core: str = "mamba1",
                  ssd_chunk_size: int = 256, ssd_headdim: int = 64,
+                 st_tokens: Sequence[int] | None = None,
                  drop_path_rate: float = 0.1, head: str = "linear",
                  scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
@@ -152,6 +159,7 @@ class VSSM(nn.Module):
             VSSLayer(dims[i], dpr[sum(depths[:i]):sum(depths[:i + 1])],
                      d_state=d_state, core=core,
                      ssd_chunk_size=ssd_chunk_size, ssd_headdim=ssd_headdim,
+                     st_tokens=st_tokens[i] if st_tokens else None,
                      downsample=i < len(depths) - 1,
                      scan_impl=scan_impl, dtype=dtype,
                      use_checkpoint=use_checkpoint, rng=self.drop_path_rng)
@@ -163,7 +171,7 @@ class VSSM(nn.Module):
         """The JAX package's init distributions, drawn from ``generator``:
         Linear trunc-normal(0.02) with zero bias, conv kaiming-normal
         (fan_out) with zero bias, norms (1, 0), the SS2D / SS2DSSD scan
-        parameters."""
+        parameters (with the ST-SSD tail's)."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 trunc_normal_02_(m.weight, generator)

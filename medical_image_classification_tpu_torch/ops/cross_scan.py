@@ -2,10 +2,11 @@
 
 Port of the time-major helpers of
 ``medical_image_classification_tpu/ops/cross_scan.py`` that the SSD core
-uses.  Directions: 0 row-major, 1 column-major (the spatial transpose), 2
-and 3 their sequence flips.  The JAX module's ``split_channels`` (a custom
-VJP that assembles the cotangent with one concatenate) is plain slicing
-here: autograd needs no help with it.
+uses, and ``cross_stack_scan_order`` (the ST-SSD stack).  Directions: 0
+row-major, 1 column-major (the spatial transpose), 2 and 3 their sequence
+flips.  The JAX module's ``split_channels`` (a custom VJP that assembles
+the cotangent with one concatenate) is plain slicing here: autograd needs
+no help with it.
 """
 
 from __future__ import annotations
@@ -63,3 +64,11 @@ def cross_merge_time_major(ys, H, W):
     y = (ys[:, :, 0] + _un_col(ys[:, :, 1], H, W) + ys[:, :, 2].flip(1)
          + _un_col(ys[:, :, 3].flip(1), H, W))
     return y.reshape(Bb, H, W, C)
+
+
+def cross_stack_scan_order(ys):
+    """[B, L, 4, C] -> [B, 4, L, C], each direction in its own scan order
+    (no alignment flips or transposes).  Exact for consumers that do not
+    depend on the order of L: the ST-SSD token mixer sums over L, and its
+    gate, channel max/mean and row softmax are per position."""
+    return ys.movedim(2, 1)

@@ -1,12 +1,12 @@
 """Functional SS2D cores: the four-direction 2-D scans.
 
 Port of ``medical_image_classification_tpu/ops/ss2d.py``:
-``ss2d_core_mamba1`` (its flip-free branch), ``ss2d_core_ssd`` (merge=True,
-ref_flat, one group) and ``rmsnorm_gated``.  The directions are
-k = rev * 2 + layout (0 = row, 1 = column, 2 = row reversed, 3 = column
-reversed).  Directions 2 and 3 read the same unflipped bytes as directions
-0 and 1 wherever a kernel can: the Mamba-1 scan runs in reverse, the fused
-SSD kernel mirrors its chunk indices.
+``ss2d_core_mamba1`` (its flip-free branch), ``ss2d_core_ssd`` (ref_flat,
+one group; merged, or the ST-SSD scan-order stack) and ``rmsnorm_gated``.
+The directions are k = rev * 2 + layout (0 = row, 1 = column, 2 = row
+reversed, 3 = column reversed).  Directions 2 and 3 read the same
+unflipped bytes as directions 0 and 1 wherever a kernel can: the Mamba-1
+scan runs in reverse, the fused SSD kernel mirrors its chunk indices.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from medical_image_classification_tpu_torch.ops.cross_scan import (
     cross_merge_time_major,
     cross_scan_time_major,
     cross_scan_time_major2_roles,
+    cross_stack_scan_order,
 )
 
 
@@ -95,7 +96,7 @@ def ss2d_core_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds, *,
 
 def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
                   nheads: int, headdim: int, chunk_size: int = 256,
-                  stack_scan_order: bool = False,
+                  merge: bool = True, stack_scan_order: bool = False,
                   bc_layout: str = "ref_flat", seq_axis=None,
                   impl: str = "auto"):
     """Mamba-2 (SSD) four-direction 2-D scan.
@@ -103,26 +104,29 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     xBCdt  : [B, H, W, d_ssm + 2 d_state + nheads] (post depthwise conv +
              SiLU; channels [x | B | C | dt], one B/C group)
     A_log, dt_bias, Ds : [4, nheads]
-    impl   : the fused dirs kernel's implementation (see
-             ``kernels/ssd_fused_dirs.py::ssd_fused_dirs``)
+    impl   : the kernels' implementation ("auto", "cuda", "torch"; the
+             fused dirs SSD, or the Y_diag of ``ssd_chunked``)
 
     The directions fold into the head axis (direction-major).  B and C are
     one group whose state is K d_state wide and shared by every head
     (ref_flat: the reference's flattening couples the directions through
-    the state).  Where ``ssd_dirs_chunk`` finds a pad-free chunk in the
-    window (and, for a CUDA tensor, a shape the CUDA kernels take), only
-    the d0/d1 stack is built and the fused dirs kernel reads directions 2/3
-    from it; otherwise the four-direction stack goes through
-    ``ssd_chunked``.  Returns [B, H, W, d_ssm] in xBCdt's dtype.
+    the state).  With ``merge``, where ``ssd_dirs_chunk`` finds a pad-free
+    chunk in the window (and, for a CUDA tensor, a shape the CUDA kernels
+    take), only the d0/d1 stack is built and the fused dirs kernel reads
+    directions 2/3 from it; otherwise the four-direction stack goes through
+    ``ssd_chunked``.  Returns [B, H, W, d_ssm] in xBCdt's dtype, or with
+    ``merge=False`` and ``stack_scan_order`` the per-direction outputs
+    [B, 4, L, d_ssm], each in its own scan order (the ST-SSD tail).
     """
-    for name, val, ok in (("stack_scan_order", stack_scan_order, False),
-                          ("bc_layout", bc_layout, "ref_flat"),
-                          ("seq_axis", seq_axis, None)):
-        if val != ok:
+    for unported, what in (
+            (not (merge or stack_scan_order),
+             "merge=False without stack_scan_order (the aligned stack)"),
+            (bc_layout != "ref_flat", f"bc_layout={bc_layout!r}"),
+            (seq_axis is not None, f"seq_axis={seq_axis!r} (the SP scans)")):
+        if unported:
             raise NotImplementedError(
-                f"ss2d_core_ssd {name}={val!r} is not ported yet (ROADMAP.md "
-                "Queue 1: the stack scan order, the SP scans, "
-                "per_direction)")
+                f"ss2d_core_ssd {what} is not ported yet (ROADMAP.md Queue "
+                "1)")
     Bb, H, W, Cc = xBCdt.shape
     L = H * W
     K = 4
@@ -132,7 +136,7 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     dtb = dt_bias.float().reshape(K * nheads)
 
     eff_c = ssd_dirs_chunk(L, chunk_size, K * d_state, headdim, K * nheads,
-                           d_ssm, card=xBCdt.is_cuda)
+                           d_ssm, card=xBCdt.is_cuda) if merge else None
     if eff_c is not None:
         stackr = cross_scan_time_major2_roles(xBCdt, d_ssm, gn)
         y = ssd_chunked_dirs(stackr, A, Df, dtb, eff_c, d_ssm=d_ssm, gn=gn,
@@ -146,8 +150,11 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     Ch = xs_all[..., d_ssm + gn:d_ssm + 2 * gn].reshape(Bb, L, 1,
                                                          K * d_state)
     dth = xs_all[..., d_ssm + 2 * gn:].reshape(Bb, L, K * nheads)
-    y = ssd_chunked(xh, dth, A, Bh, Ch, chunk_size, Df, dtb)
-    return cross_merge_time_major(y.reshape(Bb, L, K, d_ssm), H, W)
+    y = ssd_chunked(xh, dth, A, Bh, Ch, chunk_size, Df, dtb, impl=impl)
+    ys = y.reshape(Bb, L, K, d_ssm)
+    if merge:
+        return cross_merge_time_major(ys, H, W)
+    return cross_stack_scan_order(ys)
 
 
 def rmsnorm_gated(x, z, weight, *, eps: float = 1e-5):

@@ -1,7 +1,9 @@
-"""Carry MedMamba and MedSSD weights from the JAX package to the port.
+"""Carry MedMamba, MedSSD and ST-SSD weights from the JAX package to the
+port.
 
 The reverse of ``medical_image_classification_tpu/utils/torch_import.py::
-import_medmamba_state_dict`` and ``import_medssd_state_dict``: the JAX
+import_medmamba_state_dict`` and ``import_medssd_state_dict`` (with
+``st_tokens=True`` for ST-SSD): the JAX
 ``params`` and ``batch_stats`` trees (nested dicts of numpy arrays) become
 the port's ``state_dict``, ready for ``load_state_dict(strict=True)``.  The
 port names its parameters as the reference ``state_dict`` does, so the JAX
@@ -11,7 +13,10 @@ Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv HWIO ->
 OIHW; MedMamba ``A_logs`` [K, d_inner, N] -> [K * d_inner, N] and ``Ds``
 [K, d_inner] -> [K * d_inner]; MedSSD ``A_logs`` and ``Ds`` [K, nheads] ->
 [K * nheads], ``dt_bias`` [K, nheads] as it is, ``norm_weight`` ->
-``norm.weight``.
+``norm.weight``; ST-SSD's ``stl``/``stf`` ``u1``, ``u2``, ``z`` ->
+``learnable_*`` and the Dense(2 -> 1) ``mix`` kernel [2, 1] -> the
+``conv1d`` weight [1, 2, 1], ``o_norm`` with its batch stats, ``o_linear``
+and ``k_weights``.
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ def _count(tree, prefix: str) -> int:
 
 
 def _vssm_state_dict(params, batch_stats, self_attention):
-    """The skeleton's keys; ``self_attention(put, dense, conv, ln, q, sa)``
-    writes one block's scan layer under the prefix ``q``."""
+    """The skeleton's keys; ``self_attention(h, q, sa, sa_stats)`` writes
+    one block's scan layer (params ``sa``, batch stats ``sa_stats`` or
+    None) under the prefix ``q`` through the helpers ``h``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr):
@@ -54,6 +60,7 @@ def _vssm_state_dict(params, batch_stats, self_attention):
         put(prefix + ".running_var", s["var"])
         sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
 
+    h = dict(put=put, dense=dense, conv=conv, ln=ln, bn=bn)
     conv("patch_embed.proj", params["patch_embed"]["proj"])
     ln("patch_embed.norm", params["patch_embed"]["norm"])
     for i in range(_count(params, "layers_")):
@@ -63,8 +70,8 @@ def _vssm_state_dict(params, batch_stats, self_attention):
             blk = layer[f"blocks_{j}"]
             p = f"layers.{i}.blocks.{j}"
             ln(p + ".ln_1", blk["ln_1"])
-            self_attention(put, dense, conv, ln, p + ".self_attention",
-                           blk["self_attention"])
+            self_attention(h, p + ".self_attention", blk["self_attention"],
+                           stats[f"blocks_{j}"].get("self_attention"))
             cb = blk["conv_branch"]
             cs = stats[f"blocks_{j}"]["conv_branch"]
             c = p + ".conv33conv33conv11"
@@ -82,26 +89,39 @@ def _vssm_state_dict(params, batch_stats, self_attention):
     return sd
 
 
-def _ss2d(put, dense, conv, ln, q, sa):
-    dense(q + ".in_proj", sa["in_proj"])
-    conv(q + ".conv2d", sa["conv2d"])
+def _ss2d(h, q, sa, sa_stats):
+    h["dense"](q + ".in_proj", sa["in_proj"])
+    h["conv"](q + ".conv2d", sa["conv2d"])
     for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
-        put(f"{q}.{name}", sa[name])
+        h["put"](f"{q}.{name}", sa[name])
     A = np.asarray(sa["A_logs"])
-    put(q + ".A_logs", A.reshape(-1, A.shape[-1]))
-    put(q + ".Ds", np.asarray(sa["Ds"]).reshape(-1))
-    ln(q + ".out_norm", sa["out_norm"])
-    dense(q + ".out_proj", sa["out_proj"])
+    h["put"](q + ".A_logs", A.reshape(-1, A.shape[-1]))
+    h["put"](q + ".Ds", np.asarray(sa["Ds"]).reshape(-1))
+    h["ln"](q + ".out_norm", sa["out_norm"])
+    h["dense"](q + ".out_proj", sa["out_proj"])
 
 
-def _ss2d_ssd(put, dense, conv, ln, q, sa):
-    dense(q + ".in_proj", sa["in_proj"])
-    conv(q + ".conv2d", sa["conv2d"])
+def _ss2d_ssd(h, q, sa, sa_stats):
+    put = h["put"]
+    h["dense"](q + ".in_proj", sa["in_proj"])
+    h["conv"](q + ".conv2d", sa["conv2d"])
     put(q + ".dt_bias", sa["dt_bias"])
     put(q + ".A_logs", np.asarray(sa["A_logs"]).reshape(-1))
     put(q + ".Ds", np.asarray(sa["Ds"]).reshape(-1))
     put(q + ".norm.weight", sa["norm_weight"])
-    dense(q + ".out_proj", sa["out_proj"])
+    h["dense"](q + ".out_proj", sa["out_proj"])
+    if "stl" not in sa:
+        return
+    for mod, names in (("stl", ("u1", "u2")), ("stf", ("z",))):
+        for name in names:
+            put(f"{q}.{mod}.learnable_{name}", sa[mod][name])
+        mix = sa[mod]["mix"]                      # Dense(2 -> 1)
+        put(f"{q}.{mod}.conv1d.weight",
+            np.asarray(mix["kernel"]).T[:, :, None])
+        put(f"{q}.{mod}.conv1d.bias", mix["bias"])
+    h["bn"](q + ".o_norm", sa["o_norm"], sa_stats["o_norm"])
+    h["conv"](q + ".o_linear", sa["o_linear"])
+    put(q + ".k_weights", sa["k_weights"])
 
 
 def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
@@ -112,5 +132,11 @@ def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
 
 def medssd_state_dict_from_jax(params, batch_stats) -> Dict[str,
                                                             torch.Tensor]:
-    """JAX MedSSD (params, batch_stats) -> the port's ``state_dict``."""
+    """JAX MedSSD or ST-SSD (params, batch_stats) -> the port's
+    ``state_dict``."""
     return _vssm_state_dict(params, batch_stats, _ss2d_ssd)
+
+
+# JAX ST-SSD (params, batch_stats) -> the port's ``state_dict``: the MedSSD
+# carrier writes the ST tail wherever a block's params have one
+st_ssd_state_dict_from_jax = medssd_state_dict_from_jax

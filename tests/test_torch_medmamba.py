@@ -162,7 +162,7 @@ def test_seeded_init_is_reproducible_and_unported_names_raise():
     assert torch.equal(sa.A_logs[0], torch.log(torch.arange(1.0, 9.0)))
     assert torch.equal(sa.Ds, torch.ones_like(sa.Ds))
     with pytest.raises(KeyError, match="not ported"):
-        create_model("st_ssd", 4)
+        create_model("cnn_mamba", 4)
     with pytest.raises(NotImplementedError):
         create_model("medmamba", 4, head="ekan", **CFG)
 

@@ -236,7 +236,7 @@ def test_init_distributions_match_jax():
 def test_bf16_compute_and_unported_options():
     """dtype=bf16 runs with fp32 parameters and gives logits close to fp32
     (0.1 x max|logit|: bf16 activations through 5 blocks); SS2DSSD takes
-    none of the unported options (KAN, ST-SSD, dropout)."""
+    none of the unported options (KAN, dropout)."""
     port = create_model("medssd", NUM_CLASSES, drop_path_rate=0.0,
                         generator=torch.Generator().manual_seed(2), **CFG)
     port16 = create_model("medssd", NUM_CLASSES, drop_path_rate=0.0,
@@ -251,6 +251,6 @@ def test_bf16_compute_and_unported_options():
     scale = float(y32.abs().max())
     np.testing.assert_allclose(y16.numpy(), y32.numpy(), rtol=0.1,
                                atol=0.1 * scale)
-    for kw in (dict(st_tokens=7), dict(kan_in=True), dict(dropout=0.1)):
+    for kw in (dict(kan_in=True), dict(dropout=0.1)):
         with pytest.raises(TypeError, match="unexpected keyword"):
             SS2DSSD(16, d_state=8, headdim=8, **kw)

@@ -129,7 +129,7 @@ def test_dirs_and_einsum_paths_agree():
 def test_unported_options_raise():
     arrs, kw = _core_args()
     x = [torch.from_numpy(a) for a in arrs]
-    for opt in (dict(stack_scan_order=True),
+    for opt in (dict(merge=False),
                 dict(bc_layout="per_direction"), dict(seq_axis="seq")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tss2d.ss2d_core_ssd(*x, **kw, **opt)

@@ -12,7 +12,10 @@ import torch
 import medical_image_classification_tpu_torch.models.registry as registry
 from medical_image_classification_tpu_torch.cli.train import main, parse_args
 from medical_image_classification_tpu_torch.models import create_model
-from medical_image_classification_tpu_torch.models.common import ConvBranch
+from medical_image_classification_tpu_torch.models.common import (
+    ConvBranch,
+    batch_norm,
+)
 from medical_image_classification_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -55,14 +58,15 @@ def test_batch_norm_train_mode_uses_biased_variance():
                                rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(bn.running_var.double(), 0.9 + 0.1 * var,
                                rtol=1e-5, atol=1e-6)
-    y = branch._batch_norm(bn, x.permute(0, 3, 1, 2), update_stats=False)
+    y = batch_norm(bn, x.permute(0, 3, 1, 2), branch.training,
+                   update_stats=False)
     want = (xs - mean) / torch.sqrt(var + bn.eps)
     torch.testing.assert_close(y.permute(0, 2, 3, 1).reshape(-1, 4).double(),
                                want, rtol=1e-5, atol=1e-5)
     before = bn.running_var.clone()
     branch(x, update_stats=False)                  # a recompute: no update
     assert torch.equal(bn.running_var, before)
-    y_eval = branch.eval()._batch_norm(bn, x.permute(0, 3, 1, 2), True)
+    y_eval = batch_norm(bn, x.permute(0, 3, 1, 2), branch.eval().training)
     torch.testing.assert_close(
         y_eval.permute(0, 2, 3, 1).reshape(-1, 4).double(),
         (xs - bn.running_mean.double()) / torch.sqrt(
