@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device and build: the card's name and power limit (nvidia-smi), the
-     seven kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
+     ten kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
      each, all started together), with each kernel's registers, shared
      memory and spills as ptxas reports them;
   2. selective-scan forward kernel vs plain: MedMamba's four stage shapes
@@ -27,8 +27,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2g. STF gate kernel vs plain at stages 0 and 1 (BB 32; P 3136, C 128 and
      P 784, C 256), fp32 and bf16; 2e-2g each with a second launch
      bit-identical and times from CUDA events;
+  2h-2j. the backward kernels of Y_diag, the STL mixer and the STF gate
+     against their plain backwards at the cases of 2e-2g, every cotangent,
+     a second launch bit-identical, times from CUDA events; at one shape
+     each, YDiagFused, STLMixer and STFZGate against torch.autograd through
+     the plain forward;
   3. medmamba eval and 4. medmamba training, 5. medssd eval and
-     6. medssd training, 7. st_ssd eval, each model at full width
+     6. medssd training, 7. st_ssd eval and 8. st_ssd training, each model
+     at full width
      (224x224, batch 32, 8 classes, seeded random weights with the scan
      parameters drawn away from init, bf16 compute, fp32 params).  Eval
      runs through cli.test.run_eval: every kernel's launches (each counter
@@ -37,16 +43,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      against the same model with the plain versions (bf16, and fp32 on one
      batch), img/s and a profile of one forward.  Training runs through
      cli.train.run_train with Adam (lr 1e-4), one warm-up step then 4 timed
-     steps: forward and backward launches per step, a finite loss, every
-     parameter moved, every parameter's gradient
-     at batch 4 against the plain versions (fp32 and bf16), img/s and a
-     profile of one step.
-  8. st_ssd training on the card raises NotImplementedError (its three
-     kernels have no backward yet).
-Then one JSON line describing the kernels (launches in the main-path runs:
-the training runs for the four MedMamba and MedSSD kernels, st_ssd eval
-for its three; errors, times, the bound of each from this run's shapes;
-times and bounds at stage 0 in bf16), the card's name
+     steps: every kernel's launches (the path's forward and backward
+     kernels exactly their calls per step, the others none), a finite loss,
+     every parameter moved, every parameter's gradient at batch 4 against
+     the plain versions (fp32 and bf16), img/s and a profile of one step.
+Then one JSON line describing the ten kernels (launches in the training
+runs; errors, times, the bound of each from this run's shapes; times and
+bounds at stage 0 in bf16), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -67,8 +70,8 @@ G, N = 32, 16
 BATCH, SIZE, CLASSES, STEPS = 32, 224, 8, 4
 SCAN_CALLS_PER_FORWARD = 4 * (2 + 2 + 4 + 2)       # 4 directions x blocks
 KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "ssd_fused_dirs_fwd",
-           "ssd_fused_dirs_bwd", "ssd_ydiag_fwd", "stl_mixer_fwd",
-           "stf_zgate_fwd")
+           "ssd_fused_dirs_bwd", "ssd_ydiag_fwd", "ssd_ydiag_bwd",
+           "stl_mixer_fwd", "stl_mixer_bwd", "stf_zgate_fwd", "stf_zgate_bwd")
 # MedSSD's stages on the fused dirs path at 224x224: (L, chunk l, H4,
 # d_ssm); P 64, gn 128 (N 512).  Stages 2-3 take the einsum path
 SSD_STAGES = ((3136, 224, 8, 128), (784, 196, 16, 256))
@@ -91,12 +94,24 @@ ST_STAGES = ((3136, 128), (784, 256))
 # the mixer and the gate in the blocks of stages 0-1
 ST_CALLS_PER_FORWARD = {"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4,
                         "stf_zgate_fwd": 4}
+ST_TRAIN_PAIRS = {"ssd_ydiag_fwd": "ssd_ydiag_bwd",
+                  "stl_mixer_fwd": "stl_mixer_bwd",
+                  "stf_zgate_fwd": "stf_zgate_bwd"}
 # ST kernels vs plain: |k - p| <= atol x max|p| + rtol |p|.  fp32 differs
 # in summation order (sums of up to 3136 products; the mixer's softmax
 # sum also rescales online); bf16 also where a rounded operand (M, E, Z)
 # or output lands one bf16 step from the plain version's, the same
 # rounding points on both sides
 ST_TOL = {"fp32": (2e-3, 2e-3), "bf16": (3e-2, 2e-2)}
+# their backward kernels vs the plain backwards, every cotangent, within
+# the dirs SSD backward's tolerances: fp32 differs in summation order
+# (dacum is a difference of row and column sums of G, du1 and dlz sum over
+# the batch too); bf16 also where a rounded operand (M, E, dS, Z) or output
+# lands one bf16 step away
+ST_GRAD_TOL = SSD_GRAD_TOL
+ST_GRAD_NAMES = {"ssd_ydiag": ("dCc", "dBc", "dacum", "ddtx"),
+                 "stl_mixer": ("dw", "du1", "dV"),
+                 "stf_zgate": ("dpooledT", "dlz", "dU")}
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes
 # per second, and operations per second by operand type (bf16 products on
 # the tensor cores; fp32 on the CUDA cores, as the kernels and the plain
@@ -465,14 +480,12 @@ def _st_summary(cases):
         f"({c['bound'][1]})" for c in cases)
 
 
-def phase_ydiag_vs_plain():
-    """2e: the Y_diag kernel at ST-SSD's stage 0, inputs built as
-    ssd_chunked builds them (acum the cumsum of softplus steps against
-    A = -U(1, 4))."""
+def _ydiag_cases():
+    """Y_diag's stage-0 cases, fp32 and bf16: (dtype name, (Cc, Bc, acum,
+    dtx), dy), built as ssd_chunked builds them (acum the cumsum of
+    softplus steps against A = -U(1, 4))."""
     import torch
     import torch.nn.functional as F
-    from medical_image_classification_tpu_torch.kernels import (
-        ssd_ydiag as yd)
     dev = torch.device("cuda")
     BC, l, H, N, P = ST_YDIAG
     gen = torch.Generator(device=dev).manual_seed(200)
@@ -481,18 +494,42 @@ def phase_ydiag_vs_plain():
     dtp = F.softplus(0.5 * rnd(BC, H, l) - 3.0)
     A = -(1.0 + 3.0 * torch.rand(H, 1, device=dev, generator=gen))
     acum = torch.cumsum(dtp * A, dim=-1)
-    dtx = rnd(BC, H, l, P)
-    cases = []
+    dtx, dy = rnd(BC, H, l, P), rnd(BC, H, l, P)
     for dt_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        args = (Cc.to(dtype), Bc.to(dtype), acum, dtx.to(dtype))
+        yield dt_name, (Cc.to(dtype), Bc.to(dtype), acum,
+                        dtx.to(dtype)), dy.to(dtype)
+
+
+def _ydiag_bound(args, dt_name, backward):
+    """Bytes of the operands in and the outputs out; the products over the
+    causal (i, j <= i) pairs: forward the scores 2 pairs N and per head
+    2 pairs P; backward the scores, dC and dB 6 pairs N and per head ddtx
+    and dM 4 pairs P."""
+    Cc, _, acum, dtx = args
+    BC, l, N = Cc.shape
+    H, P = dtx.shape[1], dtx.shape[3]
+    isz = Cc.element_size()
+    pairs = l * (l + 1) // 2
+    cb, rows, heads = 2 * BC * l * N * isz, BC * H * l * 4, BC * H * l * P * isz
+    if not backward:
+        return _bound(cb + rows + 2 * heads,
+                      BC * (2 * pairs * N + H * 2 * pairs * P), dt_name)
+    return _bound(2 * cb + 2 * rows + 3 * heads,
+                  BC * (6 * pairs * N + H * 4 * pairs * P), dt_name)
+
+
+def phase_ydiag_vs_plain():
+    """2e: the Y_diag kernel at ST-SSD's stage 0."""
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_ydiag as yd)
+    BC, l, H, N, P = ST_YDIAG
+    cases = []
+    for dt_name, args, _ in _ydiag_cases():
         c = _st_case(f"Y_diag kernel vs plain {dt_name}",
-                     lambda: yd.ydiag_fused(*args, impl="cuda"),
+                     lambda: yd.ydiag_fused_fwd(*args, impl="cuda"),
                      lambda: yd.ydiag_fused_ref(*args), dt_name, (5, 2))
-        isz = args[0].element_size()
-        pairs = l * (l + 1) // 2                  # the causal (i, j <= i)
-        c.update(shape=f"BC{BC} l{l} H{H} N{N} P{P}", bound=_bound(
-            2 * BC * l * N * isz + BC * H * l * 4 + 2 * BC * H * l * P * isz,
-            BC * (2 * pairs * N + H * 2 * pairs * P), dt_name))
+        c.update(shape=f"BC{BC} l{l} H{H} N{N} P{P}",
+                 bound=_ydiag_bound(args, dt_name, False))
         cases.append(c)
     print(f"phase 2e Y_diag forward kernel vs plain: {len(cases)}/2 cases "
           f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
@@ -500,70 +537,237 @@ def phase_ydiag_vs_plain():
     return cases
 
 
-def phase_stl_vs_plain():
-    """2f: the STL mixer kernel at ST-SSD's stages 0-1 (BB = 4 B, the
-    directions folded in; u1 and u2 U[0, 1) as at init, V = w u2)."""
+def _stl_cases():
+    """The STL mixer's cases at ST-SSD's stages 0-1 (BB = 4 B, the
+    directions folded in; u1 and u2 U[0, 1) as at init, V = w u2), fp32
+    and bf16: (stage, L, C, dtype name, (w, u1, V), dU)."""
     import torch
-    from medical_image_classification_tpu_torch.kernels import (
-        stl_mixer as stl)
     dev = torch.device("cuda")
     BB = 4 * BATCH
-    cases = []
     for i, (L, C) in enumerate(ST_STAGES):
         gen = torch.Generator(device=dev).manual_seed(300 + i)
         w = 0.5 * torch.randn(BB, L, C, device=dev, generator=gen)
         u1 = torch.rand(C, L, device=dev, generator=gen)
         u2 = torch.rand(C, C, device=dev, generator=gen)
+        dU = torch.randn(BB, L, C, device=dev, generator=gen)
         for dt_name, dtype in (("fp32", torch.float32),
                                ("bf16", torch.bfloat16)):
-            wd, u1d = w.to(dtype), u1.to(dtype)
-            V = wd @ u2.to(dtype)
-            reps = (2, 1) if dt_name == "fp32" and i == 0 else (5, 2)
-            c = _st_case(f"STL mixer kernel vs plain L=P={L} C={C} "
-                         f"{dt_name}",
-                         lambda: stl.stl_mixer_fwd(wd, u1d, V, impl="cuda"),
-                         lambda: stl.stl_mixer_fwd_ref(wd, u1d, V), dt_name,
-                         reps)
-            isz = wd.element_size()
-            c.update(L=L, shape=f"BB{BB} L=P{L} C{C}", bound=_bound(
-                (3 * BB * L * C + C * L) * isz, 4 * BB * L * L * C, dt_name))
-            cases.append(c)
-            del wd, u1d, V
+            wd = w.to(dtype)
+            yield i, L, C, dt_name, (wd, u1.to(dtype), wd @ u2.to(dtype)), \
+                dU.to(dtype)
+
+
+def _stl_bound(args, dt_name, backward):
+    """Bytes of w, u1, V in and U out (backward: w, u1, V, dU in and dw,
+    du1, dV out); products 4 BB L P C (backward: the TPU body's five,
+    10 BB L P C)."""
+    w, u1, _ = args
+    BB, L, C = w.shape
+    P = u1.shape[1]
+    isz = w.element_size()
+    if not backward:
+        return _bound((2 * BB * L * C + BB * P * C + C * P) * isz,
+                      4 * BB * L * P * C, dt_name)
+    return _bound((4 * BB * L * C + BB * P * C + 2 * C * P) * isz,
+                  10 * BB * L * P * C, dt_name)
+
+
+def phase_stl_vs_plain():
+    """2f: the STL mixer kernel at ST-SSD's stages 0-1."""
+    from medical_image_classification_tpu_torch.kernels import (
+        stl_mixer as stl)
+    cases = []
+    for i, L, C, dt_name, args, _ in _stl_cases():
+        reps = (2, 1) if dt_name == "fp32" and i == 0 else (5, 2)
+        c = _st_case(f"STL mixer kernel vs plain L=P={L} C={C} {dt_name}",
+                     lambda: stl.stl_mixer_fwd(*args, impl="cuda"),
+                     lambda: stl.stl_mixer_fwd_ref(*args), dt_name, reps)
+        c.update(L=L, shape=f"BB{4 * BATCH} L=P{L} C{C}",
+                 bound=_stl_bound(args, dt_name, False))
+        cases.append(c)
+        del args
     print(f"phase 2f STL mixer forward kernel vs plain: {len(cases)}/4 cases "
           f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
           f"bit-identical | {_st_summary(cases)}", flush=True)
     return cases
 
 
-def phase_stf_vs_plain():
-    """2g: the STF gate kernel at ST-SSD's stages 0-1 (BB = B; lz U[0, 1)
-    as at init)."""
+def _stf_cases():
+    """The STF gate's cases at stages 0-1 (BB = B; lz U[0, 1) as at init),
+    fp32 and bf16: (stage, P, C, dtype name, (pooledT, lz, U), dY)."""
     import torch
-    from medical_image_classification_tpu_torch.kernels import (
-        stf_zgate as stf)
     dev = torch.device("cuda")
-    cases = []
     for i, (P, C) in enumerate(ST_STAGES):
         gen = torch.Generator(device=dev).manual_seed(400 + i)
         pT = 0.5 * torch.randn(BATCH, P, C, device=dev, generator=gen)
         lz = torch.rand(C, P, device=dev, generator=gen)
         U = torch.randn(BATCH, P, C, device=dev, generator=gen)
+        dY = torch.randn(BATCH, P, C, device=dev, generator=gen)
         for dt_name, dtype in (("fp32", torch.float32),
                                ("bf16", torch.bfloat16)):
-            args = (pT.to(dtype), lz.to(dtype), U.to(dtype))
-            c = _st_case(f"STF gate kernel vs plain P={P} C={C} {dt_name}",
-                         lambda: stf.stf_zgate_fwd(*args, impl="cuda"),
-                         lambda: stf.stf_zgate_fwd_ref(*args), dt_name,
-                         (5, 2))
-            isz = args[0].element_size()
-            c.update(L=P, shape=f"BB{BATCH} P{P} C{C}", bound=_bound(
-                (3 * BATCH * P * C + C * P) * isz, 4 * BATCH * P * P * C,
-                dt_name))
-            cases.append(c)
+            yield i, P, C, dt_name, (pT.to(dtype), lz.to(dtype),
+                                     U.to(dtype)), dY.to(dtype)
+
+
+def _stf_bound(args, dt_name, backward):
+    """Bytes of pooledT, lz, U in and Y out (backward: pooledT, lz, U, dY
+    in and dpooledT, dlz, dU out); products 4 BB P^2 C (backward: the TPU
+    body's five, 10 BB P^2 C)."""
+    pT, _, _ = args
+    BB, P, C = pT.shape
+    isz = pT.element_size()
+    if not backward:
+        return _bound((3 * BB * P * C + C * P) * isz, 4 * BB * P * P * C,
+                      dt_name)
+    return _bound((5 * BB * P * C + 2 * C * P) * isz, 10 * BB * P * P * C,
+                  dt_name)
+
+
+def phase_stf_vs_plain():
+    """2g: the STF gate kernel at ST-SSD's stages 0-1."""
+    from medical_image_classification_tpu_torch.kernels import (
+        stf_zgate as stf)
+    cases = []
+    for i, P, C, dt_name, args, _ in _stf_cases():
+        c = _st_case(f"STF gate kernel vs plain P={P} C={C} {dt_name}",
+                     lambda: stf.stf_zgate_fwd(*args, impl="cuda"),
+                     lambda: stf.stf_zgate_fwd_ref(*args), dt_name, (5, 2))
+        c.update(L=P, shape=f"BB{BATCH} P{P} C{C}",
+                 bound=_stf_bound(args, dt_name, False))
+        cases.append(c)
     print(f"phase 2g STF gate forward kernel vs plain: {len(cases)}/4 cases "
           f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
           f"bit-identical | {_st_summary(cases)}", flush=True)
     return cases
+
+
+def _st_bwd_case(what, names, run_k, run_p, dt_name, reps):
+    """One ST-SSD backward case: two launches bit-identical, every
+    cotangent against the plain backward within ST_GRAD_TOL, times from
+    CUDA events (``reps`` = kernel, plain repetitions)."""
+    import torch
+    gk, gk2, gp = run_k(), run_k(), run_p()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
+        raise AssertionError(f"{what}: two launches differ in the bits")
+    errs = {nm: _check_scaled(f"{what} {nm}", a, b, *ST_GRAD_TOL[dt_name])
+            for nm, a, b in zip(names, gk, gp)}
+    scales = {nm: float(b.float().abs().max()) for nm, b in zip(names, gp)}
+    del gk, gk2, gp
+    return dict(dtype=dt_name, errs=errs, plain_max=scales,
+                max_abs_err=max(errs.values()),
+                ms=_events_ms(run_k, reps[0]),
+                plain_ms=_events_ms(run_p, reps[1]))
+
+
+def _vs_autograd(what, names, run_fn, run_ref, args, grad_out):
+    """A Function on the card against torch.autograd through the plain
+    forward (fp32, ST_GRAD_TOL): the max abs error over the cotangents."""
+    import torch
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    run_fn(*leaves).backward(grad_out)
+    got = [a.grad for a in leaves]
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(run_ref(*leaves), leaves, grad_out)
+    return max(_check_scaled(f"{what} vs autograd {nm}", a, b,
+                             *ST_GRAD_TOL["fp32"])
+               for nm, a, b in zip(names, got, want))
+
+
+def _st_bwd_summary(cases):
+    return "; ".join(
+        f"{c['shape']} {c['dtype']} " + " ".join(
+            f"{k}={v:.2e} (max|plain| {c['plain_max'][k]:.3g})"
+            for k, v in c["errs"].items())
+        + f" kernel={c['ms']:.3f}ms plain={c['plain_ms']:.2f}ms "
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]})" for c in cases)
+
+
+def phase_ydiag_bwd_vs_plain():
+    """2h: the Y_diag backward kernel at 2e's cases; YDiagFused against
+    torch.autograd in fp32."""
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_ydiag as yd)
+    BC, l, H, N, P = ST_YDIAG
+    names = ST_GRAD_NAMES["ssd_ydiag"]
+    cases = []
+    for dt_name, args, dy in _ydiag_cases():
+        c = _st_bwd_case(
+            f"Y_diag backward kernel vs plain {dt_name}", names,
+            lambda: yd.ydiag_fused_bwd(*args, dy, impl="cuda"),
+            lambda: yd.ydiag_fused_bwd_ref(*args, dy), dt_name, (5, 2))
+        c.update(shape=f"BC{BC} l{l} H{H} N{N} P{P}",
+                 bound=_ydiag_bound(args, dt_name, True))
+        cases.append(c)
+        if dt_name == "fp32":
+            auto = _vs_autograd(
+                "YDiagFused", names,
+                lambda *a: yd.ydiag_fused(*a, impl="cuda"),
+                yd.ydiag_fused_ref, args, dy)
+    print(f"phase 2h Y_diag backward kernel vs plain: {len(cases)}/2 cases "
+          f"within {ST_GRAD_TOL} (rtol, atol x max|plain|) on all 4 "
+          f"cotangents, second launch bit-identical | YDiagFused vs "
+          f"torch.autograd through the plain forward, fp32: max err "
+          f"{auto:.2e} | {_st_bwd_summary(cases)}", flush=True)
+    return dict(cases=cases, autograd_err=auto)
+
+
+def phase_stl_bwd_vs_plain():
+    """2i: the STL mixer backward kernel at 2f's cases; STLMixer against
+    torch.autograd at stage 1 in fp32."""
+    from medical_image_classification_tpu_torch.kernels import (
+        stl_mixer as stl)
+    names = ST_GRAD_NAMES["stl_mixer"]
+    cases = []
+    for i, L, C, dt_name, args, dU in _stl_cases():
+        reps = (2, 1) if dt_name == "fp32" and i == 0 else (3, 1)
+        c = _st_bwd_case(
+            f"STL mixer backward kernel vs plain L=P={L} C={C} {dt_name}",
+            names, lambda: stl.stl_mixer_bwd(*args, dU, impl="cuda"),
+            lambda: stl.stl_mixer_bwd_ref(*args, dU), dt_name, reps)
+        c.update(L=L, shape=f"BB{4 * BATCH} L=P{L} C{C}",
+                 bound=_stl_bound(args, dt_name, True))
+        cases.append(c)
+        if i == 1 and dt_name == "fp32":
+            auto = _vs_autograd(
+                "STLMixer", names,
+                lambda *a: stl.STLMixer.apply(*a, "cuda"),
+                stl.stl_mixer_fwd_ref, args, dU)
+        del args, dU
+    print(f"phase 2i STL mixer backward kernel vs plain: {len(cases)}/4 cases "
+          f"within {ST_GRAD_TOL} (rtol, atol x max|plain|) on all 3 "
+          f"cotangents, second launch bit-identical | STLMixer vs "
+          f"torch.autograd through the plain forward at stage 1 fp32: max "
+          f"err {auto:.2e} | {_st_bwd_summary(cases)}", flush=True)
+    return dict(cases=cases, autograd_err=auto)
+
+
+def phase_stf_bwd_vs_plain():
+    """2j: the STF gate backward kernel at 2g's cases; STFZGate against
+    torch.autograd at stage 1 in fp32."""
+    from medical_image_classification_tpu_torch.kernels import (
+        stf_zgate as stf)
+    names = ST_GRAD_NAMES["stf_zgate"]
+    cases = []
+    for i, P, C, dt_name, args, dY in _stf_cases():
+        c = _st_bwd_case(
+            f"STF gate backward kernel vs plain P={P} C={C} {dt_name}",
+            names, lambda: stf.stf_zgate_bwd(*args, dY, impl="cuda"),
+            lambda: stf.stf_zgate_bwd_ref(*args, dY), dt_name, (5, 2))
+        c.update(L=P, shape=f"BB{BATCH} P{P} C{C}",
+                 bound=_stf_bound(args, dt_name, True))
+        cases.append(c)
+        if i == 1 and dt_name == "fp32":
+            auto = _vs_autograd(
+                "STFZGate", names,
+                lambda *a: stf.stf_zgate(*a, impl="cuda"),
+                stf.stf_zgate_fwd_ref, args, dY)
+    print(f"phase 2j STF gate backward kernel vs plain: {len(cases)}/4 cases "
+          f"within {ST_GRAD_TOL} (rtol, atol x max|plain|) on all 3 "
+          f"cotangents, second launch bit-identical | STFZGate vs "
+          f"torch.autograd through the plain forward at stage 1 fp32: max "
+          f"err {auto:.2e} | {_st_bwd_summary(cases)}", flush=True)
+    return dict(cases=cases, autograd_err=auto)
 
 
 def _bound(nbytes, ops, dtype):
@@ -662,33 +866,41 @@ def _counters():
             "selective_scan_bwd": ssb.scan_folded_bwd,
             "ssd_fused_dirs_fwd": sfd.ssd_fused_dirs_fwd,
             "ssd_fused_dirs_bwd": sfd.ssd_fused_dirs_bwd,
-            "ssd_ydiag_fwd": yd.ydiag_fused,
+            "ssd_ydiag_fwd": yd.ydiag_fused_fwd,
+            "ssd_ydiag_bwd": yd.ydiag_fused_bwd,
             "stl_mixer_fwd": stl.stl_mixer_fwd,
-            "stf_zgate_fwd": stf.stf_zgate_fwd}
+            "stl_mixer_bwd": stl.stl_mixer_bwd,
+            "stf_zgate_fwd": stf.stf_zgate_fwd,
+            "stf_zgate_bwd": stf.stf_zgate_bwd}
 
 
 def _path(name):
     """What the phases of model ``name`` count and split: ({kernel name:
-    launches per model forward}, the names of its forward and backward
-    kernels in training (None: it does not train on the card yet),
-    {profile share: kernel name patterns})."""
+    launches per model forward}, {forward kernel: its backward kernel} in
+    training, {profile share: kernel name patterns})."""
     if name == "medmamba":
         return ({"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
-                ("selective_scan_fwd", "selective_scan_bwd"),
+                {"selective_scan_fwd": "selective_scan_bwd"},
                 {"scan forward": ("scan_fwd_kernel",),
                  "scan backward": ("scan_bwd_kernel",)})
     if name == "medssd":
         return ({"ssd_fused_dirs_fwd": SSD_CALLS_PER_FORWARD},
-                ("ssd_fused_dirs_fwd", "ssd_fused_dirs_bwd"),
+                {"ssd_fused_dirs_fwd": "ssd_fused_dirs_bwd"},
                 {"ssd scores": ("scores_kernel",),
                  "ssd forward": ("fwd_walk_kernel",),
                  "ssd backward": ("intra_kernel", "bwd_walk_kernel",
                                   "flush_kernel")})
     if name == "st_ssd":
-        return (dict(ST_CALLS_PER_FORWARD), None,
+        return (dict(ST_CALLS_PER_FORWARD), dict(ST_TRAIN_PAIRS),
                 {"ssd ydiag": ("ydiag_kernel",),
+                 "ssd ydiag backward": ("ydiag_grad_kernel",
+                                        "ydiag_dcb_kernel"),
                  "stl mixer": ("stats_kernel", "mix_kernel"),
-                 "stf gate": ("zgate_kernel",)})
+                 "stl mixer backward": ("mix_rows_bwd_kernel",
+                                        "mix_cols_bwd_kernel"),
+                 "stf gate": ("zgate_kernel",),
+                 "stf gate backward": ("gate_rows_bwd_kernel",
+                                       "gate_cols_bwd_kernel")})
     raise ValueError(f"chip_smoke has no path for model {name!r}")
 
 
@@ -869,9 +1081,11 @@ def phase_train(card, name, num):
         make_lr_scheduler, make_optimizer, make_schedule)
     from medical_image_classification_tpu_torch.train.train_step import (
         TrainState, make_train_step)
-    calls, (fwd_name, bwd_name), split = _path(name)
+    calls, pairs, split = _path(name)
     counters = _counters()
-    fwd, bwd, calls = counters[fwd_name], counters[bwd_name], calls[fwd_name]
+    want = {k: 0 for k in counters}
+    for f, b in pairs.items():
+        want[f] = want[b] = calls[f] * STEPS
     dev = torch.device("cuda")
     model = _model(name, torch.bfloat16, "auto")
     model.seed_drop_path(1)
@@ -884,13 +1098,13 @@ def phase_train(card, name, num):
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     loader = SyntheticLoader(BATCH, SIZE, CLASSES, steps=STEPS, seed=2)
     torch.cuda.synchronize()
-    fwd.launches = bwd.launches = 0
+    for c in counters.values():
+        c.launches = 0
     m = run_train(model, opt, sched, loader, dev, state=state)
-    launches = (fwd.launches, bwd.launches)
-    if launches != (calls * STEPS, calls * STEPS):
-        raise AssertionError(f"{name}: {STEPS} train steps launched the "
-                             f"forward and backward kernels {launches} "
-                             f"times, expected {calls} each per step")
+    launches = _launches(counters)
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches in {STEPS} train "
+                             f"steps {launches}, expected {want}")
     if not math.isfinite(m["loss"]) or state.step != 1 + STEPS:
         raise AssertionError(f"train loss {m['loss']}, step {state.step}")
     still = sorted(n for n, p in model.named_parameters()
@@ -957,10 +1171,13 @@ def phase_train(card, name, num):
           f"{med16['torch']:.3e} ({max(dist['torch']):.3e}), ratio "
           f"{med16['cuda'] / max(med16['torch'], 1e-30):.3f} (max "
           f"{BF16_GRAD_RATIO})")
+    per_step = ", ".join(f"{f} + {b} {launches[f]} + {launches[b]} "
+                         f"({launches[f] // STEPS} + {launches[b] // STEPS} "
+                         f"per step)" for f, b in pairs.items())
     print(f"phase {num} {name} {SIZE}x{SIZE} b{BATCH} bf16 training via "
           f"run_train, Adam 1e-4: {STEPS} steps after 1 warm-up, kernel "
-          f"launches fwd {launches[0]} bwd {launches[1]} ({launches[0] // STEPS}"
-          f" + {launches[1] // STEPS} per step), loss {m['loss']:.4f} finite, "
+          f"launches {per_step}, the other kernels none, loss "
+          f"{m['loss']:.4f} finite, "
           f"all {len(before)} parameters moved | train {m['img_s']:.2f} img/s "
           f"({m['seconds']:.3f} s for {BATCH * STEPS} images, host data and "
           f"copies included) on {card} | param grads kernels vs plain, "
@@ -971,48 +1188,9 @@ def phase_train(card, name, num):
           f"{100 * total_ms / resident_ms:.1f}% of the resident step): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
           + f"; top of the rest: {top}", flush=True)
-    return dict(launches_fwd=launches[0], launches_bwd=launches[1],
-                loss=m["loss"], img_s=m["img_s"], seconds=m["seconds"],
+    return dict(launches=launches, loss=m["loss"], img_s=m["img_s"], seconds=m["seconds"],
                 resident_step_ms=resident_ms, device_step_ms=total_ms,
                 grad_check=grad_check, step_ms=times, profile=rows)
-
-
-def phase_train_refused(name, num):
-    """Training ``name`` on the card through run_train raises
-    NotImplementedError before any optimizer step: its kernels have no
-    backward yet, and nothing falls back to the plain versions."""
-    import torch
-    from medical_image_classification_tpu_torch.cli.train import run_train
-    from medical_image_classification_tpu_torch.data.loader import (
-        SyntheticLoader)
-    from medical_image_classification_tpu_torch.train.optim import (
-        make_lr_scheduler, make_optimizer, make_schedule)
-    from medical_image_classification_tpu_torch.train.train_step import (
-        TrainState)
-    model = _model(name, torch.bfloat16, "auto")
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    opt = make_optimizer("adam", model.named_parameters())
-    sched = make_lr_scheduler(opt, make_schedule("constant", 1e-4))
-    state = TrainState()
-    try:
-        run_train(model, opt, sched, SyntheticLoader(GRAD_BATCH, SIZE,
-                                                     CLASSES, steps=1,
-                                                     seed=1),
-                  torch.device("cuda"), state=state)
-    except NotImplementedError as e:
-        msg = str(e)
-    else:
-        raise AssertionError(f"{name} trained on the card, but its kernels "
-                             "have no backward yet")
-    moved = [n for n, p in model.named_parameters()
-             if not torch.equal(p, before[n])]
-    if "ROADMAP" not in msg or moved or state.step:
-        raise AssertionError(f"{name} training: refusal {msg!r}, step "
-                             f"{state.step}, parameters moved: {moved[:5]}")
-    print(f"phase {num} {name} training on the card via run_train refused "
-          f"before any step (no parameter moved): NotImplementedError: "
-          f"{msg}", flush=True)
-    return msg
 
 
 def _entry(name, replaces, cases, launches, head, bound):
@@ -1046,56 +1224,66 @@ def main(argv=None):
     yd_cases = phase_ydiag_vs_plain()
     stl_cases = phase_stl_vs_plain()
     stf_cases = phase_stf_vs_plain()
+    yd_bwd = phase_ydiag_bwd_vs_plain()
+    stl_bwd = phase_stl_bwd_vs_plain()
+    stf_bwd = phase_stf_bwd_vs_plain()
     full = phase_full_model(card, "medmamba", 3)
     train = phase_train(card, "medmamba", 4)
     ssd_full = phase_full_model(card, "medssd", 5)
     ssd_train = phase_train(card, "medssd", 6)
     st_full = phase_full_model(card, "st_ssd", 7)
-    st_refusal = phase_train_refused("st_ssd", 8)
+    st_train = phase_train(card, "st_ssd", 8)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
                     or m.split(".")[0] == "medical_image_classification_tpu")
     if leaked:
         raise AssertionError(f"the port's path imported {leaked[:5]}")
-    # times and bounds at stage 0 in bf16 (the forward scan's direction 0)
+    # launches in the training runs; times and bounds at stage 0 in bf16
+    # (the forward scan's direction 0)
     scan_head = lambda c: (c["L"] == STAGES[0][0] and c["dtype"] == "bf16"
                            and not c["reverse"])
     ssd_head = lambda c: c["L"] == SSD_STAGES[0][0] and c["dtype"] == "bf16"
-    entries = [
-        _entry("selective_scan_fwd", "selective_scan_pallas_v2.py:36", cases,
-               train["launches_fwd"], scan_head,
-               _scan_bound(*STAGES[0], "bf16", False)),
-        _entry("selective_scan_bwd", "selective_scan_pallas_bwd_v2.py:57",
-               bwd["cases"], train["launches_bwd"], scan_head,
-               _scan_bound(*STAGES[0], "bf16", True)),
-        _entry("ssd_fused_dirs_fwd", "ssd_fused_dirs_pallas.py:178",
-               ssd_cases, ssd_train["launches_fwd"], ssd_head,
-               next(c for c in ssd_cases if ssd_head(c))["bound"]),
-        _entry("ssd_fused_dirs_bwd", "ssd_fused_dirs_pallas.py:240",
-               ssd_bwd["cases"], ssd_train["launches_bwd"], ssd_head,
-               next(c for c in ssd_bwd["cases"] if ssd_head(c))["bound"])]
-    # the ST-SSD kernels: launches in st_ssd eval, times and bounds at
-    # stage 0 in bf16
     st_head = lambda c: c.get("L", ST_STAGES[0][0]) == ST_STAGES[0][0] \
         and c["dtype"] == "bf16"
-    for name, replaces, st_cases in (
-            ("ssd_ydiag_fwd", "ssd_ydiag_pallas.py:153", yd_cases),
-            ("stl_mixer_fwd", "stl_mixer_pallas.py:85", stl_cases),
-            ("stf_zgate_fwd", "stf_zgate_pallas.py:76", stf_cases)):
-        head = next(c for c in st_cases if st_head(c))
+    entries = [
+        _entry("selective_scan_fwd", "selective_scan_pallas_v2.py:36", cases,
+               train["launches"]["selective_scan_fwd"], scan_head,
+               _scan_bound(*STAGES[0], "bf16", False)),
+        _entry("selective_scan_bwd", "selective_scan_pallas_bwd_v2.py:57",
+               bwd["cases"], train["launches"]["selective_scan_bwd"],
+               scan_head, _scan_bound(*STAGES[0], "bf16", True))]
+    for name, replaces, st_cases, head, launches in (
+            ("ssd_fused_dirs_fwd", "ssd_fused_dirs_pallas.py:178", ssd_cases,
+             ssd_head, ssd_train),
+            ("ssd_fused_dirs_bwd", "ssd_fused_dirs_pallas.py:240",
+             ssd_bwd["cases"], ssd_head, ssd_train),
+            ("ssd_ydiag_fwd", "ssd_ydiag_pallas.py:153", yd_cases, st_head,
+             st_train),
+            ("ssd_ydiag_bwd", "ssd_ydiag_pallas.py:174", yd_bwd["cases"],
+             st_head, st_train),
+            ("stl_mixer_fwd", "stl_mixer_pallas.py:85", stl_cases, st_head,
+             st_train),
+            ("stl_mixer_bwd", "stl_mixer_pallas.py:107", stl_bwd["cases"],
+             st_head, st_train),
+            ("stf_zgate_fwd", "stf_zgate_pallas.py:76", stf_cases, st_head,
+             st_train),
+            ("stf_zgate_bwd", "stf_zgate_pallas.py:85", stf_bwd["cases"],
+             st_head, st_train)):
         entries.append(_entry(name, replaces, st_cases,
-                              st_full["launches"][name], st_head,
-                              head["bound"]))
+                              launches["launches"][name], head,
+                              next(c for c in st_cases if head(c))["bound"]))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, cases=cases, bwd=bwd,
                            ssd_cases=ssd_cases, ssd_bwd=ssd_bwd,
                            ydiag_cases=yd_cases, stl_cases=stl_cases,
-                           stf_cases=stf_cases, full_model=full, train=train,
+                           stf_cases=stf_cases, ydiag_bwd=yd_bwd,
+                           stl_bwd=stl_bwd, stf_bwd=stf_bwd,
+                           full_model=full, train=train,
                            medssd_eval=ssd_full, medssd_train=ssd_train,
-                           st_ssd_eval=st_full, st_ssd_train=st_refusal),
+                           st_ssd_eval=st_full, st_ssd_train=st_train),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

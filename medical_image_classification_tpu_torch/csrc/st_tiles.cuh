@@ -1,8 +1,9 @@
-// Tile pieces shared by the ST-SSD slice's forward kernels
-// (ssd_ydiag_fwd.cu, stl_mixer_fwd.cu, stf_zgate_fwd.cu): operand-type
-// conversions, masked tile loads into shared memory, and the two block
-// products each of them makes per step:
-//   gemm_s       S[64][64] (fp32, shared) = A[64][K] . B[K][64]
+// Tile pieces shared by the ST-SSD slice's kernels (ssd_ydiag_{fwd,bwd}.cu,
+// stl_mixer_{fwd,bwd}.cu, stf_zgate_{fwd,bwd}.cu): operand-type
+// conversions, masked tile loads into shared memory, reductions over the
+// four threads of a row, and the two block products each of them makes per
+// step:
+//   gemm_s       S[64][64] (fp32, shared) = (or +=) A[64][K] . B[K][64]
 //   Acc<T, CW>   O[64][CW] += A[64][64] . B[64][CW], held in registers
 // In bf16 both run on the tensor cores through WMMA (16x16x16 bf16
 // fragments, fp32 accumulators); in fp32 on the CUDA cores, without TF32
@@ -85,14 +86,30 @@ __device__ __forceinline__ void load_tile(T* dst, int ldd, const T* src,
   }
 }
 
-// S[64][kLdS] = A[64][K] . B[K][64]; A row-major (lda); B row-major [K][64]
-// (ldb) or, with kBT, stored transposed as [64][K] (ldb).  K % 16 == 0.
-// The caller synchronises before and after.
-template <bool kBT>
+// Max and sum over the four neighbouring threads that share a row.
+__device__ __forceinline__ float group4_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float group4_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// S[64][kLdS] = A[64][K] . B[K][64], or with kAdd S += A . B; A row-major
+// (lda); B row-major [K][64] (ldb) or, with kBT, stored transposed as
+// [64][K] (ldb).  K % 16 == 0.  The caller synchronises before and after.
+template <bool kBT, bool kAdd = false>
 __device__ __forceinline__ void gemm_s(float* S, const float* A, int lda,
                                        const float* B, int ldb, int K) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4] = {};
+  float acc[4][4];
+#pragma unroll
+  for (int qi = 0; qi < 4; ++qi)
+#pragma unroll
+    for (int qj = 0; qj < 4; ++qj)
+      acc[qi][qj] = kAdd ? S[(ty * 4 + qi) * kLdS + tx + 16 * qj] : 0.f;
   for (int k = 0; k < K; ++k) {
     float a[4], b[4];
 #pragma unroll
@@ -112,7 +129,7 @@ __device__ __forceinline__ void gemm_s(float* S, const float* A, int lda,
       S[(ty * 4 + qi) * kLdS + tx + 16 * qj] = acc[qi][qj];
 }
 
-template <bool kBT>
+template <bool kBT, bool kAdd = false>
 __device__ __forceinline__ void gemm_s(float* S, const bf16* A, int lda,
                                        const bf16* B, int ldb, int K) {
   using namespace nvcuda;
@@ -121,8 +138,14 @@ __device__ __forceinline__ void gemm_s(float* S, const bf16* A, int lda,
   typedef typename std::conditional<kBT, wmma::col_major,
                                     wmma::row_major>::type BLayout;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (kAdd)
+      wmma::load_matrix_sync(acc[j], S + r * kLdS + c0 + 16 * j, kLdS,
+                             wmma::mem_row_major);
+    else
+      wmma::fill_fragment(acc[j], 0.f);
+  }
   for (int k = 0; k < K; k += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
     wmma::load_matrix_sync(a, A + r * lda + k, lda);
@@ -142,8 +165,9 @@ __device__ __forceinline__ void gemm_s(float* S, const bf16* A, int lda,
 
 // O[64][CW] += A[64][64] . B[64][CW] over the block, in fp32.  A is
 // row-major [i][k] (lda) or, with kAT, stored transposed as [k][i]; B is
-// row-major [k][c] (ldb).  store(fn, stg) calls fn(row, col, value) once
-// per element; stg is the calling warp's 256 floats of shared staging.
+// row-major [k][c] (ldb) or, with kBT, stored transposed as [c][k].
+// store(fn, stg) calls fn(row, col, value) once per element; stg is the
+// calling warp's 256 floats of shared staging.
 template <typename T, int CW>
 struct Acc;
 
@@ -159,7 +183,7 @@ struct Acc<float, CW> {
       for (int j = 0; j < NC; ++j) v[q][j] = 0.f;
   }
 
-  template <bool kAT>
+  template <bool kAT, bool kBT = false>
   __device__ __forceinline__ void mma(const float* A, int lda,
                                       const float* B, int ldb) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -170,7 +194,8 @@ struct Acc<float, CW> {
         a[q] = kAT ? A[k * lda + ty * 4 + q] : A[(ty * 4 + q) * lda + k];
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const float b = B[k * ldb + tx + 16 * j];
+        const float b =
+            kBT ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
 #pragma unroll
         for (int q = 0; q < 4; ++q) v[q][j] += a[q] * b;
       }
@@ -199,7 +224,7 @@ struct Acc<bf16, CW> {
     for (int j = 0; j < NF; ++j) nvcuda::wmma::fill_fragment(f[j], 0.f);
   }
 
-  template <bool kAT>
+  template <bool kAT, bool kBT = false>
   __device__ __forceinline__ void mma(const bf16* A, int lda, const bf16* B,
                                       int ldb) {
     using namespace nvcuda;
@@ -207,14 +232,18 @@ struct Acc<bf16, CW> {
     const int r = (warp & 3) * 16, c0 = (warp >> 2) * (CW / 2);
     typedef typename std::conditional<kAT, wmma::col_major,
                                       wmma::row_major>::type ALayout;
+    typedef typename std::conditional<kBT, wmma::col_major,
+                                      wmma::row_major>::type BLayout;
 #pragma unroll
     for (int k = 0; k < kT; k += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
       wmma::load_matrix_sync(a, kAT ? A + k * lda + r : A + r * lda + k, lda);
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + k * ldb + c0 + 16 * j, ldb);
+        const int c = c0 + 16 * j;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
+        wmma::load_matrix_sync(b, kBT ? B + c * ldb + k : B + k * ldb + c,
+                               ldb);
         wmma::mma_sync(f[j], a, b, f[j]);
       }
     }

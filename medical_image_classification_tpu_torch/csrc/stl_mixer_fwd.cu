@@ -57,16 +57,6 @@ struct StlSmem {
   }
 };
 
-__device__ __forceinline__ float group4_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float group4_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
     stats_kernel(const T* __restrict__ w, const T* __restrict__ u1,

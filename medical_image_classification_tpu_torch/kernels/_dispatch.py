@@ -2,9 +2,9 @@
 
 ``impl`` is "auto" (the CUDA kernel for a CUDA tensor, the plain version
 for a CPU tensor), "cuda" (launch the kernel or raise) or "torch" (the
-plain version on any device).  A kernel with no backward yet refuses a
-call that autograd would have to differentiate, rather than return an
-output without a gradient.
+plain version on any device).  Under autograd each kernel's entry point
+goes through its ``torch.autograd.Function``, whose backward dispatches by
+the same rule, so no output of a kernel loses its ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -25,17 +25,6 @@ def resolve_impl(impl: str, t: torch.Tensor, what: str) -> str:
         raise ValueError(f"impl='cuda' needs CUDA tensors; the {what} "
                          f"operands are on {t.device}")
     return impl
-
-
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise if autograd would need the backward of the forward-only
-    kernel ``what``: grad mode on and an operand that requires grad."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel has a forward only, so st_ssd trains "
-            "on the CPU (the plain versions) but not yet on the card; its "
-            "backward kernels are the next slice (ROADMAP.md Queue 1 item "
-            "9b, Queue 2 rows 7b-9b)")
 
 
 def dense(t: torch.Tensor) -> torch.Tensor:

@@ -149,9 +149,11 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
     Matmul operands are in x's dtype with the same outputs as the JAX
     einsums (the chunk states accumulate in fp32); dt, the cumsums and the
     carried state are fp32.  D is [H].  Where ``ydiag_supported`` takes
-    the chunk, Y_diag is ``ydiag_fused`` (the CUDA kernel by ``impl``, see
-    ``kernels/ssd_ydiag.py``), which rounds M = scores x decay once where
-    the einsum rounds the scores and the decay each."""
+    the chunk, Y_diag is ``ydiag_fused`` (the CUDA kernels by ``impl``,
+    forward and, under autograd, backward; see ``kernels/ssd_ydiag.py``),
+    whose gradient reaches dt, dt_bias and A through dacum; it rounds
+    M = scores x decay once where the einsum rounds the scores and the
+    decay each."""
     mm = x.dtype
     f32 = torch.float32
     Bsz, L, H, P = x.shape

@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from medical_image_classification_tpu_torch.kernels.stf_zgate import (
-    stf_zgate_fwd,
+    stf_zgate,
     stf_zgate_supported,
 )
 from medical_image_classification_tpu_torch.kernels.stl_mixer import (
@@ -193,13 +193,16 @@ def _adaptive_bins(n_in: int, n_out: int, device: torch.device,
     """torch's AdaptiveAvgPool bins as a [n_in, n_out] matrix:
     out[i] = mean(x[floor(i n_in / n_out) : ceil((i + 1) n_in / n_out)]).
     Cached per device and dtype: a constant of the model, as in the JAX
-    module, not a host-to-device copy on every forward."""
-    M = torch.zeros(n_in, n_out)
-    for i in range(n_out):
-        a = (i * n_in) // n_out
-        b = -(-((i + 1) * n_in) // n_out)
-        M[a:b, i] = 1.0 / (b - a)
-    return M.to(device, dtype)
+    module, not a host-to-device copy on every forward.  Built outside
+    inference mode, so that a matrix first made by an eval forward is still
+    one that a later training step can save for its backward."""
+    with torch.inference_mode(False):
+        M = torch.zeros(n_in, n_out)
+        for i in range(n_out):
+            a = (i * n_in) // n_out
+            b = -(-((i + 1) * n_in) // n_out)
+            M[a:b, i] = 1.0 / (b - a)
+        return M.to(device, dtype)
 
 
 class STF(nn.Module):
@@ -247,7 +250,7 @@ class STF(nn.Module):
         pooledT = pooled.transpose(1, 2)                   # [B, P, C]
         weighted = m * pooledT * u_scale.to(cd)
         if stf_zgate_supported(P, pooledT.shape[-1]):
-            return weighted + stf_zgate_fwd(pooledT, lz, U, impl=self.impl)
+            return weighted + stf_zgate(pooledT, lz, U, impl=self.impl)
         Z = torch.sigmoid(pooledT @ lz)                    # [B, P, P]
         return weighted + Z @ U
 

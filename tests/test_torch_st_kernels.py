@@ -1,11 +1,14 @@
-"""The plain versions of the ST-SSD slice's three kernels against the JAX
-package's Pallas kernels (run in interpret mode, as the JAX package's own
-tests run them on the CPU): Y_diag, the STL token mixer and the STF gate,
-in fp32 and bf16 on the same seeded numpy inputs; the port's
-``ssd_chunked`` with its Y_diag branch against the JAX one with
-``ydiag_fused``; the ST-SSD core stack; the gates at st_ssd's stages; the
-wrappers' refusals."""
+"""The plain versions of the ST-SSD slice's three kernels, forward and
+backward, against the JAX package's Pallas kernels and their custom VJPs
+(run in interpret mode, as the JAX package's own tests run them on the
+CPU): Y_diag, the STL token mixer and the STF gate, in fp32 and bf16 on the
+same seeded numpy inputs; the autograd Functions against torch.autograd
+through the plain forwards, and the entry points' routing through them; the
+port's ``ssd_chunked`` with its Y_diag branch against the JAX one with
+``ydiag_fused``, values and gradients; the ST-SSD core stack; the gates at
+st_ssd's stages; the wrappers' refusals."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,6 +174,190 @@ def test_gates_match_jax_at_st_ssd_stages():
     assert launches == [2, 4, 4]
 
 
+# the backward: (rtol, atol as a share of max|JAX|) per dtype.  fp32: other
+# summation orders.  bf16: both sides round M, E, dS and Z to bf16 at the
+# same points, then sum up to l or P rounded products; where the two fp32
+# sums straddle a rounding midpoint an operand lands one bf16 step away
+BWD_TOL = {"fp32": (1e-4, 1e-5), "bf16": (3e-2, 3e-2)}
+
+
+def _ydiag_args(rng, BC, l, H, P, N):
+    C, B = (0.3 * rng.standard_normal((2, BC, l, N))).astype(np.float32)
+    acum = np.cumsum(-0.4 * rng.random((BC, H, l)), -1).astype(np.float32)
+    dtx, dy = rng.standard_normal((2, BC, H, l, P)).astype(np.float32)
+    return (C, B, acum, dtx), dy
+
+
+def _stl_args(rng, BB, L, P, C):
+    w, V = (0.5 * rng.standard_normal((2, BB, L, C))).astype(np.float32)
+    u1 = rng.uniform(-0.08, 0.08, (C, P)).astype(np.float32)
+    dU = rng.standard_normal((BB, P, C)).astype(np.float32)
+    return (w, u1, V), dU
+
+
+def _stf_args(rng, BB, P, C):
+    pT = (0.5 * rng.standard_normal((BB, P, C))).astype(np.float32)
+    lz = rng.uniform(-0.1, 0.1, (C, P)).astype(np.float32)
+    U, dY = rng.standard_normal((2, BB, P, C)).astype(np.float32)
+    return (pT, lz, U), dY
+
+
+# (name, JAX custom VJP, port plain backward, inputs, which operands carry
+# the operand dtype: acum stays fp32 on both sides)
+BWD_CASES = [
+    ("ydiag", lambda: jyd.ydiag_fused, lambda: tyd.ydiag_fused_bwd_ref,
+     lambda rng: _ydiag_args(rng, 3, 40, 4, 16, 64), (True, True, False,
+                                                      True)),
+    ("ydiag_wide_n", lambda: jyd.ydiag_fused, lambda: tyd.ydiag_fused_bwd_ref,
+     lambda rng: _ydiag_args(rng, 2, 56, 2, 64, 128), (True, True, False,
+                                                       True)),
+    ("stl_mixer", lambda: jsmp._mixer, lambda: tsmp.stl_mixer_bwd_ref,
+     lambda rng: _stl_args(rng, 2, 64, 200, 128), (True, True, True)),
+    ("stl_mixer_c256", lambda: jsmp._mixer, lambda: tsmp.stl_mixer_bwd_ref,
+     lambda rng: _stl_args(rng, 1, 48, 40, 256), (True, True, True)),
+    ("stf_zgate", lambda: jszp.stf_zgate, lambda: tszp.stf_zgate_bwd_ref,
+     lambda rng: _stf_args(rng, 2, 200, 128), (True, True, True)),
+    ("stf_zgate_c256", lambda: jszp.stf_zgate, lambda: tszp.stf_zgate_bwd_ref,
+     lambda rng: _stf_args(rng, 1, 40, 256), (True, True, True)),
+]
+
+
+@pytest.mark.parametrize("case", DTYPES, ids=[c[0] for c in DTYPES])
+@pytest.mark.parametrize("name,jfn,tfn,make,cast", BWD_CASES,
+                         ids=[c[0] for c in BWD_CASES])
+def test_plain_backward_matches_jax_vjp(case, name, jfn, tfn, make, cast):
+    """Each plain backward against jax.vjp of the JAX custom VJP (its
+    Pallas backward kernel in interpret mode), every cotangent, the
+    cotangent given in the operand dtype."""
+    dt_name, jdt, tdt, _, _ = case
+    rtol, atol = BWD_TOL[dt_name]
+    args, g = make(np.random.default_rng(len(name)))
+    jargs = [jnp.asarray(a, jdt if c else jnp.float32)
+             for a, c in zip(args, cast)]
+    targs = [torch.from_numpy(a).to(tdt if c else torch.float32)
+             for a, c in zip(args, cast)]
+    _, vjp = jax.vjp(jfn(), *jargs)
+    want = vjp(jnp.asarray(g, jdt))
+    got = tfn()(*targs, torch.from_numpy(g).to(tdt))
+    assert len(got) == len(want) == len(args)
+    for k, (gt, wt, t) in enumerate(zip(got, want, targs)):
+        assert gt.dtype == t.dtype and gt.shape == t.shape, (k, gt.dtype)
+        _close(gt, wt, rtol, atol)
+
+
+# (name, Function entry taking (operands..., impl), plain forward, inputs)
+FN_CASES = [
+    ("ydiag", lambda *a: tyd.ydiag_fused(*a, impl="torch"),
+     lambda: tyd.ydiag_fused_ref,
+     lambda rng: _ydiag_args(rng, 2, 40, 4, 16, 64)),
+    ("stl_mixer", lambda *a: tsmp.STLMixer.apply(*a, "torch"),
+     lambda: tsmp.stl_mixer_fwd_ref,
+     lambda rng: _stl_args(rng, 2, 64, 72, 128)),
+    ("stf_zgate", lambda *a: tszp.stf_zgate(*a, impl="torch"),
+     lambda: tszp.stf_zgate_fwd_ref,
+     lambda rng: _stf_args(rng, 2, 72, 128)),
+]
+
+
+@pytest.mark.parametrize("name,entry,ref,make", FN_CASES,
+                         ids=[c[0] for c in FN_CASES])
+def test_functions_match_autograd(name, entry, ref, make):
+    """YDiagFused, STLMixer and STFZGate (impl "torch": the plain backward)
+    against torch.autograd through the plain forward, fp32, every operand's
+    gradient within 1e-4 x its max (the same formulas summed in other
+    orders; fp32 rounds nothing at the rounding points)."""
+    args, g = make(np.random.default_rng(7))
+    g = torch.from_numpy(g)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    out = entry(*leaves)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, g)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    want = torch.autograd.grad(ref()(*leaves), leaves, g)
+    for gt, wt in zip(got, want):
+        _close(gt, wt.numpy(), 1e-4, 1e-4)
+
+
+def _entries():
+    """(name, entry(impl) on small fp32 operands that require grad, the
+    Function's backward node name, the plain forward's module and name)."""
+    rng = np.random.default_rng(9)
+    yd, _ = _ydiag_args(rng, 1, 16, 2, 8, 64)
+    stl, _ = _stl_args(rng, 2, 16, 8, 128)
+    stf, _ = _stf_args(rng, 2, 8, 128)
+    u2 = rng.uniform(-0.1, 0.1, (128, 128)).astype(np.float32)
+    leaf = lambda a: torch.from_numpy(a).requires_grad_(True)
+    return [
+        ("ydiag", lambda impl: tyd.ydiag_fused(*map(leaf, yd), impl),
+         "YDiagFusedBackward", tyd, "ydiag_fused_fwd"),
+        ("stl_mixer", lambda impl: tsmp.stl_mixer(leaf(stl[0]), leaf(stl[1]),
+                                                  leaf(u2), impl),
+         "STLMixerBackward", tsmp, "stl_mixer_fwd"),
+        ("stf_zgate", lambda impl: tszp.stf_zgate(*map(leaf, stf), impl),
+         "STFZGateBackward", tszp, "stf_zgate_fwd")]
+
+
+@pytest.mark.parametrize("idx", range(3), ids=["ydiag", "stl_mixer",
+                                               "stf_zgate"])
+def test_entries_route_through_functions(monkeypatch, idx):
+    """Under autograd each entry point goes through its Function, so its
+    output has the Function's grad_fn and a backward reaches every operand
+    (an output without a grad_fn would drop its operands' gradients without
+    an error).  Under no_grad and inference_mode it calls the forward
+    dispatcher only, and the output has no grad_fn."""
+    name, run, node, mod, fwd = _entries()[idx]
+    calls = []
+    orig = getattr(mod, fwd)
+    monkeypatch.setattr(mod, fwd, lambda *a, **k: calls.append(1)
+                        or orig(*a, **k))
+    out = run("auto")
+    assert type(out.grad_fn).__name__ == node, out.grad_fn
+    out.sum().backward()
+    assert calls == [1]
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            out = run("auto")
+        assert out.grad_fn is None
+    assert calls == [1, 1, 1]
+
+
+def test_ssd_chunked_ydiag_branch_grads_match_jax(monkeypatch):
+    """The gradients of ``ssd_chunked`` through its Y_diag branch (the
+    Function's dacum carries A_cum's cotangent on to dt, dt_bias and A)
+    against jax.grad of the JAX one with ``ydiag_fused``, fp32, every input
+    within 1e-3 x its max."""
+    monkeypatch.setattr(jyd, "_MIN_L", 8)
+    monkeypatch.setattr(tyd, "_MIN_L", 8)
+    B, L, H, P, N = 1, 192, 2, 8, 64
+    rng = np.random.default_rng(11)
+    arrs = dict(
+        x=rng.standard_normal((B, L, H, P)),
+        dt=0.5 * rng.standard_normal((B, L, H)) - 1.0,
+        A=-rng.uniform(1.0, 4.0, H), Bm=0.3 * rng.standard_normal((B, L, 1, N)),
+        Cm=0.3 * rng.standard_normal((B, L, 1, N)),
+        D=rng.standard_normal(H), bias=rng.standard_normal(H))
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    g = rng.standard_normal((B, L, H, P)).astype(np.float32)
+
+    def jloss(a):
+        y = jssd.ssd_chunked(a["x"], a["dt"], a["A"], a["Bm"], a["Cm"],
+                             chunk_size=64, D=a["D"], dt_bias=a["bias"])
+        return jnp.sum(y * g)
+
+    want = jax.grad(jloss)({k: jnp.asarray(v) for k, v in arrs.items()})
+    calls = []
+    bwd = tyd.ydiag_fused_bwd
+    monkeypatch.setattr(tyd, "ydiag_fused_bwd",
+                        lambda *a, **k: calls.append(1) or bwd(*a, **k))
+    t = {k: torch.from_numpy(v).requires_grad_(True) for k, v in arrs.items()}
+    y = tssd.ssd_chunked(t["x"], t["dt"], t["A"], t["Bm"], t["Cm"], 64,
+                         t["D"], t["bias"])
+    (y * torch.from_numpy(g)).sum().backward()
+    assert calls == [1]                  # three chunks of 64, one call
+    for k in arrs:
+        _close(t[k].grad, want[k], 1e-3, 1e-3)
+
+
 def _bad_cases():
     f32, bf = torch.float32, torch.bfloat16
     z = lambda *s, dt=f32: torch.zeros(*s, dtype=dt)
@@ -201,6 +388,22 @@ def _bad_cases():
         z(2, 24, 64), z(64, 24), z(2, 24, 64)), ValueError
     yield "stf U", tszp._check_cuda_args, ok_stf[:2] + (
         z(2, 16, 128),), ValueError
+    # the backward kernels' cotangents and limits
+    yield "ydiag bwd ok", tyd._check_cuda_args, ok_yd + (ok_yd[3],), None
+    yield "ydiag bwd P", tyd._check_cuda_args, ok_yd[:3] + (
+        z(2, 4, 32, 72), z(2, 4, 32, 72)), ValueError
+    yield "ydiag bwd l", tyd._check_cuda_args, (
+        z(2, 264, 64), z(2, 264, 64), z(2, 4, 264), z(2, 4, 264, 8),
+        z(2, 4, 264, 8)), ValueError
+    yield "ydiag bwd dy", tyd._check_cuda_args, ok_yd + (
+        z(2, 4, 32, 8, dt=bf),), ValueError
+    yield "stl bwd ok", tsmp._check_cuda_args, ok_stl + (
+        z(2, 24, 128),), None
+    yield "stl bwd dU", tsmp._check_cuda_args, ok_stl + (
+        z(2, 16, 128),), ValueError
+    yield "stf bwd ok", tszp._check_cuda_args, ok_stf + (ok_stf[2],), None
+    yield "stf bwd dY", tszp._check_cuda_args, ok_stf + (
+        z(2, 24, 128)[:, ::2],), ValueError
 
 
 @pytest.mark.parametrize("name,check,args,exc",
@@ -226,9 +429,8 @@ def test_dense_copies_only_what_the_kernels_cannot_read():
 
 def test_dispatch_refusals():
     """impl 'cuda' on a CPU tensor and an unknown impl raise in every
-    dispatcher; the forward-only kernels refuse an input that autograd
-    would differentiate (grad mode on and an operand that requires grad),
-    and take it under no_grad / inference_mode."""
+    entry point and in every backward dispatcher (whose routing under
+    autograd ``test_entries_route_through_functions`` checks)."""
     t = torch.zeros(2, 16, 128)
     calls = [lambda impl: tyd.ydiag_fused(torch.zeros(1, 8, 64),
                                           torch.zeros(1, 8, 64),
@@ -239,17 +441,20 @@ def test_dispatch_refusals():
              lambda impl: tszp.stf_zgate_fwd(torch.zeros(2, 8, 128),
                                              torch.zeros(128, 8),
                                              torch.zeros(2, 8, 128), impl)]
+    calls += [lambda impl: tyd.ydiag_fused_bwd(torch.zeros(1, 8, 64),
+                                               torch.zeros(1, 8, 64),
+                                               torch.zeros(1, 2, 8),
+                                               torch.zeros(1, 2, 8, 8),
+                                               torch.zeros(1, 2, 8, 8), impl),
+              lambda impl: tsmp.stl_mixer_bwd(t, torch.zeros(128, 8), t,
+                                              torch.zeros(2, 8, 128), impl),
+              lambda impl: tszp.stf_zgate_bwd(*(torch.zeros(2, 8, 128),
+                                                torch.zeros(128, 8))
+                                              + (torch.zeros(2, 8, 128),) * 2,
+                                              impl)]
     for call in calls:
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             call("cuda")
         with pytest.raises(ValueError, match="unknown"):
             call("triton")
         call("auto")
-    leaf = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _dispatch.refuse_grad("STL mixer", t, leaf)
-    _dispatch.refuse_grad("STL mixer", t, leaf.detach())
-    with torch.no_grad():
-        _dispatch.refuse_grad("STL mixer", leaf)
-    with torch.inference_mode():
-        _dispatch.refuse_grad("STL mixer", leaf * 2)

@@ -1,13 +1,17 @@
 """A reduced ST-SSD built in the JAX package and carried into the port:
-eval logits (fp32 against the JAX package, bf16 against fp32), the
-state_dict keys through the JAX importer, and the init distributions.
+eval logits (fp32 against the JAX package, bf16 against fp32), one train
+step's whole gradient tree against the JAX step, a 5-step Adam trajectory,
+the state_dict keys through the JAX importer, and the init distributions.
 
 The reduced model keeps ST-SSD's structure at 32x32 with two stages
 (depths 1-1, dims 128-256, d_state 16 so N = 64, headdim 32, p = 8 and 4
 tokens per side).  With the gates widened to these shapes on both sides,
 as the JAX package's kernel tests widen them, every stage takes all three
 kernels: Y_diag (one chunk, l 64 and 16), the STL mixer and the STF gate
-(the port's plain versions; the JAX kernels in Pallas interpret mode)."""
+(the port's plain versions; the JAX kernels in Pallas interpret mode),
+forward and, in training, backward through their custom VJPs and the
+port's autograd Functions.  DropPath is off on both sides: the two
+frameworks' random streams cannot be matched."""
 
 import jax
 import numpy as np
@@ -26,16 +30,28 @@ from medical_image_classification_tpu.models import create_model as jax_create
 from medical_image_classification_tpu.train.train_state import (
     TrainState as JaxTrainState,
     make_eval_step as jax_make_eval_step,
+    make_train_step as jax_make_train_step,
+    make_train_step_fn as jax_make_train_step_fn,
 )
 from medical_image_classification_tpu.utils.torch_import import (
     import_medssd_state_dict,
 )
 from medical_image_classification_tpu_torch.models import create_model
 from medical_image_classification_tpu_torch.models.ss2d_modules import (
+    _adaptive_bins,
     lecun_normal_,
 )
 from medical_image_classification_tpu_torch.train.eval_step import (
     make_eval_step,
+)
+from medical_image_classification_tpu_torch.train.optim import (
+    make_lr_scheduler,
+    make_optimizer,
+    make_schedule,
+)
+from medical_image_classification_tpu_torch.train.train_step import (
+    TrainState,
+    make_train_step,
 )
 from medical_image_classification_tpu_torch.utils.weights import (
     st_ssd_state_dict_from_jax,
@@ -136,6 +152,124 @@ def test_eval_logits_match_jax(jax_model_and_weights, monkeypatch):
                                atol=2e-3 * scale)
     np.testing.assert_array_equal(logits_t.numpy().argmax(-1),
                                   logits_j.argmax(-1))
+
+
+def _train_port(params, stats, optimizer, lr):
+    port = _port(params, stats)
+    opt = make_optimizer(optimizer, port.named_parameters())
+    return port, make_train_step(port, opt, make_lr_scheduler(
+        opt, make_schedule("constant", lr)), state=TrainState())
+
+
+def _kernel_calls(monkeypatch):
+    """Count the plain forward and backward of each of the three kernels."""
+    calls = []
+    for mod, names in ((tyd, ("ydiag_fused_ref", "ydiag_fused_bwd_ref")),
+                       (tsmp, ("stl_mixer_fwd_ref", "stl_mixer_bwd_ref")),
+                       (tszp, ("stf_zgate_fwd_ref", "stf_zgate_bwd_ref"))):
+        for name in names:
+            fn = getattr(mod, name)
+            monkeypatch.setattr(mod, name, lambda *a, fn=fn, name=name:
+                                calls.append(name) or fn(*a))
+    return calls
+
+
+def _assert_tree_close(got, want, rtol, min_cos, abs_floor):
+    """Leaf-wise rel-norm and cosine (tests/test_reference_grad_parity.py
+    :70-98): a leaf passes if its error norm is under ``abs_floor`` or its
+    rel-norm error is <= rtol with cosine > min_cos."""
+    flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [k for k, _ in flat_g] == [k for k, _ in flat_w]
+    for (key, g), (_, w) in zip(flat_g, flat_w):
+        g = np.asarray(g, np.float64).ravel()
+        w = np.asarray(w, np.float64).ravel()
+        diff = np.linalg.norm(g - w)
+        if diff <= abs_floor:
+            continue
+        nw = np.linalg.norm(w)
+        cos = float(g @ w / (np.linalg.norm(g) * nw + 1e-30))
+        assert diff / nw <= rtol, (f"{jax.tree_util.keystr(key)}: rel-norm "
+                                   f"{diff / nw:.3e} (cos {cos:.6f})")
+        assert cos > min_cos, f"{jax.tree_util.keystr(key)}: cos {cos:.6f}"
+
+
+def test_train_step_grads_match_jax(jax_model_and_weights, monkeypatch):
+    """One train step from the same weights on the same batch; the JAX step
+    runs with SGD at lr 1, so its parameter change is its gradient.  Loss
+    within 2e-4 relative; every parameter's gradient leaf-wise within
+    rel-norm 2e-2 and cosine 0.998 above an abs floor of 2e-4 (the ladder
+    of tests/test_reference_grad_parity.py:70; fp32, the plain backwards,
+    the einsum SSD and the norms sum in other orders than the JAX kernels
+    and XLA).  Each kernel's plain backward ran once per stage, so every
+    gradient came through the three Functions."""
+    model, params, stats = jax_model_and_weights
+    imgs, labels = _images(3)
+    state = JaxTrainState.create(params, {"batch_stats": stats},
+                                 optax.sgd(1.0))
+    new_state, metrics = jax.jit(jax_make_train_step_fn(model))(
+        state, imgs, labels, jax.random.PRNGKey(0))
+    grads_j = jax.tree_util.tree_map(lambda a, b: np.asarray(a) - b,
+                                     state.params, new_state.params)
+
+    calls = _kernel_calls(monkeypatch)
+    port, step = _train_port(params, stats, "sgd", 1.0)
+    m = step(torch.from_numpy(imgs), torch.from_numpy(labels).long())
+    assert sorted(calls) == sorted(
+        ["ydiag_fused_ref", "stl_mixer_fwd_ref", "stf_zgate_fwd_ref",
+         "ydiag_fused_bwd_ref", "stl_mixer_bwd_ref", "stf_zgate_bwd_ref"]
+        * 2)
+    loss_j = float(metrics["loss"])
+    assert abs(float(m["loss"]) - loss_j) <= 2e-4 * abs(loss_j)
+    named = dict(port.named_parameters())
+    grads = {k: (named[k].grad if k in named else v).detach()
+             for k, v in port.state_dict().items()}
+    grads_t, _ = import_medssd_state_dict(grads, **IMPORT_CFG)
+    _assert_tree_close(grads_t, grads_j, 2e-2, 0.998, 2e-4)
+
+
+def test_adam_trajectory_matches_jax(jax_model_and_weights):
+    """Adam at lr 1e-4, a new batch each step, 5 steps: the per-step losses
+    within rtol 1e-2 (the ladder of the MedMamba and MedSSD trajectory
+    tests: Adam divides by sqrt(v), so fp32 gradient noise near zero grows
+    over the steps), and every parameter moved."""
+    model, params, stats = jax_model_and_weights
+    batches = [_images(10 + i) for i in range(5)]
+    state = JaxTrainState.create(params, {"batch_stats": stats},
+                                 optax.adam(1e-4))
+    step_j = jax_make_train_step(model, donate=False)
+    losses_j = []
+    for imgs, labels in batches:
+        state, metrics = step_j(state, imgs, labels, jax.random.PRNGKey(0))
+        losses_j.append(float(metrics["loss"]))
+
+    port, step = _train_port(params, stats, "adam", 1e-4)
+    before = {n: p.detach().clone() for n, p in port.named_parameters()}
+    losses_t = [float(step(torch.from_numpy(i),
+                           torch.from_numpy(l).long())["loss"])
+                for i, l in batches]
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-2, atol=2e-4)
+    still = [n for n, p in port.named_parameters()
+             if torch.equal(p, before[n])]
+    assert not still, still
+
+
+def test_trains_after_an_eval(jax_model_and_weights):
+    """An eval forward (inference mode) and then a train step, with the STF
+    pooling matrices made by the eval: the train step back-propagates and
+    matches the same step on a fresh model (the cached matrices were once
+    inference tensors, which autograd cannot save; the smoke run on the
+    card evals st_ssd before it trains it)."""
+    _, params, stats = jax_model_and_weights
+    imgs, labels = (torch.from_numpy(a) for a in _images(4))
+    labels = labels.long()
+    _adaptive_bins.cache_clear()
+    port, step = _train_port(params, stats, "sgd", 1e-2)
+    make_eval_step(port)(imgs, labels)
+    loss = float(step(imgs, labels)["loss"])
+    _adaptive_bins.cache_clear()
+    _, step2 = _train_port(params, stats, "sgd", 1e-2)
+    assert loss == float(step2(imgs, labels)["loss"])
 
 
 def test_bf16_logits_close_to_fp32(jax_model_and_weights):
