@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device and build: the card's name and power limit (nvidia-smi), the
-     ten kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
+     twelve kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
      each, all started together), with each kernel's registers, shared
      memory and spills as ptxas reports them;
   2. selective-scan forward kernel vs plain: MedMamba's four stage shapes
@@ -16,12 +16,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      gradients against torch.autograd through the plain forward;
   2c. four-direction fused SSD forward kernel vs its plain twin at MedSSD's
      stages 0 and 1 (B 32; L 3136, l 224, H4 8 and L 784, l 196, H4 16;
-     P 64, N 512), fp32 and bf16: y and Ssave, times from CUDA events;
-  2d. its backward kernel vs the plain backward at the same 4 cases, all six
+     P 64, N 512) and its stage 0 at 240x240 (L 3600, l 240, nc 15, H4 8),
+     fp32 and bf16: y and Ssave, times from CUDA events, and at each bf16
+     case the device time of each of the walk's kernels (torch.profiler;
+     so too in 2d, 2k and 2l);
+  2d. its backward kernel vs the plain backward at the same 6 cases, all six
      cotangents, a second launch bit-identical; at stage 1 fp32,
      SSDFusedDirs against torch.autograd through the plain forward;
   2e. SSD Y_diag forward kernel vs plain at ST-SSD's stage 0 (BC 448 =
-     32 x 14 chunks of l 224, H 8, N 64, P 64), fp32 and bf16;
+     32 x 14 chunks of l 224, H 8, N 64, P 64) and at N 512: MedSSD's
+     stage 2 at 240x240 (BC 32, l 232 for L 225, H 32, P 64) and the shape
+     of MedSSD's stage 3 at 512x512 (BC 32, l 256, H 64, P 64), fp32 and
+     bf16;
   2f. STL token-mixer kernel vs plain at ST-SSD's stages 0 and 1 (BB 128;
      L = P 3136, C 128 and L = P 784, C 256), fp32 and bf16;
   2g. STF gate kernel vs plain at stages 0 and 1 (BB 32; P 3136, C 128 and
@@ -30,13 +36,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2h-2j. the backward kernels of Y_diag, the STL mixer and the STF gate
      against their plain backwards at the cases of 2e-2g, every cotangent,
      a second launch bit-identical, times from CUDA events; at one shape
-     each, YDiagFused, STLMixer and STFZGate against torch.autograd through
-     the plain forward;
+     each (each Y_diag shape), YDiagFused, STLMixer and STFZGate against
+     torch.autograd through the plain forward;
+  2k. single-layout fused SSD forward kernel vs plain at MedSSD's stage 1
+     at 240x240 (B 32, L 900 padded to 4 chunks of l 256, H 16, N 512,
+     P 64) and at B 8, L 784 (4 chunks of l 196), H 8, N 128, P 64, fp32
+     and bf16: y and Ssave, a second launch bit-identical;
+  2l. its backward kernel vs the plain backward at the same 4 cases, all
+     seven cotangents, a second launch bit-identical; SSDFused against
+     torch.autograd through the plain forward in fp32 at both shapes;
   3. medmamba eval and 4. medmamba training, 5. medssd eval and
      6. medssd training, 7. st_ssd eval and 8. st_ssd training, each model
-     at full width
-     (224x224, batch 32, 8 classes, seeded random weights with the scan
-     parameters drawn away from init, bf16 compute, fp32 params).  Eval
+     at full width (224x224), then 9. medssd eval and 10. medssd training
+     at 240x240, where its stages take the dirs SSD, the single-layout
+     fused SSD and Y_diag at N 512 (2 + 2 + 4 launches per forward); each
+     at batch 32, 8 classes, seeded random weights with the scan
+     parameters drawn away from init, bf16 compute, fp32 params.  Eval
      runs through cli.test.run_eval: every kernel's launches (each counter
      set to 0 just before the run and read just after: the path's kernels
      exactly their calls per forward, the others none), the logits
@@ -47,9 +62,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      kernels exactly their calls per step, the others none), a finite loss,
      every parameter moved, every parameter's gradient at batch 4 against
      the plain versions (fp32 and bf16), img/s and a profile of one step.
-Then one JSON line describing the ten kernels (launches in the training
+Then one JSON line describing the twelve kernels (launches in the training
 runs; errors, times, the bound of each from this run's shapes; times and
-bounds at stage 0 in bf16), the card's name
+bounds at stage 0 in bf16, the fused SSD's at MedSSD's stage 1 at
+240x240), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -71,12 +87,15 @@ BATCH, SIZE, CLASSES, STEPS = 32, 224, 8, 4
 SCAN_CALLS_PER_FORWARD = 4 * (2 + 2 + 4 + 2)       # 4 directions x blocks
 KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "ssd_fused_dirs_fwd",
            "ssd_fused_dirs_bwd", "ssd_ydiag_fwd", "ssd_ydiag_bwd",
-           "stl_mixer_fwd", "stl_mixer_bwd", "stf_zgate_fwd", "stf_zgate_bwd")
+           "stl_mixer_fwd", "stl_mixer_bwd", "stf_zgate_fwd", "stf_zgate_bwd",
+           "ssd_fused_fwd", "ssd_fused_bwd")
 # MedSSD's stages on the fused dirs path at 224x224: (L, chunk l, H4,
 # d_ssm); P 64, gn 128 (N 512).  Stages 2-3 take the einsum path
 SSD_STAGES = ((3136, 224, 8, 128), (784, 196, 16, 256))
+# the dirs kernel's cases: those stages, and stage 0 at 240x240 (L 3600,
+# chunk 240, nc 15)
+SSD_CASES = SSD_STAGES + ((3600, 240, 8, 128),)
 SSD_P, SSD_GN = 64, 128
-SSD_CALLS_PER_FORWARD = 2 + 2                      # blocks of stages 0-1
 # SSD kernels vs plain twin: |k - p| <= atol x max|p| + rtol |p|.  fp32
 # differs in summation order (sums of up to l + N products); bf16 also
 # where a rounded operand (M, dtx, S) or output lands one bf16 step from
@@ -84,19 +103,23 @@ SSD_CALLS_PER_FORWARD = 2 + 2                      # blocks of stages 0-1
 SSD_TOL = {"fp32": (2e-3, 2e-3), "bf16": (3e-2, 2e-2)}
 SSD_GRAD_TOL = {"fp32": (3e-3, 3e-3), "bf16": (6e-2, 3e-2)}
 SSD_GRAD_NAMES = ("dstack", "dacum", "ddte", "dcdec", "ddtp", "dD")
+MEDSSD_240 = 240                                    # PATHS says what runs
+# the single-layout fused SSD's cases (B, L, chunk l, H, N), P 64: MedSSD
+# 240x240 stage 1, padded as ssd_chunked pads it, and an in-window shape
+# at the bottom of the chunk window with N 128
+FUSED_CASES = ((BATCH, 900, 256, 16, 512), (8, 784, 196, 8, 128))
+FUSED_GRAD_NAMES = ("dC", "dB", "dacum", "ddte", "dcdec", "ddtp", "dx")
 # ST-SSD at 224x224 (d_state 16, N = 4 x 16 = 64, headdim 64): the Y_diag
 # kernel's stage-0 shape (BC = B x 14 chunks, l 224, H 8 heads over the
 # four directions); the (L = P, C) of the STL mixer (BB = 4 B, the
 # directions folded in) and the STF gate (BB = B) at stages 0-1
 ST_YDIAG = (BATCH * 14, 224, 8, 64, 64)             # BC, l, H, N, P
+# Y_diag's cases (BC, l, H, N, P, L): ST-SSD's stage 0; at N 512 MedSSD's
+# stage 2 at 240x240 (one chunk of 232 for L 225) and the shape MedSSD's
+# stage 3 at 512x512 (and the fusion U-Nets) reach
+YDIAG_CASES = (ST_YDIAG + (3136,), (BATCH, 232, 32, 512, 64, 225),
+               (BATCH, 256, 64, 512, 64, 256))
 ST_STAGES = ((3136, 128), (784, 256))
-# st_ssd's kernel launches per forward: Y_diag in stage 0's two blocks,
-# the mixer and the gate in the blocks of stages 0-1
-ST_CALLS_PER_FORWARD = {"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4,
-                        "stf_zgate_fwd": 4}
-ST_TRAIN_PAIRS = {"ssd_ydiag_fwd": "ssd_ydiag_bwd",
-                  "stl_mixer_fwd": "stl_mixer_bwd",
-                  "stf_zgate_fwd": "stf_zgate_bwd"}
 # ST kernels vs plain: |k - p| <= atol x max|p| + rtol |p|.  fp32 differs
 # in summation order (sums of up to 3136 products; the mixer's softmax
 # sum also rescales online); bf16 also where a rounded operand (M, E, Z)
@@ -326,14 +349,14 @@ def phase_bwd_vs_plain():
 
 
 def _ssd_cases():
-    """The 4 SSD stage cases: (L, l, dtype name, args, d_ssm, dy), args the
-    kernel's (stackr, acum, dte, cdec, dtp, Dsk) on the card, built as
-    ssd_chunked_dirs builds them (dtp a softplus, acum its cumsum against
-    A = -U(1, 4))."""
+    """The dirs SSD's cases, SSD_CASES in fp32 and bf16: (L, l, dtype
+    name, args, d_ssm, dy), args the kernel's (stackr, acum, dte, cdec, dtp,
+    Dsk) on the card, built as ssd_chunked_dirs builds them (dtp a softplus,
+    acum its cumsum against A = -U(1, 4))."""
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    for i, (L, l, H4, d_ssm) in enumerate(SSD_STAGES):
+    for i, (L, l, H4, d_ssm) in enumerate(SSD_CASES):
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
         nc = L // l
@@ -357,6 +380,23 @@ def _check_scaled(what, got, want, rtol, atol_rel):
     abs error."""
     scale = max(float(want.float().abs().max()), 1e-30)
     return _check_close(what, got, want, rtol, atol_rel * scale)
+
+
+def _walk_split(c, fn):
+    """At a bf16 case, c["split"]: device ms of each kernel of the SSD
+    chunk walk (scores, walks, intra, flush) in one call of ``fn``."""
+    if c["dtype"] != "bf16":
+        return
+    rows = [r for r in _profile(fn) if r["cpu_us"] == 0.0]
+    names = ("scores_kernel", "fwd_walk_kernel", "intra_kernel",
+             "bwd_walk_kernel", "flush_kernel")
+    c["split"] = {k: sum(r["device_us"] for r in rows if k in r["name"]) /
+                  1e3 for k in names if any(k in r["name"] for r in rows)}
+
+
+def _split_text(c):
+    return "" if "split" not in c else " split " + " ".join(
+        f"{k.replace('_kernel', '')}={v:.3f}ms" for k, v in c["split"].items())
 
 
 def phase_ssd_fwd_vs_plain():
@@ -388,13 +428,14 @@ def phase_ssd_fwd_vs_plain():
                           ssave_err=serr, y_max=float(yp.float().abs().max()),
                           ms=k_ms, save_ms=save_ms, plain_ms=p_ms,
                           bound=_ssd_bound(args, d_ssm, dt_name, False)))
+        _walk_split(cases[-1], run_k)
     summary = "; ".join(
         f"{c['L']}/{c['l']} {c['dtype']} err={c['max_abs_err']:.2e} "
         f"(max|y| {c['y_max']:.1f}) Ssave_err={c['ssave_err']:.2e} "
         f"kernel={c['ms']:.3f}ms with_save={c['save_ms']:.3f}ms "
         f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
-        f"({c['bound'][1]})" for c in cases)
-    print(f"phase 2c SSD dirs forward kernel vs plain: {len(cases)}/4 cases "
+        f"({c['bound'][1]}){_split_text(c)}" for c in cases)
+    print(f"phase 2c SSD dirs forward kernel vs plain: {len(cases)} cases "
           f"within {SSD_TOL} (rtol, atol x max|plain|), y and Ssave "
           f"(B={BATCH} P={SSD_P} N={4 * SSD_GN}) | {summary}", flush=True)
     return cases
@@ -426,6 +467,7 @@ def phase_ssd_bwd_vs_plain():
                           max_abs_err=max(errs.values()), ms=k_ms,
                           plain_ms=p_ms,
                           bound=_ssd_bound(args, d_ssm, dt_name, True)))
+        _walk_split(cases[-1], run_k)
 
     # SSDFusedDirs (kernels) against torch.autograd through the plain
     # forward, at stage 1 in fp32
@@ -446,8 +488,9 @@ def phase_ssd_bwd_vs_plain():
         f"{c['L']}/{c['l']} {c['dtype']} " + " ".join(
             f"{k}={v:.2e}" for k, v in c["errs"].items())
         + f" kernel={c['ms']:.3f}ms plain={c['plain_ms']:.1f}ms "
-        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]})" for c in cases)
-    print(f"phase 2d SSD dirs backward kernel vs plain: {len(cases)}/4 cases "
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}){_split_text(c)}"
+        for c in cases)
+    print(f"phase 2d SSD dirs backward kernel vs plain: {len(cases)} cases "
           f"within {SSD_GRAD_TOL} (rtol, atol x max|plain|) on all 6 "
           f"cotangents, second launch bit-identical | SSDFusedDirs vs "
           f"torch.autograd through the plain forward at L={L} fp32: max err "
@@ -481,23 +524,28 @@ def _st_summary(cases):
 
 
 def _ydiag_cases():
-    """Y_diag's stage-0 cases, fp32 and bf16: (dtype name, (Cc, Bc, acum,
-    dtx), dy), built as ssd_chunked builds them (acum the cumsum of
-    softplus steps against A = -U(1, 4))."""
+    """Y_diag's cases (YDIAG_CASES), fp32 and bf16: (shape, dtype name,
+    (Cc, Bc, acum, dtx), dy), built as ssd_chunked builds them (acum the
+    cumsum of softplus steps against A = -U(1, 4); at L < l the padded
+    steps carry dt = 0 and zero operands)."""
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    BC, l, H, N, P = ST_YDIAG
-    gen = torch.Generator(device=dev).manual_seed(200)
-    rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
-    Cc, Bc = 0.5 * rnd(BC, l, N), 0.5 * rnd(BC, l, N)
-    dtp = F.softplus(0.5 * rnd(BC, H, l) - 3.0)
-    A = -(1.0 + 3.0 * torch.rand(H, 1, device=dev, generator=gen))
-    acum = torch.cumsum(dtp * A, dim=-1)
-    dtx, dy = rnd(BC, H, l, P), rnd(BC, H, l, P)
-    for dt_name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        yield dt_name, (Cc.to(dtype), Bc.to(dtype), acum,
-                        dtx.to(dtype)), dy.to(dtype)
+    for i, (BC, l, H, N, P, L) in enumerate(YDIAG_CASES):
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+        live = (torch.arange(l, device=dev) < L).float()
+        Cc = 0.5 * rnd(BC, l, N) * live[:, None]
+        Bc = 0.5 * rnd(BC, l, N) * live[:, None]
+        dtp = F.softplus(0.5 * rnd(BC, H, l) - 3.0) * live
+        A = -(1.0 + 3.0 * torch.rand(H, 1, device=dev, generator=gen))
+        acum = torch.cumsum(dtp * A, dim=-1)
+        dtx, dy = rnd(BC, H, l, P), rnd(BC, H, l, P)
+        shape = dict(L=L, shape=f"BC{BC} l{l} H{H} N{N} P{P}")
+        for dt_name, dtype in (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            yield shape, dt_name, (Cc.to(dtype), Bc.to(dtype), acum,
+                                   dtx.to(dtype)), dy.to(dtype)
 
 
 def _ydiag_bound(args, dt_name, backward):
@@ -519,21 +567,20 @@ def _ydiag_bound(args, dt_name, backward):
 
 
 def phase_ydiag_vs_plain():
-    """2e: the Y_diag kernel at ST-SSD's stage 0."""
+    """2e: the Y_diag kernel at ST-SSD's stage 0 and at N 512."""
     from medical_image_classification_tpu_torch.kernels import (
         ssd_ydiag as yd)
-    BC, l, H, N, P = ST_YDIAG
     cases = []
-    for dt_name, args, _ in _ydiag_cases():
-        c = _st_case(f"Y_diag kernel vs plain {dt_name}",
+    for shape, dt_name, args, _ in _ydiag_cases():
+        c = _st_case(f"Y_diag kernel vs plain {shape['shape']} {dt_name}",
                      lambda: yd.ydiag_fused_fwd(*args, impl="cuda"),
                      lambda: yd.ydiag_fused_ref(*args), dt_name, (5, 2))
-        c.update(shape=f"BC{BC} l{l} H{H} N{N} P{P}",
-                 bound=_ydiag_bound(args, dt_name, False))
+        c.update(shape, bound=_ydiag_bound(args, dt_name, False))
         cases.append(c)
-    print(f"phase 2e Y_diag forward kernel vs plain: {len(cases)}/2 cases "
-          f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
-          f"bit-identical | {_st_summary(cases)}", flush=True)
+    print(f"phase 2e Y_diag forward kernel vs plain: {len(cases)}/"
+          f"{2 * len(YDIAG_CASES)} cases within {ST_TOL} (rtol, atol x "
+          f"max|plain|), second launch bit-identical | "
+          f"{_st_summary(cases)}", flush=True)
     return cases
 
 
@@ -641,16 +688,17 @@ def phase_stf_vs_plain():
     return cases
 
 
-def _st_bwd_case(what, names, run_k, run_p, dt_name, reps):
-    """One ST-SSD backward case: two launches bit-identical, every
-    cotangent against the plain backward within ST_GRAD_TOL, times from
-    CUDA events (``reps`` = kernel, plain repetitions)."""
+def _st_bwd_case(what, names, run_k, run_p, dt_name, reps,
+                 tol=ST_GRAD_TOL):
+    """One backward case: two launches bit-identical, every cotangent
+    against the plain backward within ``tol``, times from CUDA events
+    (``reps`` = kernel, plain repetitions)."""
     import torch
     gk, gk2, gp = run_k(), run_k(), run_p()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
         raise AssertionError(f"{what}: two launches differ in the bits")
-    errs = {nm: _check_scaled(f"{what} {nm}", a, b, *ST_GRAD_TOL[dt_name])
+    errs = {nm: _check_scaled(f"{what} {nm}", a, b, *tol[dt_name])
             for nm, a, b in zip(names, gk, gp)}
     scales = {nm: float(b.float().abs().max()) for nm, b in zip(names, gp)}
     del gk, gk2, gp
@@ -660,9 +708,10 @@ def _st_bwd_case(what, names, run_k, run_p, dt_name, reps):
                 plain_ms=_events_ms(run_p, reps[1]))
 
 
-def _vs_autograd(what, names, run_fn, run_ref, args, grad_out):
+def _vs_autograd(what, names, run_fn, run_ref, args, grad_out,
+                 tol=ST_GRAD_TOL):
     """A Function on the card against torch.autograd through the plain
-    forward (fp32, ST_GRAD_TOL): the max abs error over the cotangents."""
+    forward (fp32, ``tol``): the max abs error over the cotangents."""
     import torch
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
     run_fn(*leaves).backward(grad_out)
@@ -670,7 +719,7 @@ def _vs_autograd(what, names, run_fn, run_ref, args, grad_out):
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
     want = torch.autograd.grad(run_ref(*leaves), leaves, grad_out)
     return max(_check_scaled(f"{what} vs autograd {nm}", a, b,
-                             *ST_GRAD_TOL["fp32"])
+                             *tol["fp32"])
                for nm, a, b in zip(names, got, want))
 
 
@@ -685,30 +734,29 @@ def _st_bwd_summary(cases):
 
 def phase_ydiag_bwd_vs_plain():
     """2h: the Y_diag backward kernel at 2e's cases; YDiagFused against
-    torch.autograd in fp32."""
+    torch.autograd in fp32 at each shape."""
     from medical_image_classification_tpu_torch.kernels import (
         ssd_ydiag as yd)
-    BC, l, H, N, P = ST_YDIAG
     names = ST_GRAD_NAMES["ssd_ydiag"]
-    cases = []
-    for dt_name, args, dy in _ydiag_cases():
+    cases, auto = [], 0.0
+    for shape, dt_name, args, dy in _ydiag_cases():
         c = _st_bwd_case(
-            f"Y_diag backward kernel vs plain {dt_name}", names,
-            lambda: yd.ydiag_fused_bwd(*args, dy, impl="cuda"),
+            f"Y_diag backward kernel vs plain {shape['shape']} {dt_name}",
+            names, lambda: yd.ydiag_fused_bwd(*args, dy, impl="cuda"),
             lambda: yd.ydiag_fused_bwd_ref(*args, dy), dt_name, (5, 2))
-        c.update(shape=f"BC{BC} l{l} H{H} N{N} P{P}",
-                 bound=_ydiag_bound(args, dt_name, True))
+        c.update(shape, bound=_ydiag_bound(args, dt_name, True))
         cases.append(c)
         if dt_name == "fp32":
-            auto = _vs_autograd(
+            auto = max(auto, _vs_autograd(
                 "YDiagFused", names,
                 lambda *a: yd.ydiag_fused(*a, impl="cuda"),
-                yd.ydiag_fused_ref, args, dy)
-    print(f"phase 2h Y_diag backward kernel vs plain: {len(cases)}/2 cases "
-          f"within {ST_GRAD_TOL} (rtol, atol x max|plain|) on all 4 "
-          f"cotangents, second launch bit-identical | YDiagFused vs "
-          f"torch.autograd through the plain forward, fp32: max err "
-          f"{auto:.2e} | {_st_bwd_summary(cases)}", flush=True)
+                yd.ydiag_fused_ref, args, dy))
+    print(f"phase 2h Y_diag backward kernel vs plain: {len(cases)}/"
+          f"{2 * len(YDIAG_CASES)} cases within {ST_GRAD_TOL} (rtol, atol x "
+          f"max|plain|) on all 4 cotangents, second launch bit-identical | "
+          f"YDiagFused vs torch.autograd through the plain forward, fp32, "
+          f"worst of {len(YDIAG_CASES)} shapes: max err {auto:.2e} | "
+          f"{_st_bwd_summary(cases)}", flush=True)
     return dict(cases=cases, autograd_err=auto)
 
 
@@ -770,6 +818,119 @@ def phase_stf_bwd_vs_plain():
     return dict(cases=cases, autograd_err=auto)
 
 
+def _fused_cases():
+    """The single-layout fused SSD's cases (FUSED_CASES), fp32 and bf16:
+    (case dict, dtype name, (Cc, Bc, acum, dte, cdec, dtp, x), dy), built
+    as ssd_chunked builds them: the steps a softplus, padded with dt = 0
+    and zero operands up to whole chunks (after the softplus), acum their
+    cumsum against A = -U(1, 4), dte and cdec from it; dy is zero on the
+    padded steps, which ssd_chunked slices off."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    for i, (B, L, l, H, N) in enumerate(FUSED_CASES):
+        gen = torch.Generator(device=dev).manual_seed(500 + i)
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+        nc = -(-L // l)
+        live = (torch.arange(nc * l, device=dev) < L).float()[:, None]
+        steps = lambda *s: (rnd(B, nc * l, *s) * live).reshape(
+            B, nc, l, *s)
+        dtp = F.softplus(steps(H) * 0.5 - 3.0) * live.reshape(nc, l, 1)
+        dtp = dtp.transpose(2, 3).contiguous()               # [B, nc, H, l]
+        A = -(1.0 + 3.0 * torch.rand(H, 1, device=dev, generator=gen))
+        acum = torch.cumsum(dtp * A, dim=-1)
+        dte = torch.exp(acum[..., -1:] - acum)
+        cdec = torch.exp(acum[..., -1])
+        C, Bm = 0.5 * steps(N), 0.5 * steps(N)
+        x, dy = steps(H * SSD_P), steps(H * SSD_P)
+        case = dict(L=L, l=l, shape=f"B{B} L{L} nc{nc} l{l} H{H} "
+                    f"N{N} P{SSD_P}")
+        for dt_name, dtype in (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            yield case, dt_name, (C.to(dtype), Bm.to(dtype), acum, dte, cdec,
+                                  dtp, x.to(dtype)), dy.to(dtype)
+
+
+def phase_fused_fwd_vs_plain():
+    """2k: the single-layout fused SSD forward kernel vs its plain version:
+    y and Ssave, y unchanged when Ssave is written, a second launch
+    bit-identical, times from CUDA events."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_fused as sf)
+    cases = []
+    for case, dt_name, args, _ in _fused_cases():
+        run_k = lambda: sf.ssd_fused_fwd(*args, impl="cuda")
+        run_p = lambda: sf.ssd_fused_fwd_ref(*args)
+        yk, yk2 = run_k(), run_k()
+        yk3, Sk = sf.ssd_fused_fwd(*args, want_save=True, impl="cuda")
+        yp, Sp = sf.ssd_fused_fwd_ref(*args, want_save=True)
+        torch.cuda.synchronize()
+        what = f"fused SSD forward kernel vs plain {case['shape']} {dt_name}"
+        if not (torch.equal(yk, yk2) and torch.equal(yk, yk3)):
+            raise AssertionError(f"{what}: y differs between launches or "
+                                 "when Ssave is written")
+        rtol, atol = SSD_TOL[dt_name]
+        err = _check_scaled(what + " y", yk, yp, rtol, atol)
+        serr = _check_scaled(what + " Ssave", Sk, Sp, rtol, atol)
+        y_max = float(yp.float().abs().max())
+        del yk, yk2, yk3, Sk, yp, Sp
+        cases.append(dict(case, dtype=dt_name, max_abs_err=max(err, serr),
+                          y_err=err, ssave_err=serr, y_max=y_max,
+                          ms=_events_ms(run_k, 5),
+                          save_ms=_events_ms(lambda: sf.ssd_fused_fwd(
+                              *args, want_save=True, impl="cuda"), 5),
+                          plain_ms=_events_ms(run_p, 2),
+                          bound=_fused_bound(args, dt_name, False)))
+        _walk_split(cases[-1], run_k)
+    summary = "; ".join(
+        f"{c['shape']} {c['dtype']} err={c['y_err']:.2e} (max|y| "
+        f"{c['y_max']:.1f}) Ssave_err={c['ssave_err']:.2e} "
+        f"kernel={c['ms']:.3f}ms with_save={c['save_ms']:.3f}ms "
+        f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
+        f"({c['bound'][1]}){_split_text(c)}" for c in cases)
+    print(f"phase 2k fused SSD forward kernel vs plain: {len(cases)}/"
+          f"{2 * len(FUSED_CASES)} cases within {SSD_TOL} (rtol, atol x "
+          f"max|plain|), y and Ssave, second launch bit-identical | "
+          f"{summary}", flush=True)
+    return cases
+
+
+def phase_fused_bwd_vs_plain():
+    """2l: the single-layout fused SSD backward kernel vs the plain
+    backward at 2k's cases, all seven cotangents, a second launch
+    bit-identical; SSDFused against torch.autograd through the plain
+    forward in fp32 at each shape."""
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_fused as sf)
+    cases, auto = [], 0.0
+    for case, dt_name, args, dy in _fused_cases():
+        _, Ssave = sf.ssd_fused_fwd_ref(*args, want_save=True)
+        run_k = lambda: sf.ssd_fused_bwd(*args, Ssave, dy, impl="cuda")
+        c = _st_bwd_case(
+            f"fused SSD backward kernel vs plain {case['shape']} {dt_name}",
+            FUSED_GRAD_NAMES, run_k,
+            lambda: sf.ssd_fused_bwd_ref(*args, Ssave, dy), dt_name, (3, 1),
+            SSD_GRAD_TOL)
+        c.update(case, bound=_fused_bound(args, dt_name, True))
+        _walk_split(c, run_k)
+        cases.append(c)
+        del Ssave
+        if dt_name == "fp32":
+            auto = max(auto, _vs_autograd(
+                "SSDFused", FUSED_GRAD_NAMES,
+                lambda *a: sf.ssd_fused(*a, impl="cuda"),
+                sf.ssd_fused_fwd_ref, args, dy, SSD_GRAD_TOL))
+    print(f"phase 2l fused SSD backward kernel vs plain: {len(cases)}/"
+          f"{2 * len(FUSED_CASES)} cases within {SSD_GRAD_TOL} (rtol, atol x "
+          f"max|plain|) on all 7 cotangents, second launch bit-identical | "
+          f"SSDFused vs torch.autograd through the plain forward, fp32, "
+          f"worst of {len(FUSED_CASES)} shapes: max err {auto:.2e} | "
+          + "; ".join(_st_bwd_summary([c]) + _split_text(c) for c in cases),
+          flush=True)
+    return dict(cases=cases, autograd_err=auto)
+
+
 def _bound(nbytes, ops, dtype):
     """The least time of the work on this card: (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BPS * 1e3
@@ -777,28 +938,49 @@ def _bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _ssd_bound(args, d_ssm, dtype, backward):
-    """Bytes each input read once and each output written once, and the
-    products the function does (per chunk: scores 2 l^2 N; per head
-    2 l^2 P + 4 l N P forward; the backward recomputes the scores and adds
-    dscores' two products, 4 l^2 P + 10 l N P per head)."""
-    stack, acum = args[0], args[1]
-    B, nc, l, C2 = stack.shape
-    H4 = acum.shape[2]
-    N, P = 4 * SSD_GN, d_ssm // (H4 // 4)
-    isz = stack.element_size()
-    rows = 3 * acum.numel() * 4 + H4 * 4 * (1 + B * nc)
-    y = B * nc * l * H4 * P * isz
+def _walk_bound(operand_bytes, B, nc, l, H, P, N, isz, dtype, backward):
+    """The chunk walk's least time (the dirs and the single-layout fused
+    SSD): bytes each input read once and each output written once (the
+    operands x, B, C of ``operand_bytes``; the fp32 rows acum, dte, dtp and
+    cdec; y; backward: the operands, rows, Ssave and dy in, their
+    cotangents out), and the products the function needs over the causal
+    pairs j <= i of a chunk, l (l + 1) / 2 of them (per chunk: scores
+    2 pairs N; per head 2 pairs P + 4 l N P forward; the backward
+    recomputes the scores and adds dscores' two products, 4 pairs P +
+    10 l N P per head)."""
+    pairs = l * (l + 1) // 2
+    rows = 3 * B * nc * H * l * 4 + B * nc * H * 4
+    y = B * nc * l * H * P * isz
     if not backward:
-        nbytes = stack.numel() * isz + rows + y
-        ops = B * nc * (2 * l * l * N + H4 * (2 * l * l * P + 4 * l * N * P))
+        nbytes = operand_bytes + rows + y
+        ops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 4 * l * N * P))
     else:
-        ssave = B * nc * H4 * P * N * isz
-        # in: stack, rows, Ssave, dy; out: dstack, the row and scalar grads
-        nbytes = 2 * stack.numel() * isz + 2 * rows + ssave + y
-        ops = B * nc * (3 * 2 * l * l * N
-                        + H4 * (4 * l * l * P + 10 * l * N * P))
+        ssave = B * nc * H * P * N * isz
+        nbytes = 2 * operand_bytes + 2 * rows + ssave + y
+        ops = B * nc * (3 * 2 * pairs * N
+                        + H * (4 * pairs * P + 10 * l * N * P))
     return _bound(nbytes, ops, dtype)
+
+
+def _ssd_bound(args, d_ssm, dtype, backward):
+    """The dirs SSD's bound (``_walk_bound``; the operands are the stack)."""
+    stack, acum = args[0], args[1]
+    B, nc, l, _ = stack.shape
+    H4 = acum.shape[2]
+    return _walk_bound(stack.numel() * stack.element_size(), B, nc, l, H4,
+                       d_ssm // (H4 // 4), 4 * SSD_GN, stack.element_size(),
+                       dtype, backward)
+
+
+def _fused_bound(args, dtype, backward):
+    """The single-layout fused SSD's bound (``_walk_bound``; the operands
+    are C, B and x)."""
+    Cc, Bc, acum, x = args[0], args[1], args[2], args[6]
+    B, nc, l, N = Cc.shape
+    H = acum.shape[2]
+    isz = Cc.element_size()
+    return _walk_bound((Cc.numel() + Bc.numel() + x.numel()) * isz, B, nc, l,
+                       H, x.shape[3] // H, N, isz, dtype, backward)
 
 
 def _scan_bound(L, Dm, dtype, backward):
@@ -860,8 +1042,8 @@ def _counters():
     launches (``.launches``)."""
     from medical_image_classification_tpu_torch.kernels import (
         selective_scan_bwd as ssb, selective_scan_fwd as ssf,
-        ssd_fused_dirs as sfd, ssd_ydiag as yd, stf_zgate as stf,
-        stl_mixer as stl)
+        ssd_fused as sf, ssd_fused_dirs as sfd, ssd_ydiag as yd,
+        stf_zgate as stf, stl_mixer as stl)
     return {"selective_scan_fwd": ssf.scan_folded_fwd,
             "selective_scan_bwd": ssb.scan_folded_bwd,
             "ssd_fused_dirs_fwd": sfd.ssd_fused_dirs_fwd,
@@ -871,37 +1053,58 @@ def _counters():
             "stl_mixer_fwd": stl.stl_mixer_fwd,
             "stl_mixer_bwd": stl.stl_mixer_bwd,
             "stf_zgate_fwd": stf.stf_zgate_fwd,
-            "stf_zgate_bwd": stf.stf_zgate_bwd}
+            "stf_zgate_bwd": stf.stf_zgate_bwd,
+            "ssd_fused_fwd": sf.ssd_fused_fwd,
+            "ssd_fused_bwd": sf.ssd_fused_bwd}
 
 
-def _path(name):
-    """What the phases of model ``name`` count and split: ({kernel name:
-    launches per model forward}, {forward kernel: its backward kernel} in
-    training, {profile share: kernel name patterns})."""
-    if name == "medmamba":
-        return ({"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
-                {"selective_scan_fwd": "selective_scan_bwd"},
-                {"scan forward": ("scan_fwd_kernel",),
-                 "scan backward": ("scan_bwd_kernel",)})
-    if name == "medssd":
-        return ({"ssd_fused_dirs_fwd": SSD_CALLS_PER_FORWARD},
-                {"ssd_fused_dirs_fwd": "ssd_fused_dirs_bwd"},
-                {"ssd scores": ("scores_kernel",),
-                 "ssd forward": ("fwd_walk_kernel",),
-                 "ssd backward": ("intra_kernel", "bwd_walk_kernel",
-                                  "flush_kernel")})
-    if name == "st_ssd":
-        return (dict(ST_CALLS_PER_FORWARD), dict(ST_TRAIN_PAIRS),
-                {"ssd ydiag": ("ydiag_kernel",),
-                 "ssd ydiag backward": ("ydiag_grad_kernel",
-                                        "ydiag_dcb_kernel"),
-                 "stl mixer": ("stats_kernel", "mix_kernel"),
-                 "stl mixer backward": ("mix_rows_bwd_kernel",
-                                        "mix_cols_bwd_kernel"),
-                 "stf gate": ("zgate_kernel",),
-                 "stf gate backward": ("gate_rows_bwd_kernel",
-                                       "gate_cols_bwd_kernel")})
-    raise ValueError(f"chip_smoke has no path for model {name!r}")
+# What the model phases count and split, by (model, image size): {forward
+# kernel: launches per model forward} (in training each forward kernel's
+# backward, named *_bwd, launches as often) and {profile share: kernel name
+# patterns}.  At 240x240 medssd runs the walk kernels of both layouts, which
+# share their names; the layout type in the kernel's name tells them apart
+PATHS = {
+    ("medmamba", SIZE): (
+        {"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
+        {"scan forward": ("scan_fwd_kernel",),
+         "scan backward": ("scan_bwd_kernel",)}),
+    ("medssd", SIZE): (
+        {"ssd_fused_dirs_fwd": 2 + 2},               # blocks of stages 0-1
+        {"ssd scores": ("scores_kernel",),
+         "ssd forward": ("fwd_walk_kernel",),
+         "ssd backward": ("intra_kernel", "bwd_walk_kernel",
+                          "flush_kernel")}),
+    # Y_diag in stage 0's two blocks, the mixer and the gate in the blocks
+    # of stages 0-1
+    ("st_ssd", SIZE): (
+        {"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4, "stf_zgate_fwd": 4},
+        {"ssd ydiag": ("ydiag_kernel",),
+         "ssd ydiag backward": ("ydiag_grad_kernel", "ydiag_dcb_kernel"),
+         "stl mixer": ("stats_kernel", "mix_kernel"),
+         "stl mixer backward": ("mix_rows_bwd_kernel",
+                                "mix_cols_bwd_kernel"),
+         "stf gate": ("zgate_kernel",),
+         "stf gate backward": ("gate_rows_bwd_kernel",
+                               "gate_cols_bwd_kernel")}),
+    # stage 0 (L 3600) takes the dirs SSD at chunk 240, stage 1 (L 900, no
+    # pad-free chunk in the dirs window) the single-layout fused SSD at
+    # chunk 256 over 4 chunks, the last padded (900 -> 1024), stage 2 (L 225,
+    # one chunk of 232) Y_diag at N 512, stage 3 the einsums: launches per
+    # forward = the stages' depths
+    ("medssd", MEDSSD_240): (
+        {"ssd_fused_dirs_fwd": 2, "ssd_fused_fwd": 2, "ssd_ydiag_fwd": 4},
+        {"ssd dirs": ("DirsLayout",),
+         "ssd fused": ("FlatLayout",),
+         "ssd ydiag": ("ydiag_kernel",),
+         "ssd ydiag backward": ("ydiag_grad_kernel", "ydiag_dcb_kernel")}),
+}
+
+
+def _path(name, size=SIZE):
+    """PATHS' entry for model ``name`` at ``size`` pixels a side."""
+    if (name, size) not in PATHS:
+        raise ValueError(f"chip_smoke has no path for {name} at {size}")
+    return PATHS[(name, size)]
 
 
 def _launches(counters):
@@ -920,19 +1123,19 @@ def _check_logits(name, got, want, tol):
     return err
 
 
-def phase_full_model(card, name, num):
+def phase_full_model(card, name, num, size=SIZE):
     import torch
     from medical_image_classification_tpu_torch.cli.test import run_eval
     from medical_image_classification_tpu_torch.data.loader import (
         SyntheticLoader)
-    calls, _, split = _path(name)
+    calls, split = _path(name, size)
     counters = _counters()
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     model = _model(name, bf16, "auto")
-    run_eval(model, SyntheticLoader(BATCH, SIZE, CLASSES, steps=1, seed=1),
+    run_eval(model, SyntheticLoader(BATCH, size, CLASSES, steps=1, seed=1),
              dev)                                      # warm-up
-    loader = SyntheticLoader(BATCH, SIZE, CLASSES, steps=STEPS, seed=0)
+    loader = SyntheticLoader(BATCH, size, CLASSES, steps=STEPS, seed=0)
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -951,7 +1154,7 @@ def phase_full_model(card, name, num):
 
     # the same weights with the plain versions, on the first batch
     sd = model.state_dict()
-    one = SyntheticLoader(BATCH, SIZE, CLASSES, steps=1, seed=0)
+    one = SyntheticLoader(BATCH, size, CLASSES, steps=1, seed=0)
     _, _, ref16 = run_eval(_model(name, bf16, "torch", sd), one, dev)
     err16 = _check_logits("bf16", logits[:BATCH], ref16, LOGIT_TOL["bf16"])
     _, _, k32 = run_eval(_model(name, None, "cuda", sd), one, dev)
@@ -966,7 +1169,7 @@ def phase_full_model(card, name, num):
     from medical_image_classification_tpu_torch.train.eval_step import (
         make_eval_step)
     step = make_eval_step(model)
-    x = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+    x = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
                       device=dev)
     y = torch.zeros(BATCH, dtype=torch.long, device=dev)
     # forwards on a batch already on the card: no host data, no copy
@@ -988,7 +1191,7 @@ def phase_full_model(card, name, num):
                     for r in kernel_us[:4])
     per_fwd = ", ".join(f"{k} {v} ({v // STEPS} per forward)"
                         for k, v in launches.items() if v)
-    print(f"phase {num} {name} {SIZE}x{SIZE} b{BATCH} bf16 via run_eval: "
+    print(f"phase {num} {name} {size}x{size} b{BATCH} bf16 via run_eval: "
           f"{STEPS} batches, kernel launches {per_fwd}, the other kernels "
           f"none; logits {logits.shape} finite "
           f"| kernel vs plain logits max err bf16 {err16:.3e} "
@@ -1070,7 +1273,7 @@ def _check_grad_tree(what, got, want, rtol, min_cos, abs_floor):
     return worst_rel, worst_cos
 
 
-def phase_train(card, name, num):
+def phase_train(card, name, num, size=SIZE):
     import math
 
     import torch
@@ -1081,7 +1284,8 @@ def phase_train(card, name, num):
         make_lr_scheduler, make_optimizer, make_schedule)
     from medical_image_classification_tpu_torch.train.train_step import (
         TrainState, make_train_step)
-    calls, pairs, split = _path(name)
+    calls, split = _path(name, size)
+    pairs = {f: f[:-len("fwd")] + "bwd" for f in calls}
     counters = _counters()
     want = {k: 0 for k in counters}
     for f, b in pairs.items():
@@ -1092,11 +1296,11 @@ def phase_train(card, name, num):
     opt = make_optimizer("adam", model.named_parameters())
     sched = make_lr_scheduler(opt, make_schedule("constant", 1e-4))
     state = TrainState()
-    run_train(model, opt, sched, SyntheticLoader(BATCH, SIZE, CLASSES,
+    run_train(model, opt, sched, SyntheticLoader(BATCH, size, CLASSES,
                                                  steps=1, seed=1), dev,
               state=state)                              # warm-up
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    loader = SyntheticLoader(BATCH, SIZE, CLASSES, steps=STEPS, seed=2)
+    loader = SyntheticLoader(BATCH, size, CLASSES, steps=STEPS, seed=2)
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -1116,7 +1320,7 @@ def phase_train(card, name, num):
     # every parameter's gradient: kernels against the plain versions, same
     # weights, same batch of GRAD_BATCH, same DropPath masks
     sd = model.state_dict()
-    imgs, labels = next(SyntheticLoader(GRAD_BATCH, SIZE, CLASSES, steps=1,
+    imgs, labels = next(SyntheticLoader(GRAD_BATCH, size, CLASSES, steps=1,
                                         seed=3).epoch(0))
     imgs = torch.from_numpy(imgs).to(dev)
     labels = torch.from_numpy(labels).long().to(dev)
@@ -1143,7 +1347,7 @@ def phase_train(card, name, num):
         bf16_max_dist={i: max(d) for i, d in dist.items()})
 
     step = make_train_step(model, opt, sched, state=state)
-    x = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+    x = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
                       device=dev)
     y = torch.zeros(BATCH, dtype=torch.long, device=dev)
     # steps on a batch already on the card: no host data, no copy
@@ -1174,7 +1378,7 @@ def phase_train(card, name, num):
     per_step = ", ".join(f"{f} + {b} {launches[f]} + {launches[b]} "
                          f"({launches[f] // STEPS} + {launches[b] // STEPS} "
                          f"per step)" for f, b in pairs.items())
-    print(f"phase {num} {name} {SIZE}x{SIZE} b{BATCH} bf16 training via "
+    print(f"phase {num} {name} {size}x{size} b{BATCH} bf16 training via "
           f"run_train, Adam 1e-4: {STEPS} steps after 1 warm-up, kernel "
           f"launches {per_step}, the other kernels none, loss "
           f"{m['loss']:.4f} finite, "
@@ -1227,12 +1431,16 @@ def main(argv=None):
     yd_bwd = phase_ydiag_bwd_vs_plain()
     stl_bwd = phase_stl_bwd_vs_plain()
     stf_bwd = phase_stf_bwd_vs_plain()
+    fused_cases = phase_fused_fwd_vs_plain()
+    fused_bwd = phase_fused_bwd_vs_plain()
     full = phase_full_model(card, "medmamba", 3)
     train = phase_train(card, "medmamba", 4)
     ssd_full = phase_full_model(card, "medssd", 5)
     ssd_train = phase_train(card, "medssd", 6)
     st_full = phase_full_model(card, "st_ssd", 7)
     st_train = phase_train(card, "st_ssd", 8)
+    ssd240_full = phase_full_model(card, "medssd", 9, MEDSSD_240)
+    ssd240_train = phase_train(card, "medssd", 10, MEDSSD_240)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -1244,8 +1452,9 @@ def main(argv=None):
     scan_head = lambda c: (c["L"] == STAGES[0][0] and c["dtype"] == "bf16"
                            and not c["reverse"])
     ssd_head = lambda c: c["L"] == SSD_STAGES[0][0] and c["dtype"] == "bf16"
-    st_head = lambda c: c.get("L", ST_STAGES[0][0]) == ST_STAGES[0][0] \
-        and c["dtype"] == "bf16"
+    st_head = lambda c: c["L"] == ST_STAGES[0][0] and c["dtype"] == "bf16"
+    fused_head = lambda c: c["L"] == FUSED_CASES[0][1] and \
+        c["dtype"] == "bf16"
     entries = [
         _entry("selective_scan_fwd", "selective_scan_pallas_v2.py:36", cases,
                train["launches"]["selective_scan_fwd"], scan_head,
@@ -1269,7 +1478,11 @@ def main(argv=None):
             ("stf_zgate_fwd", "stf_zgate_pallas.py:76", stf_cases, st_head,
              st_train),
             ("stf_zgate_bwd", "stf_zgate_pallas.py:85", stf_bwd["cases"],
-             st_head, st_train)):
+             st_head, st_train),
+            ("ssd_fused_fwd", "ssd_fused_pallas.py:139", fused_cases,
+             fused_head, ssd240_train),
+            ("ssd_fused_bwd", "ssd_fused_pallas.py:193", fused_bwd["cases"],
+             fused_head, ssd240_train)):
         entries.append(_entry(name, replaces, st_cases,
                               launches["launches"][name], head,
                               next(c for c in st_cases if head(c))["bound"]))
@@ -1281,9 +1494,12 @@ def main(argv=None):
                            ydiag_cases=yd_cases, stl_cases=stl_cases,
                            stf_cases=stf_cases, ydiag_bwd=yd_bwd,
                            stl_bwd=stl_bwd, stf_bwd=stf_bwd,
+                           fused_cases=fused_cases, fused_bwd=fused_bwd,
                            full_model=full, train=train,
                            medssd_eval=ssd_full, medssd_train=ssd_train,
-                           st_ssd_eval=st_full, st_ssd_train=st_train),
+                           st_ssd_eval=st_full, st_ssd_train=st_train,
+                           medssd240_eval=ssd240_full,
+                           medssd240_train=ssd240_train),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

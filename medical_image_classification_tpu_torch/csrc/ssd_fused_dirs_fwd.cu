@@ -4,223 +4,31 @@
 //   medical_image_classification_tpu/kernels/ssd_fused_dirs_pallas.py
 //   ::_fwd_kernel (launched by _run_fwd), save=True and save=False.
 //
-// Computes, for every batch b, head h (directions folded into heads) and
-// chunk c in order, with a = acum[b, c, h] and E[i, j] = exp(a_i - a_j) for
-// i >= j (else 0):
-//   M     = rnd(scores[b, c] * E)                  scores = C_full B_full^T
-//   dtx   = rnd(x * dtp)                           x: [l, P], position order
-//   y     = rnd(M dtx + (C_full rnd(S)^T) * exp(a) + x * D[h])
-//   Ssave[b, c, h] = rnd(S)                        (the state entering c)
-//   S     = cdec[b, c, h] * S + rnd(dtx * dte)^T B_full
-// where rnd() rounds to the operand type (bf16 or fp32) as the TPU body's
-// .astype(mm_dtype) does; every product sums in fp32.  Reverse-class heads
-// read x and write y at the mirrored chunk, reversed within it.
+// The chunk walk of ssd_walk_fwd.cuh over the role-major d0/d1 stack
+// (DirsLayout, ssd_walk_common.cuh): the four directions fold into H4
+// heads, reverse-class heads read x and write y at the mirrored chunk,
+// reversed within it, and y adds the per-head D skip x * D[h].
 //
 // What bounds it on this card: operations.  At MedSSD stage 0 (B 32, L 3136,
-// l 224, H4 8, P 64, N 512, bf16) a call does ~151 GFLOP (the scores
-// 2 l^2 N per chunk, and per head 2 l^2 P + 4 l N P) against ~260 MB moved.
-//
-// Design (simple and right first): two passes.
-//  1. scores_kernel (ssd_fused_dirs_common.cuh) writes C_full B_full^T per
-//     (b, c) to a [B, nc, l, l] fp32 workspace, once for all heads: the
-//     TPU body kept it in VMEM across its head grid axis.
-//  2. fwd_walk_kernel: one block per (b, head, 32 columns of P) walks the
-//     chunks in order with its [32, N] fp32 state in shared memory (64 KB at
-//     N 512), so Y_off = C S^T and the state update stay local; the head's
-//     x, dtx, cumsum rows and a staging tile are in shared memory too.
-// All products run on the CUDA cores in fp32 (FMA over operand-type values)
-// from shared-memory tiles; tensor cores (mma/wgmma) are later work.
+// l 224, H4 8, P 64, N 512, bf16) a call needs ~128 GFLOP (over the causal
+// pairs of a chunk, l (l + 1) / 2: the scores 2 pairs N per chunk, and per
+// head 2 pairs P + 4 l N P) against ~260 MB moved.
 
-#include "ssd_fused_dirs_common.cuh"
+#include "ssd_walk_fwd.cuh"
+
+using namespace ssd_walk;
 
 namespace {
 
-using namespace ssd_dirs;
-
-// Shared memory of the walking block, in floats.
-struct FwdSmem {
-  int LP, N;
-  __host__ __device__ FwdSmem(int l, int N_) : LP((l + 31) / 32 * 32),
-                                               N(N_) {}
-  __host__ __device__ int S() const { return 0; }                 // [32][N+1]
-  __host__ __device__ int x() const { return kPT * (N + 1); }     // [LP][32]
-  __host__ __device__ int dtx() const { return x() + LP * kPT; }  // [LP][32]
-  __host__ __device__ int a() const { return dtx() + LP * kPT; }  // [LP]
-  __host__ __device__ int dtp() const { return a() + LP; }        // [LP]
-  __host__ __device__ int dte() const { return dtp() + LP; }      // [LP]
-  __host__ __device__ int stage() const { return dte() + LP; }    // 32 x 128
-  __host__ __device__ int total() const { return stage() + 32 * 128; }
-};
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fwd_walk_kernel(const T* __restrict__ stack,
-                    const float* __restrict__ acum,
-                    const float* __restrict__ dte,
-                    const float* __restrict__ cdec,
-                    const float* __restrict__ dtp,
-                    const float* __restrict__ Dsk,
-                    const float* __restrict__ scores, T* __restrict__ y,
-                    T* __restrict__ ssave, Dims d) {
-  extern __shared__ float smem[];
-  const FwdSmem L(d.l, d.N);
-  const int N = d.N, NP = d.N + 1, l = d.l, LP = L.LP;
-  float* sS = smem + L.S();
-  float* sx = smem + L.x();
-  float* sdtx = smem + L.dtx();
-  float* sa = smem + L.a();
-  float* sdtp = smem + L.dtp();
-  float* sdte = smem + L.dte();
-  float* stg = smem + L.stage();
-
-  const int p0 = blockIdx.x * kPT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int offB = 2 * d.d_ssm, offC = offB + 2 * d.gn;
-  const float Dh = Dsk[h];
-
-  for (int e = tid; e < kPT * NP; e += kThreads) sS[e] = 0.f;
-  __syncthreads();
-
-  for (int c = 0; c < d.nc; ++c) {
-    const size_t rowoff = d.bch(b, c, h) * l;
-    for (int t = tid; t < LP; t += kThreads) {
-      const bool in = t < l;
-      sa[t] = in ? acum[rowoff + t] : 0.f;
-      sdtp[t] = in ? dtp[rowoff + t] : 0.f;
-      sdte[t] = in ? dte[rowoff + t] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < LP * kPT; e += kThreads) {
-      const int t = e / kPT, p = e % kPT;
-      const float xv = t < l ? load_x(stack, d, b, h, c, t, p0 + p) : 0.f;
-      sx[e] = xv;
-      sdtx[e] = rnd<T>(xv * sdtp[t]);
-    }
-    if (ssave != nullptr) {
-      T* dst = ssave + (d.bch(b, c, h) * d.P + p0) * N;
-      for (int e = tid; e < kPT * N; e += kThreads) {
-        const int p = e / N, n = e - p * N;
-        dst[static_cast<size_t>(p) * N + n] = from_f32<T>(sS[p * NP + n]);
-      }
-    }
-    __syncthreads();
-
-    // y, 32 rows at a time: lane = column p, warp = 4 rows
-    const float* sc = scores + (static_cast<size_t>(b) * d.nc + c) * l * l;
-    for (int i0 = 0; i0 < l; i0 += 32) {
-      float accD[4] = {0.f, 0.f, 0.f, 0.f};
-      float accO[4] = {0.f, 0.f, 0.f, 0.f};
-      // Y_diag = M dtx over j <= i
-      for (int j0 = 0; j0 < i0 + 32 && j0 < l; j0 += 32) {
-        for (int e = tid; e < 32 * 32; e += kThreads) {
-          const int ii = e / 32, jj = e % 32;
-          const int i = i0 + ii, j = j0 + jj;
-          float m = 0.f;
-          if (i < l && j <= i)
-            m = rnd<T>(sc[static_cast<size_t>(i) * l + j] *
-                       expf(sa[i] - sa[j]));
-          stg[ii * 33 + jj] = m;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int jj = 0; jj < 32; ++jj) {
-          const float dv = sdtx[(j0 + jj) * kPT + lane];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            accD[q] += stg[(warp * 4 + q) * 33 + jj] * dv;
-        }
-        __syncthreads();
-      }
-      // Y_off = C_full rnd(S)^T
-      for (int n0 = 0; n0 < N; n0 += 32) {
-        for (int e = tid; e < 32 * 32; e += kThreads) {
-          const int ii = e / 32, nn = e % 32;
-          const int i = i0 + ii;
-          stg[ii * 33 + nn] =
-              i < l ? load_coupled(stack, d, b, c, i, n0 + nn, offC) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int nn = 0; nn < 32; ++nn) {
-          const float sv = rnd<T>(sS[lane * NP + n0 + nn]);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            accO[q] += stg[(warp * 4 + q) * 33 + nn] * sv;
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + warp * 4 + q;
-        if (i < l) {
-          const float v = accD[q] + accO[q] * expf(sa[i]) +
-                          sx[i * kPT + lane] * Dh;
-          y[d.head_row(b, h, c, i) * d.HP + static_cast<size_t>(h) * d.P +
-            p0 + lane] = from_f32<T>(v);
-        }
-      }
-    }
-
-    // the state update: S = cdec S + rnd(dtx * dte)^T B_full
-    for (int e = tid; e < LP * kPT; e += kThreads) {
-      const int t = e / kPT;
-      sdtx[e] = rnd<T>(sdtx[e] * sdte[t]);
-    }
-    __syncthreads();
-    const float dec = cdec[d.bch(b, c, h)];
-    for (int n0 = 0; n0 < N; n0 += 128) {
-      float acc[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) acc[k] = 0.f;
-      for (int t0 = 0; t0 < l; t0 += 32) {
-        for (int e = tid; e < 32 * 128; e += kThreads) {
-          const int tt = e / 128, nn = e % 128;
-          const int t = t0 + tt, n = n0 + nn;
-          stg[e] = (t < l && n < N) ? load_coupled(stack, d, b, c, t, n, offB)
-                                    : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int tt = 0; tt < 32; ++tt) {
-          const float dd = sdtx[(t0 + tt) * kPT + lane];
-#pragma unroll
-          for (int k = 0; k < 16; ++k) acc[k] += dd * stg[tt * 128 + warp + 8 * k];
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const int n = n0 + warp + 8 * k;
-        if (n < N) sS[lane * NP + n] = dec * sS[lane * NP + n] + acc[k];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* stack, const float* acum, const float* dte,
-                   const float* cdec, const float* dtp, const float* Dsk,
+cudaError_t launch(const void* stack, const float* Dsk, const float* acum,
+                   const float* dte, const float* cdec, const float* dtp,
                    void* y, void* ssave, float* scores, const Dims& d,
-                   cudaStream_t stream) {
-  const T* st = static_cast<const T*>(stack);
-  const int nt = (d.l + kTile - 1) / kTile;
-  scores_kernel<T><<<dim3(nt, nt, d.B * d.nc), kThreads, 0, stream>>>(
-      st, scores, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = FwdSmem(d.l, d.N).total() * sizeof(float);
-  err = cudaFuncSetAttribute(fwd_walk_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  fwd_walk_kernel<T><<<dim3(d.P / kPT, d.H4, d.B), kThreads, smem, stream>>>(
-      st, acum, dte, cdec, dtp, Dsk, scores, static_cast<T*>(y),
-      static_cast<T*>(ssave), d);
-  return cudaGetLastError();
+                   int d_ssm, int gn, cudaStream_t stream) {
+  const DirsLayout<T> lay(static_cast<const T*>(stack), Dsk, nullptr, d.H,
+                          d_ssm, gn);
+  return launch_fwd<T>(lay, acum, dte, cdec, dtp, y, ssave, scores, d,
+                       stream);
 }
 
 }  // namespace
@@ -236,19 +44,17 @@ extern "C" int ssd_fused_dirs_fwd(const void* stack, const void* acum,
                                   void* ssave, void* scores, int B, int nc,
                                   int l, int H4, int P, int d_ssm, int gn,
                                   int is_bf16, void* stream) {
-  const Dims d(B, nc, l, H4, P, d_ssm, gn);
+  const Dims d(B, nc, l, H4, P, 4 * gn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(acum);
-  const float* e = static_cast<const float*>(dte);
-  const float* cd = static_cast<const float*>(cdec);
-  const float* dp = static_cast<const float*>(dtp);
-  const float* D = static_cast<const float*>(Dsk);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   float* sc = static_cast<float*>(scores);
   if (is_bf16)
-    return static_cast<int>(launch<__nv_bfloat16>(stack, a, e, cd, dp, D, y,
-                                                  ssave, sc, d, s));
-  return static_cast<int>(
-      launch<float>(stack, a, e, cd, dp, D, y, ssave, sc, d, s));
+    return static_cast<int>(launch<__nv_bfloat16>(
+        stack, f(Dsk), f(acum), f(dte), f(cdec), f(dtp), y, ssave, sc, d,
+        d_ssm, gn, s));
+  return static_cast<int>(launch<float>(stack, f(Dsk), f(acum), f(dte),
+                                        f(cdec), f(dtp), y, ssave, sc, d,
+                                        d_ssm, gn, s));
 }
 
 extern "C" const char* ssd_fused_dirs_fwd_error_string(int code) {

@@ -40,7 +40,9 @@
 //     N, bc): the two products of the rounded dscores with Bc and Cc over
 //     the causal tiles.
 // The strips hold up to 256 rows (l <= 256), ~140 KB of shared memory in
-// all, so one block runs per SM.  l 224 is not a multiple of 64: every tile
+// all, so one block runs per SM; neither kernel holds more than 64
+// columns of N at a time (the strip sums N in 64-wide chunks, the dC/dB
+// kernel takes 64 columns per block), so N does not bound shared memory.  l 224 is not a multiple of 64: every tile
 // edge is masked, and entries above the diagonal give M = G = 0.  P must
 // be <= 64 (one 64-wide ddtx accumulator per block).  bf16 on the tensor
 // cores (WMMA), fp32 on the CUDA cores (st_tiles.cuh).
@@ -267,7 +269,7 @@ cudaError_t launch(const void* Cc, const void* Bc, const float* acum,
 // by the caller: each column tile writes only its causal rows) takes G's
 // row sums per 64-column tile, col_sums [BC, H, l] its column sums, and
 // dscores [BC, l, l] is an fp32 workspace.  The caller checks the shapes:
-// l <= 256, N <= 256, P <= 64, BC <= 65535.
+// l <= 256, N <= 512, P <= 64, BC <= 65535.
 extern "C" int ssd_ydiag_bwd(const void* Cc, const void* Bc, const void* acum,
                              const void* dtx, const void* dy, void* ddtx,
                              void* row_part, void* col_sums, void* dscores,

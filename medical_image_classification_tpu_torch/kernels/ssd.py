@@ -5,9 +5,11 @@ Port of ``medical_image_classification_tpu/kernels/ssd.py``:
 ``ssd_dirs_chunk`` (the gate of the four-direction fused path, without the
 TPU-only terms), ``ssd_chunked_dirs`` (the dt rows of that path, then
 ``kernels/ssd_fused_dirs.py``), ``ssd_chunked`` (the einsum path with
-padding and the unrolled chunk walk, taken where the fused path is not;
-its intra-chunk Y_diag goes to ``kernels/ssd_ydiag.py`` where that gate
-says so) and ``ssd_seq_ref`` (the golden per-token recurrence).  The
+padding and the unrolled chunk walk, taken where the fused dirs path is
+not; where ``ssd_fused_supported`` takes the chunk the whole SSD goes to
+``kernels/ssd_fused.py``, else its intra-chunk Y_diag to
+``kernels/ssd_ydiag.py`` where that gate says so, in the JAX package's
+order) and ``ssd_seq_ref`` (the golden per-token recurrence).  The
 cumsum is ``torch.cumsum`` and reversals are index flips: the
 triangular-ones and anti-identity matmuls of the JAX module were TPU
 workarounds.
@@ -24,9 +26,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from medical_image_classification_tpu_torch.kernels.ssd_fused_dirs import (
+from medical_image_classification_tpu_torch.kernels.ssd_fused import (
     MAX_N as _CARD_MAX_N,
     PT as _CARD_TILE,
+    ssd_fused,
+    ssd_fused_supported,
+)
+from medical_image_classification_tpu_torch.kernels.ssd_fused_dirs import (
     ssd_fused_dirs,
 )
 from medical_image_classification_tpu_torch.kernels.ssd_ydiag import (
@@ -148,12 +154,18 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
       4. state contribution    : Y_off  = C S_in * decay_from_start
     Matmul operands are in x's dtype with the same outputs as the JAX
     einsums (the chunk states accumulate in fp32); dt, the cumsums and the
-    carried state are fp32.  D is [H].  Where ``ydiag_supported`` takes
-    the chunk, Y_diag is ``ydiag_fused`` (the CUDA kernels by ``impl``,
-    forward and, under autograd, backward; see ``kernels/ssd_ydiag.py``),
-    whose gradient reaches dt, dt_bias and A through dacum; it rounds
-    M = scores x decay once where the einsum rounds the scores and the
-    decay each."""
+    carried state are fp32.  D is [H].  The gates decide from the shapes
+    (and, for a CUDA tensor, the CUDA kernels' limits), in the JAX
+    package's order:
+      - ``ssd_fused_supported``: steps 1-4 are ``ssd_fused`` (the CUDA
+        kernels by ``impl``, forward and, under autograd, backward; see
+        ``kernels/ssd_fused.py``) over the padded chunks, x flat and
+        l-major; autograd chains its dte and cdec cotangents to the cumsum;
+      - else ``ydiag_supported``: Y_diag is ``ydiag_fused`` (see
+        ``kernels/ssd_ydiag.py``), whose gradient reaches dt, dt_bias and A
+        through dacum; it rounds M = scores x decay once where the einsum
+        rounds the scores and the decay each;
+      - else the einsums."""
     mm = x.dtype
     f32 = torch.float32
     Bsz, L, H, P = x.shape
@@ -178,13 +190,25 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
 
     A_cum_t = torch.cumsum((dtc * A.to(f32)).transpose(2, 3), dim=-1)
     A_cum = A_cum_t.transpose(2, 3)                         # [B, nc, l, H]
+    xs = x.reshape(Bsz, Lp, H, P)[:, :L]
+    D_skip = xs * D.to(mm)[None, None, :, None]
+
+    if ssd_fused_supported(l, N, P, G, nc, card=x.is_cuda, batch=Bsz,
+                           dtype=mm):
+        dte = torch.exp(A_cum_t[..., -1:] - A_cum_t)        # [B, nc, H, l]
+        cdec = torch.exp(A_cum_t[..., -1])                  # [B, nc, H]
+        y = ssd_fused(Cc.to(mm).reshape(Bsz, nc, l, N),
+                      Bc.to(mm).reshape(Bsz, nc, l, N), A_cum_t, dte, cdec,
+                      dtc.transpose(2, 3), x.reshape(Bsz, nc, l, H * P),
+                      impl=impl)
+        return y.reshape(Bsz, Lp, H, P)[:, :L] + D_skip
 
     dtx_r = (xc * dtc.to(mm)[..., None]).reshape(Bsz, nc, l, G, rep, P)
     dtx_h = dtx_r.movedim(2, 4)                             # [B,nc,G,r,l,P]
     Bc_h = Bc.movedim(2, 3).to(mm)                          # [B,nc,G,l,N]
 
     # 1. intra-chunk: scores once per group, modulated per head
-    if ydiag_supported(l, N, P, G):
+    if ydiag_supported(l, N, P, G, card=x.is_cuda, BC=Bsz * nc, dtype=mm):
         BC = Bsz * nc
         Ydh = ydiag_fused(Cc.to(mm).reshape(BC, l, N),
                           Bc.to(mm).reshape(BC, l, N),
@@ -221,8 +245,7 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
     Y_off = Y_off.reshape(Bsz, nc, l, H, P) * decay_from_start[..., None]
 
     y = (Y_diag + Y_off).reshape(Bsz, Lp, H, P)[:, :L]
-    xs = x.reshape(Bsz, Lp, H, P)[:, :L]
-    return y + xs * D.to(mm)[None, None, :, None]
+    return y + D_skip
 
 
 def ssd_seq_ref(x, dt, A, B, C, D=None, z=None, dt_bias=None,

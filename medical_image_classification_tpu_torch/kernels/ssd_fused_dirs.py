@@ -4,7 +4,8 @@ Function that joins them, and the dispatcher.
 
 Port of ``medical_image_classification_tpu/kernels/ssd_fused_dirs_pallas.py``
 (``ssd_fused_dirs`` and its custom VJP, ``_fwd_kernel``, ``_bwd_kernel``).
-Kernels: ``csrc/ssd_fused_dirs_fwd.cu`` and ``csrc/ssd_fused_dirs_bwd.cu``.
+Kernels: ``csrc/ssd_fused_dirs_fwd.cu`` and ``csrc/ssd_fused_dirs_bwd.cu``
+(the chunk walk of ``csrc/ssd_walk_{fwd,bwd}.cuh`` over the stack).
 
 Layouts (one B/C group whose state couples the four directions, ref_flat;
 H4 = 4 nh heads, direction-major; gn = d_state; N = 4 gn; C' = d_ssm + 2 gn
@@ -38,16 +39,19 @@ from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     resolve_impl,
 )
+from medical_image_classification_tpu_torch.kernels.ssd_fused import (
+    _DTYPES,
+    MAX_L,
+    MAX_N,
+    PT,
+    walk_bwd_ref,
+    walk_fwd_ref,
+)
 
 _FWD_KERNEL = "ssd_fused_dirs_fwd"
 _BWD_KERNEL = "ssd_fused_dirs_bwd"
-_DTYPES = (torch.float32, torch.bfloat16)
-# shape limits of the CUDA kernels: one block walks PT columns of a head's
-# P, holding its [PT, N] fp32 state and [l, PT] tiles in shared memory, and
-# steps over N in tiles of PT without a mask
-PT = 32
-MAX_L = 256
-MAX_N = 512
+# the walk kernels' shape limits (PT, MAX_L, MAX_N) are the single
+# layout's: see kernels/ssd_fused.py
 
 
 def _dims(stackr, acum, d_ssm):
@@ -94,44 +98,16 @@ def _from_d01(y, H4):
     return torch.cat([yp[:, :, :h2], yp[:, :, h2:].flip(1).flip(3)], dim=2)
 
 
-def _decay(a, causal):
-    """exp(a_i - a_j) for i >= j, else 0: [..., l] -> [..., l, l].  The
-    masked entries are zeroed before the exp too, so that neither the
-    value nor its autograd meets an overflow there."""
-    seg = (a[..., :, None] - a[..., None, :]).masked_fill(~causal, 0.0)
-    return torch.where(causal, torch.exp(seg), 0.0)
-
-
 def ssd_fused_dirs_fwd_ref(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int,
                            gn: int, want_save: bool = False):
     """Plain PyTorch version of the forward kernel: the TPU body's chunk
-    walk, vectorised over batch and heads.  Returns y, and Ssave when
-    ``want_save``."""
-    B, nc, l, _, H4, nh, P = _dims(stackr, acum, d_ssm)
-    mm = stackr.dtype
-    rnd = lambda t: t.to(mm).float()
+    walk (``kernels/ssd_fused.py::walk_fwd_ref``) over the position-order
+    operands, with the D skip.  Returns y, and Ssave when ``want_save``."""
+    H4 = acum.shape[2]
     x4, Bfull, Cfull = _operands(stackr, d_ssm, gn, H4)
-    causal = torch.ones(l, l, dtype=torch.bool, device=stackr.device).tril()
-    S = torch.zeros(B, H4, P, 4 * gn, dtype=torch.float32,
-                    device=stackr.device)
-    ys, saves = [], []
-    for c in range(nc):
-        Bc, Cc = Bfull[:, c], Cfull[:, c]                   # [B, l, N]
-        sc = Cc @ Bc.transpose(1, 2)                         # [B, l, l]
-        a = acum[:, c]                                       # [B, H4, l]
-        M = rnd(sc[:, None] * _decay(a, causal))             # [B,H4,l,l]
-        x = x4[:, c]                                         # [B,H4,l,P]
-        dtx = rnd(x * dtp[:, c, :, :, None])
-        if want_save:
-            saves.append(S.to(mm))
-        Yoff = Cc[:, None] @ rnd(S).transpose(-1, -2)        # [B,H4,l,P]
-        ys.append((M @ dtx + Yoff * torch.exp(a)[..., None]
-                   + x * Dsk[:, None, None]).to(mm))
-        dtx_d = rnd(dtx * dte[:, c, :, :, None])
-        S = cdec[:, c, :, None, None] * S + dtx_d.transpose(-1, -2) @ \
-            Bc[:, None]
-    y = _to_d01(torch.stack(ys, dim=1))
-    return (y, torch.stack(saves, dim=1)) if want_save else y
+    y, Ssave = walk_fwd_ref(x4, Bfull, Cfull, acum, dte, cdec, dtp,
+                            stackr.dtype, Dsk, want_save)
+    return (_to_d01(y), Ssave) if want_save else _to_d01(y)
 
 
 def _cotangents(stackr, dx, dB2, dC2, dacum, ddte, dcdec, ddtp, dD, nh):
@@ -151,71 +127,20 @@ def _cotangents(stackr, dx, dB2, dC2, dacum, ddte, dcdec, ddtp, dD, nh):
 def ssd_fused_dirs_bwd_ref(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int,
                            gn: int, Ssave, dy):
     """Plain PyTorch version of the backward kernel (``_bwd_kernel`` and
-    ``_vjp_bwd``, formula by formula): the chunks walked in reverse from
-    the saved boundary states.  Returns the cotangents of (stackr, acum,
-    dte, cdec, dtp, Dsk)."""
-    B, nc, l, _, H4, nh, P = _dims(stackr, acum, d_ssm)
-    mm = stackr.dtype
-    f32 = torch.float32
-    rnd = lambda t: t.to(mm).float()
+    ``_vjp_bwd``): the reverse walk of ``kernels/ssd_fused.py::
+    walk_bwd_ref`` over the position-order operands; the coupled B/C
+    cotangents' flipped halves go back to the mirrored chunk, reversed.
+    Returns the cotangents of (stackr, acum, dte, cdec, dtp, Dsk)."""
+    H4 = acum.shape[2]
     gn2 = 2 * gn
     x4, Bfull, Cfull = _operands(stackr, d_ssm, gn, H4)
-    dy4 = _from_d01(dy.to(mm), H4).float()                  # [B,nc,H4,l,P]
-    causal = torch.ones(l, l, dtype=torch.bool, device=stackr.device).tril()
-    dS = torch.zeros(B, H4, P, 4 * gn, dtype=f32, device=stackr.device)
-    dxp = torch.empty(B, nc, H4, l, P, dtype=mm, device=stackr.device)
-    dacum, ddte, ddtp = (torch.empty_like(acum) for _ in range(3))
-    dcdec, dD = torch.empty_like(cdec), torch.empty_like(cdec)
-    dB2 = torch.empty(B, nc, l, gn2, dtype=mm, device=stackr.device)
-    dC2, dB_flip, dC_flip = (torch.empty_like(dB2) for _ in range(3))
-    for rc in range(nc - 1, -1, -1):
-        Bc, Cc = Bfull[:, rc], Cfull[:, rc]
-        sc = Cc @ Bc.transpose(1, 2)
-        a = acum[:, rc]
-        E = _decay(a, causal)
-        M = sc[:, None] * E                                  # fp32
-        xf = x4[:, rc]
-        dtx = rnd(xf * dtp[:, rc, :, :, None])
-        dy_ = dy4[:, rc]
-        Sin = Ssave[:, rc].float()                           # [B,H4,P,N]
-        dSout = dS
-        # Y_diag adjoints
-        ddtx_diag = rnd(M).transpose(-1, -2) @ dy_
-        dM = dy_ @ dtx.transpose(-1, -2)
-        dscores = (dM * E).sum(1)                            # [B, l, l]
-        G = dM * M
-        dacum_h = G.sum(-1) - G.sum(-2)
-        # Y_off = (C Sin^T) exp(acum) adjoints
-        eA = torch.exp(a)[..., None]
-        Yoff = Cc[:, None] @ Sin.transpose(-1, -2)
-        dYoff = rnd(dy_ * eA)
-        dacum[:, rc] = dacum_h + (dy_ * Yoff * eA).sum(-1)
-        dC_acc = torch.einsum("bhlp,bhpn->bln", dYoff, Sin)
-        dSin = dYoff.transpose(-1, -2) @ Cc[:, None]
-        # D skip
-        dD[:, rc] = (dy_ * xf).sum((-1, -2))
-        # state recurrence adjoints
-        dte_ = dte[:, rc, :, :, None]
-        t = Bc[:, None] @ rnd(dSout).transpose(-1, -2)       # [B,H4,l,P]
-        ddtx = ddtx_diag + t * dte_
-        dxp[:, rc] = (ddtx * dtp[:, rc, :, :, None]
-                      + dy_ * Dsk[:, None, None]).to(mm)
-        ddtp[:, rc] = (ddtx * xf).sum(-1)
-        dB_acc = torch.einsum("bhlp,bhpn->bln", rnd(dtx * dte_), rnd(dSout))
-        ddte[:, rc] = (t * dtx).sum(-1)
-        dcdec[:, rc] = (dSout * Sin).sum((-1, -2))
-        dS = cdec[:, rc, :, None, None] * dSout + dSin
-        # the chunk's B/C cotangents; the flipped halves at the mirrored
-        # chunk, back in d0/d1 order
-        ds = rnd(dscores)
-        dC_full = dC_acc + ds @ Bc
-        dB_full = dB_acc + ds.transpose(1, 2) @ Cc
-        dC2[:, rc], dB2[:, rc] = dC_full[..., :gn2], dB_full[..., :gn2]
-        dC_flip[:, nc - 1 - rc] = dC_full[..., gn2:].flip(1)
-        dB_flip[:, nc - 1 - rc] = dB_full[..., gn2:].flip(1)
-    dx = _to_d01(dxp)
-    return _cotangents(stackr, dx, dB2 + dB_flip, dC2 + dC_flip, dacum, ddte,
-                       dcdec, ddtp, dD, nh)
+    dy4 = _from_d01(dy.to(stackr.dtype), H4).float()        # [B,nc,H4,l,P]
+    dxp, dacum, ddte, dcdec, ddtp, dD, dB, dC = walk_bwd_ref(
+        x4, Bfull, Cfull, acum, dte, cdec, dtp, Ssave, dy4, stackr.dtype, Dsk)
+    dB2 = dB[..., :gn2] + _mirror(dB[..., gn2:])
+    dC2 = dC[..., :gn2] + _mirror(dC[..., gn2:])
+    return _cotangents(stackr, _to_d01(dxp), dB2, dC2, dacum, ddte, dcdec,
+                       ddtp, dD, H4 // 4)
 
 
 # --------------------------------------------------------------------------

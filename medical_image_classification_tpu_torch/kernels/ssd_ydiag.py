@@ -47,18 +47,30 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # it to small shapes, as the JAX package's tests patch its ``_MIN_L``.
 _MIN_L = 224
 _MAX_L = 256
-# shape limits of the CUDA kernels: the forward holds two [64, N] row
-# tiles; the backward keeps a head's [64, P] cotangent tile in one 64-wide
-# accumulator and two [l, 64] fp32 strips (l <= _MAX_L) in shared memory
-MAX_N = 256
+# shape limits of the CUDA kernels: the forward sums the scores over N in
+# slabs of 128 and the backward over 64-column chunks, so shared memory
+# does not grow with N; MAX_N is the widest state the card's checks cover
+# (MedSSD's N 512).  The backward keeps a head's [64, P] cotangent tile in
+# one 64-wide accumulator and two [l, 64] fp32 strips (l <= _MAX_L) in
+# shared memory
+MAX_N = 512
 MAX_P_BWD = 64
 
 
-def ydiag_supported(l: int, N: int, P: int, G: int) -> bool:
+def ydiag_supported(l: int, N: int, P: int, G: int, card: bool = False,
+                    BC: int = 1, dtype: torch.dtype = torch.float32) -> bool:
     """The shape terms of the JAX gate (``ssd_ydiag_pallas.py:127-128``),
-    without its backend term and its VMEM fit (``_pick_hb``)."""
-    return (G == 1 and _MIN_L <= l <= _MAX_L and l % 8 == 0 and N % 64 == 0
-            and P % 8 == 0)
+    without its backend term and its VMEM fit (``_pick_hb``).  ``card``:
+    the operands lie on the GPU, where the CUDA kernels also need what
+    ``_check_cuda_args`` asks of the forward and the backward: N <=
+    ``MAX_N``, P <= ``MAX_P_BWD``, l <= ``_MAX_L``, BC <= 65535 and a
+    float32 or bfloat16 dtype; elsewhere the plain version takes any of
+    these shapes."""
+    if not (G == 1 and _MIN_L <= l <= _MAX_L and l % 8 == 0 and N % 64 == 0
+            and P % 8 == 0):
+        return False
+    return not card or (N <= MAX_N and P <= MAX_P_BWD and BC <= 65535
+                        and dtype in _DTYPES)
 
 
 def ydiag_fused_ref(Cc, Bc, acum, dtx):

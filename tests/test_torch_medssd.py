@@ -7,7 +7,10 @@ The reduced model keeps MedSSD's structure at 32x32 with narrow widths
 widened to l >= 8 on both sides, as the JAX package's tests do, stage 0
 (L 64) takes the fused dirs path at chunk 16 (the port's plain twin, the
 JAX kernel in Pallas interpret mode), stage 1 (L 16) at chunk 8, and
-stages 2-3 the einsum path."""
+stages 2-3 the einsum path.  At 68x68, with the single-layout fused SSD's
+and Y_diag's windows widened too, stage 0 (L 289) takes the single-layout
+fused SSD over a padded last chunk and stage 3 Y_diag, as MedSSD at
+240x240 takes them at its stages 1 and 2."""
 
 import jax
 import numpy as np
@@ -16,7 +19,11 @@ import pytest
 import torch
 
 import medical_image_classification_tpu.kernels.ssd_fused_dirs_pallas as jsfd
+import medical_image_classification_tpu.kernels.ssd_fused_pallas as jsf
+import medical_image_classification_tpu.kernels.ssd_ydiag_pallas as jyd
 import medical_image_classification_tpu_torch.kernels.ssd as tssd
+import medical_image_classification_tpu_torch.kernels.ssd_fused as tsf
+import medical_image_classification_tpu_torch.kernels.ssd_ydiag as tyd
 from medical_image_classification_tpu.models import create_model as jax_create
 from medical_image_classification_tpu.train.train_state import (
     TrainState as JaxTrainState,
@@ -254,3 +261,79 @@ def test_bf16_compute_and_unported_options():
     for kw in (dict(kan_in=True), dict(dropout=0.1)):
         with pytest.raises(TypeError, match="unexpected keyword"):
             SS2DSSD(16, d_state=8, headdim=8, **kw)
+
+
+PADDED_SIZE, PADDED_BATCH = 68, 2       # sides 17, 8, 4, 2
+
+
+def _widen_all(mp):
+    """The fused SSD's and Y_diag's windows widened to l >= 8 on both sides
+    (the dirs window already is), their JAX kernels in interpret mode."""
+    for mod in (jsf, jyd):
+        mp.setattr(mod, "_INTERPRET", True)
+    for mod in (jsf, jyd, tsf, tyd):
+        mp.setattr(mod, "_MIN_L", 8)
+
+
+def test_stage_paths_at_68():
+    """At 68x68: stage 0 (L 289 = 17^2) has no pad-free dirs chunk, so it
+    takes the single-layout fused SSD at chunk 16, the 19th chunk padded
+    (289 -> 304); stages 1-2 (L 64, 16) the dirs path; stage 3 (L 4) one
+    chunk of 8, too few for the fused SSD, so Y_diag."""
+    with pytest.MonkeyPatch.context() as mp:
+        _widen_all(mp)
+        dirs = [tssd.ssd_dirs_chunk(L, 16, 128, 8, 4 * d // 8, d)
+                for L, d in ((289, 32), (64, 64), (16, 128), (4, 256))]
+        assert dirs == [None, 16, 8, None]
+        assert [tssd._pick_chunk(L, 16, 128) for L in (289, 4)] == [16, 8]
+        assert tsf.ssd_fused_supported(16, 128, 8, 1, 19)
+        assert not tsf.ssd_fused_supported(8, 128, 8, 1, 1)
+        assert tyd.ydiag_supported(8, 128, 8, 1)
+
+
+def test_fused_and_ydiag_stages_match_jax(jax_model_and_weights):
+    """The reduced model at 68x68 through the single-layout fused SSD
+    (stage 0, padded) and Y_diag (stage 3), both sides: fp32 eval logits
+    within 2e-3 x max|logit|, and two Adam steps at lr 1e-4 (the second
+    loss sees the first step's update) within the trajectory test's rtol
+    1e-2; each path's plain version ran once per forward."""
+    model, params, stats = jax_model_and_weights
+    rng = np.random.default_rng(5)
+    batches = [(rng.integers(0, 256, (PADDED_BATCH, PADDED_SIZE,
+                                      PADDED_SIZE, 3), dtype=np.uint8),
+                rng.integers(0, NUM_CLASSES, (PADDED_BATCH,), dtype=np.int32))
+               for _ in range(3)]
+    with pytest.MonkeyPatch.context() as mp:
+        _widen_all(mp)
+        calls = []
+        for mod, name in ((tsf, "ssd_fused_fwd_ref"),
+                          (tyd, "ydiag_fused_ref")):
+            orig = getattr(mod, name)
+            mp.setattr(mod, name, lambda *a, _o=orig, _n=name, **k:
+                       calls.append(_n) or _o(*a, **k))
+        imgs, labels = batches[0]
+        state = JaxTrainState.create(params, {"batch_stats": stats},
+                                     optax.adam(1e-4))
+        _, logits_j = jax_make_eval_step(model)(state, imgs, labels)
+        port = _port(params, stats)
+        _, logits_t = make_eval_step(port)(torch.from_numpy(imgs),
+                                           torch.from_numpy(labels).long())
+        assert calls == ["ssd_fused_fwd_ref", "ydiag_fused_ref"]
+        logits_j = np.asarray(logits_j)
+        np.testing.assert_allclose(
+            logits_t.numpy(), logits_j, rtol=0,
+            atol=2e-3 * float(np.abs(logits_j).max()))
+
+        step_j = jax_make_train_step(model, donate=False)
+        losses_j = []
+        for imgs, labels in batches[1:]:
+            state, metrics = step_j(state, imgs, labels,
+                                    jax.random.PRNGKey(0))
+            losses_j.append(float(metrics["loss"]))
+        opt = make_optimizer("adam", port.named_parameters())
+        step = make_train_step(port, opt, make_lr_scheduler(
+            opt, make_schedule("constant", 1e-4)), state=TrainState())
+        losses_t = [float(step(torch.from_numpy(i),
+                               torch.from_numpy(l).long())["loss"])
+                    for i, l in batches[1:]]
+        np.testing.assert_allclose(losses_t, losses_j, rtol=1e-2, atol=2e-4)

@@ -54,7 +54,7 @@ def _close(got, want, rtol, atol):
 
 @pytest.mark.parametrize("case", DTYPES, ids=[c[0] for c in DTYPES])
 @pytest.mark.parametrize("l,H,P,N", [(32, 4, 8, 64), (56, 8, 64, 64),
-                                     (40, 2, 16, 128)])
+                                     (40, 2, 16, 128), (24, 2, 8, 512)])
 def test_ydiag_plain_matches_jax(case, l, H, P, N):
     _, jdt, tdt, rtol, atol = case
     rng = np.random.default_rng(l + H)
@@ -211,6 +211,10 @@ BWD_CASES = [
     ("ydiag_wide_n", lambda: jyd.ydiag_fused, lambda: tyd.ydiag_fused_bwd_ref,
      lambda rng: _ydiag_args(rng, 2, 56, 2, 64, 128), (True, True, False,
                                                        True)),
+    # MedSSD's state width (N 512: stage 2 at 240x240, stage 3 at 512x512)
+    ("ydiag_n512", lambda: jyd.ydiag_fused, lambda: tyd.ydiag_fused_bwd_ref,
+     lambda rng: _ydiag_args(rng, 2, 24, 2, 8, 512), (True, True, False,
+                                                      True)),
     ("stl_mixer", lambda: jsmp._mixer, lambda: tsmp.stl_mixer_bwd_ref,
      lambda rng: _stl_args(rng, 2, 64, 200, 128), (True, True, True)),
     ("stl_mixer_c256", lambda: jsmp._mixer, lambda: tsmp.stl_mixer_bwd_ref,
@@ -366,7 +370,7 @@ def _bad_cases():
     ok_stf = (z(2, 24, 128), z(128, 24), z(2, 24, 128))
     yield "ydiag ok", tyd._check_cuda_args, ok_yd, None
     yield "ydiag N", tyd._check_cuda_args, (
-        z(2, 32, 320), z(2, 32, 320)) + ok_yd[2:], ValueError
+        z(2, 32, 576), z(2, 32, 576)) + ok_yd[2:], ValueError
     yield "ydiag dtype", tyd._check_cuda_args, (
         z(2, 32, 64, dt=torch.float16),) * 2 + ok_yd[2:], TypeError
     yield "ydiag acum", tyd._check_cuda_args, ok_yd[:2] + (
