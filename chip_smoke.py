@@ -45,6 +45,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2l. its backward kernel vs the plain backward at the same 4 cases, all
      seven cotangents, a second launch bit-identical; SSDFused against
      torch.autograd through the plain forward in fp32 at both shapes;
+  2m. selective-scan forward kernel with its state flags (init in, last
+     out) vs plain at the Mamba LM's layer call (K 1, G 8, L 2048, Dm 1536)
+     and MedMamba's stage 0 with its directions as groups (K 4, G 32),
+     forward and reverse, fp32 and bf16: y, xsave and last, the first
+     chunk's xsave equal to init, a second launch bit-identical, a zero
+     init bit-identical to no init;
+  2n. its backward with dlast and dinit at the same 8 cases, all eight
+     gradients, a second launch bit-identical, a zero dlast bit-identical
+     to none; ScanFolded with the flags against torch.autograd through the
+     plain forward;
   3. medmamba eval and 4. medmamba training, 5. medssd eval and
      6. medssd training, 7. st_ssd eval and 8. st_ssd training, each model
      at full width (224x224), then 9. medssd eval and 10. medssd training
@@ -61,11 +71,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      steps: every kernel's launches (the path's forward and backward
      kernels exactly their calls per step, the others none), a finite loss,
      every parameter moved, every parameter's gradient at batch 4 against
-     the plain versions (fp32 and bf16), img/s and a profile of one step.
+     the plain versions (fp32 and bf16), img/s and a profile of one step;
+  11. the Mamba-1 LM at mamba-130m width and depth (d_model 768, 24
+     layers, vocab 50280, fp32, seeded random weights with the scan
+     parameters drawn away from init) scoring 8 x 2048 tokens: 24 scan
+     forward launches per forward and every other kernel none, the logits
+     against the plain scan, tokens/s, device ms and the scan's share of
+     one forward; then at 4 layers (b2 x 1024) every parameter's gradient
+     of the cross-entropy plus a term on each layer's last state (dlast on
+     the path), kernels against the plain scan;
+  12. greedy generate with the full LM on the card (4 prompts x 64 tokens,
+     32 new): each new token the full forward's argmax, decode_step's
+     logits against the full forward's, ms per decode step and tokens/s.
 Then one JSON line describing the twelve kernels (launches in the training
 runs; errors, times, the bound of each from this run's shapes; times and
 bounds at stage 0 in bf16, the fused SSD's at MedSSD's stage 1 at
-240x240), the card's name
+240x240; rows 1-2 also at the LM's layer call under "lm"), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -170,6 +191,21 @@ PARAM_GRAD_TOL = (2e-2, 0.998, 2e-4)
 # feed a BatchNorm) have relative distances of 1e2-1e4 on both paths
 BF16_GRAD_RATIO = 1.5
 GRAD_BATCH = 4
+# The Mamba-1 LM at mamba-130m width (models/mamba_lm.py MambaConfig's
+# defaults: d_model 768, 24 layers, vocab 50277 padded to 50280, d_state
+# 16, expand 2), fp32: scoring LM_BATCH x LM_LEN tokens; the gradient check
+# at LM_GRAD_LAYERS layers on LM_GRAD_BATCH x LM_GRAD_LEN tokens; greedy
+# generation of GEN_NEW tokens after GEN_PROMPTS prompts of GEN_PROMPT_LEN
+LM_BATCH, LM_LEN, LM_LAYERS, LM_DINNER = 8, 2048, 24, 1536
+LM_GRAD_BATCH, LM_GRAD_LEN, LM_GRAD_LAYERS = 2, 1024, 4
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 4, 64, 32
+# the scan's flag cases (name, K, G, L, Dm): the LM's layer call (one
+# group, G = batch) and MedMamba's stage 0 with its four directions as
+# groups (G = 8 images x K 4)
+FLAG_CASES = (("lm", 1, LM_BATCH, LM_LEN, LM_DINNER),
+              ("medmamba0", 4, 32, 3136, 96))
+# LM logits with the kernels vs the plain scan: |k - p| <= tol x max|p|
+LM_LOGIT_TOL = 2e-3
 
 
 def _events_ms(fn, reps):
@@ -931,6 +967,181 @@ def phase_fused_bwd_vs_plain():
     return dict(cases=cases, autograd_err=auto)
 
 
+def _flag_cases():
+    """The scan's flag cases, FLAG_CASES in fp32 and bf16, forward and
+    reverse: (case dict, dtype name, reverse, args, init), args the folded
+    scan's (u, delta, A, B, C, D, bias) on the card with S4D-real A =
+    -(1..N), init [G, N, Dm] fp32."""
+    import torch
+    dev = torch.device("cuda")
+    for i, (name, K, g, L, Dm) in enumerate(FLAG_CASES):
+        gen = torch.Generator(device=dev).manual_seed(700 + i)
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+        base = dict(u=rnd(g, L, Dm), delta=0.5 * rnd(g, L, Dm),
+                    B=rnd(g, L, N), C=rnd(g, L, N))
+        A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
+            K, Dm, N).contiguous()
+        D, bias, init = rnd(K, Dm), 0.1 * rnd(K, Dm), rnd(g, N, Dm)
+        case = dict(name=name, K=K, G=g, L=L, Dm=Dm,
+                    shape=f"{name} K{K} G{g} L{L} Dm{Dm} N{N}")
+        for dt_name, dtype in (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            act = {k: v.to(dtype) for k, v in base.items()}
+            for reverse in (False, True):
+                yield case, dt_name, reverse, (
+                    act["u"], act["delta"], A, act["B"], act["C"], D,
+                    bias), init
+
+
+def phase_scan_fwd_flags():
+    """2m: the scan forward kernel with its state flags (init in, last
+    out) vs the plain version: y, xsave and last within the row-1 ladder
+    (TOL), the first scanned chunk's xsave equal to init, a second launch
+    bit-identical, and with a zero init y equal to the flag-free launch's
+    bits; times of the kernel with the flags and without, from CUDA
+    events."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_fwd as fwd)
+    cases = []
+    for case, dt_name, reverse, args, init in _flag_cases():
+        what = f"forward flags {case['shape']} {dt_name} reverse={reverse}"
+        run_k = lambda: fwd._launch_cuda(*args, reverse, True,
+                                         want_state=True, init=init)
+        run_0 = lambda: fwd._launch_cuda(*args, reverse, True)
+        run_p = lambda: fwd.scan_folded_fwd_ref(*args, reverse=reverse,
+                                                want_state=True, init=init)
+        yk, xk, lk = fwd._launch_cuda(*args, reverse, True, want_xsave=True,
+                                      want_state=True, init=init)
+        yk2, lk2 = run_k()
+        y0 = run_0()
+        yz, _ = fwd._launch_cuda(*args, reverse, True, want_state=True,
+                                 init=torch.zeros_like(init))
+        yp, xp, lp = fwd.scan_folded_fwd_ref(*args, reverse=reverse,
+                                             want_xsave=True,
+                                             want_state=True, init=init)
+        torch.cuda.synchronize()
+        if not (torch.equal(yk, yk2) and torch.equal(lk, lk2)):
+            raise AssertionError(f"{what}: two launches differ in the bits")
+        if not torch.equal(yz, y0):
+            raise AssertionError(f"{what}: a zero init changes y")
+        if not torch.equal(xk[:, -1 if reverse else 0], init):
+            raise AssertionError(f"{what}: the first chunk's xsave is not "
+                                 "init")
+        rtol, atol = TOL[dt_name]
+        errs = dict(y=_check_close(what + " y", yk, yp, rtol, atol),
+                    xsave=_check_close(what + " xsave", xk, xp, rtol, atol),
+                    last=_check_close(what + " last", lk, lp, rtol, atol))
+        del yk, xk, lk, yk2, lk2, y0, yz, yp, xp, lp
+        cases.append(dict(case, dtype=dt_name, reverse=reverse, errs=errs,
+                          max_abs_err=max(errs.values()),
+                          ms=_events_ms(run_k, 10),
+                          eval_ms=_events_ms(run_0, 10),
+                          plain_ms=_events_ms(run_p, 1),
+                          bound=_scan_bound(case["L"], case["Dm"], dt_name,
+                                            False, case["G"], True)))
+    summary = "; ".join(
+        f"{c['shape']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'} "
+        + " ".join(f"{k}={v:.2e}" for k, v in c["errs"].items())
+        + f" kernel={c['ms']:.4f}ms without_flags={c['eval_ms']:.4f}ms "
+        f"plain={c['plain_ms']:.1f}ms bound={c['bound'][0]:.4f}ms "
+        f"({c['bound'][1]})" for c in cases)
+    print(f"phase 2m forward kernel with init and last vs plain: "
+          f"{len(cases)}/{4 * len(FLAG_CASES)} cases within "
+          f"fp32 {TOL['fp32']} bf16 {TOL['bf16']} (rtol, atol) on y, "
+          f"xsave and last, the first chunk's xsave = init, second launch "
+          f"bit-identical, a zero init bit-identical to no init | {summary}",
+          flush=True)
+    return cases
+
+
+def phase_scan_bwd_flags():
+    """2n: the scan backward kernel with its state flags (dlast seeding
+    the adjoint, dinit out) vs the plain backward at 2m's cases, all eight
+    gradients within the row-2 ladder (GRAD_TOL), a second launch
+    bit-identical, a zero dlast bit-identical to no dlast; ScanFolded with
+    want_state and init against torch.autograd through the plain forward
+    at MedMamba's stage-2 shape (K 4), fp32, both directions."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_bwd as bwd, selective_scan_fwd as fwd)
+    names = GRAD_NAMES + ("dinit",)
+    cases = []
+    for case, dt_name, reverse, args, init in _flag_cases():
+        what = f"backward flags {case['shape']} {dt_name} reverse={reverse}"
+        _, xsave = fwd.scan_folded_fwd_ref(*args, reverse=reverse,
+                                           want_xsave=True, init=init)
+        gen = torch.Generator(device="cuda").manual_seed(case["L"] + reverse)
+        dy = torch.randn(args[0].shape, device="cuda",
+                         generator=gen).to(args[0].dtype)
+        dlast = torch.randn(init.shape, device="cuda", generator=gen)
+        run_k = lambda: bwd.scan_folded_bwd(*args, xsave, dy,
+                                            reverse=reverse, impl="cuda",
+                                            dlast=dlast, want_dinit=True)
+        run_p = lambda: bwd.scan_folded_bwd_ref(*args, xsave, dy,
+                                                reverse=reverse, dlast=dlast,
+                                                want_dinit=True)
+        gk, gk2, gp = run_k(), run_k(), run_p()
+        g0 = bwd.scan_folded_bwd(*args, xsave, dy, reverse=reverse,
+                                 impl="cuda")
+        gz = bwd.scan_folded_bwd(*args, xsave, dy, reverse=reverse,
+                                 impl="cuda", dlast=torch.zeros_like(dlast))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
+            raise AssertionError(f"{what}: two launches differ in the bits")
+        if not all(torch.equal(a, b) for a, b in zip(g0, gz)):
+            raise AssertionError(f"{what}: a zero dlast changes a gradient")
+        rtol, atol = GRAD_TOL[dt_name]
+        errs = {nm: _check_close(f"{what} {nm}", a, b, rtol, atol)
+                for nm, a, b in zip(names, gk, gp)}
+        del gk, gk2, gp, g0, gz
+        cases.append(dict(case, dtype=dt_name, reverse=reverse, errs=errs,
+                          max_abs_err=max(errs.values()),
+                          ms=_events_ms(run_k, 5),
+                          plain_ms=_events_ms(run_p, 1),
+                          bound=_scan_bound(case["L"], case["Dm"], dt_name,
+                                            True, case["G"], True)))
+
+    # ScanFolded with the flags (kernels) against torch.autograd through
+    # the plain forward, the loss reading y and the last state
+    L, Dm, K, g = STAGES[2][0], STAGES[2][1], 4, G
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    A = -torch.arange(1, N + 1, device="cuda",
+                      dtype=torch.float32).expand(K, Dm, N).contiguous()
+    args = (rnd(g, L, Dm), 0.5 * rnd(g, L, Dm), A, rnd(g, L, N),
+            rnd(g, L, N), rnd(K, Dm), 0.1 * rnd(K, Dm), rnd(g, N, Dm))
+    wy, wl = rnd(g, L, Dm), rnd(g, N, Dm)
+    auto = 0.0
+    for reverse in (False, True):
+        def grads(fn):
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            y, last = fn(*leaves[:7], reverse=reverse, want_state=True,
+                         init=leaves[7])
+            return torch.autograd.grad((y * wy).sum() + (last * wl).sum(),
+                                       leaves)
+        got = grads(lambda *a, **kw: fwd.scan_folded_fwd(*a, impl="cuda",
+                                                         **kw))
+        want = grads(fwd.scan_folded_fwd_ref)
+        auto = max([auto] + [
+            _check_close(f"ScanFolded with flags vs autograd {nm} "
+                         f"reverse={reverse}", a, b, *GRAD_TOL["fp32"])
+            for nm, a, b in zip(names, got, want)])
+    summary = "; ".join(
+        f"{c['shape']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'} "
+        f"err={c['max_abs_err']:.2e} (dinit {c['errs']['dinit']:.2e}) "
+        f"kernel={c['ms']:.4f}ms plain={c['plain_ms']:.1f}ms "
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]})" for c in cases)
+    print(f"phase 2n backward kernel with dlast and dinit vs plain: "
+          f"{len(cases)}/{4 * len(FLAG_CASES)} cases within fp32 "
+          f"{GRAD_TOL['fp32']} bf16 {GRAD_TOL['bf16']} (rtol, atol) on all "
+          f"8 gradients, second launch bit-identical, a zero dlast "
+          f"bit-identical to none | ScanFolded with want_state and init vs "
+          f"torch.autograd through the plain forward at {L}x{Dm} K{K} fp32, "
+          f"both directions: max err {auto:.2e} | {summary}", flush=True)
+    return dict(cases=cases, autograd_err=auto)
+
+
 def _bound(nbytes, ops, dtype):
     """The least time of the work on this card: (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BPS * 1e3
@@ -983,19 +1194,21 @@ def _fused_bound(args, dtype, backward):
                        H, x.shape[3] // H, N, isz, dtype, backward)
 
 
-def _scan_bound(L, Dm, dtype, backward):
-    """The selective scan at G sequences: bytes of u, Δ, B, C in and y out
-    (backward: also dy and xsave in, du, dΔ, dB, dC out), and ~7 fp32
-    operations per state per step forward (~20 backward: the state
+def _scan_bound(L, Dm, dtype, backward, g=G, flags=False):
+    """The selective scan at ``g`` sequences: bytes of u, Δ, B, C in and y
+    out (backward: also dy and xsave in, du, dΔ, dB, dC out; with the
+    ``flags``, init in and last out, or dlast in and dinit out, fp32), and
+    ~7 fp32 operations per state per step forward (~20 backward: the state
     recompute and the adjoint), on the CUDA cores."""
     isz = 4 if dtype == "fp32" else 2
-    seq = G * L * (3 * Dm + 2 * N) * isz       # u, Δ, B, C and y (or dy)
-    ops = (20 if backward else 7) * G * L * Dm * N
+    seq = g * L * (3 * Dm + 2 * N) * isz       # u, Δ, B, C and y (or dy)
+    ops = (20 if backward else 7) * g * L * Dm * N
+    states = 2 * g * N * Dm * 4 if flags else 0
     if backward:
-        xsave = G * -(-L // 32) * N * Dm * 4
-        out = G * L * (2 * Dm + 2 * N) * isz     # du, dΔ, dB, dC
-        return _bound(seq + xsave + out, ops, "fp32")
-    return _bound(seq, ops, "fp32")
+        xsave = g * -(-L // 32) * N * Dm * 4
+        out = g * L * (2 * Dm + 2 * N) * isz     # du, dΔ, dB, dC
+        return _bound(seq + xsave + out + states, ops, "fp32")
+    return _bound(seq + states, ops, "fp32")
 
 
 def _perturb_scan_params(model, gen):
@@ -1397,6 +1610,272 @@ def phase_train(card, name, num, size=SIZE):
                 grad_check=grad_check, step_ms=times, profile=rows)
 
 
+def _lm_model(n_layer, scan_impl="auto"):
+    """Seeded mamba-130m (``n_layer`` of its 24 layers) on the card in
+    eval mode, its scan parameters drawn away from init so that the logit
+    checks see the state term: D ~ U(-1, 1), Δ's bias the softplus-inverse
+    of U(0.05, 0.5), A_log = log U(1, 16), x_proj's weight (B, C and Δ's
+    rank) times 4."""
+    import torch
+    from medical_image_classification_tpu_torch.models.mamba_lm import (
+        Mamba, MambaConfig, MambaLMHeadModel)
+    gen = torch.Generator().manual_seed(0)
+    model = MambaLMHeadModel(MambaConfig(n_layer=n_layer),
+                             scan_impl=scan_impl, generator=gen)
+    draw = lambda t, lo, hi: torch.empty(t.shape).uniform_(lo, hi,
+                                                           generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Mamba):
+                m.D.copy_(draw(m.D, -1.0, 1.0))
+                dt = draw(m.dt_proj.bias, 0.05, 0.5)
+                m.dt_proj.bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+                m.A_log.copy_(draw(m.A_log, 1.0, 16.0).log())
+                m.x_proj.weight.mul_(4.0)
+    return model.eval()
+
+
+def _set_scan_impl(model, impl):
+    from medical_image_classification_tpu_torch.models.mamba_lm import Mamba
+    for m in model.modules():
+        if isinstance(m, Mamba):
+            m.scan_impl = impl
+
+
+def _lm_tokens(batch, length, seed, vocab=50277):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (batch, length), device="cuda",
+                         generator=gen)
+
+
+def _lm_state_loss(model, ids):
+    """The LM's forward with every mixer returning its last state: the
+    next-token cross-entropy, and the sum over the layers of each last
+    state's mean square over its own (constant) value: a term worth 1 per
+    layer whatever the states' scale, so that the scan's dlast carries
+    weight on the gradient's path."""
+    import torch.nn.functional as F
+    bb = model.backbone
+    h, states = bb.embedding(ids), 0.0
+    for blk in bb.layers:
+        y, last = blk.mixer(blk.norm(h), return_state=True)
+        h = h + y
+        sq = last.square().mean()
+        states = states + sq / sq.detach()
+    logits = model.lm_head(bb.norm_f(h))
+    ce = F.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten())
+    return ce, states
+
+
+def phase_lm_scoring(card):
+    """11: the Mamba-1 LM at mamba-130m width and depth, fp32, scoring
+    LM_BATCH x LM_LEN tokens: the kernel launches of one forward (the scan
+    forward once per layer, every other kernel none), the logits against
+    the same model with the plain scan, tokens/s (host clock over
+    forwards ending in a synchronize), the device time of one forward and
+    the scan's share of it (torch.profiler); then the gradient check at
+    LM_GRAD_LAYERS layers: every parameter's gradient of the cross-entropy
+    plus the last states' term (``_lm_state_loss``), kernels against the
+    plain scan, and the launches of that step."""
+    import torch
+    import torch.nn.functional as F
+    counters = _counters()
+    model = _lm_model(LM_LAYERS)
+    ids = _lm_tokens(LM_BATCH, LM_LEN, 1)
+    with torch.no_grad():
+        model(ids[:, :64])                                  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        logits = model(ids)
+        torch.cuda.synchronize()
+        launches = _launches(counters)
+        want = {k: LM_LAYERS if k == "selective_scan_fwd" else 0
+                for k in counters}
+        if launches != want:
+            raise AssertionError(f"LM forward: kernel launches {launches}, "
+                                 f"expected {want}")
+        V = logits.shape[-1]
+        if logits.shape != (LM_BATCH, LM_LEN, V) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"LM logits {tuple(logits.shape)} not "
+                                 "finite or of the wrong shape")
+        nll = float(F.cross_entropy(logits[:, :-1].flatten(0, 1),
+                                    ids[:, 1:].flatten()))
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            model(ids)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) / STEPS * 1e3
+        rows = [r for r in _profile(lambda: model(ids))
+                if r["cpu_us"] == 0.0]
+        device_ms = sum(r["device_us"] for r in rows) / 1e3
+        scan_ms = sum(r["device_us"] for r in rows
+                      if "scan_fwd_kernel" in r["name"]) / 1e3
+        _set_scan_impl(model, "torch")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        plain = model(ids)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        scale = float(plain.abs().max())
+        err = float((logits - plain).abs().max())
+        if err > LM_LOGIT_TOL * scale:
+            raise AssertionError(f"LM logits kernel vs plain scan max err "
+                                 f"{err:.3e} > {LM_LOGIT_TOL} x {scale:.3f}")
+        plain_nll = float(F.cross_entropy(plain[:, :-1].flatten(0, 1),
+                                          ids[:, 1:].flatten()))
+        if any(_launches(counters).values()):
+            raise AssertionError("the plain-scan LM launched a kernel")
+        del logits, plain
+    top = ", ".join(f"{r['name'][:40]} {r['device_us'] / 1e3:.2f} ms"
+                    for r in rows[:4])
+    tokens_s = LM_BATCH * LM_LEN / fwd_ms * 1e3
+    print(f"phase 11 LM scoring (mamba-130m: d_model 768, {LM_LAYERS} "
+          f"layers, vocab {V}, fp32) b{LM_BATCH} x {LM_LEN} tokens: kernel "
+          f"launches selective_scan_fwd {launches['selective_scan_fwd']} "
+          f"per forward, the other kernels none; logits finite, mean NLL "
+          f"{nll:.4f} (plain scan {plain_nll:.4f}) | kernel vs plain-scan "
+          f"logits max err {err:.3e} (tol {LM_LOGIT_TOL} x max|logit| "
+          f"{scale:.3f}) | {tokens_s:.1f} tokens/s, {fwd_ms:.2f} ms per "
+          f"forward (host clock, {STEPS} forwards) on {card}; the plain-scan "
+          f"forward {plain_s:.2f} s | one forward: {device_ms:.2f} ms device "
+          f"time in kernels ({100 * device_ms / fwd_ms:.1f}% of the "
+          f"forward), the scan {scan_ms:.2f} ms "
+          f"({100 * scan_ms / device_ms:.1f}%); top: {top}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # the gradient check, at LM_GRAD_LAYERS layers
+    model = _lm_model(LM_GRAD_LAYERS)
+    ids = _lm_tokens(LM_GRAD_BATCH, LM_GRAD_LEN, 2)
+    model.train()
+    grads, losses = {}, {}
+    for impl in ("cuda", "torch"):
+        _set_scan_impl(model, impl)
+        model.zero_grad(set_to_none=True)
+        for c in counters.values():
+            c.launches = 0
+        ce, states = _lm_state_loss(model, ids)
+        (ce + states).backward()
+        torch.cuda.synchronize()
+        got = _launches(counters)
+        n = LM_GRAD_LAYERS if impl == "cuda" else 0
+        want = {k: n if k in ("selective_scan_fwd", "selective_scan_bwd")
+                else 0 for k in counters}
+        if got != want:
+            raise AssertionError(f"LM gradient step ({impl}): kernel "
+                                 f"launches {got}, expected {want}")
+        losses[impl] = (float(ce.detach()), float(states.detach()))
+        grads[impl] = {nm: p.grad.detach().double().flatten()
+                       for nm, p in model.named_parameters()}
+    rel, cos = _check_grad_tree("LM param grad", grads["cuda"],
+                                grads["torch"], *PARAM_GRAD_TOL)
+    # every leaf, the abs floor aside (fp32: the leaves may all fall under it)
+    diffs = {nm: float((grads["cuda"][nm] - w).norm())
+             for nm, w in grads["torch"].items()}
+    rel_all = max(d / (float(grads["torch"][nm].norm()) + 1e-30)
+                  for nm, d in diffs.items())
+    print(f"phase 11 LM gradient check ({LM_GRAD_LAYERS} layers, full "
+          f"width, b{LM_GRAD_BATCH} x {LM_GRAD_LEN}, fp32, every mixer "
+          f"returning its last state): launches selective_scan_fwd + bwd "
+          f"{LM_GRAD_LAYERS} + {LM_GRAD_LAYERS}, the other kernels none; "
+          f"loss (cross-entropy, last-state term) kernels "
+          f"{losses['cuda'][0]:.6f}, {losses['cuda'][1]:.6f} vs plain "
+          f"{losses['torch'][0]:.6f}, {losses['torch'][1]:.6f}; worst leaf "
+          f"rel-norm {rel:.2e} cos {cos:.6f} over {len(grads['torch'])} "
+          f"leaves (tol {PARAM_GRAD_TOL}); without the floor: worst leaf "
+          f"rel-norm {rel_all:.2e}, largest error norm "
+          f"{max(diffs.values()):.2e}", flush=True)
+    del model, grads
+    torch.cuda.empty_cache()
+    return dict(launches_per_forward=launches["selective_scan_fwd"],
+                tokens_s=tokens_s, forward_ms=fwd_ms,
+                device_forward_ms=device_ms, scan_ms=scan_ms,
+                scan_share=scan_ms / device_ms, logit_err=err,
+                logit_scale=scale, nll=nll, plain_nll=plain_nll,
+                plain_forward_s=plain_s, grad_worst_rel=rel,
+                grad_worst_cos=cos, grad_worst_rel_no_floor=rel_all,
+                grad_losses=losses, profile=rows)
+
+
+def phase_lm_generate(card):
+    """12: greedy generation on the card with the full-depth LM:
+    GEN_PROMPTS prompts of GEN_PROMPT_LEN tokens and GEN_NEW new tokens
+    through ``generate`` (prefill and decoding through decode_step, plain
+    torch ops: no kernel launches); each new token equal to the argmax of
+    the full forward (the scan kernel) over the generated sequence, and
+    decode_step's logits over that sequence against the full forward's;
+    decode ms per token and new tokens/s (host clock)."""
+    import torch
+    from medical_image_classification_tpu_torch.models.mamba_lm import (
+        generate)
+    counters = _counters()
+    model = _lm_model(LM_LAYERS)
+    prompts = _lm_tokens(GEN_PROMPTS, GEN_PROMPT_LEN, 3)
+    generate(model, prompts[:, :2], 2)                      # warm-up
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = generate(model, prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = sum(_launches(counters).values())
+    if gen_launches or out.shape != (GEN_PROMPTS, GEN_PROMPT_LEN + GEN_NEW):
+        raise AssertionError(f"generate: {gen_launches} kernel launches, "
+                             f"tokens {tuple(out.shape)}")
+    with torch.no_grad():
+        full = model(out)
+        fwd_launches = _launches(counters)["selective_scan_fwd"]
+        if fwd_launches != LM_LAYERS:
+            raise AssertionError(f"full forward: {fwd_launches} scan "
+                                 f"launches, expected {LM_LAYERS}")
+        pred = full[:, GEN_PROMPT_LEN - 1:-1].argmax(-1)
+        same = int((pred == out[:, GEN_PROMPT_LEN:]).sum())
+        if same != GEN_PROMPTS * GEN_NEW:
+            raise AssertionError(f"generate: {same} of {GEN_PROMPTS * GEN_NEW}"
+                                 " new tokens equal the full forward's "
+                                 "argmax")
+        top2 = full[:, GEN_PROMPT_LEN - 1:-1].topk(2, dim=-1).values
+        margin = float((top2[..., 0] - top2[..., 1]).min())
+        cache = model.init_cache(GEN_PROMPTS)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(out.shape[1]):
+            logits, cache = model.decode_step(out[:, t], cache)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / out.shape[1] * 1e3
+        dec = torch.stack(steps, dim=1)
+        scale = float(full.abs().max())
+        err = float((dec - full).abs().max())
+        if err > LM_LOGIT_TOL * scale:
+            raise AssertionError(f"decode_step vs full forward logits max err "
+                                 f"{err:.3e} > {LM_LOGIT_TOL} x {scale:.3f}")
+    steps_run = GEN_PROMPT_LEN + GEN_NEW - 1
+    tokens_s = GEN_PROMPTS * GEN_NEW / gen_s
+    print(f"phase 12 LM generate (mamba-130m, fp32, greedy): {GEN_PROMPTS} "
+          f"prompts x {GEN_PROMPT_LEN} tokens + {GEN_NEW} new in "
+          f"{gen_s:.3f} s ({steps_run} decode steps, "
+          f"{gen_s / steps_run * 1e3:.2f} ms per step, {tokens_s:.1f} new "
+          f"tokens/s) on {card}, no kernel launches; all {same} new tokens "
+          f"equal the full forward's argmax (smallest top-2 margin "
+          f"{margin:.3e}; the forward {fwd_launches} scan launches) | "
+          f"decode_step over the {out.shape[1]} tokens vs the full forward: "
+          f"logits max err {err:.3e} (tol {LM_LOGIT_TOL} x max|logit| "
+          f"{scale:.3f}), {step_ms:.2f} ms per step", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(seconds=gen_s, tokens_s=tokens_s,
+                ms_per_step=gen_s / steps_run * 1e3,
+                decode_loop_ms_per_step=step_ms, tokens_equal=same,
+                top2_margin=margin, decode_logit_err=err)
+
+
 def _entry(name, replaces, cases, launches, head, bound):
     """One kernel's record for the kernels line; ``head`` picks the case
     whose times it reports."""
@@ -1433,6 +1912,8 @@ def main(argv=None):
     stf_bwd = phase_stf_bwd_vs_plain()
     fused_cases = phase_fused_fwd_vs_plain()
     fused_bwd = phase_fused_bwd_vs_plain()
+    flag_cases = phase_scan_fwd_flags()
+    flag_bwd = phase_scan_bwd_flags()
     full = phase_full_model(card, "medmamba", 3)
     train = phase_train(card, "medmamba", 4)
     ssd_full = phase_full_model(card, "medssd", 5)
@@ -1441,6 +1922,8 @@ def main(argv=None):
     st_train = phase_train(card, "st_ssd", 8)
     ssd240_full = phase_full_model(card, "medssd", 9, MEDSSD_240)
     ssd240_train = phase_train(card, "medssd", 10, MEDSSD_240)
+    lm = phase_lm_scoring(card)
+    lm_gen = phase_lm_generate(card)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -1456,12 +1939,25 @@ def main(argv=None):
     fused_head = lambda c: c["L"] == FUSED_CASES[0][1] and \
         c["dtype"] == "bf16"
     entries = [
-        _entry("selective_scan_fwd", "selective_scan_pallas_v2.py:36", cases,
-               train["launches"]["selective_scan_fwd"], scan_head,
-               _scan_bound(*STAGES[0], "bf16", False)),
+        _entry("selective_scan_fwd", "selective_scan_pallas_v2.py:36",
+               cases + flag_cases, train["launches"]["selective_scan_fwd"],
+               scan_head, _scan_bound(*STAGES[0], "bf16", False)),
         _entry("selective_scan_bwd", "selective_scan_pallas_bwd_v2.py:57",
-               bwd["cases"], train["launches"]["selective_scan_bwd"],
-               scan_head, _scan_bound(*STAGES[0], "bf16", True))]
+               bwd["cases"] + flag_bwd["cases"],
+               train["launches"]["selective_scan_bwd"], scan_head,
+               _scan_bound(*STAGES[0], "bf16", True))]
+    # rows 1-2 also at the LM's layer call (fp32, forward scan, flags on),
+    # with the LM's launches: per scoring forward, per gradient step
+    lm_head = lambda c: c.get("name") == "lm" and c["dtype"] == "fp32" \
+        and not c["reverse"]
+    for e, fc, per in ((entries[0], flag_cases,
+                        dict(per_forward=lm["launches_per_forward"])),
+                       (entries[1], flag_bwd["cases"],
+                        dict(per_grad_step=LM_GRAD_LAYERS))):
+        c = next(c for c in fc if lm_head(c))
+        e["lm"] = dict(per, shape=c["shape"], dtype="fp32", ms=c["ms"],
+                       plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+                       bound_by=c["bound"][1])
     for name, replaces, st_cases, head, launches in (
             ("ssd_fused_dirs_fwd", "ssd_fused_dirs_pallas.py:178", ssd_cases,
              ssd_head, ssd_train),
@@ -1499,7 +1995,9 @@ def main(argv=None):
                            medssd_eval=ssd_full, medssd_train=ssd_train,
                            st_ssd_eval=st_full, st_ssd_train=st_train,
                            medssd240_eval=ssd240_full,
-                           medssd240_train=ssd240_train),
+                           medssd240_train=ssd240_train,
+                           flag_cases=flag_cases, flag_bwd=flag_bwd,
+                           lm_scoring=lm, lm_generate=lm_gen),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -7,8 +7,8 @@ work is PyTorch; each Pallas TPU kernel on a ported path becomes a kernel
 written by hand for Hopper (``csrc/``), with a plain PyTorch version beside
 it that CPU tensors take.
 
-This package imports ``torch`` and numpy, and never JAX.  The only import
-from the JAX package is its numpy/C++ ``data`` pipeline.
+This package imports ``torch``, numpy and OpenCV, and never JAX nor any
+module of the JAX package: where it needs one, it keeps its own copy.
 """
 
 __version__ = "0.1.0"

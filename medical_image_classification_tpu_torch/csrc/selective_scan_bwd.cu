@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel
 //   medical_image_classification_tpu/kernels/selective_scan_pallas_bwd_v2.py
 //   ::_bwd_kernel_v2 (launched by bwd_folded_v2), for forward and reverse
-//   scans, with or without softplus, with no dlast seed and no dinit output.
+//   scans, with or without softplus, with both state flags: the cotangent
+//   of the last state (dlast) and that of the initial state (want_dinit).
 //
 // The forward (csrc/selective_scan_fwd.cu) is, per sequence g and channel d
 // (param group k = g % K), with dt_t = softplus(delta_t + bias):
@@ -19,6 +20,12 @@
 //   dA[n]    = sum_t g_t[n] (x_t - b_t) dt_t
 //   dD       = sum_t dy_t u_t               dbias = sum_t ddelta_t
 // where x_t - b_t = a_t x_{t-1} comes straight from the recurrence.
+// dlast (optional) [G, N, Dm] fp32, the cotangent of the state after the
+// last step scanned, seeds the adjoint's carry: it reaches that step's g
+// with factor 1.  dinit (optional) [G, N, Dm] fp32 receives the carry after
+// the walk leaves the first step scanned, a_first g_first, the cotangent
+// of the initial state (the forward wrote that state as the first scanned
+// chunk's xsave, so the recompute needs nothing more).
 //
 // Layout: u, delta, dy, du, ddelta [G, L, Dm] and B, C [G, L, N] in one type
 // (fp32 or bf16); A [K, Dm, N], D, bias [K, Dm] fp32; xsave [G, nT, N, Dm]
@@ -99,11 +106,12 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_kernel(
     const float* __restrict__ A, const T* __restrict__ Bm,
     const T* __restrict__ Cm, const float* __restrict__ Dskip,
     const float* __restrict__ bias, const float* __restrict__ xsave,
-    const T* __restrict__ dy, T* __restrict__ du, T* __restrict__ ddelta,
+    const T* __restrict__ dy, const float* __restrict__ dlast,
+    T* __restrict__ du, T* __restrict__ ddelta,
     float* __restrict__ dB_part, float* __restrict__ dC_part,
     float* __restrict__ dA_part, float* __restrict__ dD_part,
-    float* __restrict__ dbias_part, int G, int L, int Dm, int K, int N,
-    bool reverse, bool softplus) {
+    float* __restrict__ dbias_part, float* __restrict__ dinit, int G, int L,
+    int Dm, int K, int N, bool reverse, bool softplus) {
   constexpr int S = sub_chunk<NMAX>();
   extern __shared__ float smem[];
   float* sB = smem;                        // [kChunk][NMAX]
@@ -123,11 +131,17 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_kernel(
 
   // A, and A * log2(e) so that exp(dt * A) = exp2(dt * a2) as in the forward
   float Av[NMAX], a2[NMAX], gc[NMAX], dA[NMAX];
+  // this thread's column of dlast and dinit: [G, N, Dm], step Dm per state
+  const size_t st0 = static_cast<size_t>(g) * N * Dm + d;
 #pragma unroll
   for (int n = 0; n < NMAX; ++n) {
     Av[n] = n < N ? A[(static_cast<size_t>(k) * Dm + dp) * N + n] : 0.f;
     a2[n] = Av[n] * 1.4426950408889634f;
-    gc[n] = 0.f;  // a_t g_t of the step walked last: the adjoint's carry
+    // a_t g_t of the step walked last: the adjoint's carry, seeded with the
+    // last state's cotangent
+    gc[n] = (dlast != nullptr && active && n < N)
+                ? dlast[st0 + static_cast<size_t>(n) * Dm]
+                : 0.f;
     dA[n] = 0.f;
   }
   const float dskip = Dskip[k * Dm + dp];
@@ -260,6 +274,12 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_kernel(
     }
     dD_part[static_cast<size_t>(g) * Dm + d] = dD;
     dbias_part[static_cast<size_t>(g) * Dm + d] = dbias_acc;
+    if (dinit != nullptr) {
+#pragma unroll
+      for (int n = 0; n < NMAX; ++n) {
+        if (n < N) dinit[st0 + static_cast<size_t>(n) * Dm] = gc[n];
+      }
+    }
   }
 }
 
@@ -267,10 +287,11 @@ template <typename T, int NMAX>
 cudaError_t launch_n(const dim3 grid, const T* u, const T* delta,
                      const float* A, const T* B, const T* C, const float* D,
                      const float* bias, const float* xsave, const T* dy,
-                     T* du, T* ddelta, float* dB_part, float* dC_part,
-                     float* dA_part, float* dD_part, float* dbias_part, int G,
-                     int L, int Dm, int K, int N, bool reverse,
-                     bool softplus, cudaStream_t stream) {
+                     const float* dlast, T* du, T* ddelta, float* dB_part,
+                     float* dC_part, float* dA_part, float* dD_part,
+                     float* dbias_part, float* dinit, int G, int L, int Dm,
+                     int K, int N, bool reverse, bool softplus,
+                     cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<NMAX>();
   // above 48 KB a block gets dynamic shared memory only on request
   cudaError_t err = cudaFuncSetAttribute(
@@ -278,8 +299,9 @@ cudaError_t launch_n(const dim3 grid, const T* u, const T* delta,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   scan_bwd_kernel<T, NMAX><<<grid, kThreads, bytes, stream>>>(
-      u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part, dC_part,
-      dA_part, dD_part, dbias_part, G, L, Dm, K, N, reverse, softplus);
+      u, delta, A, B, C, D, bias, xsave, dy, dlast, du, ddelta, dB_part,
+      dC_part, dA_part, dD_part, dbias_part, dinit, G, L, Dm, K, N, reverse,
+      softplus);
   return cudaGetLastError();
 }
 
@@ -287,10 +309,10 @@ template <typename T>
 cudaError_t launch(const void* u, const void* delta, const void* A,
                    const void* B, const void* C, const void* D,
                    const void* bias, const void* xsave, const void* dy,
-                   void* du, void* ddelta, void* dB_part, void* dC_part,
-                   void* dA_part, void* dD_part, void* dbias_part, int G,
-                   int L, int Dm, int K, int N, bool reverse, bool softplus,
-                   cudaStream_t stream) {
+                   const void* dlast, void* du, void* ddelta, void* dB_part,
+                   void* dC_part, void* dA_part, void* dD_part,
+                   void* dbias_part, void* dinit, int G, int L, int Dm, int K,
+                   int N, bool reverse, bool softplus, cudaStream_t stream) {
   const dim3 grid((Dm + kThreads - 1) / kThreads, G);
 #define SCAN_BWD_LAUNCH(NM)                                                  \
   return launch_n<T, NM>(                                                    \
@@ -298,11 +320,12 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
       static_cast<const float*>(A), static_cast<const T*>(B),                \
       static_cast<const T*>(C), static_cast<const float*>(D),                \
       static_cast<const float*>(bias), static_cast<const float*>(xsave),     \
-      static_cast<const T*>(dy), static_cast<T*>(du),                        \
-      static_cast<T*>(ddelta), static_cast<float*>(dB_part),                 \
-      static_cast<float*>(dC_part), static_cast<float*>(dA_part),            \
-      static_cast<float*>(dD_part), static_cast<float*>(dbias_part), G, L,   \
-      Dm, K, N, reverse, softplus, stream)
+      static_cast<const T*>(dy), static_cast<const float*>(dlast),           \
+      static_cast<T*>(du), static_cast<T*>(ddelta),                          \
+      static_cast<float*>(dB_part), static_cast<float*>(dC_part),            \
+      static_cast<float*>(dA_part), static_cast<float*>(dD_part),            \
+      static_cast<float*>(dbias_part), static_cast<float*>(dinit), G, L, Dm, \
+      K, N, reverse, softplus, stream)
   if (N <= 8) {
     SCAN_BWD_LAUNCH(8);
   } else if (N <= 16) {
@@ -320,27 +343,28 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
 
 // Plain C interface, loaded with ctypes.  Returns cudaGetLastError() after
 // the launch (0 on success).  is_bf16 selects the type of u, delta, B, C, dy,
-// du and ddelta.
+// du and ddelta; dlast and dinit may each be null.
 extern "C" int selective_scan_bwd(const void* u, const void* delta,
                                   const void* A, const void* B, const void* C,
                                   const void* D, const void* bias,
-                                  const void* xsave, const void* dy, void* du,
-                                  void* ddelta, void* dB_part, void* dC_part,
-                                  void* dA_part, void* dD_part,
-                                  void* dbias_part, int G, int L, int Dm,
-                                  int K, int N, int is_bf16, int reverse,
+                                  const void* xsave, const void* dy,
+                                  const void* dlast, void* du, void* ddelta,
+                                  void* dB_part, void* dC_part, void* dA_part,
+                                  void* dD_part, void* dbias_part,
+                                  void* dinit, int G, int L, int Dm, int K,
+                                  int N, int is_bf16, int reverse,
                                   int softplus, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return static_cast<int>(launch<__nv_bfloat16>(
-        u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part, dC_part,
-        dA_part, dD_part, dbias_part, G, L, Dm, K, N, reverse != 0,
-        softplus != 0, s));
+        u, delta, A, B, C, D, bias, xsave, dy, dlast, du, ddelta, dB_part,
+        dC_part, dA_part, dD_part, dbias_part, dinit, G, L, Dm, K, N,
+        reverse != 0, softplus != 0, s));
   }
   return static_cast<int>(launch<float>(
-      u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part, dC_part,
-      dA_part, dD_part, dbias_part, G, L, Dm, K, N, reverse != 0,
-      softplus != 0, s));
+      u, delta, A, B, C, D, bias, xsave, dy, dlast, du, ddelta, dB_part,
+      dC_part, dA_part, dD_part, dbias_part, dinit, G, L, Dm, K, N,
+      reverse != 0, softplus != 0, s));
 }
 
 extern "C" const char* selective_scan_bwd_error_string(int code) {

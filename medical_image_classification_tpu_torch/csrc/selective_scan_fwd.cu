@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel
 //   medical_image_classification_tpu/kernels/selective_scan_pallas_v2.py
-//   ::_scan_kernel_v2 (launched by fwd_folded_v2), with want_state=False
-//   and no initial state, including its xsave output.
+//   ::_scan_kernel_v2 (launched by fwd_folded_v2), with its xsave output
+//   and both state flags: an initial state (has_init) and the last state
+//   (want_state).
 //
 // Computes, for every sequence g and channel d (param group k = g % K):
 //   dt_t = softplus(delta_t + bias)          (softplus optional)
@@ -20,6 +21,13 @@
 // indexed by the chunk's position in memory.  A reverse scan enters a chunk
 // from the right, so its chunks are written last to first, as the TPU
 // kernel's mirrored index maps wrote them.  Null on the eval path.
+//
+// init (optional) [G, N, Dm] fp32 seeds the state before the first step
+// scanned (the leftmost for a forward scan, the rightmost for a reverse
+// one), so it is also the xsave of the first chunk scanned; last
+// (optional) [G, N, Dm] fp32 receives the state after the last step
+// scanned.  The port walks a ragged last chunk instead of padding, so no
+// pad step touches either.  Both null on the eval path.
 //
 // What bounds it on this card: bytes.  At MedMamba stage 0 (G 32, L 3136,
 // Dm 96, N 16, bf16) a call moves about 64 MB (u, delta, y, B, C), about
@@ -78,8 +86,9 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ A, const T* __restrict__ Bm,
                     const T* __restrict__ Cm, const float* __restrict__ Dskip,
                     const float* __restrict__ bias, T* __restrict__ y,
-                    float* __restrict__ xsave, int L, int Dm, int K, int N,
-                    bool reverse, bool softplus) {
+                    float* __restrict__ xsave,
+                    const float* __restrict__ init, float* __restrict__ last,
+                    int L, int Dm, int K, int N, bool reverse, bool softplus) {
   __shared__ float sB[kChunk][NMAX];
   __shared__ float sC[kChunk][NMAX];
   __shared__ float sU[kChunk][kThreads];
@@ -95,12 +104,16 @@ __global__ void __launch_bounds__(kThreads)
   // A * log2(e), so that exp(dt * A) = exp2(dt * a2)
   float a2[NMAX];
   float x[NMAX];
+  // this thread's column of init and last: [G, N, Dm], step Dm per state
+  const size_t st0 = static_cast<size_t>(g) * N * Dm + d;
 #pragma unroll
   for (int n = 0; n < NMAX; ++n) {
     a2[n] = n < N ? A[(static_cast<size_t>(k) * Dm + dp) * N + n] *
                         1.4426950408889634f
                   : 0.f;
-    x[n] = 0.f;
+    x[n] = (init != nullptr && active && n < N)
+               ? init[st0 + static_cast<size_t>(n) * Dm]
+               : 0.f;
   }
   const float dskip = Dskip[k * Dm + dp];
   const float dbias = bias[k * Dm + dp];
@@ -154,13 +167,20 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // the next chunk overwrites the staged rows
   }
+  if (last != nullptr && active) {
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n) {
+      if (n < N) last[st0 + static_cast<size_t>(n) * Dm] = x[n];
+    }
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* u, const void* delta, const void* A,
                    const void* B, const void* C, const void* D,
-                   const void* bias, void* y, float* xsave, int G, int L,
-                   int Dm, int K, int N, bool reverse, bool softplus,
+                   const void* bias, void* y, float* xsave,
+                   const float* init, float* last, int G, int L, int Dm,
+                   int K, int N, bool reverse, bool softplus,
                    cudaStream_t stream) {
   const dim3 grid((Dm + kThreads - 1) / kThreads, G);
   const T* u_ = static_cast<const T*>(u);
@@ -173,7 +193,8 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
   T* y_ = static_cast<T*>(y);
 #define SCAN_LAUNCH(NM)                                                    \
   scan_fwd_kernel<T, NM><<<grid, kThreads, 0, stream>>>(                   \
-      u_, dt_, A_, B_, C_, D_, b_, y_, xsave, L, Dm, K, N, reverse, softplus)
+      u_, dt_, A_, B_, C_, D_, b_, y_, xsave, init, last, L, Dm, K, N,       \
+      reverse, softplus)
   if (N <= 8) {
     SCAN_LAUNCH(8);
   } else if (N <= 16) {
@@ -193,23 +214,26 @@ cudaError_t launch(const void* u, const void* delta, const void* A,
 
 // Plain C interface, loaded with ctypes.  Returns cudaGetLastError() after
 // the launch (0 on success).  is_bf16 selects the type of u, delta, B, C, y;
-// xsave may be null.
+// xsave, init and last may each be null.
 extern "C" int selective_scan_fwd(const void* u, const void* delta,
                                   const void* A, const void* B, const void* C,
                                   const void* D, const void* bias, void* y,
-                                  void* xsave, int G, int L, int Dm, int K,
-                                  int N, int is_bf16, int reverse,
-                                  int softplus, void* stream) {
+                                  void* xsave, const void* init, void* last,
+                                  int G, int L, int Dm, int K, int N,
+                                  int is_bf16, int reverse, int softplus,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* xs = static_cast<float*>(xsave);
+  const float* in = static_cast<const float*>(init);
+  float* out = static_cast<float*>(last);
   if (is_bf16) {
     return static_cast<int>(launch<__nv_bfloat16>(
-        u, delta, A, B, C, D, bias, y, xs, G, L, Dm, K, N, reverse != 0,
-        softplus != 0, s));
+        u, delta, A, B, C, D, bias, y, xs, in, out, G, L, Dm, K, N,
+        reverse != 0, softplus != 0, s));
   }
-  return static_cast<int>(launch<float>(u, delta, A, B, C, D, bias, y, xs, G,
-                                        L, Dm, K, N, reverse != 0,
-                                        softplus != 0, s));
+  return static_cast<int>(launch<float>(u, delta, A, B, C, D, bias, y, xs,
+                                        in, out, G, L, Dm, K, N,
+                                        reverse != 0, softplus != 0, s));
 }
 
 extern "C" const char* selective_scan_fwd_error_string(int code) {

@@ -3,15 +3,17 @@ wrapper, and the ``torch.autograd.Function`` that joins the forward and
 backward.
 
 Port of ``medical_image_classification_tpu/kernels/selective_scan_pallas.py
-::_make_scan_folded`` (the custom VJP, for ``want_state=False`` and no
-initial state) and of the backward kernel behind it
-(``selective_scan_pallas_bwd_v2.py::bwd_folded_v2``).  Layout as in
-``selective_scan_fwd.py``; xsave [G, ceil(L / CHUNK), N, Dm] fp32 is the
-state entering each chunk, as the forward saved it.
+::_make_scan_folded`` (the custom VJP, with the state flags: the last
+state as an output, the initial state as an input) and of the backward
+kernel behind it (``selective_scan_pallas_bwd_v2.py::bwd_folded_v2``, with
+``dlast`` and ``want_dinit``).  Layout as in ``selective_scan_fwd.py``;
+xsave [G, ceil(L / CHUNK), N, Dm] fp32 is the state entering each chunk, as
+the forward saved it (the first chunk scanned holds the initial state).
 
 Gradients: du and dΔ in u's dtype, dB and dC in B's dtype (each summed over
 channels in fp32 and rounded once), dA [K, Dm, N], dD and dbias [K, Dm] in
-fp32, summed over the batch from per-sequence partials.
+fp32, summed over the batch from per-sequence partials; with
+``want_dinit`` also dinit [G, N, Dm] fp32.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (
     CHUNK,
     _check_cuda_args,
     _launch_cuda as _launch_fwd_cuda,
+    _ptr,
+    check_state,
     scan_folded_fwd_ref,
 )
 
@@ -50,10 +54,14 @@ def _sum_partials(u, A, dA_part, dD_part, dbias_part):
 
 def scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
                         reverse: bool = False, softplus: bool = True,
+                        dlast=None, want_dinit: bool = False,
                         chunk: int = CHUNK):
     """Plain PyTorch version of the backward kernel: the same chunk walk,
     the same xsave, the same gradient formulas, vectorised over (G, Dm, N)
-    and looping over t.  Returns (du, ddelta, dA, dB, dC, dD, dbias)."""
+    and looping over t.  ``dlast`` [G, N, Dm], the cotangent of the last
+    state, seeds the adjoint's carry; ``want_dinit`` also returns the carry
+    after the first step scanned, the initial state's cotangent [G, N, Dm]
+    fp32.  Returns (du, ddelta, dA, dB, dC, dD, dbias[, dinit])."""
     f32 = torch.float32
     G, L, Dm = u.shape
     K, _, N = A.shape
@@ -70,7 +78,8 @@ def scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
     dB = torch.empty(G, L, N, dtype=f32, device=u.device)
     dC = torch.empty_like(dB)
     dA_part = torch.zeros(G, Dm, N, dtype=f32, device=u.device)
-    carry = torch.zeros(G, Dm, N, dtype=f32, device=u.device)  # a_t g_t
+    carry = (torch.zeros(G, Dm, N, dtype=f32, device=u.device)  # a_t g_t
+             if dlast is None else dlast.to(f32).transpose(1, 2))
     nT = -(-L // chunk)
     for ci in (range(nT) if reverse else range(nT - 1, -1, -1)):
         rows = range(ci * chunk, min((ci + 1) * chunk, L))
@@ -96,8 +105,10 @@ def scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
             carry = torch.exp(dt[:, t, :, None] * Ag) * g
     dA, dD, dbias = _sum_partials(u, A, dA_part.transpose(1, 2),
                                   (dyf * uf).sum(1), ddelta.sum(1))
-    return (du.to(u.dtype), ddelta.to(delta.dtype), dA, dB.to(B.dtype),
-            dC.to(C.dtype), dD, dbias)
+    grads = (du.to(u.dtype), ddelta.to(delta.dtype), dA, dB.to(B.dtype),
+             dC.to(C.dtype), dD, dbias)
+    return grads + ((carry.transpose(1, 2).contiguous(),) if want_dinit
+                    else ())
 
 
 def _check_bwd_args(u, delta, A, B, C, D, bias, xsave, dy):
@@ -119,28 +130,33 @@ def _check_bwd_args(u, delta, A, B, C, D, bias, xsave, dy):
 
 
 def _bwd_kernel(u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part,
-                dC_part, dA_part, dD_part, dbias_part, reverse, softplus):
+                dC_part, dA_part, dD_part, dbias_part, reverse, softplus,
+                dlast=None, dinit=None):
     """Launch csrc/selective_scan_bwd.cu on the current stream; raises if
-    the launch fails."""
+    the launch fails.  ``dlast`` and ``dinit`` may each be None."""
     G, L, Dm = u.shape
     K, _, N = A.shape
-    ptrs = [t.data_ptr() for t in (u, delta, A, B, C, D, bias, xsave, dy, du,
-                                   ddelta, dB_part, dC_part, dA_part, dD_part,
-                                   dbias_part)]
+    ptrs = [_ptr(t) for t in (u, delta, A, B, C, D, bias, xsave, dy, dlast,
+                              du, ddelta, dB_part, dC_part, dA_part, dD_part,
+                              dbias_part, dinit)]
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        call(_KERNEL, [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
+        call(_KERNEL, [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
              + [ctypes.c_void_p],
              ptrs + [G, L, Dm, K, N, int(u.dtype == torch.bfloat16),
                      int(reverse), int(softplus), stream])
 
 
-def _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse, softplus):
+def _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse, softplus,
+                 dlast=None, want_dinit=False):
     """The kernel wrapper: checks, allocates the outputs and the partials,
-    launches, counts the launch, and sums the partials."""
+    launches, counts the launch, and sums the partials.  Returns as
+    ``scan_folded_bwd_ref``."""
     _check_bwd_args(u, delta, A, B, C, D, bias, xsave, dy)
     G, L, Dm = u.shape
     N = A.shape[2]
+    if dlast is not None:
+        check_state("dlast", dlast, u, N)
     f32 = dict(dtype=torch.float32, device=u.device)
     du, ddelta = torch.empty_like(u), torch.empty_like(delta)
     dB_part = torch.empty(-(-Dm // _LANES), G, L, N, **f32)
@@ -148,27 +164,32 @@ def _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse, softplus):
     dA_part = torch.empty(G, N, Dm, **f32)
     dD_part = torch.empty(G, Dm, **f32)
     dbias_part = torch.empty(G, Dm, **f32)
+    dinit = torch.empty(G, N, Dm, **f32) if want_dinit else None
     _bwd_kernel(u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part,
-                dC_part, dA_part, dD_part, dbias_part, reverse, softplus)
+                dC_part, dA_part, dD_part, dbias_part, reverse, softplus,
+                dlast, dinit)
     scan_folded_bwd.launches += 1
     dA, dD, dbias = _sum_partials(u, A, dA_part, dD_part, dbias_part)
-    return (du, ddelta, dA, dB_part.sum(0).to(B.dtype),
-            dC_part.sum(0).to(C.dtype), dD, dbias)
+    grads = (du, ddelta, dA, dB_part.sum(0).to(B.dtype),
+             dC_part.sum(0).to(C.dtype), dD, dbias)
+    return grads + ((dinit,) if want_dinit else ())
 
 
 def scan_folded_bwd(u, delta, A, B, C, D, bias, xsave, dy,
                     reverse: bool = False, softplus: bool = True,
-                    impl: str = "auto"):
-    """Folded selective-scan backward: (du, ddelta, dA, dB, dC, dD, dbias).
+                    impl: str = "auto", dlast=None, want_dinit: bool = False):
+    """Folded selective-scan backward: (du, ddelta, dA, dB, dC, dD, dbias),
+    and dinit with ``want_dinit``; ``dlast`` seeds the adjoint.
 
     ``impl`` as in ``scan_folded_fwd``: the CUDA kernel for CUDA tensors
     ("auto"/"cuda", which raises rather than fall back) or the plain
     version ("torch", or "auto" on the CPU)."""
     if resolve_impl(impl, u, "scan") == "torch":
         return scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
-                                   reverse=reverse, softplus=softplus)
+                                   reverse=reverse, softplus=softplus,
+                                   dlast=dlast, want_dinit=want_dinit)
     return _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse,
-                        softplus)
+                        softplus, dlast=dlast, want_dinit=want_dinit)
 
 
 # Number of CUDA kernel launches so far; the wrapper adds one per launch,
@@ -179,32 +200,36 @@ scan_folded_bwd.launches = 0
 class ScanFolded(torch.autograd.Function):
     """The folded scan under autograd (``selective_scan_pallas.py:276-353``).
 
-    The forward saves (u, delta, A, B, C, D, bias, xsave); the backward runs
-    the backward kernel (``impl="cuda"``) or the plain backward
-    (``impl="torch"``) and casts each gradient to its input's dtype, as
-    ``_cast_like`` does.  A, D and bias arrive in fp32 (the dispatcher casts
-    them)."""
+    ``apply(u, delta, A, B, C, D, bias, reverse, softplus, impl[,
+    want_state, init])``: y, or (y, last) with ``want_state``; ``init``
+    (None or [G, N, Dm] fp32) is a primal with its own gradient.  The
+    forward saves (u, delta, A, B, C, D, bias, xsave), xsave holding
+    ``init`` as the first scanned chunk's state; the backward runs the
+    backward kernel (``impl="cuda"``) or the plain backward
+    (``impl="torch"``), seeded with the last state's cotangent, and casts
+    each gradient to its input's dtype, as ``_cast_like`` does.  A, D and
+    bias arrive in fp32 (the dispatcher casts them)."""
 
     @staticmethod
-    def forward(ctx, u, delta, A, B, C, D, bias, reverse, softplus, impl):
-        if impl == "cuda":
-            y, xsave = _launch_fwd_cuda(u, delta, A, B, C, D, bias, reverse,
-                                        softplus, want_xsave=True)
-        else:
-            y, xsave = scan_folded_fwd_ref(u, delta, A, B, C, D, bias,
-                                           reverse=reverse, softplus=softplus,
-                                           want_xsave=True)
-        ctx.save_for_backward(u, delta, A, B, C, D, bias, xsave)
-        ctx.flags = (reverse, softplus, impl)
-        return y
+    def forward(ctx, u, delta, A, B, C, D, bias, reverse, softplus, impl,
+                want_state=False, init=None):
+        run = _launch_fwd_cuda if impl == "cuda" else scan_folded_fwd_ref
+        outs = run(u, delta, A, B, C, D, bias, reverse, softplus,
+                   want_xsave=True, want_state=want_state, init=init)
+        ctx.save_for_backward(u, delta, A, B, C, D, bias, outs[1])
+        ctx.flags = (reverse, softplus, impl, want_state, init is not None)
+        return (outs[0], outs[2]) if want_state else outs[0]
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, dlast=None):
         saved = ctx.saved_tensors      # unpacked once (activation checkpoint)
-        reverse, softplus, impl = ctx.flags
+        reverse, softplus, impl, want_state, has_init = ctx.flags
         # the cotangent of a column-layout direction arrives transposed
         # (ops/ss2d.py un_col); the kernel reads [G, L, Dm] rows
         run = _launch_cuda if impl == "cuda" else scan_folded_bwd_ref
-        grads = run(*saved, dy.contiguous(), reverse, softplus)
-        return tuple(g.to(p.dtype) for g, p in zip(grads, saved)) + (
-            None, None, None)
+        if dlast is not None:
+            dlast = dlast.float().contiguous()
+        grads = run(*saved, dy.contiguous(), reverse, softplus, dlast=dlast,
+                    want_dinit=has_init)
+        return tuple(g.to(p.dtype) for g, p in zip(grads[:7], saved)) + (
+            None, None, None, None, grads[7] if has_init else None)

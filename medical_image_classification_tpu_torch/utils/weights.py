@@ -1,5 +1,5 @@
-"""Carry MedMamba, MedSSD and ST-SSD weights from the JAX package to the
-port.
+"""Carry MedMamba, MedSSD, ST-SSD and Mamba-1 LM weights from the JAX
+package to the port.
 
 The reverse of ``medical_image_classification_tpu/utils/torch_import.py::
 import_medmamba_state_dict`` and ``import_medssd_state_dict`` (with
@@ -16,7 +16,8 @@ OIHW; MedMamba ``A_logs`` [K, d_inner, N] -> [K * d_inner, N] and ``Ds``
 ``norm.weight``; ST-SSD's ``stl``/``stf`` ``u1``, ``u2``, ``z`` ->
 ``learnable_*`` and the Dense(2 -> 1) ``mix`` kernel [2, 1] -> the
 ``conv1d`` weight [1, 2, 1], ``o_norm`` with its batch stats, ``o_linear``
-and ``k_weights``.
+and ``k_weights``.  The Mamba LM (``mamba_lm_state_dict``) is the exact
+inverse of ``import_mamba_lm_state_dict``, with the HF names.
 """
 
 from __future__ import annotations
@@ -140,3 +141,48 @@ def medssd_state_dict_from_jax(params, batch_stats) -> Dict[str,
 # JAX ST-SSD (params, batch_stats) -> the port's ``state_dict``: the MedSSD
 # carrier writes the ST tail wherever a block's params have one
 st_ssd_state_dict_from_jax = medssd_state_dict_from_jax
+
+
+def mamba_lm_state_dict(params) -> Dict[str, torch.Tensor]:
+    """JAX ``MambaLMHeadModel`` params -> the port's (and HF's) ``state_dict``:
+    the exact inverse of ``utils/torch_import.py::import_mamba_lm_state_dict``
+    (``backbone.`` prefixes, Dense kernels transposed, ``conv1d_weight``
+    [d_conv, d_inner] -> ``conv1d.weight`` [d_inner, 1, d_conv],
+    ``dt_proj_bias`` [1, d_inner] -> [d_inner]), plus the norms' LayerNorm
+    biases where ``rms_norm`` is off and ``lm_head.weight``, the embedding
+    itself (tied).  Also maps a gradient tree of the same structure."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+
+    def norm(prefix, p):
+        put(prefix + ".weight", p["scale"])
+        if "bias" in p:
+            put(prefix + ".bias", p["bias"])
+
+    def dense(prefix, p):
+        put(prefix + ".weight", np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            put(prefix + ".bias", p["bias"])
+
+    put("backbone.embedding.weight", params["embedding"]["embedding"])
+    for i in range(_count(params, "layers_")):
+        layer = params[f"layers_{i}"]
+        q = f"backbone.layers.{i}"
+        norm(q + ".norm", layer["norm"])
+        m = layer["mixer"]
+        dense(q + ".mixer.in_proj", m["in_proj"])
+        put(q + ".mixer.conv1d.weight",
+            np.asarray(m["conv1d_weight"]).T[:, None, :])
+        if "conv1d_bias" in m:
+            put(q + ".mixer.conv1d.bias", m["conv1d_bias"])
+        dense(q + ".mixer.x_proj", m["x_proj"])
+        put(q + ".mixer.dt_proj.weight", m["dt_proj_weight"])
+        put(q + ".mixer.dt_proj.bias", np.asarray(m["dt_proj_bias"])[0])
+        put(q + ".mixer.A_log", m["A_log"])
+        put(q + ".mixer.D", m["D"])
+        dense(q + ".mixer.out_proj", m["out_proj"])
+    norm("backbone.norm_f", params["norm_f"])
+    sd["lm_head.weight"] = sd["backbone.embedding.weight"]
+    return sd

@@ -147,26 +147,31 @@ def test_xsave_holds_each_chunks_incoming_state(reverse):
 
 
 def _fake_fwd_kernel(u, delta, A, B, C, D, bias, y, xsave, reverse,
-                     softplus):
+                     softplus, init=None, last=None):
     """Stands in for the CUDA forward launch: fills the wrapper's buffers
     with the plain twin's results."""
-    yr, xr = fwd.scan_folded_fwd_ref(u, delta, A, B, C, D, bias,
-                                     reverse=reverse, softplus=softplus,
-                                     want_xsave=True)
+    yr, xr, lr = fwd.scan_folded_fwd_ref(u, delta, A, B, C, D, bias,
+                                         reverse=reverse, softplus=softplus,
+                                         want_xsave=True, want_state=True,
+                                         init=init)
     y.copy_(yr)
-    if xsave is not None:
-        xsave.copy_(xr)
+    for buf, val in ((xsave, xr), (last, lr)):
+        if buf is not None:
+            buf.copy_(val)
 
 
 def _fake_bwd_kernel(u, delta, A, B, C, D, bias, xsave, dy, du, ddelta,
                      dB_part, dC_part, dA_part, dD_part, dbias_part, reverse,
-                     softplus):
+                     softplus, dlast=None, dinit=None):
     """Stands in for the CUDA backward launch: writes the plain twin's
     gradients as the kernel's partials (all in the first channel block and
     the first batch entry, zeros elsewhere), so the wrapper's sums must
     give them back."""
     g = bwd.scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
-                                reverse=reverse, softplus=softplus)
+                                reverse=reverse, softplus=softplus,
+                                dlast=dlast, want_dinit=True)
+    if dinit is not None:
+        dinit.copy_(g[7])
     K = A.shape[0]
     du.copy_(g[0])
     ddelta.copy_(g[1])
