@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device and build: the card's name and power limit (nvidia-smi), the
-     twelve kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
+     fifteen kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
      each, all started together), with each kernel's registers, shared
      memory and spills as ptxas reports them;
   2. selective-scan forward kernel vs plain: MedMamba's four stage shapes
@@ -55,6 +55,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      gradients, a second launch bit-identical, a zero dlast bit-identical
      to none; ScanFolded with the flags against torch.autograd through the
      plain forward;
+  2o. the v1 selective-scan forward kernel (the doubling scan in chunks of
+     T) vs its plain twin at the kernel bench's four stages (G 128 = 32 x
+     4 directions, N 16) at T 50, stage 0 at T 100, and at G 8 chunks of
+     T 1, 7, 33 and 240 over L 300 and N 64 over 36 channels at L 257, fp32
+     and bf16: y and xsave, a second launch bit-identical;
+  2p. its backward at the same cases, all seven gradients, a second launch
+     bit-identical; ScanFolded on the v1 pair (the cap at 50) against
+     torch.autograd through the plain forward; ValueError under v1 for
+     reverse and each flag;
+  2q. the bench's calibration kernel vs its plain twin at the bench's four
+     stages and inputs, fp32 and bf16 compute, a second launch
+     bit-identical;
   3. medmamba eval and 4. medmamba training, 5. medssd eval and
      6. medssd training, 7. st_ssd eval and 8. st_ssd training, each model
      at full width (224x224), then 9. medssd eval and 10. medssd training
@@ -82,11 +94,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the path), kernels against the plain scan;
   12. greedy generate with the full LM on the card (4 prompts x 64 tokens,
      32 new): each new token the full forward's argmax, decode_step's
-     logits against the full forward's, ms per decode step and tokens/s.
-Then one JSON line describing the twelve kernels (launches in the training
-runs; errors, times, the bound of each from this run's shapes; times and
-bounds at stage 0 in bf16, the fused SSD's at MedSSD's stage 1 at
-240x240; rows 1-2 also at the LM's layer call under "lm"), the card's name
+     logits against the full forward's, ms per decode step and tokens/s;
+  13. the kernel bench (scripts/kernel_bench.py) through its main() at
+     --iters 3: --stage all at the default cap (the two-level scan kernels
+     only), --stage all --t-cap 50 (the v1 pair only: one forward launch
+     per forward and per fwd+bwd call, one backward launch per fwd+bwd
+     call, at each stage), --calibrate (the calibration kernel only); then
+     row 1 against row 3 and row 2 against row 4 at the bench's stage 0 in
+     bf16, timed in turns.
+The model phases (3-12) also hold the v1 and calibration counters at 0.
+Then one JSON line describing the fifteen kernels (launches in the training
+runs, in the bench's runs for v1 and the calibration; errors, times, the
+bound of each from this run's shapes; times and bounds at stage 0 in bf16,
+the fused SSD's at MedSSD's stage 1 at 240x240; rows 1-2 also at the LM's
+layer call under "lm"), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -109,7 +130,27 @@ SCAN_CALLS_PER_FORWARD = 4 * (2 + 2 + 4 + 2)       # 4 directions x blocks
 KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "ssd_fused_dirs_fwd",
            "ssd_fused_dirs_bwd", "ssd_ydiag_fwd", "ssd_ydiag_bwd",
            "stl_mixer_fwd", "stl_mixer_bwd", "stf_zgate_fwd", "stf_zgate_bwd",
-           "ssd_fused_fwd", "ssd_fused_bwd")
+           "ssd_fused_fwd", "ssd_fused_bwd", "selective_scan_v1_fwd",
+           "selective_scan_v1_bwd", "scan_calib")
+# the kernel bench (scripts/kernel_bench.py): G 128 = batch 32 x K 4 at the
+# MedMamba-T stages (STAGES).  The v1 scan's cases (name, G, L, Dm, N, T):
+# the four stages at T 50 (the bench's --t-cap 50), stage 0 at T 100
+# (--t-cap 100), chunks of 1, 7, 33 and 240 steps over L 300 (each leaves a
+# ragged last chunk), and N 64 over 36 channels (a block's 8 channels cut
+# short) with a ragged chunk
+BENCH_G = 128
+V1_CASES = tuple((f"stage{i}", BENCH_G, L, Dm, 16, 50)
+                 for i, (L, Dm) in enumerate(STAGES)) + (
+    ("stage0", BENCH_G, 3136, 96, 16, 100),) + tuple(
+    ("edge", 8, 300, 96, 16, T) for T in (1, 7, 33, 240)) + (
+    ("ragged", 8, 257, 36, 64, 50),)
+# calibration kernel vs plain: |k - p| <= atol x max|p| + rtol |p|; y is
+# bf16 in both modes, and a sum that straddles a rounding point (or, with
+# bf16 compute, an exp or softplus one ulp apart) lands one bf16 step away
+CALIB_TOL = (3e-2, 2e-2)
+# exps per second at the MUFU rate: 16 per clock per SM, 132 SMs, 1.98 GHz
+# (the H100 SXM's boost clock)
+MUFU_PER_S = 16 * 132 * 1.98e9
 # MedSSD's stages on the fused dirs path at 224x224: (L, chunk l, H4,
 # d_ssm); P 64, gn 128 (N 512).  Stages 2-3 take the einsum path
 SSD_STAGES = ((3136, 224, 8, 128), (784, 196, 16, 256))
@@ -1142,6 +1183,229 @@ def phase_scan_bwd_flags():
     return dict(cases=cases, autograd_err=auto)
 
 
+def _v1_cases():
+    """2o/2p's cases, V1_CASES in fp32 and bf16: (case dict, dtype name,
+    args), args the folded scan's (u, delta, A, B, C, D, bias) on the card
+    with K 4 and A = -|N(0, 1)| - 0.5, as the kernel bench draws it."""
+    import torch
+    dev = torch.device("cuda")
+    for i, (name, g, L, Dm, n, T) in enumerate(V1_CASES):
+        gen = torch.Generator(device=dev).manual_seed(800 + i)
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+        base = dict(u=rnd(g, L, Dm), delta=0.5 * rnd(g, L, Dm),
+                    B=rnd(g, L, n), C=rnd(g, L, n))
+        A = -rnd(4, Dm, n).abs() - 0.5
+        D, bias = rnd(4, Dm), 0.1 * rnd(4, Dm)
+        case = dict(name=name, G=g, L=L, Dm=Dm, N=n, T=T,
+                    shape=f"{name} G{g} L{L} Dm{Dm} N{n} T{T}")
+        for dt_name, dtype in (("fp32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            act = {k: v.to(dtype) for k, v in base.items()}
+            yield case, dt_name, (act["u"], act["delta"], A, act["B"],
+                                  act["C"], D, bias)
+
+
+def _v1_bound(L, Dm, T, dtype, backward, g=BENCH_G, n=N):
+    """The v1 scan at ``g`` sequences and chunk T: bytes of u, Δ, B, C in,
+    y out and the fp32 xsave [g, ceil(L / T), n, Dm] out (backward: u, Δ,
+    B, C, dy and xsave in, du, dΔ, dB, dC out in fp32), and ~7 fp32
+    operations per state per step forward (~20 backward), on the CUDA
+    cores."""
+    isz = 4 if dtype == "fp32" else 2
+    seq = g * L * (3 * Dm + 2 * n) * isz
+    xsave = g * -(-L // T) * n * Dm * 4
+    ops = (20 if backward else 7) * g * L * Dm * n
+    out = g * L * (2 * Dm + 2 * n) * 4 if backward else 0
+    return _bound(seq + xsave + out, ops, "fp32")
+
+
+def phase_v1_fwd_vs_plain():
+    """2o: the v1 forward kernel (csrc/selective_scan_v1_fwd.cu) against
+    its plain twin at V1_CASES, fp32 and bf16: y and xsave within the row-1
+    ladder (TOL), a second launch bit-identical, the eval launch (no xsave)
+    equal to it; kernel and plain times from CUDA events."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_v1 as v1)
+    cases = []
+    for case, dt_name, args in _v1_cases():
+        T = case["T"]
+        what = f"v1 forward {case['shape']} {dt_name}"
+        run_k = lambda: v1.scan_v1_fwd(*args, T, want_xsave=True,
+                                       impl="cuda")
+        run_p = lambda: v1.scan_v1_fwd_ref(*args, T)
+        yk, xk = run_k()
+        yk2, xk2 = run_k()
+        y0 = v1.scan_v1_fwd(*args, T, impl="cuda")
+        yp, xp = run_p()
+        torch.cuda.synchronize()
+        if not (torch.equal(yk, yk2) and torch.equal(xk, xk2)):
+            raise AssertionError(f"{what}: two launches differ in the bits")
+        if not torch.equal(y0, yk):
+            raise AssertionError(f"{what}: y changes when xsave is written")
+        rtol, atol = TOL[dt_name]
+        errs = dict(y=_check_close(what + " y", yk, yp, rtol, atol),
+                    xsave=_check_close(what + " xsave", xk, xp, rtol, atol))
+        del yk, xk, yk2, xk2, y0, yp, xp
+        cases.append(dict(case, dtype=dt_name, errs=errs,
+                          max_abs_err=max(errs.values()),
+                          ms=_events_ms(run_k, 10),
+                          plain_ms=_events_ms(run_p, 1),
+                          bound=_v1_bound(case["L"], case["Dm"], T, dt_name,
+                                          False, case["G"], case["N"])))
+    summary = "; ".join(
+        f"{c['shape']} {c['dtype']} y={c['errs']['y']:.2e} "
+        f"xsave={c['errs']['xsave']:.2e} kernel={c['ms']:.4f}ms "
+        f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
+        f"({c['bound'][1]})" for c in cases)
+    print(f"phase 2o v1 forward kernel vs plain: {len(cases)}/"
+          f"{2 * len(V1_CASES)} cases within fp32 {TOL['fp32']} bf16 "
+          f"{TOL['bf16']} (rtol, atol) on y and xsave, second launch "
+          f"bit-identical | {summary}", flush=True)
+    return cases
+
+
+def phase_v1_bwd_vs_plain():
+    """2p: the v1 backward kernel (csrc/selective_scan_v1_bwd.cu) against
+    its plain twin at V1_CASES, all seven gradients (dA, dD, dbias after
+    the sum over the batch) within the row-2 ladder (GRAD_TOL), a second
+    launch bit-identical; ScanFolded on the v1 pair (the cap at 50, as the
+    bench's --t-cap 50 sets it) against torch.autograd through the plain
+    forward at the bench's stage 2, fp32; ValueError for reverse and for
+    each flag under v1."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_fwd as fwd, selective_scan_v1 as v1)
+    cases = []
+    for case, dt_name, args in _v1_cases():
+        T = case["T"]
+        what = f"v1 backward {case['shape']} {dt_name}"
+        _, xsave = v1.scan_v1_fwd_ref(*args, T)
+        gen = torch.Generator(device="cuda").manual_seed(case["L"] + T)
+        dy = torch.randn(args[0].shape, device="cuda",
+                         generator=gen).to(args[0].dtype)
+        run_k = lambda: v1.scan_v1_bwd(*args, xsave, dy, T, impl="cuda")
+        run_p = lambda: v1.scan_v1_bwd_ref(*args, xsave, dy, T)
+        gk, gk2, gp = run_k(), run_k(), run_p()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
+            raise AssertionError(f"{what}: two launches differ in the bits")
+        rtol, atol = GRAD_TOL[dt_name]
+        errs = {nm: _check_close(f"{what} {nm}", a, b, rtol, atol)
+                for nm, a, b in zip(GRAD_NAMES, gk, gp)}
+        del gk, gk2, gp
+        cases.append(dict(case, dtype=dt_name, errs=errs,
+                          max_abs_err=max(errs.values()),
+                          ms=_events_ms(run_k, 5),
+                          plain_ms=_events_ms(run_p, 1),
+                          bound=_v1_bound(case["L"], case["Dm"], T, dt_name,
+                                          True, case["G"], case["N"])))
+
+    # ScanFolded on the v1 pair against torch.autograd through the plain
+    # (sequential) forward, and the refusals, with the bench's cap
+    L, Dm, K, g = STAGES[2][0], STAGES[2][1], 4, G
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    args = (rnd(g, L, Dm), 0.5 * rnd(g, L, Dm), -rnd(K, Dm, N).abs() - 0.5,
+            rnd(g, L, N), rnd(g, L, N), rnd(K, Dm), 0.1 * rnd(K, Dm))
+    wy = rnd(g, L, Dm)
+    saved_cap = v1._T_CAP
+    v1._T_CAP = 50
+    try:
+        T = v1.v1_chunk(L, Dm, N)
+        if T != 50:
+            raise AssertionError(f"the cap 50 gives chunk {T} at {L}x{Dm}")
+
+        def grads(fn):
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            return torch.autograd.grad((fn(*leaves) * wy).sum(), leaves)
+        f0, b0 = v1.scan_v1_fwd.launches, v1.scan_v1_bwd.launches
+        got = grads(lambda *a: fwd.scan_folded_fwd(*a, impl="cuda"))
+        if (v1.scan_v1_fwd.launches - f0, v1.scan_v1_bwd.launches - b0) \
+                != (1, 1):
+            raise AssertionError("ScanFolded did not launch the v1 pair once")
+        want = grads(fwd.scan_folded_fwd_ref)
+        auto = max(_check_close(f"ScanFolded on v1 vs autograd {nm}", a, b,
+                                *GRAD_TOL["fp32"])
+                   for nm, a, b in zip(GRAD_NAMES, got, want))
+        refused = []
+        for kw in (dict(reverse=True), dict(want_state=True),
+                   dict(init=torch.zeros(g, N, Dm, device="cuda")),
+                   dict(softplus=False)):
+            try:
+                fwd.scan_folded_fwd(*args, impl="cuda", **kw)
+            except ValueError:
+                refused.append(next(iter(kw)))
+            else:
+                raise AssertionError(f"v1 took {kw}")
+    finally:
+        v1._T_CAP = saved_cap
+    summary = "; ".join(
+        f"{c['shape']} {c['dtype']} err={c['max_abs_err']:.2e} "
+        f"kernel={c['ms']:.4f}ms plain={c['plain_ms']:.1f}ms "
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]})" for c in cases)
+    print(f"phase 2p v1 backward kernel vs plain: {len(cases)}/"
+          f"{2 * len(V1_CASES)} cases within fp32 {GRAD_TOL['fp32']} bf16 "
+          f"{GRAD_TOL['bf16']} (rtol, atol) on all 7 gradients, second "
+          f"launch bit-identical | ScanFolded on the v1 pair (T 50) vs "
+          f"torch.autograd through the plain forward at {L}x{Dm} K{K} fp32: "
+          f"max err {auto:.2e}; ValueError under v1 for {', '.join(refused)}"
+          f" | {summary}", flush=True)
+    return dict(cases=cases, autograd_err=auto)
+
+
+def phase_calib_vs_plain():
+    """2q: the calibration kernel (csrc/scan_calib.cu) against its plain
+    twin at the bench's four stages (its inputs, T from the tile chooser at
+    the default cap), fp32 and bf16 compute, within CALIB_TOL x max|plain|,
+    a second launch bit-identical; kernel and plain times from CUDA
+    events."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        scan_calib as calib, selective_scan_v1 as v1)
+    from medical_image_classification_tpu_torch.scripts.kernel_bench import (
+        STAGES as BENCH_STAGES, make_inputs)
+    cases = []
+    for st, cfg in BENCH_STAGES.items():
+        T, _ = v1._choose_tiles(cfg["L"], cfg["Dm"], cfg["N"])
+        u, delta, A, B, C, _, _ = make_inputs(**cfg, device="cuda")
+        At = A.transpose(1, 2).contiguous()
+        for mode, bf in (("fp32", False), ("bf16", True)):
+            what = f"calibration stage {st} T{T} {mode} compute"
+            run_k = lambda: calib.scan_calib(u, delta, At, B, C, T,
+                                             bf16_compute=bf, impl="cuda")
+            run_p = lambda: calib.scan_calib_ref(u, delta, At, B, C, T, bf)
+            yk, yk2, yp = run_k(), run_k(), run_p()
+            torch.cuda.synchronize()
+            if not torch.equal(yk, yk2):
+                raise AssertionError(f"{what}: two launches differ in the "
+                                     "bits")
+            err = _check_scaled(what, yk, yp, *CALIB_TOL)
+            Lp = yk.shape[1]
+            del yk, yk2, yp
+            isz = u.element_size()
+            G_, L, Dm, n = cfg["G"], cfg["L"], cfg["Dm"], cfg["N"]
+            exps = G_ * L * Dm * n
+            nbytes = (G_ * L * (2 * Dm + 2 * n) + G_ * Lp * Dm) * isz \
+                + At.numel() * 4
+            cases.append(dict(stage=st, L=L, Dm=Dm, T=T, Lp=Lp, dtype="bf16",
+                              compute=mode, max_abs_err=err,
+                              ms=_events_ms(run_k, 10),
+                              plain_ms=_events_ms(run_p, 1),
+                              bound=_bound(nbytes, 5 * exps, "fp32"),
+                              exps=exps, mufu_ms=exps / MUFU_PER_S * 1e3))
+    summary = "; ".join(
+        f"stage {c['stage']} L{c['L']}->{c['Lp']} Dm{c['Dm']} T{c['T']} "
+        f"{c['compute']} compute err={c['max_abs_err']:.2e} "
+        f"kernel={c['ms']:.4f}ms plain={c['plain_ms']:.2f}ms "
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}) exps={c['exps']} "
+        f"({c['mufu_ms']:.4f}ms at the MUFU rate)" for c in cases)
+    print(f"phase 2q calibration kernel vs plain: {len(cases)}/8 cases "
+          f"within {CALIB_TOL} (rtol, atol x max|plain|), second launch "
+          f"bit-identical | {summary}", flush=True)
+    return cases
+
+
 def _bound(nbytes, ops, dtype):
     """The least time of the work on this card: (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BPS * 1e3
@@ -1254,9 +1518,10 @@ def _counters():
     """Every kernel's wrapper by kernel name; each carries the count of its
     launches (``.launches``)."""
     from medical_image_classification_tpu_torch.kernels import (
-        selective_scan_bwd as ssb, selective_scan_fwd as ssf,
-        ssd_fused as sf, ssd_fused_dirs as sfd, ssd_ydiag as yd,
-        stf_zgate as stf, stl_mixer as stl)
+        scan_calib as calib, selective_scan_bwd as ssb,
+        selective_scan_fwd as ssf, selective_scan_v1 as v1, ssd_fused as sf,
+        ssd_fused_dirs as sfd, ssd_ydiag as yd, stf_zgate as stf,
+        stl_mixer as stl)
     return {"selective_scan_fwd": ssf.scan_folded_fwd,
             "selective_scan_bwd": ssb.scan_folded_bwd,
             "ssd_fused_dirs_fwd": sfd.ssd_fused_dirs_fwd,
@@ -1268,7 +1533,10 @@ def _counters():
             "stf_zgate_fwd": stf.stf_zgate_fwd,
             "stf_zgate_bwd": stf.stf_zgate_bwd,
             "ssd_fused_fwd": sf.ssd_fused_fwd,
-            "ssd_fused_bwd": sf.ssd_fused_bwd}
+            "ssd_fused_bwd": sf.ssd_fused_bwd,
+            "selective_scan_v1_fwd": v1.scan_v1_fwd,
+            "selective_scan_v1_bwd": v1.scan_v1_bwd,
+            "scan_calib": calib.scan_calib}
 
 
 # What the model phases count and split, by (model, image size): {forward
@@ -1876,13 +2144,142 @@ def phase_lm_generate(card):
                 top2_margin=margin, decode_logit_err=err)
 
 
+def phase_kernel_bench(card):
+    """13: the port's kernel bench (``scripts/kernel_bench.py``) through its
+    ``main`` at --iters 3, three times: --stage all at the default cap
+    (each stage on the two-level kernels: one forward launch per forward
+    call and per fwd+bwd call, one backward launch per fwd+bwd call),
+    --stage all --t-cap 50 (the same counts on the v1 pair, and no
+    two-level launch), --calibrate (the calibration kernel once per call,
+    nothing else); every counter set to 0 just before each run, and read
+    around each stage.  Then rows 1 and 3 (and 2 and 4) at the bench's
+    stage 0 in bf16, each writing the xsave its backward reads (chunks of
+    32 and of T 50), timed in turns (1, 3, 3, 1) with CUDA events."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_bwd as bwd, selective_scan_fwd as fwd,
+        selective_scan_v1 as v1)
+    from medical_image_classification_tpu_torch.scripts import (
+        kernel_bench as kb)
+    counters = _counters()
+    iters = 3
+    per_stage = []
+
+    def counted(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            before = _launches(counters)
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            per_stage.append({n: c - before[n]
+                              for n, c in _launches(counters).items()})
+            return out
+        return run
+
+    def want_two_level(rec, fwd_name, bwd_name, kernel):
+        if rec["kernel"] != kernel:
+            raise AssertionError(f"bench stage {rec['stage']} ran {rec}, "
+                                 f"expected the {kernel} kernels")
+        return {fwd_name: rec["fwd_calls"] + rec["fwd_bwd_calls"],
+                bwd_name: rec["fwd_bwd_calls"]}
+
+    runs = (
+        ("default cap", [],
+         lambda r: want_two_level(r, "selective_scan_fwd",
+                                  "selective_scan_bwd", "v2")),
+        ("t-cap 50", ["--t-cap", "50"],
+         lambda r: want_two_level(r, "selective_scan_v1_fwd",
+                                  "selective_scan_v1_bwd", "v1")),
+        ("calibrate", ["--calibrate"], lambda r: {"scan_calib": r["calls"]}))
+    saved = kb._bench_stage, kb.calib_kernel_bench
+    kb._bench_stage, kb.calib_kernel_bench = (counted(f) for f in saved)
+    result = {}
+    try:
+        for label, extra, expect in runs:
+            per_stage.clear()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            records = kb.main(["--stage", "all", "--iters", str(iters)]
+                              + extra)
+            seconds = time.perf_counter() - t0
+            if len(records) != 4 or len(per_stage) != 4:
+                raise AssertionError(f"bench {label}: {len(records)} "
+                                     f"records, {len(per_stage)} stages")
+            for rec, got in zip(records, per_stage):
+                want = {k: 0 for k in counters}
+                want.update(expect(rec))
+                if got != want:
+                    raise AssertionError(f"bench {label} stage "
+                                         f"{rec['stage']}: launches {got}, "
+                                         f"expected {want}")
+            result[label] = dict(records=records, seconds=seconds,
+                                 launches=_launches(counters))
+    finally:
+        kb._bench_stage, kb.calib_kernel_bench = saved
+
+    # rows 1 and 3 (2 and 4) at one shape: the bench's stage 0, bf16
+    u, delta, A, B, C, D, bias = kb.make_inputs(**kb.STAGES["0"],
+                                                device="cuda")
+    args = (u, delta, A, B, C, D, bias)
+    T = 50
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    dy = torch.randn(u.shape, device="cuda", generator=gen).to(u.dtype)
+    _, xs1 = fwd._launch_cuda(*args, False, True, want_xsave=True)
+    _, xs3 = v1._launch_fwd_cuda(*args, T, True)
+    runs_k = {
+        "row1": lambda: fwd._launch_cuda(*args, False, True,
+                                         want_xsave=True),
+        "row3": lambda: v1._launch_fwd_cuda(*args, T, True),
+        "row2": lambda: bwd._launch_cuda(*args, xs1, dy, False, True),
+        "row4": lambda: v1._launch_bwd_cuda(*args, xs3, dy, T)}
+    times = {k: [] for k in runs_k}
+    for a, b in (("row1", "row3"), ("row2", "row4")):
+        for k in (a, b, b, a):
+            times[k].append(_events_ms(runs_k[k], 10))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    st0 = kb.STAGES["0"]
+    compare = dict(ms=ms, turns=times, shape=f"G{st0['G']} L{st0['L']} "
+                   f"Dm{st0['Dm']} N{st0['N']} bf16",
+                   bound_row1=_scan_bound(st0["L"], st0["Dm"], "bf16", False,
+                                          st0["G"]),
+                   bound_row3=_v1_bound(st0["L"], st0["Dm"], T, "bf16",
+                                        False),
+                   bound_row2=_scan_bound(st0["L"], st0["Dm"], "bf16", True,
+                                          st0["G"]),
+                   bound_row4=_v1_bound(st0["L"], st0["Dm"], T, "bf16", True))
+    del xs1, xs3
+    lines = " | ".join(
+        f"{label}: {r['seconds']:.1f} s, launches "
+        + ", ".join(f"{k} {v}" for k, v in r["launches"].items() if v)
+        + "; " + ", ".join(
+            f"stage{x['stage']} " + (
+                f"calib T{x['T']} {x['calib_ms']:.3f} ms" if "calib_ms" in x
+                else f"{x['kernel']} T{x['T']} fwd {x['fwd_ms']:.3f} ms "
+                f"fwd+bwd {x['fwd_bwd_ms']:.3f} ms") for x in r["records"])
+        for label, r in result.items())
+    print(f"phase 13 kernel bench via scripts/kernel_bench.py main(), "
+          f"--iters {iters}, on {card}: {lines} | launches per stage as "
+          f"expected (each bench call: the forward once per fwd and fwd+bwd "
+          f"call, the backward once per fwd+bwd call, the calibration once "
+          f"per call, nothing else) | at {compare['shape']} with xsave: "
+          f"row 1 (serial chain, chunks of 32) {ms['row1']:.4f} ms vs row 3 "
+          f"(doubling scan, T {T}) {ms['row3']:.4f} ms; row 2 "
+          f"{ms['row2']:.4f} ms vs row 4 {ms['row4']:.4f} ms (turns 1, 3, "
+          f"3, 1)", flush=True)
+    return dict(runs=result, compare=compare)
+
+
 def _entry(name, replaces, cases, launches, head, bound):
     """One kernel's record for the kernels line; ``head`` picks the case
-    whose times it reports."""
+    whose times it reports; ``replaces`` is file:line under the JAX
+    package's kernels/, or a path from the repo's root."""
     c = next(c for c in cases if head(c))
+    if "/" not in replaces:
+        replaces = f"medical_image_classification_tpu/kernels/{replaces}"
     return {"name": name, "route": "cuda",
             "source": f"medical_image_classification_tpu_torch/csrc/{name}.cu",
-            "replaces": f"medical_image_classification_tpu/kernels/{replaces}",
+            "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": bound[0],
@@ -1914,6 +2311,9 @@ def main(argv=None):
     fused_bwd = phase_fused_bwd_vs_plain()
     flag_cases = phase_scan_fwd_flags()
     flag_bwd = phase_scan_bwd_flags()
+    v1_cases = phase_v1_fwd_vs_plain()
+    v1_bwd = phase_v1_bwd_vs_plain()
+    calib_cases = phase_calib_vs_plain()
     full = phase_full_model(card, "medmamba", 3)
     train = phase_train(card, "medmamba", 4)
     ssd_full = phase_full_model(card, "medssd", 5)
@@ -1924,6 +2324,7 @@ def main(argv=None):
     ssd240_train = phase_train(card, "medssd", 10, MEDSSD_240)
     lm = phase_lm_scoring(card)
     lm_gen = phase_lm_generate(card)
+    bench = phase_kernel_bench(card)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -1982,6 +2383,38 @@ def main(argv=None):
         entries.append(_entry(name, replaces, st_cases,
                               launches["launches"][name], head,
                               next(c for c in st_cases if head(c))["bound"]))
+    # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
+    # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
+    # in the bench's default fp32 compute, bf16 compute beside it)
+    v1_head = lambda c: (c["name"] == "stage0" and c["T"] == 50
+                         and c["dtype"] == "bf16")
+    calib_head = lambda c: c["stage"] == "0" and c["compute"] == "fp32"
+    bench_launches = {k: bench["runs"][run]["launches"][k] for run, k in (
+        ("t-cap 50", "selective_scan_v1_fwd"),
+        ("t-cap 50", "selective_scan_v1_bwd"), ("calibrate", "scan_calib"))}
+    for name, replaces, k_cases, head in (
+            ("selective_scan_v1_fwd", "selective_scan_pallas.py:100",
+             v1_cases, v1_head),
+            ("selective_scan_v1_bwd", "selective_scan_pallas_bwd.py:52",
+             v1_bwd["cases"], v1_head),
+            ("scan_calib", "scripts/kernel_bench.py:134", calib_cases,
+             calib_head)):
+        entries.append(_entry(name, replaces, k_cases, bench_launches[name],
+                              head, next(c for c in k_cases
+                                         if head(c))["bound"]))
+    cmp = bench["compare"]
+    for e, own, other in ((entries[-3], "row3", "row1"),
+                          (entries[-2], "row4", "row2")):
+        e["per"] = "bench call (--stage all --t-cap 50 --iters 3)"
+        e["vs_" + other] = dict(shape=cmp["shape"], ms=cmp["ms"][own],
+                                other_ms=cmp["ms"][other],
+                                other_bound_ms=cmp["bound_" + other][0])
+    c0 = next(c for c in calib_cases if calib_head(c))
+    entries[-1].update(per="bench call (--stage all --calibrate --iters 3)",
+                       exps=c0["exps"], mufu_ms=c0["mufu_ms"],
+                       bf16_compute_ms=next(
+                           c["ms"] for c in calib_cases
+                           if c["stage"] == "0" and c["compute"] == "bf16"))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -1997,7 +2430,9 @@ def main(argv=None):
                            medssd240_eval=ssd240_full,
                            medssd240_train=ssd240_train,
                            flag_cases=flag_cases, flag_bwd=flag_bwd,
-                           lm_scoring=lm, lm_generate=lm_gen),
+                           lm_scoring=lm, lm_generate=lm_gen,
+                           v1_cases=v1_cases, v1_bwd=v1_bwd,
+                           calib_cases=calib_cases, kernel_bench=bench),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

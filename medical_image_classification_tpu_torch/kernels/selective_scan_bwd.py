@@ -201,35 +201,49 @@ class ScanFolded(torch.autograd.Function):
     """The folded scan under autograd (``selective_scan_pallas.py:276-353``).
 
     ``apply(u, delta, A, B, C, D, bias, reverse, softplus, impl[,
-    want_state, init])``: y, or (y, last) with ``want_state``; ``init``
+    want_state, init, T])``: y, or (y, last) with ``want_state``; ``init``
     (None or [G, N, Dm] fp32) is a primal with its own gradient.  The
     forward saves (u, delta, A, B, C, D, bias, xsave), xsave holding
     ``init`` as the first scanned chunk's state; the backward runs the
     backward kernel (``impl="cuda"``) or the plain backward
     (``impl="torch"``), seeded with the last state's cotangent, and casts
     each gradient to its input's dtype, as ``_cast_like`` does.  A, D and
-    bias arrive in fp32 (the dispatcher casts them)."""
+    bias arrive in fp32 (the dispatcher casts them).  With a chunk ``T``
+    (``selective_scan_v1.v1_chunk``; no flags) the pair is the v1 forward
+    and backward instead, xsave [G, ceil(L / T), N, Dm]."""
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D, bias, reverse, softplus, impl,
-                want_state=False, init=None):
-        run = _launch_fwd_cuda if impl == "cuda" else scan_folded_fwd_ref
-        outs = run(u, delta, A, B, C, D, bias, reverse, softplus,
-                   want_xsave=True, want_state=want_state, init=init)
+                want_state=False, init=None, T=None):
+        if T is not None:
+            from medical_image_classification_tpu_torch.kernels import (
+                selective_scan_v1 as v1)
+            outs = v1.scan_v1_fwd(u, delta, A, B, C, D, bias, T,
+                                  want_xsave=True, impl=impl)
+        else:
+            run = _launch_fwd_cuda if impl == "cuda" else scan_folded_fwd_ref
+            outs = run(u, delta, A, B, C, D, bias, reverse, softplus,
+                       want_xsave=True, want_state=want_state, init=init)
         ctx.save_for_backward(u, delta, A, B, C, D, bias, outs[1])
-        ctx.flags = (reverse, softplus, impl, want_state, init is not None)
+        ctx.flags = (reverse, softplus, impl, want_state, init is not None, T)
         return (outs[0], outs[2]) if want_state else outs[0]
 
     @staticmethod
     def backward(ctx, dy, dlast=None):
         saved = ctx.saved_tensors      # unpacked once (activation checkpoint)
-        reverse, softplus, impl, want_state, has_init = ctx.flags
+        reverse, softplus, impl, want_state, has_init, T = ctx.flags
         # the cotangent of a column-layout direction arrives transposed
         # (ops/ss2d.py un_col); the kernel reads [G, L, Dm] rows
+        if T is not None:
+            from medical_image_classification_tpu_torch.kernels import (
+                selective_scan_v1 as v1)
+            grads = v1.scan_v1_bwd(*saved, dy.contiguous(), T, impl=impl)
+            return tuple(g.to(p.dtype) for g, p in zip(grads, saved)) + (
+                None,) * 6
         run = _launch_cuda if impl == "cuda" else scan_folded_bwd_ref
         if dlast is not None:
             dlast = dlast.float().contiguous()
         grads = run(*saved, dy.contiguous(), reverse, softplus, dlast=dlast,
                     want_dinit=has_init)
         return tuple(g.to(p.dtype) for g, p in zip(grads[:7], saved)) + (
-            None, None, None, None, grads[7] if has_init else None)
+            None, None, None, None, grads[7] if has_init else None, None)

@@ -211,7 +211,8 @@ def _launch_cuda(u, delta, A, B, C, D, bias, reverse, softplus,
 
 def scan_folded_fwd(u, delta, A, B, C, D, bias, reverse: bool = False,
                     softplus: bool = True, impl: str = "auto",
-                    want_state: bool = False, init=None):
+                    want_state: bool = False, init=None,
+                    allow_v1: bool = True):
     """Folded selective-scan forward: y, or (y, last) with ``want_state``.
 
     ``impl``: ``"auto"`` takes the CUDA kernel for a CUDA tensor and the
@@ -225,18 +226,34 @@ def scan_folded_fwd(u, delta, A, B, C, D, bias, reverse: bool = False,
     backward by the same ``impl``; ``init`` gets its gradient); otherwise
     (eval, ``no_grad``, ``inference_mode``) only the forward runs, without
     saved states.
+
+    Where the JAX folded entry takes its v1 kernels (``_choose_tiles``
+    gives a chunk T with T % 8 != 0, which only a lowered
+    ``selective_scan_v1._T_CAP`` reaches), so does this one, and the flags
+    and ``reverse`` then raise ``ValueError``; ``allow_v1=False`` (the
+    generic-layout entry, which the JAX package gates off v1) keeps the
+    two-level kernels.
     """
     impl = resolve_impl(impl, u, "scan")
     A, D, bias = (t.float().contiguous() for t in (A, D, bias))
     if init is not None:
         init = init.float().contiguous()
     args = (u, delta, A, B, C, D, bias)
+    T = None
+    if allow_v1:
+        from medical_image_classification_tpu_torch.kernels import (
+            selective_scan_v1 as v1)
+        T = v1.v1_chunk(u.shape[1], u.shape[2], A.shape[2])
+        if T is not None:
+            v1.check_v1_flags(reverse, softplus, want_state, init)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in args + (init,)):
         from medical_image_classification_tpu_torch.kernels.selective_scan_bwd import (  # noqa: E501
             ScanFolded)
         return ScanFolded.apply(*args, reverse, softplus, impl, want_state,
-                                init)
+                                init, T)
+    if T is not None:
+        return v1.scan_v1_fwd(*args, T, impl=impl)
     if impl == "torch":
         return scan_folded_fwd_ref(*args, reverse=reverse, softplus=softplus,
                                    want_state=want_state, init=init)
@@ -283,7 +300,8 @@ def selective_scan_generic(u, delta, A, B, C, D=None, z=None, delta_bias=None,
                           fold(B.reshape(batch, L, K * N), N),
                           fold(C.reshape(batch, L, K * N), N), Dk, bk,
                           softplus=delta_softplus, impl=impl,
-                          want_state=return_last_state, init=init)
+                          want_state=return_last_state, init=init,
+                          allow_v1=False)
     y, last = out if return_last_state else (out, None)
     y = y.reshape(batch, K, L, Dm).transpose(1, 2).reshape(batch, L, KD)
     if z is not None:
