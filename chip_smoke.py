@@ -8,12 +8,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      fifteen kernels compiled from csrc/ into build/torch_kernels/ (one nvcc
      each, all started together), with each kernel's registers, shared
      memory and spills as ptxas reports them;
-  2. selective-scan forward kernel vs plain: MedMamba's four stage shapes
-     (G 32, N 16), forward and reverse, fp32 and bf16: y, and the saved chunk
-     states (xsave) the backward reads, with times from CUDA events;
-  2b. selective-scan backward kernel vs plain, the same 16 cases, all seven
-     gradients, a second launch bit-identical; at one shape ScanFolded's
-     gradients against torch.autograd through the plain forward;
+  2. selective-scan forward kernel (its three passes: chunks from zero,
+     carry, final) vs plain: MedMamba's four stage shapes (G 32, N 16),
+     forward and reverse, fp32 and bf16: y, and the saved chunk states
+     (xsave, the carry pass's output) the backward reads, with times from
+     CUDA events, each case's bound and the resident warps per SM each
+     pass is granted, each pass's registers and local (spill) bytes, and
+     at each bf16 case the device time of each pass (torch.profiler);
+  2b. selective-scan backward kernel (four passes: local adjoint, carry,
+     final, partial sums) vs plain, the same 16 cases, all seven
+     gradients, a second launch bit-identical, bounds, occupancy and the
+     passes' device times as in 2; at one shape ScanFolded's gradients
+     against torch.autograd through the plain forward;
   2c. four-direction fused SSD forward kernel vs its plain twin at MedSSD's
      stages 0 and 1 (B 32; L 3136, l 224, H4 8 and L 784, l 196, H4 16;
      P 64, N 512) and its stage 0 at 240x240 (L 3600, l 240, nc 15, H4 8),
@@ -50,11 +56,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      and MedMamba's stage 0 with its directions as groups (K 4, G 32),
      forward and reverse, fp32 and bf16: y, xsave and last, the first
      chunk's xsave equal to init, a second launch bit-identical, a zero
-     init bit-identical to no init;
+     init bit-identical to no init (the carry pass's seed);
   2n. its backward with dlast and dinit at the same 8 cases, all eight
-     gradients, a second launch bit-identical, a zero dlast bit-identical
-     to none; ScanFolded with the flags against torch.autograd through the
-     plain forward;
+     gradients (dinit the carry pass's end), a second launch
+     bit-identical, a zero dlast bit-identical to none; 2m and 2n print
+     occupancy and bounds as 2 does; ScanFolded with the flags against
+     torch.autograd through the plain forward;
   2o. the v1 selective-scan forward kernel (the doubling scan in chunks of
      T) vs its plain twin at the kernel bench's four stages (G 128 = 32 x
      4 directions, N 16) at T 50, stage 0 at T 100, and at G 8 chunks of
@@ -116,6 +123,7 @@ writes the per-case numbers and the profiles as JSON.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -349,7 +357,10 @@ def phase_kernel_vs_plain():
         p_ms = _events_ms(run_p, 2)
         cases.append(dict(L=L, Dm=Dm, dtype=dt_name, reverse=reverse,
                           max_abs_err=err, xsave_err=xerr, ms=k_ms,
-                          xsave_ms=xs_ms, plain_ms=p_ms))
+                          xsave_ms=xs_ms, plain_ms=p_ms,
+                          bound=_scan_bound(L, Dm, dt_name, False),
+                          warps_per_sm=_occupancy_text(dt_name, False)))
+        _walk_split(cases[-1], run_k, SCAN_FWD_SPLIT, per_launch=True)
     worst = {d: max(c["max_abs_err"] for c in cases if c["dtype"] == d)
              for d in TOL}
     xworst = {d: max(c["xsave_err"] for c in cases if c["dtype"] == d)
@@ -358,11 +369,14 @@ def phase_kernel_vs_plain():
         f"{c['L']}x{c['Dm']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'}"
         f" err={c['max_abs_err']:.2e} xsave_err={c['xsave_err']:.2e} "
         f"kernel={c['ms']:.4f}ms with_xsave={c['xsave_ms']:.4f}ms "
-        f"plain={c['plain_ms']:.2f}ms" for c in cases)
+        f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
+        f"({c['bound'][1]}) {c['warps_per_sm']}{_split_text(c)}"
+        for c in cases)
     print(f"phase 2 forward kernel vs plain: {len(cases)}/16 cases within "
           f"tolerance, y and xsave (worst y fp32 {worst['fp32']:.2e}, bf16 "
           f"{worst['bf16']:.2e}; xsave fp32 {xworst['fp32']:.2e}, bf16 "
-          f"{xworst['bf16']:.2e}; G={G} N={N}) | {summary}", flush=True)
+          f"{xworst['bf16']:.2e}; G={G} N={N}) | passes (chunk from zero, "
+          f"carry, final): {_passes_text(False)} | {summary}", flush=True)
     return cases
 
 
@@ -394,7 +408,10 @@ def phase_bwd_vs_plain():
         p_ms = _events_ms(run_p, 1)
         cases.append(dict(L=L, Dm=Dm, dtype=dt_name, reverse=reverse,
                           errs=errs, max_abs_err=max(errs.values()),
-                          ms=k_ms, plain_ms=p_ms))
+                          ms=k_ms, plain_ms=p_ms,
+                          bound=_scan_bound(L, Dm, dt_name, True),
+                          warps_per_sm=_occupancy_text(dt_name, True)))
+        _walk_split(cases[-1], run_k, SCAN_BWD_SPLIT, per_launch=True)
 
     # ScanFolded (kernels) against torch.autograd through the plain forward
     L, Dm, dt_name, reverse, args = next(
@@ -416,12 +433,16 @@ def phase_bwd_vs_plain():
     summary = "; ".join(
         f"{c['L']}x{c['Dm']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'}"
         f" err={c['max_abs_err']:.2e} kernel={c['ms']:.4f}ms "
-        f"plain={c['plain_ms']:.1f}ms" for c in cases)
+        f"plain={c['plain_ms']:.1f}ms bound={c['bound'][0]:.4f}ms "
+        f"({c['bound'][1]}) {c['warps_per_sm']}{_split_text(c)}"
+        for c in cases)
     print(f"phase 2b backward kernel vs plain: {len(cases)}/16 cases within "
           f"fp32 {GRAD_TOL['fp32']} bf16 {GRAD_TOL['bf16']} (rtol, atol) on "
           f"all 7 gradients, second launch bit-identical | ScanFolded vs "
           f"torch.autograd through the plain forward at {L}x{Dm} fp32 rev: "
-          f"max err {auto_err:.2e} | {summary}", flush=True)
+          f"max err {auto_err:.2e} | passes (local adjoint from zero, carry, "
+          f"final, partial sums): {_passes_text(True)} | {summary}",
+          flush=True)
     return dict(cases=cases, autograd_err=auto_err)
 
 
@@ -459,21 +480,45 @@ def _check_scaled(what, got, want, rtol, atol_rel):
     return _check_close(what, got, want, rtol, atol_rel * scale)
 
 
-def _walk_split(c, fn):
-    """At a bf16 case, c["split"]: device ms of each kernel of the SSD
-    chunk walk (scores, walks, intra, flush) in one call of ``fn``."""
+# the kernels of the SSD chunk walk, and the passes of the scan kernels at
+# bf16 and N 16, by the names torch.profiler gives them: {label: pattern}
+SSD_WALK_SPLIT = {k.replace("_kernel", ""): k for k in (
+    "scores_kernel", "fwd_walk_kernel", "intra_kernel", "bwd_walk_kernel",
+    "flush_kernel")}
+SCAN_FWD_SPLIT = {
+    "chunk": "scan_fwd_chunk_kernel<__nv_bfloat16, 16, false>",
+    "carry": "chunk_carry_kernel<false>",
+    "final": "scan_fwd_chunk_kernel<__nv_bfloat16, 16, true>"}
+SCAN_BWD_SPLIT = {"local": "bwd_local_kernel",
+                  "carry": "chunk_carry_kernel<true>",
+                  "final": "bwd_final_kernel", "sum": "bwd_sum_kernel"}
+# all of the scan's passes, at any type and N (the model profiles)
+SCAN_FWD_KERNELS = ("scan_fwd_chunk_kernel", "chunk_carry_kernel<false>")
+SCAN_BWD_KERNELS = tuple(SCAN_BWD_SPLIT.values())
+
+
+def _walk_split(c, fn, names=SSD_WALK_SPLIT, per_launch=False):
+    """At a bf16 case, c["split"]: device ms of each kernel ``names`` lists
+    (by default the SSD chunk walk's: scores, walks, intra, flush) in one
+    call of ``fn``.  With ``per_launch`` (each kernel launched once a
+    call, as the scan's passes are) it profiles two calls and takes each
+    kernel's mean over the launches recorded: in full smoke runs the
+    profile has missed the scan backward's first pass in a one-call
+    window."""
     if c["dtype"] != "bf16":
         return
-    rows = [r for r in _profile(fn) if r["cpu_us"] == 0.0]
-    names = ("scores_kernel", "fwd_walk_kernel", "intra_kernel",
-             "bwd_walk_kernel", "flush_kernel")
-    c["split"] = {k: sum(r["device_us"] for r in rows if k in r["name"]) /
-                  1e3 for k in names if any(k in r["name"] for r in rows)}
+    rows = [r for r in _profile(lambda: (fn(), fn()) if per_launch else fn)
+            if r["device_us"] > 0.0]
+    per = (lambda r: r["device_us"] / r["count"]) if per_launch else (
+        lambda r: r["device_us"])
+    c["split"] = {k: sum(per(r) for r in rows if p in r["name"]) / 1e3
+                  for k, p in names.items()
+                  if any(p in r["name"] for r in rows)}
 
 
 def _split_text(c):
     return "" if "split" not in c else " split " + " ".join(
-        f"{k.replace('_kernel', '')}={v:.3f}ms" for k, v in c["split"].items())
+        f"{k}={v:.3f}ms" for k, v in c["split"].items())
 
 
 def phase_ssd_fwd_vs_plain():
@@ -1080,19 +1125,20 @@ def phase_scan_fwd_flags():
                           eval_ms=_events_ms(run_0, 10),
                           plain_ms=_events_ms(run_p, 1),
                           bound=_scan_bound(case["L"], case["Dm"], dt_name,
-                                            False, case["G"], True)))
+                                            False, case["G"], True),
+                          warps_per_sm=_occupancy_text(dt_name, False)))
     summary = "; ".join(
         f"{c['shape']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'} "
         + " ".join(f"{k}={v:.2e}" for k, v in c["errs"].items())
         + f" kernel={c['ms']:.4f}ms without_flags={c['eval_ms']:.4f}ms "
         f"plain={c['plain_ms']:.1f}ms bound={c['bound'][0]:.4f}ms "
-        f"({c['bound'][1]})" for c in cases)
+        f"({c['bound'][1]}) {c['warps_per_sm']}" for c in cases)
     print(f"phase 2m forward kernel with init and last vs plain: "
           f"{len(cases)}/{4 * len(FLAG_CASES)} cases within "
           f"fp32 {TOL['fp32']} bf16 {TOL['bf16']} (rtol, atol) on y, "
           f"xsave and last, the first chunk's xsave = init, second launch "
-          f"bit-identical, a zero init bit-identical to no init | {summary}",
-          flush=True)
+          f"bit-identical, a zero init bit-identical to no init | passes: "
+          f"{_passes_text(False)} | {summary}", flush=True)
     return cases
 
 
@@ -1141,7 +1187,8 @@ def phase_scan_bwd_flags():
                           ms=_events_ms(run_k, 5),
                           plain_ms=_events_ms(run_p, 1),
                           bound=_scan_bound(case["L"], case["Dm"], dt_name,
-                                            True, case["G"], True)))
+                                            True, case["G"], True),
+                          warps_per_sm=_occupancy_text(dt_name, True)))
 
     # ScanFolded with the flags (kernels) against torch.autograd through
     # the plain forward, the loss reading y and the last state
@@ -1172,14 +1219,16 @@ def phase_scan_bwd_flags():
         f"{c['shape']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'} "
         f"err={c['max_abs_err']:.2e} (dinit {c['errs']['dinit']:.2e}) "
         f"kernel={c['ms']:.4f}ms plain={c['plain_ms']:.1f}ms "
-        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]})" for c in cases)
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}) "
+        f"{c['warps_per_sm']}" for c in cases)
     print(f"phase 2n backward kernel with dlast and dinit vs plain: "
           f"{len(cases)}/{4 * len(FLAG_CASES)} cases within fp32 "
           f"{GRAD_TOL['fp32']} bf16 {GRAD_TOL['bf16']} (rtol, atol) on all "
           f"8 gradients, second launch bit-identical, a zero dlast "
           f"bit-identical to none | ScanFolded with want_state and init vs "
           f"torch.autograd through the plain forward at {L}x{Dm} K{K} fp32, "
-          f"both directions: max err {auto:.2e} | {summary}", flush=True)
+          f"both directions: max err {auto:.2e} | passes: "
+          f"{_passes_text(True)} | {summary}", flush=True)
     return dict(cases=cases, autograd_err=auto)
 
 
@@ -1459,20 +1508,56 @@ def _fused_bound(args, dtype, backward):
 
 
 def _scan_bound(L, Dm, dtype, backward, g=G, flags=False):
-    """The selective scan at ``g`` sequences: bytes of u, Δ, B, C in and y
-    out (backward: also dy and xsave in, du, dΔ, dB, dC out; with the
-    ``flags``, init in and last out, or dlast in and dinit out, fp32), and
-    ~7 fp32 operations per state per step forward (~20 backward: the state
-    recompute and the adjoint), on the CUDA cores."""
+    """The selective scan at ``g`` sequences: the largest of three times.
+    Bytes: u, Δ, B, C in and y out (backward: also dy and xsave, at the
+    kernels' chunk ``CHUNK``, in; du, dΔ, dB, dC out; with the ``flags``,
+    init in and last out, or dlast in and dinit out, fp32).  CUDA-core
+    operations: ~7 fp32 operations per state per step forward (~20
+    backward: the state recompute and the adjoint).  Exps at the MUFU rate:
+    the function's own, one exp(dt A) per (step, channel, state) in each
+    direction, as row 10's reading counts them.  Returns (ms, "bytes" or
+    "operations"); the exps are operations."""
+    from medical_image_classification_tpu_torch.kernels.selective_scan_fwd \
+        import CHUNK
     isz = 4 if dtype == "fp32" else 2
     seq = g * L * (3 * Dm + 2 * N) * isz       # u, Δ, B, C and y (or dy)
     ops = (20 if backward else 7) * g * L * Dm * N
     states = 2 * g * N * Dm * 4 if flags else 0
+    nbytes = seq + states
     if backward:
-        xsave = g * -(-L // 32) * N * Dm * 4
+        xsave = g * -(-L // CHUNK) * N * Dm * 4
         out = g * L * (2 * Dm + 2 * N) * isz     # du, dΔ, dB, dC
-        return _bound(seq + xsave + out + states, ops, "fp32")
-    return _bound(seq + states, ops, "fp32")
+        nbytes += xsave + out
+    t, by = _bound(nbytes, ops, "fp32")
+    t_mufu = g * L * Dm * N / MUFU_PER_S * 1e3
+    return (t_mufu, "operations") if t_mufu > t else (t, by)
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_passes(dt_name, backward):
+    """What the card grants each pass of the scan kernel at N 16:
+    {pass: (registers, local bytes, resident warps per SM)}."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_fwd as fwd)
+    return fwd.pass_info(
+        N, torch.bfloat16 if dt_name == "bf16" else torch.float32, backward)
+
+
+def _occupancy_text(dt_name, backward):
+    """'warps/SM local 16, carry 32, ...' for one case's line."""
+    return "warps/SM " + ", ".join(
+        f"{p} {w}" for p, (_, _, w) in _scan_passes(dt_name,
+                                                   backward).items())
+
+
+def _passes_text(backward):
+    """Each pass's registers and local (spill) bytes, fp32 and bf16."""
+    return "; ".join(
+        f"{dt} " + ", ".join(f"{p} {r} regs {loc} B local"
+                             for p, (r, loc, _) in
+                             _scan_passes(dt, backward).items())
+        for dt in ("fp32", "bf16"))
 
 
 def _perturb_scan_params(model, gen):
@@ -1547,8 +1632,8 @@ def _counters():
 PATHS = {
     ("medmamba", SIZE): (
         {"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
-        {"scan forward": ("scan_fwd_kernel",),
-         "scan backward": ("scan_bwd_kernel",)}),
+        {"scan forward": SCAN_FWD_KERNELS,
+         "scan backward": SCAN_BWD_KERNELS}),
     ("medssd", SIZE): (
         {"ssd_fused_dirs_fwd": 2 + 2},               # blocks of stages 0-1
         {"ssd scores": ("scores_kernel",),
@@ -1980,7 +2065,7 @@ def phase_lm_scoring(card):
                 if r["cpu_us"] == 0.0]
         device_ms = sum(r["device_us"] for r in rows) / 1e3
         scan_ms = sum(r["device_us"] for r in rows
-                      if "scan_fwd_kernel" in r["name"]) / 1e3
+                      if any(p in r["name"] for p in SCAN_FWD_KERNELS)) / 1e3
         _set_scan_impl(model, "torch")
         for c in counters.values():
             c.launches = 0
@@ -2154,7 +2239,7 @@ def phase_kernel_bench(card):
     nothing else); every counter set to 0 just before each run, and read
     around each stage.  Then rows 1 and 3 (and 2 and 4) at the bench's
     stage 0 in bf16, each writing the xsave its backward reads (chunks of
-    32 and of T 50), timed in turns (1, 3, 3, 1) with CUDA events."""
+    fwd.CHUNK and of T 50), timed in turns (1, 3, 3, 1) with CUDA events."""
     import torch
     from medical_image_classification_tpu_torch.kernels import (
         selective_scan_bwd as bwd, selective_scan_fwd as fwd,
@@ -2263,7 +2348,8 @@ def phase_kernel_bench(card):
           f"expected (each bench call: the forward once per fwd and fwd+bwd "
           f"call, the backward once per fwd+bwd call, the calibration once "
           f"per call, nothing else) | at {compare['shape']} with xsave: "
-          f"row 1 (serial chain, chunks of 32) {ms['row1']:.4f} ms vs row 3 "
+          f"row 1 (two-level, chunks of {fwd.CHUNK}) {ms['row1']:.4f} ms vs "
+          f"row 3 "
           f"(doubling scan, T {T}) {ms['row3']:.4f} ms; row 2 "
           f"{ms['row2']:.4f} ms vs row 4 {ms['row4']:.4f} ms (turns 1, 3, "
           f"3, 1)", flush=True)

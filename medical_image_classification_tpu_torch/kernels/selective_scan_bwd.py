@@ -30,6 +30,7 @@ from medical_image_classification_tpu_torch.kernels._dispatch import (
 from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (
     CHUNK,
     _check_cuda_args,
+    chunked_operands,
     _launch_cuda as _launch_fwd_cuda,
     _ptr,
     check_state,
@@ -38,6 +39,7 @@ from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (
 
 _KERNEL = "selective_scan_bwd"
 _LANES = 32          # channels per block of the kernel (dB/dC partials)
+_GROUP = 4           # chunks per block of its last pass (kGroup in csrc/)
 
 
 def _sum_partials(u, A, dA_part, dD_part, dbias_part):
@@ -111,6 +113,78 @@ def scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
                     else ())
 
 
+def scan_folded_bwd_two_level_ref(u, delta, A, B, C, D, bias, xsave, dy,
+                                  reverse: bool = False,
+                                  softplus: bool = True, dlast=None,
+                                  want_dinit: bool = False,
+                                  chunk: int = CHUNK):
+    """Plain PyTorch version of the two-level backward kernel's
+    decomposition (csrc/selective_scan_bwd.cu), all chunks at once: (a)
+    each chunk walks its adjoint from a zero carry (g = C dy + a g_next,
+    no state needed), leaving h_c = a_first g_first and its sum of dt; (b)
+    a carry pass over the chunks in adjoint order, seeded by ``dlast``:
+    q_prev = exp(A sum(dt_c)) q_c + h_c, its end dinit; (c) each chunk
+    recomputes its states from ``xsave`` and walks its adjoint from q_c,
+    emitting the gradients.  Returns as ``scan_folded_bwd_ref``.  The tests
+    hold it against the sequential twin; nothing on the card runs it."""
+    f32 = torch.float32
+    G, L, Dm = u.shape
+    K, _, N = A.shape
+    op = chunked_operands(u, delta, A, B, C, bias, softplus, chunk)
+    nT = op["dt"].shape[1]
+    pad = lambda t: F.pad(t.to(f32), (0, 0, 0, nT * chunk - L)).reshape(
+        G, nT, chunk, -1)[..., None]
+    dyc, uc = pad(dy), pad(u)                         # [G, nT, chunk, Dm, 1]
+    raw = delta.to(f32) + bias.to(f32).repeat(G // K, 1)[:, None, :]
+    sig = pad(torch.sigmoid(raw) if softplus else torch.ones_like(raw))
+    a = torch.exp(op["dt"] * op["A"][:, :, None])     # [G, nT, chunk, Dm, N]
+    steps = range(chunk - 1, -1, -1) if reverse else range(chunk)
+
+    gc = torch.zeros(G, nT, Dm, N, dtype=f32, device=u.device)
+    for r in reversed(steps):                         # (a), adjoint order
+        gc = a[:, :, r] * (op["C"][:, :, r] * dyc[:, :, r] + gc)
+    decay = torch.exp(op["dt"].sum(2) * op["A"])
+    carry = (torch.zeros_like(gc[:, 0]) if dlast is None
+             else dlast.to(f32).transpose(1, 2))
+    q = torch.empty_like(gc)
+    for c in (range(nT) if reverse else range(nT - 1, -1, -1)):   # (b)
+        q[:, c] = carry
+        carry = decay[:, c] * carry + gc[:, c]
+
+    x = xsave.to(f32).transpose(2, 3)                 # (c): [G, nT, Dm, N]
+    xs = {}
+    for r in steps:
+        x = a[:, :, r] * x + op["dtu"][:, :, r] * op["B"][:, :, r]
+        xs[r] = x
+    du = torch.empty(G, nT, chunk, Dm, dtype=f32, device=u.device)
+    ddelta, dB, dC = torch.empty_like(du), [None] * chunk, [None] * chunk
+    dA = torch.zeros(G, Dm, N, dtype=f32, device=u.device)
+    gc = q
+    for r in reversed(steps):
+        dtu, b = op["dtu"][:, :, r], op["B"][:, :, r]
+        g = op["C"][:, :, r] * dyc[:, :, r] + gc
+        xa = xs[r] - dtu * b                          # a_t x_prev
+        gB = (g * b).sum(-1)
+        du[:, :, r] = op["dt"][:, :, r, :, 0] * gB + \
+            D.to(f32).repeat(G // K, 1)[:, None] * dyc[:, :, r, :, 0]
+        ddelta[:, :, r] = sig[:, :, r, :, 0] * (
+            (g * xa * op["A"]).sum(-1) + uc[:, :, r, :, 0] * gB)
+        dB[r] = (g * dtu).sum(2)                      # [G, nT, N]
+        dC[r] = (xs[r] * dyc[:, :, r]).sum(2)
+        dA += (g * xa * op["dt"][:, :, r]).sum(1)
+        gc = a[:, :, r] * g
+    rows = lambda t: t.reshape(G, nT * chunk, -1)[:, :L]
+    du, ddelta = rows(du), rows(ddelta)
+    dB, dC = (rows(torch.stack(t, dim=2)) for t in (dB, dC))
+    dA, dD, dbias = _sum_partials(u, A, dA.transpose(1, 2),
+                                  (dy.to(f32) * u.to(f32)).sum(1),
+                                  ddelta.sum(1))
+    grads = (du.to(u.dtype), ddelta.to(delta.dtype), dA, dB.to(B.dtype),
+             dC.to(C.dtype), dD, dbias)
+    return grads + ((carry.transpose(1, 2).contiguous(),) if want_dinit
+                    else ())
+
+
 def _check_bwd_args(u, delta, A, B, C, D, bias, xsave, dy):
     _check_cuda_args(u, delta, A, B, C, D, bias)
     G, L, Dm = u.shape
@@ -132,19 +206,25 @@ def _check_bwd_args(u, delta, A, B, C, D, bias, xsave, dy):
 def _bwd_kernel(u, delta, A, B, C, D, bias, xsave, dy, du, ddelta, dB_part,
                 dC_part, dA_part, dD_part, dbias_part, reverse, softplus,
                 dlast=None, dinit=None):
-    """Launch csrc/selective_scan_bwd.cu on the current stream; raises if
-    the launch fails.  ``dlast`` and ``dinit`` may each be None."""
+    """Launch csrc/selective_scan_bwd.cu (its four passes) on the current
+    stream with the scratch it needs; raises if the launch fails.
+    ``dlast`` and ``dinit`` may each be None."""
     G, L, Dm = u.shape
     K, _, N = A.shape
+    nT = -(-L // CHUNK)
+    # chunk carries, chunk sums of dt, per-block parameter partials
+    floats = G * nT * (N + 1) * Dm + G * -(-nT // _GROUP) * (N + 2) * Dm
+    scratch = torch.empty(floats, dtype=torch.float32, device=u.device)
     ptrs = [_ptr(t) for t in (u, delta, A, B, C, D, bias, xsave, dy, dlast,
                               du, ddelta, dB_part, dC_part, dA_part, dD_part,
-                              dbias_part, dinit)]
+                              dbias_part, dinit, scratch)]
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        call(_KERNEL, [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
-             + [ctypes.c_void_p],
-             ptrs + [G, L, Dm, K, N, int(u.dtype == torch.bfloat16),
-                     int(reverse), int(softplus), stream])
+        call(_KERNEL, [ctypes.c_void_p] * 19 + [ctypes.c_longlong]
+             + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+             ptrs + [floats, G, L, Dm, K, N, CHUNK,
+                     int(u.dtype == torch.bfloat16), int(reverse),
+                     int(softplus), stream])
 
 
 def _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse, softplus,

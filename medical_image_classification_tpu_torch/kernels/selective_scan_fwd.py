@@ -38,12 +38,12 @@ from medical_image_classification_tpu_torch.kernels.selective_scan import (
 _KERNEL = "selective_scan_fwd"
 _MAX_N = 64
 _DTYPES = (torch.float32, torch.bfloat16)
-# Timesteps per chunk of xsave, shared by the forward and backward kernels
-# (kChunk in csrc/): the backward keeps one chunk's states in shared memory
-# (32 x N 16 x 32 channels x 4 B = 64 KB), and xsave costs 4 B x N per
-# channel per 32 steps, a third of the forward's bf16 bytes.  The TPU's
-# _choose_tiles T was sized for VMEM and does not apply.
-CHUNK = 32
+# Timesteps per chunk, shared by the forward and backward kernels (kChunk
+# in csrc/selective_scan_common.cuh): the unit of their parallelism in time
+# and the chunk of xsave.  The backward keeps a chunk's states in registers,
+# 16 steps x 4 states a thread; xsave costs 4 B x N per channel per 16
+# steps.  The TPU's _choose_tiles T was sized for VMEM and does not apply.
+CHUNK = 16
 
 
 def _state_to_generic(s, K):
@@ -121,6 +121,77 @@ def scan_folded_fwd_ref(u, delta, A, B, C, D, bias, reverse: bool = False,
     return outs if len(outs) > 1 else y
 
 
+def chunked_operands(u, delta, A, B, C, bias, softplus, chunk):
+    """The folded scan's operands in fp32, cut into chunks of ``chunk``
+    steps in memory order, as the two-level kernels walk them: dt, dt * u
+    [G, nT, chunk, Dm, 1], B and C [G, nT, chunk, 1, N], A per sequence
+    [G, 1, Dm, N].  The ragged last chunk is padded with dt = u = B = C = 0,
+    the scan's identity step (a = 1, b = 0), so a padded chunk scanned from
+    either end gives what the kernels' ragged walk gives."""
+    f32 = torch.float32
+    G, L, Dm = u.shape
+    K, _, N = A.shape
+    nT = -(-L // chunk)
+    raw = delta.to(f32) + bias.to(f32).repeat(G // K, 1)[:, None, :]
+    dt = F.softplus(raw) if softplus else raw
+
+    def cut(t, width):          # [G, L, w] -> [G, nT, chunk, w], 0-padded
+        t = F.pad(t.to(f32), (0, 0, 0, nT * chunk - L))
+        return t.reshape(G, nT, chunk, width)
+
+    dt = cut(dt, Dm)
+    return dict(dt=dt[..., None], dtu=(dt * cut(u, Dm))[..., None],
+                B=cut(B, N)[..., None, :], C=cut(C, N)[..., None, :],
+                A=A.to(f32).repeat(G // K, 1, 1)[:, None])
+
+
+def scan_folded_fwd_two_level_ref(u, delta, A, B, C, D, bias,
+                                  reverse: bool = False,
+                                  softplus: bool = True,
+                                  want_xsave: bool = False,
+                                  want_state: bool = False, init=None,
+                                  chunk: int = CHUNK):
+    """Plain PyTorch version of the two-level forward kernel's
+    decomposition (csrc/selective_scan_fwd.cu), all chunks at once: (a)
+    each chunk walks its steps from a zero state, leaving h_c and its sum
+    of dt; (b) a carry pass over the chunks in scan order, seeded by
+    ``init``: x_in[c + 1] = exp(A sum(dt_c)) x_in[c] + h_c, the last value
+    the last state; (c) each chunk walks again from x_in[c] and emits y.
+    Returns as ``scan_folded_fwd_ref`` (xsave is x_in, [G, nT, N, Dm] in
+    memory order).  The tests hold it against the sequential twin; nothing
+    on the card runs it."""
+    G, L, Dm = u.shape
+    N = A.shape[2]
+    op = chunked_operands(u, delta, A, B, C, bias, softplus, chunk)
+    nT = op["dt"].shape[1]
+    steps = range(chunk - 1, -1, -1) if reverse else range(chunk)
+
+    def walk(x, emit=None):     # one pass over every chunk, x [G, nT, Dm, N]
+        for r in steps:
+            x = torch.exp(op["dt"][:, :, r] * op["A"]) * x \
+                + op["dtu"][:, :, r] * op["B"][:, :, r]
+            if emit is not None:
+                emit[:, :, r] = (x * op["C"][:, :, r]).sum(-1)
+        return x
+
+    h = walk(torch.zeros(G, nT, Dm, N, dtype=torch.float32, device=u.device))
+    decay = torch.exp(op["dt"].sum(2) * op["A"])              # [G, nT, Dm, N]
+    carry = (torch.zeros_like(h[:, 0]) if init is None
+             else init.float().transpose(1, 2))
+    x_in = torch.empty_like(h)
+    for c in (range(nT - 1, -1, -1) if reverse else range(nT)):
+        x_in[:, c] = carry
+        carry = decay[:, c] * carry + h[:, c]
+    yc = torch.empty(G, nT, chunk, Dm, dtype=torch.float32, device=u.device)
+    walk(x_in, emit=yc)
+    Dg = D.float().repeat(G // D.shape[0], 1)[:, None, :]
+    y = (yc.reshape(G, nT * chunk, Dm)[:, :L] + u.float() * Dg).to(u.dtype)
+    outs = (y,) + ((x_in.transpose(2, 3).contiguous(),) if want_xsave
+                   else ()) + (
+        (carry.transpose(1, 2).contiguous(),) if want_state else ())
+    return outs if len(outs) > 1 else y
+
+
 def _check_cuda_args(u, delta, A, B, C, D, bias):
     G, L, Dm = u.shape
     K, _, N = A.shape
@@ -172,19 +243,47 @@ def _ptr(t):
 
 def _fwd_kernel(u, delta, A, B, C, D, bias, y, xsave, reverse, softplus,
                 init=None, last=None):
-    """Launch csrc/selective_scan_fwd.cu on the current stream; raises if
-    the launch fails.  ``xsave``, ``init`` and ``last`` may each be None."""
+    """Launch csrc/selective_scan_fwd.cu (its three passes) on the current
+    stream; raises if the launch fails.  ``xsave``, ``init`` and ``last``
+    may each be None: the kernel then takes a scratch xsave, and it always
+    takes scratch for the chunks' sums of dt."""
     G, L, Dm = u.shape
     K, _, N = A.shape
+    nT = -(-L // CHUNK)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    if xsave is None:
+        xsave = torch.empty(G, nT, N, Dm, **f32)
+    sdt = torch.empty(G, nT, Dm, **f32)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        call(_KERNEL, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        call(_KERNEL, [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
              + [ctypes.c_void_p],
              [u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
               C.data_ptr(), D.data_ptr(), bias.data_ptr(), y.data_ptr(),
-              _ptr(xsave), _ptr(init), _ptr(last),
-              G, L, Dm, K, N, int(u.dtype == torch.bfloat16), int(reverse),
-              int(softplus), stream])
+              xsave.data_ptr(), _ptr(init), _ptr(last), sdt.data_ptr(),
+              G, L, Dm, K, N, CHUNK, int(u.dtype == torch.bfloat16),
+              int(reverse), int(softplus), stream])
+
+
+def pass_info(N: int, dtype, backward: bool = False) -> dict:
+    """What the card grants each pass of the scan kernel at d_state ``N``
+    and operand type ``dtype``: {pass: (registers a thread, local-memory
+    bytes a thread (spills), resident warps per SM)}, from
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+    Forward passes: chunk, carry, final; backward: local, carry, final,
+    sum."""
+    from medical_image_classification_tpu_torch.kernels import _build
+    name = "selective_scan_bwd" if backward else _KERNEL
+    passes = (("local", "carry", "final", "sum") if backward
+              else ("chunk", "carry", "final"))
+    lib = _build.library(name)
+    fn = getattr(lib, f"{name}_pass_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (3 * len(passes)))()
+    _build.raise_on_error(lib, name, fn(N, int(dtype == torch.bfloat16),
+                                        ctypes.addressof(out)))
+    return {p: tuple(out[3 * i:3 * i + 3]) for i, p in enumerate(passes)}
 
 
 def _launch_cuda(u, delta, A, B, C, D, bias, reverse, softplus,

@@ -51,7 +51,7 @@ def _torch_args(inp, dtype=torch.float32):
 @pytest.mark.parametrize("L", [64, 100])
 def test_bwd_ref_matches_pallas_vjp(L, reverse, dtype):
     """All seven gradients against the JAX backward kernel.  L 100 is not a
-    multiple of the port's chunk (32) nor of the JAX one.  fp32 at 2e-3
+    multiple of the port's chunk (16) nor of the JAX one.  fp32 at 2e-3
     (the two chunk and order the sums differently); bf16 at the ladder of
     tests/test_pallas_scan.py (6e-2 / 1e-1): du, dΔ, dB, dC are rounded to
     bf16 on both sides."""
@@ -112,14 +112,14 @@ def test_xsave_holds_each_chunks_incoming_state(reverse):
     """
     from medical_image_classification_tpu_torch.kernels.selective_scan import (
         selective_scan_seq)
-    L, chunk = 70, 16
+    L, chunk = 70, 32
     inp, dy = _inputs(11, 1, 1, L, 8, 4)
     u, delta, A, B, C, D, bias = _torch_args(inp)
     _, xsave = fwd.scan_folded_fwd_ref(u, delta, A, B, C, D, bias,
                                        reverse=reverse, want_xsave=True,
                                        chunk=chunk)
-    assert xsave.shape == (1, 5, 4, 8)
-    for c in range(5):
+    assert xsave.shape == (1, 3, 4, 8)
+    for c in range(3):
         # the steps scanned before chunk c, in scan order
         if reverse:
             sl = [torch.flip(t[:, (c + 1) * chunk:], dims=(1,))
@@ -137,12 +137,13 @@ def test_xsave_holds_each_chunks_incoming_state(reverse):
                                    rtol=1e-5, atol=1e-6)
     args = (u, delta, A, B, C, D, bias)
     dy = torch.from_numpy(dy)
-    g16 = bwd.scan_folded_bwd_ref(*args, xsave, dy, reverse=reverse,
-                                  chunk=chunk)
-    _, xsave32 = fwd.scan_folded_fwd_ref(*args, reverse=reverse,
+    # the kernels' chunk (fwd.CHUNK, 16) against this one
+    g_other = bwd.scan_folded_bwd_ref(*args, xsave, dy, reverse=reverse,
+                                      chunk=chunk)
+    _, xsave_k = fwd.scan_folded_fwd_ref(*args, reverse=reverse,
                                          want_xsave=True)
-    g32 = bwd.scan_folded_bwd_ref(*args, xsave32, dy, reverse=reverse)
-    for name, a, b in zip(GRADS, g16, g32):
+    g_k = bwd.scan_folded_bwd_ref(*args, xsave_k, dy, reverse=reverse)
+    for name, a, b in zip(GRADS, g_other, g_k):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
 
 

@@ -65,7 +65,7 @@ def _torch_args(inp, dtype=torch.float32):
 @pytest.mark.parametrize("reverse", [False, True])
 def test_flags_match_pallas(reverse, dtype):
     """want_state / init forward and dlast / dinit backward against the JAX
-    v2 kernels.  L 100 is not a multiple of the port's chunk (32) and pads
+    v2 kernels.  L 100 is not a multiple of the port's chunk (16) and pads
     the JAX chunk (104), whose pad rows the flags must skip.  y and last at
     fp32 1e-4, bf16 3e-2 / 5e-2 (y rounds to bf16 on both sides); the fp32
     gradients (dA, dD, dbias, dinit, and all of them for fp32 inputs) at
