@@ -360,7 +360,7 @@ def phase_kernel_vs_plain():
                           xsave_ms=xs_ms, plain_ms=p_ms,
                           bound=_scan_bound(L, Dm, dt_name, False),
                           warps_per_sm=_occupancy_text(dt_name, False)))
-        _walk_split(cases[-1], run_k, SCAN_FWD_SPLIT, per_launch=True)
+        _walk_split(cases[-1], run_k, SCAN_FWD_SPLIT)
     worst = {d: max(c["max_abs_err"] for c in cases if c["dtype"] == d)
              for d in TOL}
     xworst = {d: max(c["xsave_err"] for c in cases if c["dtype"] == d)
@@ -411,7 +411,7 @@ def phase_bwd_vs_plain():
                           ms=k_ms, plain_ms=p_ms,
                           bound=_scan_bound(L, Dm, dt_name, True),
                           warps_per_sm=_occupancy_text(dt_name, True)))
-        _walk_split(cases[-1], run_k, SCAN_BWD_SPLIT, per_launch=True)
+        _walk_split(cases[-1], run_k, SCAN_BWD_SPLIT)
 
     # ScanFolded (kernels) against torch.autograd through the plain forward
     L, Dm, dt_name, reverse, args = next(
@@ -480,11 +480,13 @@ def _check_scaled(what, got, want, rtol, atol_rel):
     return _check_close(what, got, want, rtol, atol_rel * scale)
 
 
-# the kernels of the SSD chunk walk, and the passes of the scan kernels at
-# bf16 and N 16, by the names torch.profiler gives them: {label: pattern}
-SSD_WALK_SPLIT = {k.replace("_kernel", ""): k for k in (
-    "scores_kernel", "fwd_walk_kernel", "intra_kernel", "bwd_walk_kernel",
-    "flush_kernel")}
+# the kernels of the SSD chunk walk (the forward's two, the backward's five
+# passes), and the passes of the scan kernels at bf16 and N 16, by the
+# names torch.profiler gives them: {label: pattern}
+SSD_BWD_KERNELS = tuple(f"bwd::{p}_kernel" for p in (
+    "prep", "gram", "intra", "state", "chunk", "flush"))
+SSD_WALK_SPLIT = {k.split("::")[-1].replace("_kernel", ""): k for k in (
+    "scores_kernel", "fwd_walk_kernel") + SSD_BWD_KERNELS}
 SCAN_FWD_SPLIT = {
     "chunk": "scan_fwd_chunk_kernel<__nv_bfloat16, 16, false>",
     "carry": "chunk_carry_kernel<false>",
@@ -497,23 +499,82 @@ SCAN_FWD_KERNELS = ("scan_fwd_chunk_kernel", "chunk_carry_kernel<false>")
 SCAN_BWD_KERNELS = tuple(SCAN_BWD_SPLIT.values())
 
 
-def _walk_split(c, fn, names=SSD_WALK_SPLIT, per_launch=False):
+def _walk_split(c, fn, names=SSD_WALK_SPLIT):
     """At a bf16 case, c["split"]: device ms of each kernel ``names`` lists
-    (by default the SSD chunk walk's: scores, walks, intra, flush) in one
-    call of ``fn``.  With ``per_launch`` (each kernel launched once a
-    call, as the scan's passes are) it profiles two calls and takes each
-    kernel's mean over the launches recorded: in full smoke runs the
-    profile has missed the scan backward's first pass in a one-call
-    window."""
+    (by default the SSD chunk walk's passes) in one call of ``fn``, each
+    kernel launched once a call: the mean over the launches a profile of
+    two calls recorded (in full smoke runs a one-call window has missed a
+    call's first kernel)."""
     if c["dtype"] != "bf16":
         return
-    rows = [r for r in _profile(lambda: (fn(), fn()) if per_launch else fn)
-            if r["device_us"] > 0.0]
-    per = (lambda r: r["device_us"] / r["count"]) if per_launch else (
-        lambda r: r["device_us"])
-    c["split"] = {k: sum(per(r) for r in rows if p in r["name"]) / 1e3
+    rows = [r for r in _profile(lambda: (fn(), fn())) if r["device_us"] > 0.0]
+    c["split"] = {k: sum(r["device_us"] / r["count"] for r in rows
+                         if p in r["name"]) / 1e3
                   for k, p in names.items()
                   if any(p in r["name"] for r in rows)}
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_bwd_passes(kernel):
+    """What the card grants each pass of the SSD walk's backward as
+    ``kernel`` builds it: {dtype: {pass: {registers, local_bytes,
+    shared_bytes, warps_per_sm}}}."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import ssd_fused
+    keys = ("registers", "local_bytes", "shared_bytes", "warps_per_sm")
+    return {dt: {p: dict(zip(keys, v)) for p, v in ssd_fused.bwd_pass_info(
+        kernel, dtype).items()}
+        for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_bwd_mma(kernel):
+    """{dtype: {pass: HMMA/HGMMA instructions}} in the SASS of the built
+    library ``kernel`` (``cuobjdump -sass``), or None without cuobjdump.
+    Raises if a bf16 pass that computes a product (all but prep) has
+    none: those products belong on the tensor cores."""
+    import re
+    import shutil
+    from medical_image_classification_tpu_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.build(kernel).path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {"fp32": {}, "bf16": {}}
+    fn = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            mp = re.search(r"3bwd\d+(\w+?)_kernel", fn)
+            dt = "bf16" if "bfloat16" in fn else "fp32"
+            key = (dt, mp.group(1)) if mp else None
+            if key:
+                out[dt][key[1]] = 0
+        elif fn and key and ("HMMA" in ln or "HGMMA" in ln):
+            out[key[0]][key[1]] += 1
+    bare = [p for p, n in out["bf16"].items() if p != "prep" and n == 0]
+    if bare:
+        raise AssertionError(f"{kernel}: bf16 passes {bare} run no HMMA")
+    return out
+
+
+def _ssd_bwd_mma_text(kernel):
+    mma = _ssd_bwd_mma(kernel)
+    if mma is None:
+        return "HMMA per pass: cuobjdump not found"
+    return "HMMA per pass (cuobjdump -sass): " + "; ".join(
+        f"{dt} " + ", ".join(f"{p} {n}" for p, n in mma[dt].items())
+        for dt in ("bf16", "fp32"))
+
+
+def _ssd_bwd_passes_text(kernel):
+    return "passes (registers/local B/shared B/warps per SM): " + "; ".join(
+        f"{dt} " + ", ".join(f"{p} " + "/".join(map(str, v.values()))
+                             for p, v in passes.items())
+        for dt, passes in _ssd_bwd_passes(kernel).items())
 
 
 def _split_text(c):
@@ -616,8 +677,12 @@ def phase_ssd_bwd_vs_plain():
           f"within {SSD_GRAD_TOL} (rtol, atol x max|plain|) on all 6 "
           f"cotangents, second launch bit-identical | SSDFusedDirs vs "
           f"torch.autograd through the plain forward at L={L} fp32: max err "
-          f"{auto_err:.2e} | {summary}", flush=True)
-    return dict(cases=cases, autograd_err=auto_err)
+          f"{auto_err:.2e} | {_ssd_bwd_passes_text('ssd_fused_dirs_bwd')} | "
+          f"{_ssd_bwd_mma_text('ssd_fused_dirs_bwd')} | {summary}",
+          flush=True)
+    return dict(cases=cases, autograd_err=auto_err,
+                passes=_ssd_bwd_passes("ssd_fused_dirs_bwd"),
+                hmma=_ssd_bwd_mma("ssd_fused_dirs_bwd"))
 
 
 def _st_case(what, run_k, run_p, dt_name, reps):
@@ -1048,9 +1113,13 @@ def phase_fused_bwd_vs_plain():
           f"max|plain|) on all 7 cotangents, second launch bit-identical | "
           f"SSDFused vs torch.autograd through the plain forward, fp32, "
           f"worst of {len(FUSED_CASES)} shapes: max err {auto:.2e} | "
+          f"{_ssd_bwd_passes_text('ssd_fused_bwd')} | "
+          f"{_ssd_bwd_mma_text('ssd_fused_bwd')} | "
           + "; ".join(_st_bwd_summary([c]) + _split_text(c) for c in cases),
           flush=True)
-    return dict(cases=cases, autograd_err=auto)
+    return dict(cases=cases, autograd_err=auto,
+                passes=_ssd_bwd_passes("ssd_fused_bwd"),
+                hmma=_ssd_bwd_mma("ssd_fused_bwd"))
 
 
 def _flag_cases():
@@ -1638,8 +1707,7 @@ PATHS = {
         {"ssd_fused_dirs_fwd": 2 + 2},               # blocks of stages 0-1
         {"ssd scores": ("scores_kernel",),
          "ssd forward": ("fwd_walk_kernel",),
-         "ssd backward": ("intra_kernel", "bwd_walk_kernel",
-                          "flush_kernel")}),
+         "ssd backward": SSD_BWD_KERNELS}),
     # Y_diag in stage 0's two blocks, the mixer and the gate in the blocks
     # of stages 0-1
     ("st_ssd", SIZE): (
@@ -2469,6 +2537,13 @@ def main(argv=None):
         entries.append(_entry(name, replaces, st_cases,
                               launches["launches"][name], head,
                               next(c for c in st_cases if head(c))["bound"]))
+    # the walk backward's passes: what the card grants each, and the split
+    # of the reported case's time
+    for name, head, ph in (("ssd_fused_dirs_bwd", ssd_head, ssd_bwd),
+                           ("ssd_fused_bwd", fused_head, fused_bwd)):
+        next(e for e in entries if e["name"] == name).update(
+            passes=ph["passes"], hmma=ph["hmma"],
+            split_ms=next(c for c in ph["cases"] if head(c)).get("split"))
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)

@@ -74,6 +74,7 @@ struct Dims {
 template <typename T>
 struct FlatLayout {
   static constexpr bool kHasD = false;
+  static constexpr bool kCoupled = false;  // B/C rows are plain arrays
   const T* C;
   const T* Bm;
   const T* x;
@@ -85,6 +86,20 @@ struct FlatLayout {
                                          int t) const {
     return d.row(b, c, t) * d.HP + static_cast<size_t>(h) * d.P;
   }
+  // addresses of head h's P values at (c, t) and of element n of B/C row t
+  __device__ __forceinline__ const T* x_ptr(const Dims& d, int b, int h,
+                                            int c, int t) const {
+    return x + yrow(d, b, h, c, t);
+  }
+  __device__ __forceinline__ const T* B_ptr(const Dims& d, int b, int c,
+                                            int t, int n) const {
+    return Bm + d.row(b, c, t) * d.N + n;
+  }
+  __device__ __forceinline__ const T* C_ptr(const Dims& d, int b, int c,
+                                            int t, int n) const {
+    return C + d.row(b, c, t) * d.N + n;
+  }
+  // element loads of the forward walk and the scores pass
   __device__ __forceinline__ float load_x(const Dims& d, int b, int h, int c,
                                           int t, int p) const {
     return to_f32(x[yrow(d, b, h, c, t) + p]);
@@ -98,17 +113,20 @@ struct FlatLayout {
     return to_f32(C[d.row(b, c, t) * d.N + n]);
   }
   __device__ __forceinline__ float D(int) const { return 0.f; }
-  // which 0: dC, 1: dB, at row r of chunk (b, c), column n
-  __device__ __forceinline__ void store_grad(const Dims& d, int which, int b,
-                                             int c, int r, int n,
-                                             float v) const {
-    (which == 0 ? dC : dB)[d.row(b, c, r) * d.N + n] = from_f32<T>(v);
+  // which 0: dC, 1: dB, at row r of chunk (b, c), columns n and n + 1
+  __device__ __forceinline__ void store_grad2(const Dims& d, int which, int b,
+                                              int c, int r, int n, float v0,
+                                              float v1) const {
+    T* o = (which == 0 ? dC : dB) + d.row(b, c, r) * d.N + n;
+    o[0] = from_f32<T>(v0);
+    o[1] = from_f32<T>(v1);
   }
 };
 
 template <typename T>
 struct DirsLayout {
   static constexpr bool kHasD = true;
+  static constexpr bool kCoupled = true;  // B/C rows come from two places
   const T* stack;
   const float* Dsk;
   T* dBC;  // [4, B, nc, l, 2 gn]: dB_dir, dC_dir, dB_flip, dC_flip; null in
@@ -129,6 +147,28 @@ struct DirsLayout {
   __device__ __forceinline__ size_t yrow(const Dims& d, int b, int h, int c,
                                          int t) const {
     return head_row(d, b, h, c, t) * d.HP + static_cast<size_t>(h) * d.P;
+  }
+  // the addresses FlatLayout gives (the backward's tile copies)
+  __device__ __forceinline__ const T* x_ptr(const Dims& d, int b, int h,
+                                            int c, int t) const {
+    return stack + head_row(d, b, h, c, t) * C2 + (h < H2 ? h : h - H2) * d.P;
+  }
+  // the address of coupled element n (an element pair n, n + 1 never
+  // straddles the halves: 2 gn is even)
+  __device__ __forceinline__ const T* coupled_ptr(const Dims& d, int b, int c,
+                                                  int t, int n,
+                                                  int off) const {
+    return n < g2 ? stack + d.row(b, c, t) * C2 + off + n
+                  : stack + d.row(b, d.nc - 1 - c, d.l - 1 - t) * C2 + off +
+                        n - g2;
+  }
+  __device__ __forceinline__ const T* B_ptr(const Dims& d, int b, int c,
+                                            int t, int n) const {
+    return coupled_ptr(d, b, c, t, n, offB);
+  }
+  __device__ __forceinline__ const T* C_ptr(const Dims& d, int b, int c,
+                                            int t, int n) const {
+    return coupled_ptr(d, b, c, t, n, offC);
   }
   __device__ __forceinline__ float load_x(const Dims& d, int b, int h, int c,
                                           int t, int p) const {
@@ -151,18 +191,18 @@ struct DirsLayout {
     return coupled(d, b, c, t, n, offC);
   }
   __device__ __forceinline__ float D(int h) const { return Dsk[h]; }
-  // the first 2 gn columns go to the direct slab of chunk c; the rest to
-  // the flipped slab of chunk nc-1-c, row l-1-r
-  __device__ __forceinline__ void store_grad(const Dims& d, int which, int b,
-                                             int c, int r, int n,
-                                             float v) const {
+  // columns n, n + 1 (one half): the first 2 gn columns go to the direct
+  // slab of chunk c; the rest to the flipped slab of chunk nc-1-c, row
+  // l-1-r
+  __device__ __forceinline__ void store_grad2(const Dims& d, int which, int b,
+                                              int c, int r, int n, float v0,
+                                              float v1) const {
     const size_t slab = static_cast<size_t>(d.B) * d.nc * d.l * g2;
-    const T o = from_f32<T>(v);
-    if (n < g2)
-      dBC[(which == 0 ? 1 : 0) * slab + d.row(b, c, r) * g2 + n] = o;
-    else
-      dBC[(which == 0 ? 3 : 2) * slab +
-          d.row(b, d.nc - 1 - c, d.l - 1 - r) * g2 + n - g2] = o;
+    T* o = n < g2 ? dBC + (which == 0 ? 1 : 0) * slab + d.row(b, c, r) * g2 + n
+                  : dBC + (which == 0 ? 3 : 2) * slab +
+                        d.row(b, d.nc - 1 - c, d.l - 1 - r) * g2 + n - g2;
+    o[0] = from_f32<T>(v0);
+    o[1] = from_f32<T>(v1);
   }
 };
 

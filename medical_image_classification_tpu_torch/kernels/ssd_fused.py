@@ -48,12 +48,18 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # it to small shapes, as the JAX package's tests patch its ``_MIN_L``.
 _MIN_L = 196
 _MAX_L = 256
-# shape limits of the CUDA kernels: one block walks PT columns of a head's
-# P, holding its [PT, N] fp32 state and [l, PT] tiles in shared memory, and
-# steps over N in tiles of PT without a mask
+# shape limits of the CUDA kernels: a forward block walks PT columns of a
+# head's P, holding its [PT, N] fp32 state and [l, PT] tiles in shared
+# memory, and steps over N in tiles of PT without a mask; the backward's
+# warps take P and N in whole tiles of PT and its chunk pass keeps a row of
+# MAX_L
 PT = 32
 MAX_L = 256
 MAX_N = 512
+# the backward's tiles of rows, of P and of N (csrc/ssd_walk_bwd.cuh
+# bwd::kT), which size its per-tile partials, and its six passes
+BWD_TILE = 64
+BWD_PASSES = ("prep", "gram", "intra", "state", "chunk", "flush")
 
 
 def ssd_fused_supported(l: int, N: int, P: int, G: int, nc: int,
@@ -182,6 +188,54 @@ def walk_bwd_ref(x, Bf, Cf, acum, dte, cdec, dtp, Ssave, dy, mm, Dsk=None):
     return dx, dacum, ddte, dcdec, ddtp, dD, dB, dC
 
 
+def walk_bwd_chunked_ref(x, Bf, Cf, acum, dte, cdec, dtp, Ssave, dy, mm,
+                         Dsk=None):
+    """``walk_bwd_ref`` in the order of the CUDA kernels' decomposition
+    (``csrc/ssd_walk_bwd.cuh``): every chunk's state cotangent input dSin =
+    rnd(dy e^a)^T C at once, then the state-passing recurrence dSout(c-1) =
+    cdec(c) dSout(c) + dSin(c) (the only sequential part), then every
+    chunk-local product at once.  Same arguments and results as
+    ``walk_bwd_ref``."""
+    B, nc, H, l, P = x.shape
+    rnd = lambda t: t.to(mm).float()
+    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    Ssave = Ssave.float()
+    C4, B4 = Cf[:, :, None], Bf[:, :, None]             # [B, nc, 1, l, N]
+    eA = torch.exp(acum)[..., None]                      # [B, nc, H, l, 1]
+    dYoff = rnd(dy * eA)
+    dSin = dYoff.transpose(-1, -2) @ C4                  # [B, nc, H, P, N]
+    dS = torch.zeros_like(dSin[:, 0])
+    dSout = torch.empty_like(dSin)
+    for c in range(nc - 1, -1, -1):
+        dSout[:, c] = dS
+        dS = cdec[:, c, :, None, None] * dS + dSin[:, c]
+    dso = rnd(dSout)
+    dcdec = (dSout * Ssave).sum((-1, -2))
+    sc = Cf @ Bf.transpose(-1, -2)                       # [B, nc, l, l]
+    E = _decay(acum, causal)                             # [B, nc, H, l, l]
+    M = sc[:, :, None] * E
+    dtx = rnd(x * dtp[..., None])
+    ddtx_diag = rnd(M).transpose(-1, -2) @ dy
+    dM = dy @ dtx.transpose(-1, -2)
+    G = dM * M
+    Yoff = C4 @ Ssave.transpose(-1, -2)                  # [B, nc, H, l, P]
+    dacum = G.sum(-1) - G.sum(-2) + (dy * Yoff * eA).sum(-1)
+    t = B4 @ dso.transpose(-1, -2)
+    dte_ = dte[..., None]
+    ddtx = ddtx_diag + t * dte_
+    dxv = ddtx * dtp[..., None]
+    dD = None
+    if Dsk is not None:
+        dD = (dy * x).sum((-1, -2))
+        dxv = dxv + dy * Dsk[:, None, None]
+    ds = rnd((dM * E).sum(2))                            # [B, nc, l, l]
+    dC = (torch.einsum("bchlp,bchpn->bcln", dYoff, Ssave) + ds @ Bf).to(mm)
+    dB = (torch.einsum("bchlp,bchpn->bcln", rnd(dtx * dte_), dso)
+          + ds.transpose(-1, -2) @ Cf).to(mm)
+    return (dxv.to(mm), dacum, (t * dtx).sum(-1), dcdec,
+            (ddtx * x).sum(-1), dD, dB, dC)
+
+
 def _heads(t, H):
     """Flat l-major [B, nc, l, H P] -> fp32 [B, nc, H, l, P]."""
     B, nc, l, HP = t.shape
@@ -295,23 +349,23 @@ def _launch_bwd_cuda(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy):
     H = acum.shape[2]
     P = x.shape[3] // H
     f32 = dict(dtype=torch.float32, device=Cc.device)
-    nt = -(-l // 64)                      # 64 x 64 tiles of the [l, l] pass
-    npt = P // PT
+    nt, npt, nnt = (-(-n // BWD_TILE) for n in (l, P, N))
     dx = torch.empty_like(x)
     dso = torch.empty_like(Ssave)                 # rounded dS entering each
-    scores = torch.empty(B, nc, l, l, **f32)      # chunk, for the flush
-    dscores = torch.empty(B, nc, l, l, **f32)
+    scores = torch.empty(B, nc, l, l, **f32)      # chunk
+    dsr = torch.empty(B, nc, l, l, dtype=Cc.dtype, device=Cc.device)
+    pre = torch.empty(3, B, nc, H, l, P, dtype=Cc.dtype, device=Cc.device)
     row_part = torch.empty(B, nc, H, nt, l, **f32)
     col_part = torch.empty(B, nc, H, nt, l, **f32)
     off_part = torch.empty(B, nc, H, npt, l, **f32)
     ddte_part = torch.empty(B, nc, H, npt, l, **f32)
     ddtp_part = torch.empty(B, nc, H, npt, l, **f32)
-    dcdec_part = torch.empty(B, nc, H, npt, **f32)
+    dcdec_part = torch.empty(B, nc, H, npt * nnt, **f32)
     dC, dB = torch.empty_like(Cc), torch.empty_like(Bc)
     ptrs = [t.data_ptr() for t in (
-        Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy, dx, dso, scores, dscores,
-        row_part, col_part, off_part, ddte_part, ddtp_part, dcdec_part, dC,
-        dB)]
+        Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy, dx, dso, scores, dsr,
+        pre, row_part, col_part, off_part, ddte_part, ddtp_part, dcdec_part,
+        dC, dB)]
     with torch.cuda.device(Cc.device):
         stream = torch.cuda.current_stream(Cc.device).cuda_stream
         call(_BWD_KERNEL, [ctypes.c_void_p] * len(ptrs)
@@ -322,6 +376,24 @@ def _launch_bwd_cuda(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy):
     dacum = row_part.sum(3) - col_part.sum(3) + off_part.sum(3)
     return (dC, dB, dacum, ddte_part.sum(3), dcdec_part.sum(3),
             ddtp_part.sum(3), dx)
+
+
+def bwd_pass_info(kernel: str, dtype) -> dict:
+    """What the card grants each pass of the walk's backward as ``kernel``
+    ("ssd_fused_bwd" or "ssd_fused_dirs_bwd") builds it for operand type
+    ``dtype``: {pass: (registers a thread, local-memory bytes a thread
+    (spills), dynamic shared bytes a block, resident warps per SM)}, from
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor.
+    """
+    from medical_image_classification_tpu_torch.kernels import _build
+    lib = _build.library(kernel)
+    fn = getattr(lib, f"{kernel}_pass_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (4 * len(BWD_PASSES)))()
+    _build.raise_on_error(lib, kernel, fn(int(dtype == torch.bfloat16),
+                                          ctypes.addressof(out)))
+    return {p: tuple(out[4 * i:4 * i + 4]) for i, p in enumerate(BWD_PASSES)}
 
 
 # --------------------------------------------------------------------------

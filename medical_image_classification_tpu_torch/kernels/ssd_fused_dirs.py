@@ -37,10 +37,12 @@ import torch
 
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
+    dense,
     resolve_impl,
 )
 from medical_image_classification_tpu_torch.kernels.ssd_fused import (
     _DTYPES,
+    BWD_TILE,
     MAX_L,
     MAX_N,
     PT,
@@ -231,25 +233,28 @@ def _launch_bwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn, Ssave,
     the partials (no atomics: the same bits on every run)."""
     _check_cuda_args(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn, Ssave, dy)
     B, nc, l, C2c, H4, nh, P = _dims(stackr, acum, d_ssm)
+    # the kernels copy 16-byte pieces
+    stackr, acum, Ssave, dy = (dense(t) for t in (stackr, acum, Ssave, dy))
     dev, mm = stackr.device, stackr.dtype
     f32 = dict(dtype=torch.float32, device=dev)
-    nt = -(-l // 64)                      # 64 x 64 tiles of the [l, l] pass
-    npt = P // PT
+    nt, npt, nnt = (-(-n // BWD_TILE) for n in (l, P, 4 * gn))
     dx = torch.empty(B, nc, l, H4 * P, dtype=mm, device=dev)
     dso = torch.empty_like(Ssave)                 # rounded dS entering each
-    scores = torch.empty(B, nc, l, l, **f32)      # chunk, for the flush
-    dscores = torch.empty(B, nc, l, l, **f32)
+    scores = torch.empty(B, nc, l, l, **f32)      # chunk
+    dsr = torch.empty(B, nc, l, l, dtype=mm, device=dev)
+    pre = torch.empty(3, B, nc, H4, l, P, dtype=mm, device=dev)
+    bc = torch.empty(2, B, nc, l, 4 * gn, dtype=mm, device=dev)  # B/C rows
     row_part = torch.empty(B, nc, H4, nt, l, **f32)
     col_part = torch.empty(B, nc, H4, nt, l, **f32)
     off_part = torch.empty(B, nc, H4, npt, l, **f32)
     ddte_part = torch.empty(B, nc, H4, npt, l, **f32)
     ddtp_part = torch.empty(B, nc, H4, npt, l, **f32)
-    dD_part = torch.empty(B, nc, H4, npt, **f32)
-    dcdec_part = torch.empty(B, nc, H4, npt, **f32)
+    dD_part = torch.empty(B, nc, H4, nt * npt, **f32)
+    dcdec_part = torch.empty(B, nc, H4, npt * nnt, **f32)
     dBC = torch.empty(4, B, nc, l, 2 * gn, dtype=mm, device=dev)
     ptrs = [t.data_ptr() for t in (
-        stackr, acum, dte, cdec, dtp, Dsk, Ssave, dy, dx, dso, scores,
-        dscores, row_part, col_part, off_part, ddte_part, ddtp_part, dD_part,
+        stackr, acum, dte, cdec, dtp, Dsk, Ssave, dy, dx, dso, scores, dsr,
+        pre, bc, row_part, col_part, off_part, ddte_part, ddtp_part, dD_part,
         dcdec_part, dBC)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
