@@ -35,7 +35,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      of MedSSD's stage 3 at 512x512 (BC 32, l 256, H 64, P 64), fp32 and
      bf16;
   2f. STL token-mixer kernel vs plain at ST-SSD's stages 0 and 1 (BB 128;
-     L = P 3136, C 128 and L = P 784, C 256), fp32 and bf16;
+     L = P 3136, C 128 and L = P 784, C 256), fp32 and bf16: U and the
+     rows' lse, and at each bf16 case the device time of its two passes
+     (rows, cols), with what the card grants each pass and the HMMA
+     instructions in each bf16 pass's SASS (so too in 2i, whose backward
+     reads the forward kernel's lse);
   2g. STF gate kernel vs plain at stages 0 and 1 (BB 32; P 3136, C 128 and
      P 784, C 256), fp32 and bf16; 2e-2g each with a second launch
      bit-identical and times from CUDA events;
@@ -497,6 +501,11 @@ SCAN_BWD_SPLIT = {"local": "bwd_local_kernel",
 # all of the scan's passes, at any type and N (the model profiles)
 SCAN_FWD_KERNELS = ("scan_fwd_chunk_kernel", "chunk_carry_kernel<false>")
 SCAN_BWD_KERNELS = tuple(SCAN_BWD_SPLIT.values())
+# the STL mixer's two passes, forward and backward
+STL_FWD_SPLIT = {"rows": "mixer_fwd_rows_kernel",
+                 "cols": "mixer_fwd_cols_kernel"}
+STL_BWD_SPLIT = {"rows": "mixer_bwd_rows_kernel",
+                 "cols": "mixer_bwd_cols_kernel"}
 
 
 def _walk_split(c, fn, names=SSD_WALK_SPLIT):
@@ -527,12 +536,12 @@ def _ssd_bwd_passes(kernel):
         for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
 
 
-@functools.lru_cache(maxsize=None)
-def _ssd_bwd_mma(kernel):
+def _sass_mma(kernel, pattern, exempt=()):
     """{dtype: {pass: HMMA/HGMMA instructions}} in the SASS of the built
-    library ``kernel`` (``cuobjdump -sass``), or None without cuobjdump.
-    Raises if a bf16 pass that computes a product (all but prep) has
-    none: those products belong on the tensor cores."""
+    library ``kernel`` (``cuobjdump -sass``), or None without cuobjdump; a
+    function's pass is ``pattern``'s groups in its mangled name, joined by
+    " C".  Raises if a bf16 pass outside ``exempt`` has none: its products
+    belong on the tensor cores."""
     import re
     import shutil
     from medical_image_classification_tpu_torch.kernels import _build
@@ -548,26 +557,68 @@ def _ssd_bwd_mma(kernel):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            mp = re.search(r"3bwd\d+(\w+?)_kernel", fn)
+            mp = re.search(pattern, fn)
             dt = "bf16" if "bfloat16" in fn else "fp32"
-            key = (dt, mp.group(1)) if mp else None
+            key = (dt, " C".join(mp.groups())) if mp else None
             if key:
                 out[dt][key[1]] = 0
         elif fn and key and ("HMMA" in ln or "HGMMA" in ln):
             out[key[0]][key[1]] += 1
-    bare = [p for p, n in out["bf16"].items() if p != "prep" and n == 0]
+    bare = [p for p, n in out["bf16"].items() if p not in exempt and n == 0]
     if bare:
         raise AssertionError(f"{kernel}: bf16 passes {bare} run no HMMA")
     return out
 
 
-def _ssd_bwd_mma_text(kernel):
-    mma = _ssd_bwd_mma(kernel)
+@functools.lru_cache(maxsize=None)
+def _ssd_bwd_mma(kernel):
+    """The SSD walk backward's passes (all but prep compute products)."""
+    return _sass_mma(kernel, r"3bwd\d+(\w+?)_kernel", ("prep",))
+
+
+@functools.lru_cache(maxsize=None)
+def _stl_mma(kernel):
+    """The STL mixer's passes, by pass and C (every one computes
+    products)."""
+    return _sass_mma(kernel, r"mixer_\w+?_(rows|cols)_kernelI\w*?Li(\d+)E")
+
+
+def _mma_text(mma):
     if mma is None:
         return "HMMA per pass: cuobjdump not found"
     return "HMMA per pass (cuobjdump -sass): " + "; ".join(
         f"{dt} " + ", ".join(f"{p} {n}" for p, n in mma[dt].items())
         for dt in ("bf16", "fp32"))
+
+
+@functools.lru_cache(maxsize=None)
+def _stl_passes(kernel):
+    """What the card grants each pass of the STL mixer kernel ``kernel``
+    ("stl_mixer_fwd" or "stl_mixer_bwd") at both ST stages' C:
+    {dtype: {"C128" | "C256": {pass: {registers, local_bytes,
+    shared_bytes, warps_per_sm}}}}."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        stl_mixer as stl)
+    info = stl.fwd_pass_info if kernel.endswith("fwd") else stl.bwd_pass_info
+    keys = ("registers", "local_bytes", "shared_bytes", "warps_per_sm")
+    return {dt: {f"C{C}": {p: dict(zip(keys, v))
+                           for p, v in info(C, dtype).items()}
+                 for _, C in ST_STAGES}
+            for dt, dtype in (("fp32", torch.float32),
+                              ("bf16", torch.bfloat16))}
+
+
+def _stl_passes_text(kernel):
+    return "passes (registers/local B/shared B/warps per SM): " + "; ".join(
+        f"{dt} {cn} " + ", ".join(f"{p} " + "/".join(map(str, v.values()))
+                                 for p, v in passes.items())
+        for dt, by_c in _stl_passes(kernel).items()
+        for cn, passes in by_c.items())
+
+
+def _ssd_bwd_mma_text(kernel):
+    return _mma_text(_ssd_bwd_mma(kernel))
 
 
 def _ssd_bwd_passes_text(kernel):
@@ -707,7 +758,7 @@ def _st_summary(cases):
         f"{c['shape']} {c['dtype']} err={c['max_abs_err']:.2e} (max|out| "
         f"{c['out_max']:.2f}) kernel={c['ms']:.3f}ms "
         f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
-        f"({c['bound'][1]})" for c in cases)
+        f"({c['bound'][1]}){_split_text(c)}" for c in cases)
 
 
 def _ydiag_cases():
@@ -807,22 +858,37 @@ def _stl_bound(args, dt_name, backward):
 
 
 def phase_stl_vs_plain():
-    """2f: the STL mixer kernel at ST-SSD's stages 0-1."""
+    """2f: the STL mixer kernel at ST-SSD's stages 0-1: U and lse."""
+    import torch
     from medical_image_classification_tpu_torch.kernels import (
         stl_mixer as stl)
     cases = []
     for i, L, C, dt_name, args, _ in _stl_cases():
         reps = (2, 1) if dt_name == "fp32" and i == 0 else (5, 2)
-        c = _st_case(f"STL mixer kernel vs plain L=P={L} C={C} {dt_name}",
-                     lambda: stl.stl_mixer_fwd(*args, impl="cuda"),
-                     lambda: stl.stl_mixer_fwd_ref(*args), dt_name, reps)
+        what = f"STL mixer kernel vs plain L=P={L} C={C} {dt_name}"
+        run_k = lambda: stl.stl_mixer_fwd(*args, impl="cuda")
+        c = _st_case(what, run_k, lambda: stl.stl_mixer_fwd_ref(*args),
+                     dt_name, reps)
+        lk = stl.stl_mixer_fwd(*args, impl="cuda", want_stats=True)[1]
+        lk2 = stl.stl_mixer_fwd(*args, impl="cuda", want_stats=True)[1]
+        lp = stl.stl_mixer_fwd_ref(*args, True)[1]
+        torch.cuda.synchronize()
+        if not torch.equal(lk, lk2):
+            raise AssertionError(f"{what}: two launches' lse differ")
         c.update(L=L, shape=f"BB{4 * BATCH} L=P{L} C{C}",
-                 bound=_stl_bound(args, dt_name, False))
+                 bound=_stl_bound(args, dt_name, False),
+                 lse_err=_check_scaled(f"{what} lse", lk, lp,
+                                       *ST_TOL[dt_name]))
+        _walk_split(c, run_k, STL_FWD_SPLIT)
         cases.append(c)
-        del args
+        del args, lk, lk2, lp
     print(f"phase 2f STL mixer forward kernel vs plain: {len(cases)}/4 cases "
-          f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
-          f"bit-identical | {_st_summary(cases)}", flush=True)
+          f"within {ST_TOL} (rtol, atol x max|plain|) on U and lse, second "
+          f"launch bit-identical | lse err "
+          + " ".join(f"{c['lse_err']:.2e}" for c in cases)
+          + f" | {_stl_passes_text('stl_mixer_fwd')} | "
+          f"{_mma_text(_stl_mma('stl_mixer_fwd'))} | {_st_summary(cases)}",
+          flush=True)
     return cases
 
 
@@ -948,7 +1014,8 @@ def phase_ydiag_bwd_vs_plain():
 
 
 def phase_stl_bwd_vs_plain():
-    """2i: the STL mixer backward kernel at 2f's cases; STLMixer against
+    """2i: the STL mixer backward kernel at 2f's cases, E from the forward
+    kernel's lse (the plain backward given the same lse); STLMixer against
     torch.autograd at stage 1 in fp32."""
     from medical_image_classification_tpu_torch.kernels import (
         stl_mixer as stl)
@@ -956,24 +1023,30 @@ def phase_stl_bwd_vs_plain():
     cases = []
     for i, L, C, dt_name, args, dU in _stl_cases():
         reps = (2, 1) if dt_name == "fp32" and i == 0 else (3, 1)
+        lse = stl.stl_mixer_fwd(*args, impl="cuda", want_stats=True)[1]
+        run_k = lambda: stl.stl_mixer_bwd(*args, dU, impl="cuda", lse=lse)
         c = _st_bwd_case(
             f"STL mixer backward kernel vs plain L=P={L} C={C} {dt_name}",
-            names, lambda: stl.stl_mixer_bwd(*args, dU, impl="cuda"),
-            lambda: stl.stl_mixer_bwd_ref(*args, dU), dt_name, reps)
+            names, run_k, lambda: stl.stl_mixer_bwd_ref(*args, dU, lse),
+            dt_name, reps)
         c.update(L=L, shape=f"BB{4 * BATCH} L=P{L} C{C}",
                  bound=_stl_bound(args, dt_name, True))
+        _walk_split(c, run_k, STL_BWD_SPLIT)
         cases.append(c)
         if i == 1 and dt_name == "fp32":
             auto = _vs_autograd(
                 "STLMixer", names,
                 lambda *a: stl.STLMixer.apply(*a, "cuda"),
                 stl.stl_mixer_fwd_ref, args, dU)
-        del args, dU
+        del args, dU, lse
     print(f"phase 2i STL mixer backward kernel vs plain: {len(cases)}/4 cases "
           f"within {ST_GRAD_TOL} (rtol, atol x max|plain|) on all 3 "
           f"cotangents, second launch bit-identical | STLMixer vs "
           f"torch.autograd through the plain forward at stage 1 fp32: max "
-          f"err {auto:.2e} | {_st_bwd_summary(cases)}", flush=True)
+          f"err {auto:.2e} | {_stl_passes_text('stl_mixer_bwd')} | "
+          f"{_mma_text(_stl_mma('stl_mixer_bwd'))} | "
+          + "; ".join(_st_bwd_summary([c]) + _split_text(c) for c in cases),
+          flush=True)
     return dict(cases=cases, autograd_err=auto)
 
 
@@ -1714,9 +1787,8 @@ PATHS = {
         {"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4, "stf_zgate_fwd": 4},
         {"ssd ydiag": ("ydiag_kernel",),
          "ssd ydiag backward": ("ydiag_grad_kernel", "ydiag_dcb_kernel"),
-         "stl mixer": ("stats_kernel", "mix_kernel"),
-         "stl mixer backward": ("mix_rows_bwd_kernel",
-                                "mix_cols_bwd_kernel"),
+         "stl mixer": tuple(STL_FWD_SPLIT.values()),
+         "stl mixer backward": tuple(STL_BWD_SPLIT.values()),
          "stf gate": ("zgate_kernel",),
          "stf gate backward": ("gate_rows_bwd_kernel",
                                "gate_cols_bwd_kernel")}),
@@ -2537,13 +2609,18 @@ def main(argv=None):
         entries.append(_entry(name, replaces, st_cases,
                               launches["launches"][name], head,
                               next(c for c in st_cases if head(c))["bound"]))
-    # the walk backward's passes: what the card grants each, and the split
-    # of the reported case's time
+    # the walk backward's and the mixer's passes: what the card grants
+    # each, and the split of the reported case's time
     for name, head, ph in (("ssd_fused_dirs_bwd", ssd_head, ssd_bwd),
                            ("ssd_fused_bwd", fused_head, fused_bwd)):
         next(e for e in entries if e["name"] == name).update(
             passes=ph["passes"], hmma=ph["hmma"],
             split_ms=next(c for c in ph["cases"] if head(c)).get("split"))
+    for name, st_cases in (("stl_mixer_fwd", stl_cases),
+                           ("stl_mixer_bwd", stl_bwd["cases"])):
+        next(e for e in entries if e["name"] == name).update(
+            passes=_stl_passes(name), hmma=_stl_mma(name),
+            split_ms=next(c for c in st_cases if st_head(c)).get("split"))
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)

@@ -1,5 +1,5 @@
-// Tile pieces shared by the ST-SSD slice's kernels (ssd_ydiag_{fwd,bwd}.cu,
-// stl_mixer_{fwd,bwd}.cu, stf_zgate_{fwd,bwd}.cu): operand-type
+// Tile pieces shared by the ST-SSD slice's Y_diag and gate kernels
+// (ssd_ydiag_{fwd,bwd}.cu, stf_zgate_{fwd,bwd}.cu): operand-type
 // conversions, masked tile loads into shared memory, reductions over the
 // four threads of a row, and the two block products each of them makes per
 // step:

@@ -14,306 +14,354 @@
 // every product summed in fp32, dV and dw written rounded; the caller sums
 // the per-batch du1 partials over bb and transposes them (the TPU body's
 // rounding points: E fp32 for rowdot and dS, E and dS rounded before the
-// products).  No [L, P] tensor goes to device memory.
+// products).  E = exp(S - lse) comes from the forward's row log-sum-exp
+// lse [BB, L].  No [L, P] tensor goes to device memory.
 //
 // What bounds it on this card: at ST-SSD stage 0 (BB 128, L = P = 3136,
 // C 128, bf16) the TPU body's five products are 10 BB L P C ~ 1.6 TFLOP
 // against ~0.4 GB moved: operations, by a wide margin.
 //
-// Design (simple and right first).  The softmax runs over P, so a row's dS
-// needs a full pass over P (rowdot) before it exists; dV and dw sum over P
-// per row of L, du1 sums over L per column of P.  The TPU body walked L
-// sequentially with a [P, C] fp32 accumulator in VMEM; a block has 227 KB
-// and blocks run in no order.  So two kernels, no atomics, the same bits on
-// every run:
-//  1. mix_rows_bwd_kernel, per (64 rows of L, bb): walks P in 64-column
-//     tiles twice.  The first walk recomputes S and dE and keeps each row's
-//     running max m, sum n of exp(S - m) and sum t of exp(S - m) dE
-//     (online rescaling), so rowdot = t / n; it writes m, n and rowdot to a
-//     [3, BB, L] fp32 workspace.  The second walk recomputes S and dE,
-//     forms E and dS and accumulates dV and dw in registers.
-//  2. mix_cols_bwd_kernel, per (64 columns of P, bb): walks L, recomputes
-//     S and dE, forms dS from the workspace's rows and accumulates the du1
-//     partial.
-// The softmax statistics are recomputed rather than saved by the forward:
-// the first walk is needed for rowdot anyway.  That makes 9 products where
-// the bound counts 5.  Each block stages its operands through two shared
-// buffers, reloading w or u1's columns where a product needs them again,
-// so that fp32 at C 256 fits.  P 3136 and 784 are multiples of 64 only at
-// stage 0: every tile edge is masked.  bf16 on the tensor cores (WMMA),
-// fp32 on the CUDA cores (st_tiles.cuh); C is a template parameter (128 or
-// 256).
+// Design.  A row's dS needs its rowdot, a sum over all of P, before it
+// exists; dV and dw sum over P per row of L, du1 sums over L per column
+// of P, and blocks run in no order.  So two passes (stl_mixer_tiles.cuh),
+// no atomics, the same bits on every run:
+//  1. rows: per 128 rows of L (64 at C 256 or fp32), walks P twice with
+//     the w and V rows as A operands.  Walk 1 computes S and dE, E from
+//     lse, the rows' rowdot and dV += rnd(E) dU; rowdot goes to a [BB, L]
+//     fp32 workspace.  Walk 2 computes S and dE again, dS and
+//     dw += dS u1^T.  Six products.
+//  2. cols: per 128 columns of P (64 at C 256 or fp32), walks L computing
+//     the transposed tiles S^T = u1^T w^T and dE^T = dU V^T, so that
+//     dS^T = rnd(E^T (dE^T - rowdot)) is already the A operand of
+//     du1 += dS^T w.  Three products.
+// Nine products where the TPU body makes five: S and dE are recomputed by
+// each walk, since rowdot must be whole before any dS.  bf16 products run
+// on the tensor cores (mma.sync m16n8k16, fp32 accumulators); at C 128 the
+// A operands and the E and dS tiles never leave registers.
 
-#include "st_tiles.cuh"
+#include "stl_mixer_tiles.cuh"
 
-namespace {
+namespace stl_mixer {
 
-using namespace st_tiles;
-
-// shared memory of a block, byte offsets: two staging buffers, each a
-// [64][C] row tile or a [C][64] column tile of T; the fp32 S and dE tiles;
-// the rounded E and dS tiles (bf16 only: fp32 rounds in place); the 64
-// rows' m, n and rowdot
 template <typename T, int C>
-struct MixBwdSmem {
-  size_t x, z, s, de, e, ds, st, total;
-  __host__ __device__ MixBwdSmem() {
-    const size_t rows = kT * ld<T>(C) * sizeof(T);
-    const size_t cols = C * ld<T>(kT) * sizeof(T);
-    const size_t buf = round128(rows > cols ? rows : cols);
-    const size_t f32 = round128(kT * kLdS * sizeof(float));
-    const size_t rnd = std::is_same<T, float>::value
-                           ? 0
-                           : round128(kT * ld<T>(kT) * sizeof(T));
-    x = 0;
-    z = x + buf;
-    s = z + buf;
-    de = s + f32;
-    e = de + f32;
-    ds = e + rnd;
-    st = ds + rnd;
-    total = st + round128(3 * kT * sizeof(float));
-  }
-};
-
-// The block's pointers into shared memory.
-template <typename T, int C>
-struct MixTiles {
-  T *x, *z, *e, *ds;
-  float *s, *de, *m, *n, *rd;
-  int ldR;  // leading dimension of the rounded E and dS tiles
-  __device__ explicit MixTiles(unsigned char* smem) {
-    const MixBwdSmem<T, C> L;
-    constexpr bool kF32 = std::is_same<T, float>::value;
-    x = reinterpret_cast<T*>(smem + L.x);
-    z = reinterpret_cast<T*>(smem + L.z);
-    s = reinterpret_cast<float*>(smem + L.s);
-    de = reinterpret_cast<float*>(smem + L.de);
-    e = reinterpret_cast<T*>(smem + (kF32 ? L.s : L.e));
-    ds = reinterpret_cast<T*>(smem + (kF32 ? L.de : L.ds));
-    m = reinterpret_cast<float*>(smem + L.st);
-    n = m + kT;
-    rd = n + kT;
-    ldR = kF32 ? kLdS : ld<T>(kT);
-  }
-};
-
-// S = w[l0:] . u1[:, q0:] and dE = V[l0:] . dU[q0:]^T into the fp32 tiles.
-// Starts by overwriting both staging buffers and ends synchronised.
-template <typename T, int C>
-__device__ __forceinline__ void scores_and_de(const MixTiles<T, C>& t,
-                                              const T* wb, const T* u1,
-                                              const T* Vb, const T* dUb,
-                                              int l0, int q0, int L, int P) {
-  const int ldC = ld<T>(C), ld64 = ld<T>(kT);
-  load_tile(t.x, ldC, wb, C, l0, 0, kT, C, L, C);
-  load_tile(t.z, ld64, u1, P, 0, q0, C, kT, C, P);
-  __syncthreads();
-  gemm_s<false>(t.s, t.x, ldC, t.z, ld64, C);        // S = w u1
-  __syncthreads();
-  load_tile(t.x, ldC, Vb, C, l0, 0, kT, C, L, C);
-  load_tile(t.z, ldC, dUb, C, q0, 0, kT, C, P, C);
-  __syncthreads();
-  gemm_s<true>(t.de, t.x, ldC, t.z, ldC, C);         // dE = V dU^T
-  __syncthreads();
-}
-
-// E = exp(S - m) / n and dS = E (dE - rowdot) of the tile, rounded into the
-// E and dS tiles (in place in fp32); zero outside L and P.
-template <typename T, int C>
-__device__ __forceinline__ void softmax_grad(const MixTiles<T, C>& t, int l0,
-                                             int q0, int L, int P) {
-  for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-    const int r = i / kT, c = i - r * kT;
-    float e = 0.f, ds = 0.f;
-    if (l0 + r < L && q0 + c < P) {
-      e = expf(t.s[r * kLdS + c] - t.m[r]) / t.n[r];
-      ds = e * (t.de[r * kLdS + c] - t.rd[r]);
-    }
-    t.e[r * t.ldR + c] = from_f32<T>(e);
-    t.ds[r * t.ldR + c] = from_f32<T>(ds);
-  }
+constexpr size_t bwd_rows_smem() {
+  using F = Cfg<T, C>;
+  return 2 * tile_bytes<T>(F::kRows, C) +
+         kStages * (tile_bytes<T>(C, F::kStep) + tile_bytes<T>(F::kStep, C)) +
+         xch_bytes<T, C>() + red_bytes();
 }
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    mix_rows_bwd_kernel(const T* __restrict__ w, const T* __restrict__ u1,
-                        const T* __restrict__ V, const T* __restrict__ dU,
-                        T* __restrict__ dw, T* __restrict__ dV,
-                        float* __restrict__ rows, int BB, int L, int P) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MixTiles<T, C> t(smem);
-  const int ld64 = ld<T>(kT), ldC = ld<T>(C);
-  const int bb = blockIdx.y, l0 = blockIdx.x * kT;
+constexpr size_t bwd_cols_smem() {
+  using F = Cfg<T, C>;
+  return tile_bytes<T>(C, F::kRows) + tile_bytes<T>(F::kRows, C) +
+         kStages * (2 * tile_bytes<T>(F::kStep, C) +
+                    2 * align16(F::kStep * sizeof(float))) +
+         xch_bytes<T, C>();
+}
+
+// dV, dw and rowdot of kRows rows of L.  Grid (ceil(L / kRows), BB).
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    mixer_bwd_rows_kernel(const T* __restrict__ w, const T* __restrict__ u1,
+                          const T* __restrict__ V, const T* __restrict__ dU,
+                          const float* __restrict__ lse, T* __restrict__ dw,
+                          T* __restrict__ dV, float* __restrict__ rowdot,
+                          int L, int P) {
+  using F = Cfg<T, C>;
+  extern __shared__ __align__(16) char smem_raw[];
+  Bump bump{smem_raw};
+  T* sW = bump.take<T>(F::kRows * F::ldC);
+  T* sVr = bump.take<T>(F::kRows * F::ldC);
+  T* sU[kStages];
+  T* sD[kStages];
+  for (int i = 0; i < kStages; ++i) {
+    sU[i] = bump.take<T>(C * F::ldS);
+    sD[i] = bump.take<T>(F::kStep * F::ldC);
+  }
+  const Role<F> rl;
+  T* xg = F::kRegs ? nullptr
+                   : bump.take<T>(F::kGroups * 16 * F::ldS) +
+                         rl.group * 16 * F::ldS;
+  float* sRed = bump.take<float>(2 * kWarps * 16);
+  const int bb = blockIdx.y, l0 = blockIdx.x * F::kRows;
   const size_t base = static_cast<size_t>(bb) * L * C;
   const T* dUb = dU + static_cast<size_t>(bb) * P * C;
-  // four threads per row, 16 columns each
-  const int r = threadIdx.x / 4, c0 = (threadIdx.x % 4) * 16;
+  const int lr = l0 + 16 * rl.group + rl.g;  // this thread's rows lr, lr + 8
 
-  // walk 1: each row's max, sum and rowdot, online over the column tiles
-  float m = __int_as_float(0xff800000), n = 0.f, td = 0.f;   // -inf, 0, 0
-  for (int q0 = 0; q0 < P; q0 += kT) {
-    scores_and_de(t, w + base, u1, V + base, dUb, l0, q0, L, P);
-    const float* srow = t.s + r * kLdS;
-    const float* drow = t.de + r * kLdS;
-    float tm = __int_as_float(0xff800000);
-    for (int c = c0; c < c0 + 16; ++c)
-      if (q0 + c < P) tm = fmaxf(tm, srow[c]);
-    const float nm = fmaxf(m, group4_max(tm));
-    float ts = 0.f, tt = 0.f;
-    for (int c = c0; c < c0 + 16; ++c)
-      if (q0 + c < P) {
-        const float e = expf(srow[c] - nm);
-        ts += e;
-        tt += e * drow[c];
-      }
-    const float scale = expf(m - nm);
-    n = n * scale + group4_sum(ts);
-    td = td * scale + group4_sum(tt);
-    m = nm;
+  stage_rows<T, C>(sW, w + base, l0, F::kRows, L);
+  stage_rows<T, C>(sVr, V + base, l0, F::kRows, L);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  OpA<T, C, false> Aw, Av;
+  Aw.init(sW, F::ldC, 16 * rl.group);
+  Av.init(sVr, F::ldC, 16 * rl.group);
+  float ls[2], lb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ls[r] = lr + 8 * r < L ? lse[static_cast<size_t>(bb) * L + lr + 8 * r]
+                           : 0.f;
+    lb[r] = ls[r] * kLog2e;
   }
-  if (threadIdx.x % 4 == 0) {
-    t.m[r] = m;
-    t.n[r] = n;
-    t.rd[r] = td / n;
-    if (l0 + r < L) {
-      const size_t o = static_cast<size_t>(bb) * L + l0 + r;
-      const size_t plane = static_cast<size_t>(BB) * L;
-      rows[o] = m;
-      rows[plane + o] = n;
-      rows[2 * plane + o] = td / n;
+
+  const int steps = (P + F::kStep - 1) / F::kStep;
+  auto issue = [&](int s, int buf) {
+    stage_cols<T, C>(sU[buf], F::ldS, u1, P, s * F::kStep, F::kStep);
+    stage_rows<T, C>(sD[buf], dUb, s * F::kStep, F::kStep, P);
+  };
+  // the chunk at step column n0: E = exp(S - lse) (zero beyond P) in S,
+  // dE = V dU^T in D
+  auto scores = [&](float(&S)[1][F::NIs][4], float(&D)[1][F::NIs][4],
+                    int buf, int pc, int n0) {
+    zero_acc(S);
+    zero_acc(D);
+    Aw.template mma<F::NIs, true>(S, sU[buf], F::ldS, n0);
+    Av.template mma<F::NIs, false>(D, sD[buf], F::ldC, n0);
+#pragma unroll
+    for (int ni = 0; ni < F::NIs; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = pc + 8 * ni + e < P;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& x = S[0][ni][2 * r + e];
+          x = in ? exp_diff<T>(x, ls[r], lb[r]) : 0.f;
+        }
+      }
+  };
+
+  // walk 1: rowdot and dV += rnd(E) dU
+  float rd[2] = {0.f, 0.f};
+  {
+    float o[1][F::NIo][4];
+    zero_acc(o);
+    pipeline(steps, issue, [&](int s, int buf) {
+      step_product<T, C, true>(
+          [&](float(&v)[1][F::NIs][4], int n0) {
+            float D[1][F::NIs][4];
+            scores(v, D, buf, s * F::kStep + n0 + 2 * rl.q, n0);
+#pragma unroll
+            for (int ni = 0; ni < F::NIs; ++ni)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                rd[e >> 1] = fmaf(v[0][ni][e], D[0][ni][e], rd[e >> 1]);
+          },
+          o, sD[buf], F::ldC, xg, rl);
+    });
+    store_tile<F, C>(dV + base, l0 + 16 * rl.group, L, rl.half * F::kOut, o);
+  }
+
+  // rowdot: summed over the four lanes of a row, then over the NW warps of
+  // a group in a fixed order (every warp of the group gets the same bits)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 1);
+    rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 2);
+  }
+  if constexpr (F::NW > 1) {
+    const int warp = threadIdx.x >> 5;
+    if (rl.q == 0)
+      for (int r = 0; r < 2; ++r) sRed[warp * 16 + rl.g + 8 * r] = rd[r];
+    __syncthreads();
+    for (int r = 0; r < 2; ++r) {
+      float sum = 0.f;
+      for (int h = 0; h < F::NW; ++h)
+        sum += sRed[(rl.group * F::NW + h) * 16 + rl.g + 8 * r];
+      rd[r] = sum;
     }
   }
-  __syncthreads();
+  if (rl.half == 0 && rl.q == 0)
+    for (int r = 0; r < 2; ++r)
+      if (lr + 8 * r < L)
+        rowdot[static_cast<size_t>(bb) * L + lr + 8 * r] = rd[r];
 
-  // walk 2: dV += rnd(E) dU and dw += dS u1^T
-  Acc<T, C> accV, accW;
-  accV.zero();
-  accW.zero();
-  for (int q0 = 0; q0 < P; q0 += kT) {
-    scores_and_de(t, w + base, u1, V + base, dUb, l0, q0, L, P);
-    softmax_grad(t, l0, q0, L, P);
-    __syncthreads();
-    accV.template mma<false>(t.e, t.ldR, t.z, ldC);   // z holds dU's rows
-    load_tile(t.x, ld64, u1, P, 0, q0, C, kT, C, P);  // u1's columns
-    __syncthreads();
-    accW.template mma<false, true>(t.ds, t.ldR, t.x, ld64);
-    __syncthreads();
+  // walk 2: dw += rnd(E (dE - rowdot)) u1^T
+  {
+    float o[1][F::NIo][4];
+    zero_acc(o);
+    pipeline(steps, issue, [&](int s, int buf) {
+      step_product<T, C, false>(
+          [&](float(&v)[1][F::NIs][4], int n0) {
+            float D[1][F::NIs][4];
+            scores(v, D, buf, s * F::kStep + n0 + 2 * rl.q, n0);
+#pragma unroll
+            for (int ni = 0; ni < F::NIs; ++ni)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                v[0][ni][e] *= D[0][ni][e] - rd[e >> 1];
+          },
+          o, sU[buf], F::ldS, xg, rl);
+    });
+    store_tile<F, C>(dw + base, l0 + 16 * rl.group, L, rl.half * F::kOut, o);
   }
-  float* stg = t.s + (threadIdx.x >> 5) * 256;
-  accV.store(
-      [&](int rr, int c, float v) {
-        if (l0 + rr < L)
-          dV[base + static_cast<size_t>(l0 + rr) * C + c] = from_f32<T>(v);
-      },
-      stg);
-  accW.store(
-      [&](int rr, int c, float v) {
-        if (l0 + rr < L)
-          dw[base + static_cast<size_t>(l0 + rr) * C + c] = from_f32<T>(v);
-      },
-      stg);
 }
 
+// du1p[bb] = dS^T w[bb] over kRows columns of P.  Grid (ceil(P / kRows),
+// BB).
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    mix_cols_bwd_kernel(const T* __restrict__ w, const T* __restrict__ u1,
-                        const T* __restrict__ V, const T* __restrict__ dU,
-                        const float* __restrict__ rows,
-                        float* __restrict__ du1p, int BB, int L, int P) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MixTiles<T, C> t(smem);
-  const int ldC = ld<T>(C);
-  const int bb = blockIdx.y, p0 = blockIdx.x * kT;
-  const size_t base = static_cast<size_t>(bb) * L * C;
-  const size_t plane = static_cast<size_t>(BB) * L;
-  const float* mrow = rows + static_cast<size_t>(bb) * L;
-
-  Acc<T, C> acc;
-  acc.zero();
-  for (int l0 = 0; l0 < L; l0 += kT) {
-    for (int i = threadIdx.x; i < kT; i += kThreads) {
-      const bool in = l0 + i < L;
-      t.m[i] = in ? mrow[l0 + i] : 0.f;
-      t.n[i] = in ? mrow[plane + l0 + i] : 1.f;
-      t.rd[i] = in ? mrow[2 * plane + l0 + i] : 0.f;
-    }
-    scores_and_de(t, w + base, u1, V + base,
-                  dU + static_cast<size_t>(bb) * P * C, l0, p0, L, P);
-    softmax_grad(t, l0, p0, L, P);
-    load_tile(t.x, ldC, w + base, C, l0, 0, kT, C, L, C);   // w's rows
-    __syncthreads();
-    acc.template mma<true>(t.ds, t.ldR, t.x, ldC);          // += dS^T w
-    __syncthreads();
+__global__ void __launch_bounds__(kThreads, 1)
+    mixer_bwd_cols_kernel(const T* __restrict__ w, const T* __restrict__ u1,
+                          const T* __restrict__ V, const T* __restrict__ dU,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ rowdot,
+                          float* __restrict__ du1p, int L, int P) {
+  using F = Cfg<T, C>;
+  extern __shared__ __align__(16) char smem_raw[];
+  Bump bump{smem_raw};
+  T* sU1 = bump.take<T>(C * F::ldR);
+  T* sDr = bump.take<T>(F::kRows * F::ldC);
+  T* sW[kStages];
+  T* sV[kStages];
+  float* sL[kStages];
+  float* sR[kStages];
+  for (int i = 0; i < kStages; ++i) {
+    sW[i] = bump.take<T>(F::kStep * F::ldC);
+    sV[i] = bump.take<T>(F::kStep * F::ldC);
+    sL[i] = bump.take<float>(F::kStep);
+    sR[i] = bump.take<float>(F::kStep);
   }
-  float* out = du1p + static_cast<size_t>(bb) * P * C;
-  acc.store(
-      [&](int r, int c, float v) {
-        if (p0 + r < P) out[static_cast<size_t>(p0 + r) * C + c] = v;
+  const Role<F> rl;
+  T* xg = F::kRegs ? nullptr
+                   : bump.take<T>(F::kGroups * 16 * F::ldS) +
+                         rl.group * 16 * F::ldS;
+  const int bb = blockIdx.y, p0 = blockIdx.x * F::kRows;
+  const size_t base = static_cast<size_t>(bb) * L * C;
+  const float* lrow = lse + static_cast<size_t>(bb) * L;
+  const float* rrow = rowdot + static_cast<size_t>(bb) * L;
+
+  stage_cols<T, C>(sU1, F::ldR, u1, P, p0, F::kRows);
+  stage_rows<T, C>(sDr, dU + static_cast<size_t>(bb) * P * C, p0, F::kRows,
+                   P);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  OpA<T, C, true> Au;  // u1^T: A(p, c) = u1[c, p]
+  Au.init(sU1, F::ldR, 16 * rl.group);
+  OpA<T, C, false> Ad;  // dU rows
+  Ad.init(sDr, F::ldC, 16 * rl.group);
+
+  float o[1][F::NIo][4];
+  zero_acc(o);
+  pipeline(
+      (L + F::kStep - 1) / F::kStep,
+      [&](int s, int buf) {
+        const int r0 = s * F::kStep;
+        stage_rows<T, C>(sW[buf], w + base, r0, F::kStep, L);
+        stage_rows<T, C>(sV[buf], V + base, r0, F::kStep, L);
+        stage_vec(sL[buf], lrow, r0, F::kStep, L);
+        stage_vec(sR[buf], rrow, r0, F::kStep, L);
       },
-      t.s + (threadIdx.x >> 5) * 256);
+      [&](int s, int buf) {
+        const int r0 = s * F::kStep;
+        step_product<T, C, true>(
+            [&](float(&v)[1][F::NIs][4], int n0) {
+              float D[1][F::NIs][4];
+              zero_acc(v);
+              zero_acc(D);
+              Au.template mma<F::NIs, false>(v, sW[buf], F::ldC, n0);  // S^T
+              Ad.template mma<F::NIs, false>(D, sV[buf], F::ldC, n0);  // dE^T
+#pragma unroll
+              for (int ni = 0; ni < F::NIs; ++ni)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int j = n0 + 8 * ni + 2 * rl.q + e;
+                  const bool in = r0 + j < L;
+                  const float ls = sL[buf][j], lb = ls * kLog2e;
+                  const float rdj = sR[buf][j];
+#pragma unroll
+                  for (int r = 0; r < 2; ++r) {
+                    float& x = v[0][ni][2 * r + e];
+                    const float E = in ? exp_diff<T>(x, ls, lb) : 0.f;
+                    x = E * (D[0][ni][2 * r + e] - rdj);
+                  }
+                }
+            },
+            o, sW[buf], F::ldC, xg, rl);
+      });
+  store_tile<F, C>(du1p + static_cast<size_t>(bb) * P * C,
+                   p0 + 16 * rl.group, P, rl.half * F::kOut, o);
 }
 
 template <typename T, int C>
 cudaError_t launch(const void* w, const void* u1, const void* V,
-                   const void* dU, void* dw, void* dV, float* rows,
-                   float* du1p, int BB, int L, int P, cudaStream_t stream) {
-  const int smem = static_cast<int>(MixBwdSmem<T, C>().total);
-  cudaError_t err = cudaFuncSetAttribute(
-      mix_rows_bwd_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+                   const void* dU, const float* lse, void* dw, void* dV,
+                   float* rowdot, float* du1p, int BB, int L, int P,
+                   cudaStream_t stream) {
+  using F = Cfg<T, C>;
+  constexpr size_t rows_smem = bwd_rows_smem<T, C>();
+  constexpr size_t cols_smem = bwd_cols_smem<T, C>();
+  static_assert(rows_smem <= 232448 && cols_smem <= 232448,
+                "a block's shared memory");
+  cudaError_t err = allow_smem(mixer_bwd_rows_kernel<T, C>, rows_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mix_cols_bwd_kernel<T, C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  err = allow_smem(mixer_bwd_cols_kernel<T, C>, cols_smem);
   if (err != cudaSuccess) return err;
   const T* wt = static_cast<const T*>(w);
   const T* ut = static_cast<const T*>(u1);
   const T* vt = static_cast<const T*>(V);
   const T* dut = static_cast<const T*>(dU);
-  mix_rows_bwd_kernel<T, C>
-      <<<dim3((L + kT - 1) / kT, BB), kThreads, smem, stream>>>(
-          wt, ut, vt, dut, static_cast<T*>(dw), static_cast<T*>(dV), rows, BB,
-          L, P);
+  mixer_bwd_rows_kernel<T, C>
+      <<<dim3((L + F::kRows - 1) / F::kRows, BB), kThreads, rows_smem,
+         stream>>>(wt, ut, vt, dut, lse, static_cast<T*>(dw),
+                   static_cast<T*>(dV), rowdot, L, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mix_cols_bwd_kernel<T, C>
-      <<<dim3((P + kT - 1) / kT, BB), kThreads, smem, stream>>>(
-          wt, ut, vt, dut, rows, du1p, BB, L, P);
+  mixer_bwd_cols_kernel<T, C>
+      <<<dim3((P + F::kRows - 1) / F::kRows, BB), kThreads, cols_smem,
+         stream>>>(wt, ut, vt, dut, lse, rowdot, du1p, L, P);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_c(const void* w, const void* u1, const void* V,
-                     const void* dU, void* dw, void* dV, float* rows,
-                     float* du1p, int BB, int L, int P, int C,
-                     cudaStream_t stream) {
-  if (C == 128)
-    return launch<T, 128>(w, u1, V, dU, dw, dV, rows, du1p, BB, L, P, stream);
-  if (C == 256)
-    return launch<T, 256>(w, u1, V, dU, dw, dV, rows, du1p, BB, L, P, stream);
-  return cudaErrorInvalidValue;
+template <typename T, int C>
+cudaError_t info(int* out) {
+  cudaError_t err =
+      pass_info(mixer_bwd_rows_kernel<T, C>, bwd_rows_smem<T, C>(), out);
+  if (err != cudaSuccess) return err;
+  return pass_info(mixer_bwd_cols_kernel<T, C>, bwd_cols_smem<T, C>(),
+                   out + 4);
 }
 
-}  // namespace
+}  // namespace stl_mixer
 
 // Plain C interface, loaded with ctypes.  Returns the first CUDA error of
 // the two launches (0 on success).  is_bf16 selects the type of w, u1, V,
-// dU, dw and dV; rows is a [3, BB, L] fp32 workspace (each row's max, sum
-// and rowdot) and du1p the [BB, P, C] fp32 per-batch du1 partials.  The
-// caller checks the shapes: C 128 or 256, P % 8 == 0, BB <= 65535.
+// dU, dw and dV; lse is the forward's [BB, L] fp32 row log-sum-exp,
+// rowdot a [BB, L] fp32 workspace and du1p the [BB, P, C] fp32 per-batch
+// du1 partials.  The caller checks the shapes: C 128 or 256, P % 8 == 0,
+// BB <= 65535.
 extern "C" int stl_mixer_bwd(const void* w, const void* u1, const void* V,
-                             const void* dU, void* dw, void* dV, void* rows,
-                             void* du1p, int BB, int L, int P, int C,
-                             int is_bf16, void* stream) {
+                             const void* dU, const void* lse, void* dw,
+                             void* dV, void* rowdot, void* du1p, int BB,
+                             int L, int P, int C, int is_bf16, void* stream) {
+  using namespace stl_mixer;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* r = static_cast<float*>(rows);
+  const float* ls = static_cast<const float*>(lse);
+  float* rd = static_cast<float*>(rowdot);
   float* p = static_cast<float*>(du1p);
-  if (is_bf16)
-    return static_cast<int>(
-        launch_c<bf16>(w, u1, V, dU, dw, dV, r, p, BB, L, P, C, s));
-  return static_cast<int>(
-      launch_c<float>(w, u1, V, dU, dw, dV, r, p, BB, L, P, C, s));
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && C == 128)
+    err = launch<bf16, 128>(w, u1, V, dU, ls, dw, dV, rd, p, BB, L, P, s);
+  else if (is_bf16 && C == 256)
+    err = launch<bf16, 256>(w, u1, V, dU, ls, dw, dV, rd, p, BB, L, P, s);
+  else if (!is_bf16 && C == 128)
+    err = launch<float, 128>(w, u1, V, dU, ls, dw, dV, rd, p, BB, L, P, s);
+  else if (!is_bf16 && C == 256)
+    err = launch<float, 256>(w, u1, V, dU, ls, dw, dV, rd, p, BB, L, P, s);
+  return static_cast<int>(err);
+}
+
+// What the card grants the two passes (rows, cols) at (C, is_bf16):
+// out[4 * pass ..] = registers a thread, local (spill) bytes a thread,
+// shared bytes a block, resident warps per SM.
+extern "C" int stl_mixer_bwd_pass_info(int C, int is_bf16, int* out) {
+  using namespace stl_mixer;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && C == 128) err = info<bf16, 128>(out);
+  else if (is_bf16 && C == 256) err = info<bf16, 256>(out);
+  else if (!is_bf16 && C == 128) err = info<float, 128>(out);
+  else if (!is_bf16 && C == 256) err = info<float, 256>(out);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* stl_mixer_bwd_error_string(int code) {

@@ -288,11 +288,12 @@ def _check_cuda_args(Cc, Bc, acum, dte, cdec, dtp, x, Ssave=None, dy=None):
         raise ValueError(f"H={H} heads do not split x's {x.shape[3]} "
                          "channels")
     P = x.shape[3] // H
-    if P % PT or l > MAX_L or N > MAX_N or N % PT or B * nc > 65535:
+    if (P % PT or l > MAX_L or l % 4 or N > MAX_N or N % PT
+            or B * nc > 65535):
         raise ValueError(f"shape outside the kernels' limits: P={P} (a "
-                         f"multiple of {PT}), l={l} (<= {MAX_L}), N={N} "
-                         f"(<= {MAX_N}, a multiple of {PT}), B nc={B * nc} "
-                         "(<= 65535)")
+                         f"multiple of {PT}), l={l} (<= {MAX_L}, a multiple "
+                         f"of 4), N={N} (<= {MAX_N}, a multiple of {PT}), "
+                         f"B nc={B * nc} (<= 65535)")
     mm, f32 = Cc.dtype, torch.float32
     want = [("Bc", Bc, (B, nc, l, N), mm),
             ("acum", acum, (B, nc, H, l), f32),

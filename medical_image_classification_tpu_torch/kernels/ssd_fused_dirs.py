@@ -172,10 +172,10 @@ def _check_cuda_args(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
         raise ValueError(f"stackr has {C2c} channels, expected "
                          f"2 (d_ssm + 2 gn + nh) = "
                          f"{2 * (d_ssm + 2 * gn + nh)}")
-    if P % PT or l > MAX_L or N > MAX_N or N % PT or nc < 1:
+    if P % PT or l > MAX_L or l % 4 or N > MAX_N or N % PT or nc < 1:
         raise ValueError(f"shape outside the kernels' limits: P={P} (a "
-                         f"multiple of {PT}), l={l} (<= {MAX_L}), N={N} "
-                         f"(<= {MAX_N}, a multiple of {PT})")
+                         f"multiple of {PT}), l={l} (<= {MAX_L}, a multiple "
+                         f"of 4), N={N} (<= {MAX_N}, a multiple of {PT})")
     want = [("acum", acum, (B, nc, H4, l), torch.float32),
             ("dte", dte, (B, nc, H4, l), torch.float32),
             ("cdec", cdec, (B, nc, H4), torch.float32),

@@ -13,7 +13,9 @@ the backward body ``_bwd_kernel`` and the custom VJP ``_mixer``).  Kernels:
 
 with w [BB, L, C] (the four directions folded into the batch), u1 [C, P],
 V = w u2 [BB, L, C] (a plain matmul outside the kernel, as the JAX caller
-computes it) and U [BB, P, C].
+computes it) and U [BB, P, C].  The forward also gives each row's
+log-sum-exp lse = log(sum over P of exp(S)) [BB, L] fp32, so that the
+backward has E = exp(S - lse) without a walk over P of its own.
 
 The backward, at the TPU body's rounding points (dU taken to w's dtype):
   dV  = rnd(E) dU                       E the fp32 softmax
@@ -40,9 +42,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # below this much mixer work the JAX package keeps XLA's softmax; a module
 # constant so that tests can widen the gate to small shapes
 _MIN_LP = 512 * 512
-# channel widths the CUDA kernels are instantiated for (a block keeps one
-# or two [64, C] fp32 accumulators)
+# channel widths the CUDA kernels are instantiated for (a warp holds 16
+# output rows of 128 (bf16) or 64 (fp32) channels in fp32 registers)
 KERNEL_C = (128, 256)
+# the kernels' step along the walked axis (Cfg::kStep in
+# csrc/stl_mixer_tiles.cuh), which the decomposition twins follow
+STEP = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def stl_mixer_supported(L: int, P: int, C: int) -> bool:
@@ -51,20 +56,26 @@ def stl_mixer_supported(L: int, P: int, C: int) -> bool:
     return L * P >= _MIN_LP and L % 8 == 0 and P % 8 == 0 and C % 128 == 0
 
 
-def stl_mixer_fwd_ref(w, u1, V):
-    """Plain PyTorch version of the kernel (see the module docstring)."""
+def stl_mixer_fwd_ref(w, u1, V, want_stats=False):
+    """Plain PyTorch version of the kernel (see the module docstring): U,
+    and with ``want_stats`` (U, lse)."""
     mm = w.dtype
-    E = torch.softmax(w.float() @ u1.to(mm).float(), dim=-1).to(mm)
-    return (E.float().transpose(1, 2) @ V.to(mm).float()).to(mm)
+    S = w.float() @ u1.to(mm).float()
+    E = torch.softmax(S, dim=-1).to(mm)
+    U = (E.float().transpose(1, 2) @ V.to(mm).float()).to(mm)
+    return (U, torch.logsumexp(S, dim=-1)) if want_stats else U
 
 
-def stl_mixer_bwd_ref(w, u1, V, dU):
+def stl_mixer_bwd_ref(w, u1, V, dU, lse=None):
     """Plain PyTorch version of the backward kernel: (dw, du1, dV), the
-    cotangents of the forward's operands (see the module docstring)."""
+    cotangents of the forward's operands (see the module docstring).  E is
+    exp(S - lse) given the forward's ``lse``, else the softmax of S."""
     mm = w.dtype
     w32, u132 = w.float(), u1.to(mm).float()
     dU32 = dU.to(mm).float()
-    E = torch.softmax(w32 @ u132, dim=-1)                     # [BB, L, P]
+    S = w32 @ u132                                           # [BB, L, P]
+    E = (torch.softmax(S, dim=-1) if lse is None
+         else torch.exp(S - lse[..., None]))
     dV = (E.to(mm).float() @ dU32).to(V.dtype)
     dE = V.to(mm).float() @ dU32.transpose(1, 2)
     dS = (E * (dE - (E * dE).sum(-1, keepdim=True))).to(mm).float()
@@ -73,7 +84,95 @@ def stl_mixer_bwd_ref(w, u1, V, dU):
     return dw, du1, dV
 
 
-def _check_cuda_args(w, u1, V, dU=None):
+def _lane_stats(S, step, nw):
+    """The forward row pass's statistics in plain PyTorch: a thread keeps
+    the running max m and sum n of exp(S - m) of the columns it holds (the
+    warp's share of each step, ``step // nw`` columns, and in every run of
+    8 the lane's pair 2q, 2q + 1), rescaling n when m grows from step to
+    step; the classes are then merged, lse = m + log(n).  S [BB, L, P]
+    fp32 -> lse [BB, L]."""
+    BB, L, P = S.shape
+    p = torch.arange(P, device=S.device)
+    cls = ((p % step) // (step // nw)) * 4 + (p % 8) // 2
+    ninf = torch.tensor(float("-inf"), device=S.device)
+    m = torch.full((4 * nw, BB, L), float("-inf"), device=S.device)
+    n = torch.zeros(4 * nw, BB, L, device=S.device)
+    for p0 in range(0, P, step):
+        Sb, cb = S[..., p0:p0 + step], cls[p0:p0 + step]
+        for k in range(4 * nw):
+            x = Sb[..., cb == k]
+            if x.shape[-1] == 0:
+                continue
+            mx = torch.maximum(m[k], x.amax(-1))
+            n[k] = n[k] * torch.exp(m[k] - mx) + torch.exp(
+                x - mx[..., None]).sum(-1)
+            m[k] = mx
+    mx = m.amax(0)
+    n = torch.where(m > ninf, n * torch.exp(m - mx), 0.0).sum(0)
+    return mx + torch.log(n)
+
+
+def stl_mixer_fwd_passes_ref(w, u1, V):
+    """The forward kernels' decomposition (``csrc/stl_mixer_fwd.cu``) in
+    plain PyTorch: (U, lse).  The row pass's lse from per-lane statistics
+    (``_lane_stats``, with the kernels' step and warps per row); the
+    column pass's U = sum over steps of L of rnd(exp(S - lse))^T V, each
+    step's product summed in fp32."""
+    mm = w.dtype
+    BB, L, C = w.shape
+    step = STEP[mm]
+    nw = C // (128 if mm == torch.bfloat16 else 64)
+    w32, u132, V32 = w.float(), u1.to(mm).float(), V.to(mm).float()
+    lse = _lane_stats(w32 @ u132, step, nw)
+    U = torch.zeros(BB, u1.shape[1], C, device=w.device)
+    for l0 in range(0, L, step):
+        sl = slice(l0, l0 + step)
+        E = torch.exp(w32[:, sl] @ u132 - lse[:, sl, None]).to(mm).float()
+        U += E.transpose(1, 2) @ V32[:, sl]
+    return U.to(mm), lse
+
+
+def stl_mixer_bwd_passes_ref(w, u1, V, dU, lse):
+    """The backward kernels' decomposition (``csrc/stl_mixer_bwd.cu``) in
+    plain PyTorch: (dw, du1, dV) from the forward's lse.  Row pass, walk 1
+    over steps of P: rowdot += rowsums(E dE) and dV += rnd(E) dU; walk 2:
+    dw += rnd(E (dE - rowdot)) u1^T.  Column pass over steps of L: the
+    per-batch du1 partials += dS^T w, summed over the batch at the end."""
+    mm = w.dtype
+    BB, L, C = w.shape
+    P = u1.shape[1]
+    step = STEP[mm]
+    w32, u132 = w.float(), u1.to(mm).float()
+    V32, dU32 = V.to(mm).float(), dU.to(mm).float()
+
+    def tile(rows, cols):
+        S = w32[:, rows] @ u132[:, cols]
+        dE = V32[:, rows] @ dU32[:, cols].transpose(1, 2)
+        return torch.exp(S - lse[:, rows, None]), dE
+
+    rowdot = torch.zeros(BB, L, device=w.device)
+    dV = torch.zeros(BB, L, C, device=w.device)
+    for p0 in range(0, P, step):
+        cols = slice(p0, p0 + step)
+        E, dE = tile(slice(None), cols)
+        rowdot += (E * dE).sum(-1)
+        dV += E.to(mm).float() @ dU32[:, cols]
+    dw = torch.zeros(BB, L, C, device=w.device)
+    for p0 in range(0, P, step):
+        cols = slice(p0, p0 + step)
+        E, dE = tile(slice(None), cols)
+        dS = (E * (dE - rowdot[..., None])).to(mm).float()
+        dw += dS @ u132[:, cols].t()
+    du1p = torch.zeros(BB, P, C, device=w.device)
+    for l0 in range(0, L, step):
+        rows = slice(l0, l0 + step)
+        E, dE = tile(rows, slice(None))
+        dS = (E * (dE - rowdot[:, rows, None])).to(mm).float()
+        du1p += dS.transpose(1, 2) @ w32[:, rows]
+    return (dw.to(w.dtype), du1p.sum(0).t().to(u1.dtype), dV.to(V.dtype))
+
+
+def _check_cuda_args(w, u1, V, dU=None, lse=None):
     if w.dim() != 3 or u1.dim() != 2:
         raise ValueError(f"w must be [BB, L, C] and u1 [C, P], got "
                          f"{tuple(w.shape)} and {tuple(u1.shape)}")
@@ -87,52 +186,55 @@ def _check_cuda_args(w, u1, V, dU=None):
     named = [("u1", u1, (C, P)), ("V", V, (BB, L, C))]
     if dU is not None:
         named.append(("dU", dU, (BB, P, C)))
-    for name, t, shape in named:
+    named = [(n, t, shape, w.dtype) for n, t, shape in named]
+    if lse is not None:
+        named.append(("lse", lse, (BB, L), torch.float32))
+    for name, t, shape, dtype in named:
         if t.device != w.device:
             raise ValueError(f"{name} is on {t.device}, w on {w.device}")
-        if tuple(t.shape) != shape or t.dtype != w.dtype:
+        if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}, "
-                             f"expected {w.dtype} {shape}")
-    for name, t in [("w", w)] + [(n, t) for n, t, _ in named]:
+                             f"expected {dtype} {shape}")
+    for name, t in [("w", w)] + [(n, t) for n, t, _, _ in named]:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned "
                              "(the kernel loads 16-byte vectors)")
 
 
 def _launch_fwd_cuda(w, u1, V):
-    """The forward kernel's wrapper: checks, allocates U and the [2, BB, L]
-    fp32 row statistics (max and sum of the softmax rows), launches on the
-    current stream, counts the launch."""
+    """The forward kernels' wrapper: checks, allocates U and the rows'
+    lse [BB, L] fp32, launches both passes on the current stream, counts
+    one launch; returns (U, lse)."""
     _check_cuda_args(w, u1, V)
     BB, L, C = w.shape
     P = u1.shape[1]
     U = torch.empty(BB, P, C, dtype=w.dtype, device=w.device)
-    stats = torch.empty(2, BB, L, dtype=torch.float32, device=w.device)
+    lse = torch.empty(BB, L, dtype=torch.float32, device=w.device)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         call(_FWD_KERNEL, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_void_p],
              [w.data_ptr(), u1.data_ptr(), V.data_ptr(), U.data_ptr(),
-              stats.data_ptr(), BB, L, P, C, int(w.dtype == torch.bfloat16),
+              lse.data_ptr(), BB, L, P, C, int(w.dtype == torch.bfloat16),
               stream])
     stl_mixer_fwd.launches += 1
-    return U
+    return U, lse
 
 
-def _launch_bwd_cuda(w, u1, V, dU):
-    """The backward kernel's wrapper: checks, allocates dw, dV, the
-    [3, BB, L] fp32 row workspace (max, sum and rowdot of the softmax rows)
-    and the per-batch fp32 du1 partials [BB, P, C], launches, counts, and
-    sums the partials over the batch (no atomics: the same bits on every
-    run)."""
-    _check_cuda_args(w, u1, V, dU)
+def _launch_bwd_cuda(w, u1, V, dU, lse):
+    """The backward kernels' wrapper: checks, allocates dw, dV, the
+    [BB, L] fp32 rowdot workspace and the per-batch fp32 du1 partials
+    [BB, P, C], launches both passes, counts one launch, and sums the
+    partials over the batch (no atomics: the same bits on every run)."""
+    _check_cuda_args(w, u1, V, dU, lse)
     BB, L, C = w.shape
     P = u1.shape[1]
     f32 = dict(dtype=torch.float32, device=w.device)
     dw, dV = torch.empty_like(w), torch.empty_like(V)
-    rows = torch.empty(3, BB, L, **f32)
+    rowdot = torch.empty(BB, L, **f32)
     du1_part = torch.empty(BB, P, C, **f32)
-    ptrs = [t.data_ptr() for t in (w, u1, V, dU, dw, dV, rows, du1_part)]
+    ptrs = [t.data_ptr() for t in (w, u1, V, dU, lse, dw, dV, rowdot,
+                                   du1_part)]
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         call(_BWD_KERNEL, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
@@ -142,22 +244,56 @@ def _launch_bwd_cuda(w, u1, V, dU):
     return dw, du1_part.sum(0).t().to(u1.dtype), dV
 
 
-def stl_mixer_fwd(w, u1, V, impl: str = "auto"):
-    """U = softmax_P(w u1)^T V (see the module docstring).  ``impl``:
-    "auto", "cuda" or "torch" (``kernels/_dispatch.py``)."""
-    if resolve_impl(impl, w, "STL mixer") == "torch":
-        return stl_mixer_fwd_ref(w, u1, V)
-    return _launch_fwd_cuda(dense(w), dense(u1.to(w.dtype)),
-                            dense(V.to(w.dtype)))
+def _pass_info(kernel, passes, C, dtype):
+    from medical_image_classification_tpu_torch.kernels import _build
+    lib = _build.library(kernel)
+    fn = getattr(lib, f"{kernel}_pass_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (4 * len(passes)))()
+    _build.raise_on_error(lib, kernel, fn(C, int(dtype == torch.bfloat16),
+                                          ctypes.addressof(out)))
+    return {p: tuple(out[4 * i:4 * i + 4]) for i, p in enumerate(passes)}
 
 
-def stl_mixer_bwd(w, u1, V, dU, impl: str = "auto"):
-    """The backward: (dw, du1, dV).  ``impl`` as in ``stl_mixer_fwd``."""
+def fwd_pass_info(C: int, dtype) -> dict:
+    """What the card grants the forward's passes at channels ``C`` and
+    operand type ``dtype``: {"rows" | "cols": (registers a thread,
+    local-memory bytes a thread (spills), shared bytes a block, resident
+    warps per SM)}, from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    return _pass_info(_FWD_KERNEL, ("rows", "cols"), C, dtype)
+
+
+def bwd_pass_info(C: int, dtype) -> dict:
+    """The same for the backward's passes."""
+    return _pass_info(_BWD_KERNEL, ("rows", "cols"), C, dtype)
+
+
+def stl_mixer_fwd(w, u1, V, impl: str = "auto", want_stats: bool = False):
+    """U = softmax_P(w u1)^T V (see the module docstring), and with
+    ``want_stats`` (U, lse).  ``impl``: "auto", "cuda" or "torch"
+    (``kernels/_dispatch.py``)."""
     if resolve_impl(impl, w, "STL mixer") == "torch":
-        return stl_mixer_bwd_ref(w, u1, V, dU)
+        return stl_mixer_fwd_ref(w, u1, V, want_stats)
+    U, lse = _launch_fwd_cuda(dense(w), dense(u1.to(w.dtype)),
+                              dense(V.to(w.dtype)))
+    return (U, lse) if want_stats else U
+
+
+def stl_mixer_bwd(w, u1, V, dU, impl: str = "auto", lse=None):
+    """The backward: (dw, du1, dV), E from the forward's ``lse`` (the
+    kernels need it; the plain version takes the softmax without it).
+    ``impl`` as in ``stl_mixer_fwd``."""
+    if resolve_impl(impl, w, "STL mixer") == "torch":
+        return stl_mixer_bwd_ref(w, u1, V, dU, lse)
+    if lse is None:
+        raise ValueError("the STL mixer's backward kernels take the "
+                         "forward's lse (stl_mixer_fwd(..., want_stats="
+                         "True))")
     mm = w.dtype
     return _launch_bwd_cuda(dense(w), dense(u1.to(mm)), dense(V.to(mm)),
-                            dense(dU.to(mm)))
+                            dense(dU.to(mm)), dense(lse))
 
 
 # Number of CUDA kernel launches so far; each wrapper adds one per launch,
@@ -169,22 +305,22 @@ stl_mixer_bwd.launches = 0
 class STLMixer(torch.autograd.Function):
     """``softmax_P(w u1)^T V`` under autograd (the JAX custom VJP
     ``_mixer``): the backward takes the cotangent to w's dtype and runs the
-    backward kernel or the plain backward by the same ``impl``.  Nothing of
-    the forward is saved but its operands: the backward recomputes the
-    softmax rows' max and sum in its own row pass, which it needs anyway
-    for rowdot."""
+    backward kernel or the plain backward by the same ``impl``.  The
+    forward saves its operands and the rows' lse [BB, L], so the backward
+    has E without a walk of its own over P."""
 
     @staticmethod
     def forward(ctx, w, u1, V, impl):
-        ctx.save_for_backward(w, u1, V)
+        U, lse = stl_mixer_fwd(w, u1, V, impl=impl, want_stats=True)
+        ctx.save_for_backward(w, u1, V, lse)
         ctx.impl = impl
-        return stl_mixer_fwd(w, u1, V, impl=impl)
+        return U
 
     @staticmethod
     def backward(ctx, dU):
-        w, u1, V = ctx.saved_tensors
-        return stl_mixer_bwd(w, u1, V, dU.to(w.dtype),
-                             impl=ctx.impl) + (None,)
+        w, u1, V, lse = ctx.saved_tensors
+        return stl_mixer_bwd(w, u1, V, dU.to(w.dtype), ctx.impl,
+                             lse) + (None,)
 
 
 def stl_mixer(w, u1, u2, impl: str = "auto"):

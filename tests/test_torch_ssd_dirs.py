@@ -151,7 +151,8 @@ def _medssd_stage_args(dtype=torch.float32, B=1, nc=2, l=16, nh=2, P=32,
 @pytest.mark.parametrize("fault", ["dtype", "noncontiguous", "channels",
                                    "headdim", "chunk", "state", "state_tile",
                                    "row_dtype",
-                                   "row_shape", "dsk", "ssave", "dy"])
+                                   "row_shape", "dsk", "ssave", "dy",
+                                   "ragged_chunk"])
 def test_kernel_wrapper_refuses_bad_input(fault):
     """The argument checks that run before any launch."""
     args, d_ssm, gn = _medssd_stage_args()
@@ -170,6 +171,8 @@ def test_kernel_wrapper_refuses_bad_input(fault):
         args, d_ssm, gn = _medssd_stage_args(gn=130)
     elif fault == "state_tile":           # N = 16, not a multiple of 32
         args, d_ssm, gn = _medssd_stage_args(gn=4)
+    elif fault == "ragged_chunk":         # l = 18, not a multiple of 4
+        args, d_ssm, gn = _medssd_stage_args(l=18)
     elif fault == "row_dtype":
         args[2] = args[2].double()
     elif fault == "row_shape":

@@ -248,12 +248,13 @@ def test_ydiag_card_gate_agrees_with_the_kernels_checks(dtype):
 def test_fused_card_gate_agrees_with_the_kernels_checks(dtype):
     """The same for ``ssd_fused_supported``: on a card it says yes exactly
     where its shape terms hold and the wrappers take the forward's and the
-    backward's operands.  MedSSD's stage 1 at 240x240 (B 32, l 256, nc 4,
-    H 16, P 64, N 512) is taken."""
+    backward's operands, and the wrappers refuse every l % 4 != 0, which
+    the backward's C entry refuses.  MedSSD's stage 1 at 240x240 (B 32,
+    l 256, nc 4, H 16, P 64, N 512) is taken."""
     meta = lambda *s, dt=dtype: torch.empty(*s, dtype=dt, device="meta")
     f32 = torch.float32
     for l, N, P, nc, B in itertools.product(
-            (196, 200, 256, 260), (128, 512, 640), (8, 32, 64),
+            (196, 198, 200, 256, 260), (128, 512, 640), (8, 32, 64),
             (1, 4), (32, 16384)):
         H = 4
         ops = (meta(B, nc, l, N), meta(B, nc, l, N),
@@ -264,6 +265,7 @@ def test_fused_card_gate_agrees_with_the_kernels_checks(dtype):
                    and _accepts(tsf._check_cuda_args, *ops,
                                 Ssave=meta(B, nc, H, P, N),
                                 dy=meta(B, nc, l, H * P)))
+        assert not (l % 4 and kernels), (l, N, P, nc, B, dtype)
         want = tsf.ssd_fused_supported(l, N, P, 1, nc) and kernels
         got = tsf.ssd_fused_supported(l, N, P, 1, nc, card=True, batch=B,
                                       dtype=dtype)
@@ -292,7 +294,8 @@ def test_gate_terms_follow_the_jax_gate():
 
 @pytest.mark.parametrize("fault", ["dtype", "noncontiguous", "headdim",
                                    "chunk", "state", "row_dtype", "row_shape",
-                                   "x_dtype", "ssave", "dy"])
+                                   "x_dtype", "ssave", "dy",
+                                   "ragged_chunk"])
 def test_kernel_wrapper_refuses_bad_input(fault):
     """The argument checks that run before any launch."""
     args, dy = _inputs(B=1, nc=2, l=16, H=2, P=32, N=128)
@@ -310,6 +313,9 @@ def test_kernel_wrapper_refuses_bad_input(fault):
                         tdt=torch.float32))
     elif fault == "state":
         ta = list(_cast(_inputs(B=1, nc=2, l=16, H=2, P=32, N=640)[0],
+                        tdt=torch.float32))
+    elif fault == "ragged_chunk":         # l = 18, not a multiple of 4
+        ta = list(_cast(_inputs(B=1, nc=2, l=18, H=2, P=32)[0],
                         tdt=torch.float32))
     elif fault == "row_dtype":
         ta[3] = ta[3].double()
