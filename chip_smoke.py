@@ -23,9 +23,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2c. four-direction fused SSD forward kernel vs its plain twin at MedSSD's
      stages 0 and 1 (B 32; L 3136, l 224, H4 8 and L 784, l 196, H4 16;
      P 64, N 512) and its stage 0 at 240x240 (L 3600, l 240, nc 15, H4 8),
-     fp32 and bf16: y and Ssave, times from CUDA events, and at each bf16
-     case the device time of each of the walk's kernels (torch.profiler;
-     so too in 2d, 2k and 2l);
+     fp32 and bf16: y and Ssave, a second launch bit-identical, times from
+     CUDA events with and without Ssave beside the bound of each call, at
+     each bf16 case the device time of each of the walk's passes
+     (torch.profiler; so too in 2d, 2k and 2l), and what the card grants
+     each pass and the HMMA instructions in each bf16 pass's SASS (so too
+     in 2d, 2k and 2l);
   2d. its backward kernel vs the plain backward at the same 6 cases, all six
      cotangents, a second launch bit-identical; at stage 1 fp32,
      SSDFusedDirs against torch.autograd through the plain forward;
@@ -51,7 +54,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   2k. single-layout fused SSD forward kernel vs plain at MedSSD's stage 1
      at 240x240 (B 32, L 900 padded to 4 chunks of l 256, H 16, N 512,
      P 64) and at B 8, L 784 (4 chunks of l 196), H 8, N 128, P 64, fp32
-     and bf16: y and Ssave, a second launch bit-identical;
+     and bf16: y and Ssave, a second launch bit-identical, as 2c;
   2l. its backward kernel vs the plain backward at the same 4 cases, all
      seven cotangents, a second launch bit-identical; SSDFused against
      torch.autograd through the plain forward in fp32 at both shapes;
@@ -484,13 +487,19 @@ def _check_scaled(what, got, want, rtol, atol_rel):
     return _check_close(what, got, want, rtol, atol_rel * scale)
 
 
-# the kernels of the SSD chunk walk (the forward's two, the backward's five
-# passes), and the passes of the scan kernels at bf16 and N 16, by the
-# names torch.profiler gives them: {label: pattern}
-SSD_BWD_KERNELS = tuple(f"bwd::{p}_kernel" for p in (
-    "prep", "gram", "intra", "state", "chunk", "flush"))
-SSD_WALK_SPLIT = {k.split("::")[-1].replace("_kernel", ""): k for k in (
-    "scores_kernel", "fwd_walk_kernel") + SSD_BWD_KERNELS}
+# the passes of the SSD chunk walk in launch order (the gram pass is both
+# directions'; the forward's split, and the backward's, SSD_WALK_SPLIT),
+# and the passes of the scan kernels at bf16 and N 16, by the names
+# torch.profiler gives them: {label: pattern}
+SSD_GRAM = "tiles::gram_kernel"
+SSD_FWD_KERNELS = ("fwd::prep_kernel", SSD_GRAM, "fwd::state_kernel",
+                   "fwd::out_kernel")
+SSD_BWD_KERNELS = ("bwd::prep_kernel", SSD_GRAM) + tuple(
+    f"bwd::{p}_kernel" for p in ("intra", "state", "chunk", "flush"))
+SSD_FWD_SPLIT = {k.split("::")[-1][:-len("_kernel")]: k
+                 for k in SSD_FWD_KERNELS}
+SSD_WALK_SPLIT = {k.split("::")[-1][:-len("_kernel")]: k
+                  for k in SSD_BWD_KERNELS}
 SCAN_FWD_SPLIT = {
     "chunk": "scan_fwd_chunk_kernel<__nv_bfloat16, 16, false>",
     "carry": "chunk_carry_kernel<false>",
@@ -510,7 +519,8 @@ STL_BWD_SPLIT = {"rows": "mixer_bwd_rows_kernel",
 
 def _walk_split(c, fn, names=SSD_WALK_SPLIT):
     """At a bf16 case, c["split"]: device ms of each kernel ``names`` lists
-    (by default the SSD chunk walk's passes) in one call of ``fn``, each
+    (by default the SSD chunk walk backward's passes) in one call of
+    ``fn``, each
     kernel launched once a call: the mean over the launches a profile of
     two calls recorded (in full smoke runs a one-call window has missed a
     call's first kernel)."""
@@ -524,16 +534,19 @@ def _walk_split(c, fn, names=SSD_WALK_SPLIT):
 
 
 @functools.lru_cache(maxsize=None)
-def _ssd_bwd_passes(kernel):
-    """What the card grants each pass of the SSD walk's backward as
-    ``kernel`` builds it: {dtype: {pass: {registers, local_bytes,
-    shared_bytes, warps_per_sm}}}."""
+def _ssd_passes(kernel):
+    """What the card grants each pass of the SSD walk as ``kernel`` (a
+    forward, *_fwd, or a backward) builds it: {dtype: {pass: {registers,
+    local_bytes, shared_bytes, warps_per_sm}}}."""
     import torch
     from medical_image_classification_tpu_torch.kernels import ssd_fused
+    info = (ssd_fused.fwd_pass_info if kernel.endswith("fwd")
+            else ssd_fused.bwd_pass_info)
     keys = ("registers", "local_bytes", "shared_bytes", "warps_per_sm")
-    return {dt: {p: dict(zip(keys, v)) for p, v in ssd_fused.bwd_pass_info(
-        kernel, dtype).items()}
-        for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    return {dt: {p: dict(zip(keys, v))
+                 for p, v in info(kernel, dtype).items()}
+            for dt, dtype in (("fp32", torch.float32),
+                              ("bf16", torch.bfloat16))}
 
 
 def _sass_mma(kernel, pattern, exempt=()):
@@ -571,9 +584,11 @@ def _sass_mma(kernel, pattern, exempt=()):
 
 
 @functools.lru_cache(maxsize=None)
-def _ssd_bwd_mma(kernel):
-    """The SSD walk backward's passes (all but prep compute products)."""
-    return _sass_mma(kernel, r"3bwd\d+(\w+?)_kernel", ("prep",))
+def _ssd_mma(kernel):
+    """The SSD walk's passes, forward or backward (all but prep compute
+    products; the gram pass is in namespace tiles)."""
+    return _sass_mma(kernel, r"8ssd_walk(?:3fwd|3bwd|5tiles)\d+(\w+?)_kernel",
+                     ("prep",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -617,15 +632,15 @@ def _stl_passes_text(kernel):
         for cn, passes in by_c.items())
 
 
-def _ssd_bwd_mma_text(kernel):
-    return _mma_text(_ssd_bwd_mma(kernel))
+def _ssd_mma_text(kernel):
+    return _mma_text(_ssd_mma(kernel))
 
 
-def _ssd_bwd_passes_text(kernel):
+def _ssd_passes_text(kernel):
     return "passes (registers/local B/shared B/warps per SM): " + "; ".join(
         f"{dt} " + ", ".join(f"{p} " + "/".join(map(str, v.values()))
                              for p, v in passes.items())
-        for dt, passes in _ssd_bwd_passes(kernel).items())
+        for dt, passes in _ssd_passes(kernel).items())
 
 
 def _split_text(c):
@@ -633,45 +648,66 @@ def _split_text(c):
         f"{k}={v:.3f}ms" for k, v in c["split"].items())
 
 
-def phase_ssd_fwd_vs_plain():
+def _fwd_case(what, run_k, run_save, run_p, dt_name):
+    """One forward case of 2c or 2k: y and Ssave against the plain twin
+    within SSD_TOL, y the same bits with and without Ssave, a second
+    launch bit-identical (y and Ssave), times from CUDA events."""
     import torch
+    yk, yk2 = run_k(), run_k()
+    yk3, Sk = run_save()
+    yk4, Sk2 = run_save()
+    yp, Sp = run_p(want_save=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(yk, yk2) and torch.equal(yk, yk3)
+            and torch.equal(yk3, yk4) and torch.equal(Sk, Sk2)):
+        raise AssertionError(f"{what}: y or Ssave differs between launches "
+                             "or y when Ssave is written")
+    rtol, atol = SSD_TOL[dt_name]
+    err = _check_scaled(what + " y", yk, yp, rtol, atol)
+    serr = _check_scaled(what + " Ssave", Sk, Sp, rtol, atol)
+    y_max = float(yp.float().abs().max())
+    del yk, yk2, yk3, yk4, Sk, Sk2, yp, Sp
+    return dict(dtype=dt_name, max_abs_err=max(err, serr), y_err=err,
+                ssave_err=serr, y_max=y_max, ms=_events_ms(run_k, 5),
+                save_ms=_events_ms(run_save, 5),
+                plain_ms=_events_ms(run_p, 2))
+
+
+def _fwd_summary(c):
+    return (f"{c['dtype']} err={c['y_err']:.2e} (max|y| {c['y_max']:.1f}) "
+            f"Ssave_err={c['ssave_err']:.2e} kernel={c['ms']:.3f}ms "
+            f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}) "
+            f"with_save={c['save_ms']:.3f}ms "
+            f"bound={c['save_bound'][0]:.4f}ms ({c['save_bound'][1]}) "
+            f"plain={c['plain_ms']:.2f}ms{_split_text(c)}")
+
+
+def phase_ssd_fwd_vs_plain():
+    """2c: the dirs SSD forward kernel vs its plain version, with and
+    without Ssave (``_fwd_case``), each pass's split, grant and HMMA."""
     from medical_image_classification_tpu_torch.kernels import (
         ssd_fused_dirs as sfd)
     cases = []
     for L, l, dt_name, args, d_ssm, _ in _ssd_cases():
         run_k = lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, SSD_GN,
                                                impl="cuda")
-        run_p = lambda: sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN)
-        yk = run_k()
-        yk2, Sk = sfd.ssd_fused_dirs_fwd(*args, d_ssm, SSD_GN,
-                                         want_save=True, impl="cuda")
-        yp, Sp = sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN,
-                                            want_save=True)
-        torch.cuda.synchronize()
-        what = f"SSD forward kernel vs plain L={L} l={l} {dt_name}"
-        if not torch.equal(yk, yk2):
-            raise AssertionError(f"{what}: y changes when Ssave is written")
-        rtol, atol = SSD_TOL[dt_name]
-        err = _check_scaled(what + " y", yk, yp, rtol, atol)
-        serr = _check_scaled(what + " Ssave", Sk, Sp, rtol, atol)
-        k_ms = _events_ms(run_k, 5)
-        save_ms = _events_ms(lambda: sfd.ssd_fused_dirs_fwd(
-            *args, d_ssm, SSD_GN, want_save=True, impl="cuda"), 5)
-        p_ms = _events_ms(run_p, 2)
-        cases.append(dict(L=L, l=l, dtype=dt_name, max_abs_err=err,
-                          ssave_err=serr, y_max=float(yp.float().abs().max()),
-                          ms=k_ms, save_ms=save_ms, plain_ms=p_ms,
-                          bound=_ssd_bound(args, d_ssm, dt_name, False)))
-        _walk_split(cases[-1], run_k)
-    summary = "; ".join(
-        f"{c['L']}/{c['l']} {c['dtype']} err={c['max_abs_err']:.2e} "
-        f"(max|y| {c['y_max']:.1f}) Ssave_err={c['ssave_err']:.2e} "
-        f"kernel={c['ms']:.3f}ms with_save={c['save_ms']:.3f}ms "
-        f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
-        f"({c['bound'][1]}){_split_text(c)}" for c in cases)
+        c = _fwd_case(
+            f"SSD forward kernel vs plain L={L} l={l} {dt_name}", run_k,
+            lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, SSD_GN,
+                                           want_save=True, impl="cuda"),
+            lambda **kw: sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN,
+                                                    **kw), dt_name)
+        c.update(L=L, l=l, bound=_ssd_bound(args, d_ssm, dt_name, False),
+                 save_bound=_ssd_bound(args, d_ssm, dt_name, False, True))
+        _walk_split(c, run_k, SSD_FWD_SPLIT)
+        cases.append(c)
+    summary = "; ".join(f"{c['L']}/{c['l']} " + _fwd_summary(c)
+                        for c in cases)
     print(f"phase 2c SSD dirs forward kernel vs plain: {len(cases)} cases "
           f"within {SSD_TOL} (rtol, atol x max|plain|), y and Ssave "
-          f"(B={BATCH} P={SSD_P} N={4 * SSD_GN}) | {summary}", flush=True)
+          f"(B={BATCH} P={SSD_P} N={4 * SSD_GN}), second launch "
+          f"bit-identical | {_ssd_passes_text('ssd_fused_dirs_fwd')} | "
+          f"{_ssd_mma_text('ssd_fused_dirs_fwd')} | {summary}", flush=True)
     return cases
 
 
@@ -728,12 +764,12 @@ def phase_ssd_bwd_vs_plain():
           f"within {SSD_GRAD_TOL} (rtol, atol x max|plain|) on all 6 "
           f"cotangents, second launch bit-identical | SSDFusedDirs vs "
           f"torch.autograd through the plain forward at L={L} fp32: max err "
-          f"{auto_err:.2e} | {_ssd_bwd_passes_text('ssd_fused_dirs_bwd')} | "
-          f"{_ssd_bwd_mma_text('ssd_fused_dirs_bwd')} | {summary}",
+          f"{auto_err:.2e} | {_ssd_passes_text('ssd_fused_dirs_bwd')} | "
+          f"{_ssd_mma_text('ssd_fused_dirs_bwd')} | {summary}",
           flush=True)
     return dict(cases=cases, autograd_err=auto_err,
-                passes=_ssd_bwd_passes("ssd_fused_dirs_bwd"),
-                hmma=_ssd_bwd_mma("ssd_fused_dirs_bwd"))
+                passes=_ssd_passes("ssd_fused_dirs_bwd"),
+                hmma=_ssd_mma("ssd_fused_dirs_bwd"))
 
 
 def _st_case(what, run_k, run_p, dt_name, reps):
@@ -1112,47 +1148,28 @@ def _fused_cases():
 
 
 def phase_fused_fwd_vs_plain():
-    """2k: the single-layout fused SSD forward kernel vs its plain version:
-    y and Ssave, y unchanged when Ssave is written, a second launch
-    bit-identical, times from CUDA events."""
-    import torch
+    """2k: the single-layout fused SSD forward kernel vs its plain version,
+    as 2c."""
     from medical_image_classification_tpu_torch.kernels import (
         ssd_fused as sf)
     cases = []
     for case, dt_name, args, _ in _fused_cases():
         run_k = lambda: sf.ssd_fused_fwd(*args, impl="cuda")
-        run_p = lambda: sf.ssd_fused_fwd_ref(*args)
-        yk, yk2 = run_k(), run_k()
-        yk3, Sk = sf.ssd_fused_fwd(*args, want_save=True, impl="cuda")
-        yp, Sp = sf.ssd_fused_fwd_ref(*args, want_save=True)
-        torch.cuda.synchronize()
-        what = f"fused SSD forward kernel vs plain {case['shape']} {dt_name}"
-        if not (torch.equal(yk, yk2) and torch.equal(yk, yk3)):
-            raise AssertionError(f"{what}: y differs between launches or "
-                                 "when Ssave is written")
-        rtol, atol = SSD_TOL[dt_name]
-        err = _check_scaled(what + " y", yk, yp, rtol, atol)
-        serr = _check_scaled(what + " Ssave", Sk, Sp, rtol, atol)
-        y_max = float(yp.float().abs().max())
-        del yk, yk2, yk3, Sk, yp, Sp
-        cases.append(dict(case, dtype=dt_name, max_abs_err=max(err, serr),
-                          y_err=err, ssave_err=serr, y_max=y_max,
-                          ms=_events_ms(run_k, 5),
-                          save_ms=_events_ms(lambda: sf.ssd_fused_fwd(
-                              *args, want_save=True, impl="cuda"), 5),
-                          plain_ms=_events_ms(run_p, 2),
-                          bound=_fused_bound(args, dt_name, False)))
-        _walk_split(cases[-1], run_k)
-    summary = "; ".join(
-        f"{c['shape']} {c['dtype']} err={c['y_err']:.2e} (max|y| "
-        f"{c['y_max']:.1f}) Ssave_err={c['ssave_err']:.2e} "
-        f"kernel={c['ms']:.3f}ms with_save={c['save_ms']:.3f}ms "
-        f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
-        f"({c['bound'][1]}){_split_text(c)}" for c in cases)
+        c = _fwd_case(
+            f"fused SSD forward kernel vs plain {case['shape']} {dt_name}",
+            run_k, lambda: sf.ssd_fused_fwd(*args, want_save=True,
+                                            impl="cuda"),
+            lambda **kw: sf.ssd_fused_fwd_ref(*args, **kw), dt_name)
+        c.update(case, bound=_fused_bound(args, dt_name, False),
+                 save_bound=_fused_bound(args, dt_name, False, True))
+        _walk_split(c, run_k, SSD_FWD_SPLIT)
+        cases.append(c)
+    summary = "; ".join(f"{c['shape']} " + _fwd_summary(c) for c in cases)
     print(f"phase 2k fused SSD forward kernel vs plain: {len(cases)}/"
           f"{2 * len(FUSED_CASES)} cases within {SSD_TOL} (rtol, atol x "
           f"max|plain|), y and Ssave, second launch bit-identical | "
-          f"{summary}", flush=True)
+          f"{_ssd_passes_text('ssd_fused_fwd')} | "
+          f"{_ssd_mma_text('ssd_fused_fwd')} | {summary}", flush=True)
     return cases
 
 
@@ -1186,13 +1203,13 @@ def phase_fused_bwd_vs_plain():
           f"max|plain|) on all 7 cotangents, second launch bit-identical | "
           f"SSDFused vs torch.autograd through the plain forward, fp32, "
           f"worst of {len(FUSED_CASES)} shapes: max err {auto:.2e} | "
-          f"{_ssd_bwd_passes_text('ssd_fused_bwd')} | "
-          f"{_ssd_bwd_mma_text('ssd_fused_bwd')} | "
+          f"{_ssd_passes_text('ssd_fused_bwd')} | "
+          f"{_ssd_mma_text('ssd_fused_bwd')} | "
           + "; ".join(_st_bwd_summary([c]) + _split_text(c) for c in cases),
           flush=True)
     return dict(cases=cases, autograd_err=auto,
-                passes=_ssd_bwd_passes("ssd_fused_bwd"),
-                hmma=_ssd_bwd_mma("ssd_fused_bwd"))
+                passes=_ssd_passes("ssd_fused_bwd"),
+                hmma=_ssd_mma("ssd_fused_bwd"))
 
 
 def _flag_cases():
@@ -1604,41 +1621,42 @@ def _bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _walk_bound(operand_bytes, B, nc, l, H, P, N, isz, dtype, backward):
+def _walk_bound(operand_bytes, B, nc, l, H, P, N, isz, dtype, backward,
+                save=False):
     """The chunk walk's least time (the dirs and the single-layout fused
     SSD): bytes each input read once and each output written once (the
     operands x, B, C of ``operand_bytes``; the fp32 rows acum, dte, dtp and
-    cdec; y; backward: the operands, rows, Ssave and dy in, their
-    cotangents out), and the products the function needs over the causal
-    pairs j <= i of a chunk, l (l + 1) / 2 of them (per chunk: scores
-    2 pairs N; per head 2 pairs P + 4 l N P forward; the backward
-    recomputes the scores and adds dscores' two products, 4 pairs P +
-    10 l N P per head)."""
+    cdec; y; with ``save``, the forward of training, Ssave out; backward:
+    the operands, rows, Ssave and dy in, their cotangents out), and the
+    products the function needs over the causal pairs j <= i of a chunk,
+    l (l + 1) / 2 of them (per chunk: scores 2 pairs N; per head 2 pairs
+    P + 4 l N P forward; the backward recomputes the scores and adds
+    dscores' two products, 4 pairs P + 10 l N P per head)."""
     pairs = l * (l + 1) // 2
     rows = 3 * B * nc * H * l * 4 + B * nc * H * 4
     y = B * nc * l * H * P * isz
+    ssave = B * nc * H * P * N * isz
     if not backward:
-        nbytes = operand_bytes + rows + y
+        nbytes = operand_bytes + rows + y + (ssave if save else 0)
         ops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 4 * l * N * P))
     else:
-        ssave = B * nc * H * P * N * isz
         nbytes = 2 * operand_bytes + 2 * rows + ssave + y
         ops = B * nc * (3 * 2 * pairs * N
                         + H * (4 * pairs * P + 10 * l * N * P))
     return _bound(nbytes, ops, dtype)
 
 
-def _ssd_bound(args, d_ssm, dtype, backward):
+def _ssd_bound(args, d_ssm, dtype, backward, save=False):
     """The dirs SSD's bound (``_walk_bound``; the operands are the stack)."""
     stack, acum = args[0], args[1]
     B, nc, l, _ = stack.shape
     H4 = acum.shape[2]
     return _walk_bound(stack.numel() * stack.element_size(), B, nc, l, H4,
                        d_ssm // (H4 // 4), 4 * SSD_GN, stack.element_size(),
-                       dtype, backward)
+                       dtype, backward, save)
 
 
-def _fused_bound(args, dtype, backward):
+def _fused_bound(args, dtype, backward, save=False):
     """The single-layout fused SSD's bound (``_walk_bound``; the operands
     are C, B and x)."""
     Cc, Bc, acum, x = args[0], args[1], args[2], args[6]
@@ -1646,7 +1664,7 @@ def _fused_bound(args, dtype, backward):
     H = acum.shape[2]
     isz = Cc.element_size()
     return _walk_bound((Cc.numel() + Bc.numel() + x.numel()) * isz, B, nc, l,
-                       H, x.shape[3] // H, N, isz, dtype, backward)
+                       H, x.shape[3] // H, N, isz, dtype, backward, save)
 
 
 def _scan_bound(L, Dm, dtype, backward, g=G, flags=False):
@@ -1778,9 +1796,10 @@ PATHS = {
          "scan backward": SCAN_BWD_KERNELS}),
     ("medssd", SIZE): (
         {"ssd_fused_dirs_fwd": 2 + 2},               # blocks of stages 0-1
-        {"ssd scores": ("scores_kernel",),
-         "ssd forward": ("fwd_walk_kernel",),
-         "ssd backward": SSD_BWD_KERNELS}),
+        {"ssd scores": (SSD_GRAM,),                  # both directions'
+         "ssd forward": tuple(k for k in SSD_FWD_KERNELS if k != SSD_GRAM),
+         "ssd backward": tuple(k for k in SSD_BWD_KERNELS
+                               if k != SSD_GRAM)}),
     # Y_diag in stage 0's two blocks, the mixer and the gate in the blocks
     # of stages 0-1
     ("st_ssd", SIZE): (
@@ -2609,13 +2628,21 @@ def main(argv=None):
         entries.append(_entry(name, replaces, st_cases,
                               launches["launches"][name], head,
                               next(c for c in st_cases if head(c))["bound"]))
-    # the walk backward's and the mixer's passes: what the card grants
-    # each, and the split of the reported case's time
-    for name, head, ph in (("ssd_fused_dirs_bwd", ssd_head, ssd_bwd),
-                           ("ssd_fused_bwd", fused_head, fused_bwd)):
-        next(e for e in entries if e["name"] == name).update(
-            passes=ph["passes"], hmma=ph["hmma"],
-            split_ms=next(c for c in ph["cases"] if head(c)).get("split"))
+    # the walks' and the mixer's passes: what the card grants each, and the
+    # split of the reported case's time; the forwards' time with Ssave (the
+    # call training runs) beside its bound
+    for name, head, w_cases in (("ssd_fused_dirs_fwd", ssd_head, ssd_cases),
+                                ("ssd_fused_fwd", fused_head, fused_cases),
+                                ("ssd_fused_dirs_bwd", ssd_head,
+                                 ssd_bwd["cases"]),
+                                ("ssd_fused_bwd", fused_head,
+                                 fused_bwd["cases"])):
+        c = next(c for c in w_cases if head(c))
+        e = next(e for e in entries if e["name"] == name)
+        e.update(passes=_ssd_passes(name), hmma=_ssd_mma(name),
+                 split_ms=c.get("split"))
+        if "save_ms" in c:
+            e.update(save_ms=c["save_ms"], save_bound_ms=c["save_bound"][0])
     for name, st_cases in (("stl_mixer_fwd", stl_cases),
                            ("stl_mixer_bwd", stl_bwd["cases"])):
         next(e for e in entries if e["name"] == name).update(

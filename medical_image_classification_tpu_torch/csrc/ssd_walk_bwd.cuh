@@ -44,7 +44,8 @@
 //     rnd(x dtp), rnd(dtx dte) per (b, c, h), and for the dirs stack
 //     plain copies of the coupled B/C rows, so every later tile copy is a
 //     16-byte piece of a plain row-major array.
-//  1. gram_kernel: scores = C B^T per (b, c), 64 x 64 lower tiles.
+//  1. gram_kernel (ssd_walk_tiles.cuh, shared with the forward): scores =
+//     C B^T per (b, c), 64 x 64 lower tiles.
 //  2. intra_kernel: per (b, c, 64 x 64 tile), the heads in turn: dM on
 //     the tensor cores, the head sum of dM E (rounded once, for the flush)
 //     in registers, G's row and column sums as per-tile partials.
@@ -65,15 +66,12 @@
 
 #pragma once
 
-#include "mma_tiles.cuh"
-#include "ssd_walk_common.cuh"
+#include "ssd_walk_tiles.cuh"
 
 namespace ssd_walk {
 namespace bwd {
 
-constexpr int kT = 64;       // rows, P and N tiles
 constexpr int kFlushN = 128; // N columns of a flush block
-constexpr int kMaxL = 256;   // the chunk kernel keeps a head's acum row
 
 using namespace mma_tiles;
 
@@ -97,21 +95,8 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.x, bc = blockIdx.y;
   const int b = bc / d.nc, c = bc - b * d.nc;
   const int l = d.l, P = d.P;
-  if constexpr (Lay::kCoupled) {
-    const size_t plane = static_cast<size_t>(d.B) * d.nc * l * d.N;
-    for (int t = h + d.H * (threadIdx.x >> 5); t < l;
-         t += d.H * (kThreads / 32)) {
-      T* ob = bc_copy + d.row(b, c, t) * d.N;
-      for (int n = 2 * (threadIdx.x & 31); n < d.N; n += 64) {
-        const T* sb = lay.B_ptr(d, b, c, t, n);  // n, n + 1 in one half
-        const T* sc = lay.C_ptr(d, b, c, t, n);
-        ob[n] = sb[0];
-        ob[n + 1] = sb[1];
-        ob[plane + n] = sc[0];
-        ob[plane + n + 1] = sc[1];
-      }
-    }
-  }
+  if constexpr (Lay::kCoupled)
+    tiles::copy_bc_rows(lay, bc_copy, b, c, h, d.H, d);
   const size_t bch = d.bch(b, c, h), rowoff = bch * l;
   const size_t plane = static_cast<size_t>(d.B) * d.nc * d.H * l * P;
   for (int t = threadIdx.x; t < l; t += kThreads) {
@@ -132,71 +117,6 @@ __global__ void __launch_bounds__(kThreads)
       o[2 * plane + e] = from_f32<T>(dtx * sTe[t]);
     }
   }
-}
-
-// ------------------------------------------------------- 1. gram (scores)
-
-template <typename T>
-constexpr size_t gram_smem() {
-  return kStages * 2 * tile_bytes<T>(kT, kT);
-}
-
-// scores[b, c] = C B^T, [l, l] fp32, for the lower-triangle 64 x 64 tiles
-// (every reader masks j > i).  Grid (nt, nt, B nc); warps 4 (rows) x 2
-// (columns) of 16 x 32.
-template <typename T, class Lay>
-__global__ void __launch_bounds__(kThreads, 2)
-    gram_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
-                float* __restrict__ scores, Dims d) {
-  const int it = blockIdx.y, jt = blockIdx.x;
-  if (jt > it) return;
-  extern __shared__ __align__(16) char smem_raw[];
-  Bump bump{smem_raw};
-  constexpr int ld = ld_of<T>(kT);
-  T* sC[kStages];
-  T* sB[kStages];
-  for (int i = 0; i < kStages; ++i) {
-    sC[i] = bump.take<T>(kT * ld);
-    sB[i] = bump.take<T>(kT * ld);
-  }
-  const int bc = blockIdx.z;
-  const int b = bc / d.nc, c = bc - b * d.nc;
-  const int i0 = it * kT, j0 = jt * kT, l = d.l, N = d.N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32;
-  const T* Cc = Cm + d.row(b, c, 0) * N;
-  const T* Bc = Bm + d.row(b, c, 0) * N;
-  float acc[1][4][4];
-  zero_acc(acc);
-  pipeline(
-      (N + kT - 1) / kT,
-      [&](int s, int buf) {
-        const int n0 = s * kT;
-        stage_as<T, 16>(sC[buf], ld, kT, kT, [&](int r, int k) -> const T* {
-          return i0 + r < l && n0 + k < N
-                     ? Cc + static_cast<size_t>(i0 + r) * N + n0 + k
-                     : nullptr;
-        });
-        stage_as<T, 16>(sB[buf], ld, kT, kT, [&](int r, int k) -> const T* {
-          return j0 + r < l && n0 + k < N
-                     ? Bc + static_cast<size_t>(j0 + r) * N + n0 + k
-                     : nullptr;
-        });
-      },
-      [&](int, int buf) {
-        warp_mma<1, 4, false, false>(acc, sC[buf], ld, wm, sB[buf], ld, wn,
-                                     0, kT / 16);
-      });
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int i = i0 + wm + g + 8 * e, j = j0 + wn + 8 * ni + 2 * q;
-      if (i < l && j < l)
-        st2(scores + (static_cast<size_t>(bc) * l + i) * l + j,
-            acc[0][ni][2 * e], acc[0][ni][2 * e + 1]);
-    }
 }
 
 // fp32 rows [0, kT) of a row vector from src (16-byte pieces; rows of the
@@ -866,7 +786,8 @@ cudaError_t bwd_pass_info(int* out) {
   using namespace bwd;
   cudaError_t err = pass_info(prep_kernel<T, Lay>, 0, out);
   if (err == cudaSuccess)
-    err = pass_info(gram_kernel<T, Lay>, gram_smem<T>(), out + 4);
+    err = pass_info(tiles::gram_kernel<T, Lay>, tiles::gram_smem<T>(),
+                    out + 4);
   if (err == cudaSuccess)
     err = pass_info(intra_kernel<T, Lay>, intra_smem<T>(), out + 8);
   if (err == cudaSuccess)
@@ -906,7 +827,7 @@ cudaError_t launch_bwd(const Lay& lay, const float* acum, const float* dte,
   }
   const int nt = (d.l + kT - 1) / kT;
   const int npt = (d.P + kT - 1) / kT, nnt = (d.N + kT - 1) / kT;
-  const dim3 tiles(nt, nt, d.B * d.nc);
+  const dim3 grid_tiles(nt, nt, d.B * d.nc);
   cudaError_t err;
   prep_kernel<T, Lay><<<dim3(d.H, d.B * d.nc), kThreads, 0, stream>>>(
       lay, acum, dte, dtp, dy, pre, bc_copy, d);
@@ -918,8 +839,9 @@ cudaError_t launch_bwd(const Lay& lay, const float* acum, const float* dte,
   kernel<T, Lay><<<grid, kThreads, smem<T>(), stream>>>(__VA_ARGS__);    \
   err = cudaGetLastError();                                             \
   if (err != cudaSuccess) return err;
-  SSD_BWD_LAUNCH(gram_kernel, gram_smem, tiles, Bm, Cm, w.scores, d)
-  SSD_BWD_LAUNCH(intra_kernel, intra_smem, tiles, lay, acum, dy, pre,
+  SSD_BWD_LAUNCH(tiles::gram_kernel, tiles::gram_smem, grid_tiles, Bm, Cm,
+                 w.scores, d)
+  SSD_BWD_LAUNCH(intra_kernel, intra_smem, grid_tiles, lay, acum, dy, pre,
                  w.scores, dsr, w.row_part, w.col_part, d)
   SSD_BWD_LAUNCH(state_kernel, state_smem, dim3(npt * nnt, d.H, d.B), Cm,
                  cdec, ssave, pre, dso, w.dcdec_part, d)

@@ -1,6 +1,7 @@
 // Shared pieces of the fused SSD chunk-walk kernels: types, the two operand
-// layouts the walk reads, the scores pass C B^T, and block reductions.  The
-// walks themselves are in ssd_walk_fwd.cuh and ssd_walk_bwd.cuh; each kernel
+// layouts the walk reads, and block reductions (the tile pieces both walks
+// share are in ssd_walk_tiles.cuh).  The walks themselves are in
+// ssd_walk_fwd.cuh and ssd_walk_bwd.cuh; each kernel
 // source (ssd_fused_{fwd,bwd}.cu, ssd_fused_dirs_{fwd,bwd}.cu) instantiates
 // them for its layout.
 //
@@ -30,8 +31,6 @@
 namespace ssd_walk {
 
 constexpr int kThreads = 256;
-constexpr int kPT = 32;    // columns of P per walking block (one per lane)
-constexpr int kTile = 64;  // square tiles of the [l, l] passes
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -99,19 +98,6 @@ struct FlatLayout {
                                             int t, int n) const {
     return C + d.row(b, c, t) * d.N + n;
   }
-  // element loads of the forward walk and the scores pass
-  __device__ __forceinline__ float load_x(const Dims& d, int b, int h, int c,
-                                          int t, int p) const {
-    return to_f32(x[yrow(d, b, h, c, t) + p]);
-  }
-  __device__ __forceinline__ float load_B(const Dims& d, int b, int c, int t,
-                                          int n) const {
-    return to_f32(Bm[d.row(b, c, t) * d.N + n]);
-  }
-  __device__ __forceinline__ float load_C(const Dims& d, int b, int c, int t,
-                                          int n) const {
-    return to_f32(C[d.row(b, c, t) * d.N + n]);
-  }
   __device__ __forceinline__ float D(int) const { return 0.f; }
   // which 0: dC, 1: dB, at row r of chunk (b, c), columns n and n + 1
   __device__ __forceinline__ void store_grad2(const Dims& d, int which, int b,
@@ -148,13 +134,14 @@ struct DirsLayout {
                                          int t) const {
     return head_row(d, b, h, c, t) * d.HP + static_cast<size_t>(h) * d.P;
   }
-  // the addresses FlatLayout gives (the backward's tile copies)
+  // the addresses FlatLayout gives (the walks' tile copies)
   __device__ __forceinline__ const T* x_ptr(const Dims& d, int b, int h,
                                             int c, int t) const {
     return stack + head_row(d, b, h, c, t) * C2 + (h < H2 ? h : h - H2) * d.P;
   }
-  // the address of coupled element n (an element pair n, n + 1 never
-  // straddles the halves: 2 gn is even)
+  // the address of coupled element n (a run of up to 16 elements from a
+  // multiple of its length never straddles the halves: 2 gn is a multiple
+  // of 16)
   __device__ __forceinline__ const T* coupled_ptr(const Dims& d, int b, int c,
                                                   int t, int n,
                                                   int off) const {
@@ -169,26 +156,6 @@ struct DirsLayout {
   __device__ __forceinline__ const T* C_ptr(const Dims& d, int b, int c,
                                             int t, int n) const {
     return coupled_ptr(d, b, c, t, n, offC);
-  }
-  __device__ __forceinline__ float load_x(const Dims& d, int b, int h, int c,
-                                          int t, int p) const {
-    const int hc = h < H2 ? h : h - H2;
-    return to_f32(stack[head_row(d, b, h, c, t) * C2 + hc * d.P + p]);
-  }
-  // element n of coupled row t of chunk c, from the run at channel off
-  __device__ __forceinline__ float coupled(const Dims& d, int b, int c, int t,
-                                           int n, int off) const {
-    if (n < g2) return to_f32(stack[d.row(b, c, t) * C2 + off + n]);
-    return to_f32(
-        stack[d.row(b, d.nc - 1 - c, d.l - 1 - t) * C2 + off + n - g2]);
-  }
-  __device__ __forceinline__ float load_B(const Dims& d, int b, int c, int t,
-                                          int n) const {
-    return coupled(d, b, c, t, n, offB);
-  }
-  __device__ __forceinline__ float load_C(const Dims& d, int b, int c, int t,
-                                          int n) const {
-    return coupled(d, b, c, t, n, offC);
   }
   __device__ __forceinline__ float D(int h) const { return Dsk[h]; }
   // columns n, n + 1 (one half): the first 2 gn columns go to the direct
@@ -205,61 +172,6 @@ struct DirsLayout {
     o[1] = from_f32<T>(v1);
   }
 };
-
-// scores[b, c] = C B^T, [l, l] fp32, for the lower-triangle tiles only
-// (every reader masks j > i).  Grid (nt, nt, B nc), 256 threads; each
-// thread owns a 4 x 4 patch of a 64 x 64 tile.  The products are of
-// operand-type values accumulated in fp32.
-template <typename T, class Lay>
-__global__ void __launch_bounds__(kThreads)
-    scores_kernel(Lay lay, float* __restrict__ scores, Dims d) {
-  constexpr int kK = 16;
-  __shared__ float sC[kK][kTile + 4];
-  __shared__ float sB[kK][kTile + 4];
-  const int it = blockIdx.y, jt = blockIdx.x;
-  if (jt > it) return;
-  const int bc = blockIdx.z;
-  const int b = bc / d.nc, c = bc - b * d.nc;
-  const int i0 = it * kTile, j0 = jt * kTile;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < d.N; k0 += kK) {
-    for (int e = tid; e < kTile * kK; e += kThreads) {
-      const int r = e / kK, k = e % kK;
-      const int n = k0 + k;
-      const bool kin = n < d.N;
-      sC[k][r] = (i0 + r < d.l && kin) ? lay.load_C(d, b, c, i0 + r, n) : 0.f;
-      sB[k][r] = (j0 + r < d.l && kin) ? lay.load_B(d, b, c, j0 + r, n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        a[q] = sC[k][ty * 4 + q];
-        bb[q] = sB[k][tx * 4 + q];
-      }
-#pragma unroll
-      for (int qi = 0; qi < 4; ++qi)
-#pragma unroll
-        for (int qj = 0; qj < 4; ++qj) acc[qi][qj] += a[qi] * bb[qj];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int qi = 0; qi < 4; ++qi) {
-    const int i = i0 + ty * 4 + qi;
-    if (i >= d.l) continue;
-#pragma unroll
-    for (int qj = 0; qj < 4; ++qj) {
-      const int j = j0 + tx * 4 + qj;
-      if (j < d.l)
-        scores[(static_cast<size_t>(bc) * d.l + i) * d.l + j] = acc[qi][qj];
-    }
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

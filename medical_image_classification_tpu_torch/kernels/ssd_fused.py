@@ -48,17 +48,16 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # it to small shapes, as the JAX package's tests patch its ``_MIN_L``.
 _MIN_L = 196
 _MAX_L = 256
-# shape limits of the CUDA kernels: a forward block walks PT columns of a
-# head's P, holding its [PT, N] fp32 state and [l, PT] tiles in shared
-# memory, and steps over N in tiles of PT without a mask; the backward's
-# warps take P and N in whole tiles of PT and its chunk pass keeps a row of
-# MAX_L
+# shape limits of the CUDA kernels: their warps take P and N in whole
+# tiles of PT, and the forward's output pass and the backward's chunk pass
+# keep a chunk's MAX_L rows
 PT = 32
 MAX_L = 256
 MAX_N = 512
-# the backward's tiles of rows, of P and of N (csrc/ssd_walk_bwd.cuh
-# bwd::kT), which size its per-tile partials, and its six passes
+# the walks' tiles of rows, of P and of N (csrc/ssd_walk_tiles.cuh kT),
+# which size the backward's per-tile partials, and the passes of each
 BWD_TILE = 64
+FWD_PASSES = ("prep", "gram", "state", "out")
 BWD_PASSES = ("prep", "gram", "intra", "state", "chunk", "flush")
 
 
@@ -123,6 +122,32 @@ def walk_fwd_ref(x, Bf, Cf, acum, dte, cdec, dtp, mm, Dsk=None,
             Bc[:, None]
     return torch.stack(ys, dim=1), \
         torch.stack(saves, dim=1) if want_save else None
+
+
+def walk_fwd_chunked_ref(x, Bf, Cf, acum, dte, cdec, dtp, mm, Dsk=None,
+                         want_save: bool = False):
+    """``walk_fwd_ref`` in the order of the CUDA kernels' decomposition
+    (``csrc/ssd_walk_fwd.cuh``): every chunk's state increment Delta =
+    rnd(dtx dte)^T B at once, then the fp32 carry S(c+1) = cdec(c) S(c) +
+    Delta(c) (the only sequential part) keeping rnd(S(c)), then every
+    chunk's y at once.  Same arguments and results as ``walk_fwd_ref``."""
+    B, nc, H, l, P = x.shape
+    rnd = lambda t: t.to(mm).float()
+    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    dtx = rnd(x * dtp[..., None])                        # [B, nc, H, l, P]
+    delta = rnd(dtx * dte[..., None]).transpose(-1, -2) @ Bf[:, :, None]
+    S = torch.zeros_like(delta[:, 0])                    # [B, H, P, N]
+    Sin = torch.empty(delta.shape, dtype=mm, device=x.device)
+    for c in range(nc):
+        Sin[:, c] = S.to(mm)
+        S = cdec[:, c, :, None, None] * S + delta[:, c]
+    sc = Cf @ Bf.transpose(-1, -2)                       # [B, nc, l, l]
+    M = rnd(sc[:, :, None] * _decay(acum, causal))       # [B, nc, H, l, l]
+    Yoff = Cf[:, :, None] @ Sin.float().transpose(-1, -2)
+    y = M @ dtx + Yoff * torch.exp(acum)[..., None]
+    if Dsk is not None:
+        y = y + x * Dsk[:, None, None]
+    return y.to(mm), Sin if want_save else None
 
 
 def walk_bwd_ref(x, Bf, Cf, acum, dte, cdec, dtp, Ssave, dy, mm, Dsk=None):
@@ -317,26 +342,26 @@ def _check_cuda_args(Cc, Bc, acum, dte, cdec, dtp, x, Ssave=None, dy=None):
 
 
 def _launch_fwd_cuda(Cc, Bc, acum, dte, cdec, dtp, x, want_save=False):
-    """The forward kernel's wrapper: checks, allocates y (and Ssave) and
-    the scores workspace, launches on the current stream, counts."""
+    """The forward kernel's wrapper: checks, allocates y, the entering
+    states (Ssave; without ``want_save`` a workspace of its shape, which
+    the output pass reads) and the workspaces, launches on the current
+    stream, counts."""
     _check_cuda_args(Cc, Bc, acum, dte, cdec, dtp, x)
     B, nc, l, N = Cc.shape
     H = acum.shape[2]
     P = x.shape[3] // H
-    dev = Cc.device
+    dev, mm = Cc.device, Cc.dtype
     y = torch.empty_like(x)
-    Ssave = (torch.empty(B, nc, H, P, N, dtype=Cc.dtype, device=dev)
-             if want_save else None)
+    Ssave = torch.empty(B, nc, H, P, N, dtype=mm, device=dev)
     scores = torch.empty(B, nc, l, l, dtype=torch.float32, device=dev)
+    pre = torch.empty(2, B, nc, H, l, P, dtype=mm, device=dev)  # dtx rows
+    ptrs = [t.data_ptr() for t in (Cc, Bc, acum, dte, cdec, dtp, x, y, Ssave,
+                                   scores, pre)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        call(_FWD_KERNEL, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        call(_FWD_KERNEL, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7
              + [ctypes.c_void_p],
-             [Cc.data_ptr(), Bc.data_ptr(), acum.data_ptr(), dte.data_ptr(),
-              cdec.data_ptr(), dtp.data_ptr(), x.data_ptr(), y.data_ptr(),
-              None if Ssave is None else Ssave.data_ptr(),
-              scores.data_ptr(), B, nc, l, H, P, N,
-              int(Cc.dtype == torch.bfloat16), stream])
+             ptrs + [B, nc, l, H, P, N, int(mm == torch.bfloat16), stream])
     ssd_fused_fwd.launches += 1
     return (y, Ssave) if want_save else y
 
@@ -379,22 +404,33 @@ def _launch_bwd_cuda(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy):
             ddtp_part.sum(3), dx)
 
 
-def bwd_pass_info(kernel: str, dtype) -> dict:
-    """What the card grants each pass of the walk's backward as ``kernel``
-    ("ssd_fused_bwd" or "ssd_fused_dirs_bwd") builds it for operand type
-    ``dtype``: {pass: (registers a thread, local-memory bytes a thread
-    (spills), dynamic shared bytes a block, resident warps per SM)}, from
-    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor.
-    """
+def _pass_info(kernel: str, dtype, passes) -> dict:
+    """What the card grants each of ``passes`` as ``kernel`` builds them
+    for operand type ``dtype``: {pass: (registers a thread, local-memory
+    bytes a thread (spills), dynamic shared bytes a block, resident warps
+    per SM)}, from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     from medical_image_classification_tpu_torch.kernels import _build
     lib = _build.library(kernel)
     fn = getattr(lib, f"{kernel}_pass_info")
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * (4 * len(BWD_PASSES)))()
+    out = (ctypes.c_int * (4 * len(passes)))()
     _build.raise_on_error(lib, kernel, fn(int(dtype == torch.bfloat16),
                                           ctypes.addressof(out)))
-    return {p: tuple(out[4 * i:4 * i + 4]) for i, p in enumerate(BWD_PASSES)}
+    return {p: tuple(out[4 * i:4 * i + 4]) for i, p in enumerate(passes)}
+
+
+def fwd_pass_info(kernel: str, dtype) -> dict:
+    """``_pass_info`` of the walk's forward passes (``FWD_PASSES``) as
+    ``kernel`` ("ssd_fused_fwd" or "ssd_fused_dirs_fwd") builds them."""
+    return _pass_info(kernel, dtype, FWD_PASSES)
+
+
+def bwd_pass_info(kernel: str, dtype) -> dict:
+    """``_pass_info`` of the walk's backward passes (``BWD_PASSES``) as
+    ``kernel`` ("ssd_fused_bwd" or "ssd_fused_dirs_bwd") builds them."""
+    return _pass_info(kernel, dtype, BWD_PASSES)
 
 
 # --------------------------------------------------------------------------

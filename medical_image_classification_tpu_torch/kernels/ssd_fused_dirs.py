@@ -204,24 +204,26 @@ def _check_cuda_args(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
 
 def _launch_fwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
                      want_save=False):
-    """The forward kernel's wrapper: checks, allocates y (and Ssave) and
-    the scores workspace, launches on the current stream, counts."""
+    """The forward kernel's wrapper: checks, allocates y, the entering
+    states (Ssave; without ``want_save`` a workspace of its shape, which
+    the output pass reads) and the workspaces, launches on the current
+    stream, counts."""
     _check_cuda_args(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn)
     B, nc, l, C2c, H4, nh, P = _dims(stackr, acum, d_ssm)
-    dev = stackr.device
-    y = torch.empty(B, nc, l, H4 * P, dtype=stackr.dtype, device=dev)
-    Ssave = (torch.empty(B, nc, H4, P, 4 * gn, dtype=stackr.dtype,
-                         device=dev) if want_save else None)
+    dev, mm = stackr.device, stackr.dtype
+    y = torch.empty(B, nc, l, H4 * P, dtype=mm, device=dev)
+    Ssave = torch.empty(B, nc, H4, P, 4 * gn, dtype=mm, device=dev)
     scores = torch.empty(B, nc, l, l, dtype=torch.float32, device=dev)
+    pre = torch.empty(2, B, nc, H4, l, P, dtype=mm, device=dev)  # dtx rows
+    bc = torch.empty(2, B, nc, l, 4 * gn, dtype=mm, device=dev)  # B/C rows
+    ptrs = [t.data_ptr() for t in (stackr, acum, dte, cdec, dtp, Dsk, y,
+                                   Ssave, scores, pre, bc)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        call(_FWD_KERNEL, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        call(_FWD_KERNEL, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8
              + [ctypes.c_void_p],
-             [stackr.data_ptr(), acum.data_ptr(), dte.data_ptr(),
-              cdec.data_ptr(), dtp.data_ptr(), Dsk.data_ptr(), y.data_ptr(),
-              None if Ssave is None else Ssave.data_ptr(),
-              scores.data_ptr(), B, nc, l, H4, P, d_ssm, gn,
-              int(stackr.dtype == torch.bfloat16), stream])
+             ptrs + [B, nc, l, H4, P, d_ssm, gn, int(mm == torch.bfloat16),
+                     stream])
     ssd_fused_dirs_fwd.launches += 1
     return (y, Ssave) if want_save else y
 

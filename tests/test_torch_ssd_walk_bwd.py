@@ -213,19 +213,24 @@ def test_chip_smoke_walk_split_profiles_the_call(monkeypatch):
 def test_chip_smoke_names_the_backward_passes(monkeypatch):
     """The profile patterns of the backward (the per-pass split and the
     medssd step's "ssd backward" share) name the kernels that
-    csrc/ssd_walk_bwd.cuh defines, and the passes that ``bwd_pass_info``
-    reports, in launch order."""
+    csrc/ssd_walk_bwd.cuh defines, and the gram pass that it shares with
+    the forward (csrc/ssd_walk_tiles.cuh), and the passes that
+    ``bwd_pass_info`` reports, in launch order; the gram pass counts in
+    the "ssd scores" share."""
     import re
     cs = _chip_smoke(monkeypatch)
-    src = (sf.__file__.rsplit("/", 2)[0] + "/csrc/ssd_walk_bwd.cuh")
-    with open(src) as f:
-        defined = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*"
-                             r"(\w+_kernel)\(", f.read())
-    assert [f"bwd::{k}" for k in defined] == list(cs.SSD_BWD_KERNELS)
+    csrc = sf.__file__.rsplit("/", 2)[0] + "/csrc/"
+    defined = {}
+    for h in ("ssd_walk_bwd.cuh", "ssd_walk_tiles.cuh"):
+        with open(csrc + h) as f:
+            defined[h] = re.findall(r"__global__ void __launch_bounds__"
+                                    r"\([^)]*\)\s*(\w+_kernel)\(", f.read())
+    bwd = [f"bwd::{k}" for k in defined["ssd_walk_bwd.cuh"]]
+    assert defined["ssd_walk_tiles.cuh"] == ["gram_kernel"]
+    assert list(cs.SSD_BWD_KERNELS) == bwd[:1] + [cs.SSD_GRAM] + bwd[1:]
     assert [k.split("::")[-1][:-len("_kernel")]
             for k in cs.SSD_BWD_KERNELS] == list(sf.BWD_PASSES)
-    assert cs.PATHS[("medssd", cs.SIZE)][1]["ssd backward"] == \
-        cs.SSD_BWD_KERNELS
+    assert cs.PATHS[("medssd", cs.SIZE)][1]["ssd backward"] == tuple(bwd)
 
 
 _SASS = """
@@ -258,13 +263,13 @@ def test_chip_smoke_counts_each_pass_tensor_core_instructions(monkeypatch,
         path=f"lib{name}.so"))
     monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k: (
         subprocess.CompletedProcess(a, 0, stdout=sass, stderr="")))
-    cs._ssd_bwd_mma.cache_clear()
+    cs._ssd_mma.cache_clear()
     try:
         if bare:
             with pytest.raises(AssertionError, match="gram"):
-                cs._ssd_bwd_mma("ssd_fused_dirs_bwd")
+                cs._ssd_mma("ssd_fused_dirs_bwd")
         else:
-            assert cs._ssd_bwd_mma("ssd_fused_dirs_bwd") == {
+            assert cs._ssd_mma("ssd_fused_dirs_bwd") == {
                 "fp32": {"gram": 0}, "bf16": {"gram": 2, "prep": 0}}
     finally:
-        cs._ssd_bwd_mma.cache_clear()
+        cs._ssd_mma.cache_clear()
