@@ -45,7 +45,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      reads the forward kernel's lse);
   2g. STF gate kernel vs plain at stages 0 and 1 (BB 32; P 3136, C 128 and
      P 784, C 256), fp32 and bf16; 2e-2g each with a second launch
-     bit-identical and times from CUDA events;
+     bit-identical and times from CUDA events; 2g and 2j also print each
+     gate pass's device time at the bf16 cases, what the card grants each
+     pass, its HMMA count and the sigmoids' time at the MUFU rate beside
+     the bound;
   2h-2j. the backward kernels of Y_diag, the STL mixer and the STF gate
      against their plain backwards at the cases of 2e-2g, every cotangent,
      a second launch bit-identical, times from CUDA events; at one shape
@@ -515,22 +518,38 @@ STL_FWD_SPLIT = {"rows": "mixer_fwd_rows_kernel",
                  "cols": "mixer_fwd_cols_kernel"}
 STL_BWD_SPLIT = {"rows": "mixer_bwd_rows_kernel",
                  "cols": "mixer_bwd_cols_kernel"}
+# the STF gate's passes: the forward's one, the backward's two
+STF_FWD_SPLIT = {"rows": "zgate_fwd_rows_kernel"}
+STF_BWD_SPLIT = {"rows": "zgate_bwd_rows_kernel",
+                 "cols": "zgate_bwd_cols_kernel"}
 
 
 def _walk_split(c, fn, names=SSD_WALK_SPLIT):
     """At a bf16 case, c["split"]: device ms of each kernel ``names`` lists
     (by default the SSD chunk walk backward's passes) in one call of
-    ``fn``, each
-    kernel launched once a call: the mean over the launches a profile of
-    two calls recorded (in full smoke runs a one-call window has missed a
-    call's first kernel)."""
+    ``fn``, each kernel launched once a call: the mean over the launches a
+    profile of two calls recorded.  In full smoke runs such a window has
+    missed the kernels launched right after it opened (a call's first
+    kernel; both launches of a one-kernel call), so each window opens
+    with 2 ms of host sleep, a kernel still missing is profiled again over
+    twice the calls, up to 8, and one missing then is listed in
+    c["unrecorded"]."""
     if c["dtype"] != "bf16":
         return
-    rows = [r for r in _profile(lambda: (fn(), fn())) if r["device_us"] > 0.0]
-    c["split"] = {k: sum(r["device_us"] / r["count"] for r in rows
-                         if p in r["name"]) / 1e3
-                  for k, p in names.items()
-                  if any(p in r["name"] for r in rows)}
+    calls = 2
+    while True:
+        rows = [r for r in _profile(lambda: (time.sleep(0.002), [
+            fn() for _ in range(calls)])) if r["device_us"] > 0.0]
+        c["split"] = {k: sum(r["device_us"] / r["count"] for r in rows
+                             if p in r["name"]) / 1e3
+                      for k, p in names.items()
+                      if any(p in r["name"] for r in rows)}
+        if len(c["split"]) == len(names) or calls >= 8:
+            break
+        calls *= 2
+    missing = [k for k in names if k not in c["split"]]
+    if missing:
+        c["unrecorded"] = missing
 
 
 @functools.lru_cache(maxsize=None)
@@ -593,9 +612,10 @@ def _ssd_mma(kernel):
 
 @functools.lru_cache(maxsize=None)
 def _stl_mma(kernel):
-    """The STL mixer's passes, by pass and C (every one computes
-    products)."""
-    return _sass_mma(kernel, r"mixer_\w+?_(rows|cols)_kernelI\w*?Li(\d+)E")
+    """The STL mixer's or the STF gate's passes, by pass and C (every one
+    computes products)."""
+    return _sass_mma(kernel,
+                     r"(?:mixer|zgate)_\w+?_(rows|cols)_kernelI\w*?Li(\d+)E")
 
 
 def _mma_text(mma):
@@ -608,14 +628,15 @@ def _mma_text(mma):
 
 @functools.lru_cache(maxsize=None)
 def _stl_passes(kernel):
-    """What the card grants each pass of the STL mixer kernel ``kernel``
-    ("stl_mixer_fwd" or "stl_mixer_bwd") at both ST stages' C:
-    {dtype: {"C128" | "C256": {pass: {registers, local_bytes,
-    shared_bytes, warps_per_sm}}}}."""
+    """What the card grants each pass of the STL mixer or STF gate kernel
+    ``kernel`` ("stl_mixer_fwd", "stl_mixer_bwd", "stf_zgate_fwd" or
+    "stf_zgate_bwd") at both ST stages' C: {dtype: {"C128" | "C256":
+    {pass: {registers, local_bytes, shared_bytes, warps_per_sm}}}}."""
     import torch
     from medical_image_classification_tpu_torch.kernels import (
-        stl_mixer as stl)
-    info = stl.fwd_pass_info if kernel.endswith("fwd") else stl.bwd_pass_info
+        stf_zgate as stf, stl_mixer as stl)
+    mod = stf if kernel.startswith("stf") else stl
+    info = mod.fwd_pass_info if kernel.endswith("fwd") else mod.bwd_pass_info
     keys = ("registers", "local_bytes", "shared_bytes", "warps_per_sm")
     return {dt: {f"C{C}": {p: dict(zip(keys, v))
                            for p, v in info(C, dtype).items()}
@@ -645,7 +666,8 @@ def _ssd_passes_text(kernel):
 
 def _split_text(c):
     return "" if "split" not in c else " split " + " ".join(
-        f"{k}={v:.3f}ms" for k, v in c["split"].items())
+        [f"{k}={v:.3f}ms" for k, v in c["split"].items()]
+        + [f"{k}=not recorded" for k in c.get("unrecorded", ())])
 
 
 def _fwd_case(what, run_k, run_save, run_p, dt_name):
@@ -945,18 +967,43 @@ def _stf_cases():
                                      U.to(dtype)), dY.to(dtype)
 
 
+# MUFU operations of one bf16 sigmoid (ex2 and rcp, csrc/stf_zgate_tiles.cuh)
+STF_MUFU_OPS = 2
+
+
+def _stf_mufu_ms(args):
+    """The MUFU time of the gate's BB P^2 sigmoids (the function's own,
+    forward and backward alike) at STF_MUFU_OPS each."""
+    BB, P, _ = args[0].shape
+    return BB * P * P * STF_MUFU_OPS / MUFU_PER_S * 1e3
+
+
 def _stf_bound(args, dt_name, backward):
     """Bytes of pooledT, lz, U in and Y out (backward: pooledT, lz, U, dY
     in and dpooledT, dlz, dU out); products 4 BB P^2 C (backward: the TPU
-    body's five, 10 BB P^2 C)."""
+    body's five, 10 BB P^2 C); in bf16 the sigmoids' MUFU time where it is
+    larger (operations too)."""
     pT, _, _ = args
     BB, P, C = pT.shape
     isz = pT.element_size()
     if not backward:
-        return _bound((3 * BB * P * C + C * P) * isz, 4 * BB * P * P * C,
-                      dt_name)
-    return _bound((5 * BB * P * C + 2 * C * P) * isz, 10 * BB * P * P * C,
-                  dt_name)
+        t = _bound((3 * BB * P * C + C * P) * isz, 4 * BB * P * P * C,
+                   dt_name)
+    else:
+        t = _bound((5 * BB * P * C + 2 * C * P) * isz, 10 * BB * P * P * C,
+                   dt_name)
+    t_mufu = _stf_mufu_ms(args) if dt_name == "bf16" else 0.0
+    return (t_mufu, "operations") if t_mufu > t[0] else t
+
+
+def _stf_text(kernel, cases):
+    """The gate's passes (what the card grants each, HMMA per bf16 pass),
+    the sigmoids' MUFU time beside each bf16 bound, and each case."""
+    mufu = "; ".join(f"{c['shape']} {c['mufu_ms']:.4f}ms" for c in cases
+                     if "mufu_ms" in c)
+    return (f"{_stl_passes_text(kernel)} | {_mma_text(_stl_mma(kernel))} | "
+            f"bf16 sigmoids at the MUFU rate ({STF_MUFU_OPS} ops each): "
+            f"{mufu}")
 
 
 def phase_stf_vs_plain():
@@ -965,15 +1012,20 @@ def phase_stf_vs_plain():
         stf_zgate as stf)
     cases = []
     for i, P, C, dt_name, args, _ in _stf_cases():
+        run_k = lambda: stf.stf_zgate_fwd(*args, impl="cuda")
         c = _st_case(f"STF gate kernel vs plain P={P} C={C} {dt_name}",
-                     lambda: stf.stf_zgate_fwd(*args, impl="cuda"),
-                     lambda: stf.stf_zgate_fwd_ref(*args), dt_name, (5, 2))
+                     run_k, lambda: stf.stf_zgate_fwd_ref(*args), dt_name,
+                     (5, 2))
         c.update(L=P, shape=f"BB{BATCH} P{P} C{C}",
                  bound=_stf_bound(args, dt_name, False))
+        if dt_name == "bf16":
+            c["mufu_ms"] = _stf_mufu_ms(args)
+        _walk_split(c, run_k, STF_FWD_SPLIT)
         cases.append(c)
     print(f"phase 2g STF gate forward kernel vs plain: {len(cases)}/4 cases "
           f"within {ST_TOL} (rtol, atol x max|plain|), second launch "
-          f"bit-identical | {_st_summary(cases)}", flush=True)
+          f"bit-identical | {_stf_text('stf_zgate_fwd', cases)} | "
+          f"{_st_summary(cases)}", flush=True)
     return cases
 
 
@@ -1094,12 +1146,16 @@ def phase_stf_bwd_vs_plain():
     names = ST_GRAD_NAMES["stf_zgate"]
     cases = []
     for i, P, C, dt_name, args, dY in _stf_cases():
+        run_k = lambda: stf.stf_zgate_bwd(*args, dY, impl="cuda")
         c = _st_bwd_case(
             f"STF gate backward kernel vs plain P={P} C={C} {dt_name}",
-            names, lambda: stf.stf_zgate_bwd(*args, dY, impl="cuda"),
-            lambda: stf.stf_zgate_bwd_ref(*args, dY), dt_name, (5, 2))
+            names, run_k, lambda: stf.stf_zgate_bwd_ref(*args, dY), dt_name,
+            (5, 2))
         c.update(L=P, shape=f"BB{BATCH} P{P} C{C}",
                  bound=_stf_bound(args, dt_name, True))
+        if dt_name == "bf16":
+            c["mufu_ms"] = _stf_mufu_ms(args)
+        _walk_split(c, run_k, STF_BWD_SPLIT)
         cases.append(c)
         if i == 1 and dt_name == "fp32":
             auto = _vs_autograd(
@@ -1110,7 +1166,9 @@ def phase_stf_bwd_vs_plain():
           f"within {ST_GRAD_TOL} (rtol, atol x max|plain|) on all 3 "
           f"cotangents, second launch bit-identical | STFZGate vs "
           f"torch.autograd through the plain forward at stage 1 fp32: max "
-          f"err {auto:.2e} | {_st_bwd_summary(cases)}", flush=True)
+          f"err {auto:.2e} | {_stf_text('stf_zgate_bwd', cases)} | "
+          + "; ".join(_st_bwd_summary([c]) + _split_text(c) for c in cases),
+          flush=True)
     return dict(cases=cases, autograd_err=auto)
 
 
@@ -1808,9 +1866,8 @@ PATHS = {
          "ssd ydiag backward": ("ydiag_grad_kernel", "ydiag_dcb_kernel"),
          "stl mixer": tuple(STL_FWD_SPLIT.values()),
          "stl mixer backward": tuple(STL_BWD_SPLIT.values()),
-         "stf gate": ("zgate_kernel",),
-         "stf gate backward": ("gate_rows_bwd_kernel",
-                               "gate_cols_bwd_kernel")}),
+         "stf gate": tuple(STF_FWD_SPLIT.values()),
+         "stf gate backward": tuple(STF_BWD_SPLIT.values())}),
     # stage 0 (L 3600) takes the dirs SSD at chunk 240, stage 1 (L 900, no
     # pad-free chunk in the dirs window) the single-layout fused SSD at
     # chunk 256 over 4 chunks, the last padded (900 -> 1024), stage 2 (L 225,
@@ -1998,6 +2055,45 @@ def _check_grad_tree(what, got, want, rtol, min_cos, abs_floor):
     return worst_rel, worst_cos
 
 
+def _grad_check(name, sd, imgs, labels):
+    """Every parameter's gradient of ``name`` at the weights ``sd`` on one
+    batch (the same DropPath masks), kernels against the plain versions:
+    in fp32 leaf-wise within PARAM_GRAD_TOL of the plain gradients, in
+    bf16 each path's median leaf distance from the fp32 plain gradients,
+    the kernels' at most BF16_GRAD_RATIO times the plain versions'.
+    Returns the numbers and a line that states them."""
+    import torch
+    loss, grads = {}, {}
+    for dt_name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        for impl in ("cuda", "torch"):
+            loss[dt_name, impl], grads[dt_name, impl] = _param_grads(
+                _model(name, dtype, impl, sd), imgs, labels, 7)
+    ref = grads["fp32", "torch"]
+    rel32, cos32 = _check_grad_tree("fp32 param grad", grads["fp32", "cuda"],
+                                    ref, *PARAM_GRAD_TOL)
+    dist = {impl: [float((grads["bf16", impl][n] - w).norm() / w.norm())
+                   for n, w in ref.items()] for impl in ("cuda", "torch")}
+    med16 = {impl: sorted(d)[len(d) // 2] for impl, d in dist.items()}
+    if not med16["cuda"] <= BF16_GRAD_RATIO * med16["torch"] + 1e-3:
+        raise AssertionError(
+            f"bf16 param grads: the kernels' median leaf distance from the "
+            f"fp32 plain gradients {med16['cuda']:.3e} exceeds "
+            f"{BF16_GRAD_RATIO} x the plain versions' {med16['torch']:.3e}")
+    ratio = med16["cuda"] / max(med16["torch"], 1e-30)
+    text = (f"fp32 loss {loss['fp32', 'cuda']:.6f} vs "
+            f"{loss['fp32', 'torch']:.6f}, worst leaf rel-norm {rel32:.2e} "
+            f"cos {cos32:.6f} over {len(ref)} leaves (tol {PARAM_GRAD_TOL}); "
+            f"bf16 median (max) leaf distance from the fp32 plain "
+            f"gradients: kernels {med16['cuda']:.3e} "
+            f"({max(dist['cuda']):.3e}), plain {med16['torch']:.3e} "
+            f"({max(dist['torch']):.3e}), ratio {ratio:.3f} (max "
+            f"{BF16_GRAD_RATIO})")
+    return dict(loss={f"{d} {i}": v for (d, i), v in loss.items()},
+                fp32_worst_rel=rel32, fp32_worst_cos=cos32, leaves=len(ref),
+                bf16_median_dist=med16, bf16_ratio=ratio,
+                bf16_max_dist={i: max(d) for i, d in dist.items()}), text
+
+
 def phase_train(card, name, num, size=SIZE):
     import math
 
@@ -2044,32 +2140,11 @@ def phase_train(card, name, num, size=SIZE):
 
     # every parameter's gradient: kernels against the plain versions, same
     # weights, same batch of GRAD_BATCH, same DropPath masks
-    sd = model.state_dict()
     imgs, labels = next(SyntheticLoader(GRAD_BATCH, size, CLASSES, steps=1,
                                         seed=3).epoch(0))
     imgs = torch.from_numpy(imgs).to(dev)
     labels = torch.from_numpy(labels).long().to(dev)
-    loss, grads = {}, {}
-    for dt_name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
-        for impl in ("cuda", "torch"):
-            loss[dt_name, impl], grads[dt_name, impl] = _param_grads(
-                _model(name, dtype, impl, sd), imgs, labels, 7)
-    ref = grads["fp32", "torch"]
-    rel32, cos32 = _check_grad_tree("fp32 param grad", grads["fp32", "cuda"],
-                                    ref, *PARAM_GRAD_TOL)
-    dist = {impl: [float((grads["bf16", impl][n] - w).norm() / w.norm())
-                   for n, w in ref.items()] for impl in ("cuda", "torch")}
-    med16 = {impl: sorted(d)[len(d) // 2] for impl, d in dist.items()}
-    if not med16["cuda"] <= BF16_GRAD_RATIO * med16["torch"] + 1e-3:
-        raise AssertionError(
-            f"bf16 param grads: the kernels' median leaf distance from the "
-            f"fp32 plain gradients {med16['cuda']:.3e} exceeds "
-            f"{BF16_GRAD_RATIO} x the plain versions' {med16['torch']:.3e}")
-    grad_check = dict(
-        loss={f"{d} {i}": v for (d, i), v in loss.items()},
-        fp32_worst_rel=rel32, fp32_worst_cos=cos32, leaves=len(ref),
-        bf16_median_dist=med16,
-        bf16_max_dist={i: max(d) for i, d in dist.items()})
+    grad_check, gc = _grad_check(name, model.state_dict(), imgs, labels)
 
     step = make_train_step(model, opt, sched, state=state)
     x = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
@@ -2092,14 +2167,6 @@ def phase_train(card, name, num, size=SIZE):
     rest = [r for r in rows if not any(hit(r, p) for p in split.values())]
     top = ", ".join(f"{r['name'][:40]} {r['device_us'] / 1e3:.2f} ms"
                     for r in rest[:4])
-    gc = (f"fp32 loss {loss['fp32', 'cuda']:.6f} vs "
-          f"{loss['fp32', 'torch']:.6f}, worst leaf rel-norm {rel32:.2e} "
-          f"cos {cos32:.6f} over {len(ref)} leaves (tol {PARAM_GRAD_TOL}); "
-          f"bf16 median (max) leaf distance from the fp32 plain gradients: "
-          f"kernels {med16['cuda']:.3e} ({max(dist['cuda']):.3e}), plain "
-          f"{med16['torch']:.3e} ({max(dist['torch']):.3e}), ratio "
-          f"{med16['cuda'] / max(med16['torch'], 1e-30):.3f} (max "
-          f"{BF16_GRAD_RATIO})")
     per_step = ", ".join(f"{f} + {b} {launches[f]} + {launches[b]} "
                          f"({launches[f] // STEPS} + {launches[b] // STEPS} "
                          f"per step)" for f, b in pairs.items())
@@ -2644,10 +2711,14 @@ def main(argv=None):
         if "save_ms" in c:
             e.update(save_ms=c["save_ms"], save_bound_ms=c["save_bound"][0])
     for name, st_cases in (("stl_mixer_fwd", stl_cases),
-                           ("stl_mixer_bwd", stl_bwd["cases"])):
+                           ("stl_mixer_bwd", stl_bwd["cases"]),
+                           ("stf_zgate_fwd", stf_cases),
+                           ("stf_zgate_bwd", stf_bwd["cases"])):
+        c = next(c for c in st_cases if st_head(c))
         next(e for e in entries if e["name"] == name).update(
             passes=_stl_passes(name), hmma=_stl_mma(name),
-            split_ms=next(c for c in st_cases if st_head(c)).get("split"))
+            split_ms=c.get("split"),
+            **({"mufu_ms": c["mufu_ms"]} if "mufu_ms" in c else {}))
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)

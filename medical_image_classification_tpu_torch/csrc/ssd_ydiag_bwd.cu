@@ -112,9 +112,9 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       float* S = sSc + it * kT * kLdS;
       if (n0 == 0)
-        gemm_s<true>(S, sA, ld64, sB, ld64, kT);
+        gemm_s(S, sA, ld64, sB, ld64, kT);
       else
-        gemm_s<true, true>(S, sA, ld64, sB, ld64, kT);
+        gemm_s<true>(S, sA, ld64, sB, ld64, kT);
       __syncthreads();
     }
 
@@ -137,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
       const int i0 = it * kT;
       load_tile(sA, ld64, yb, d.P, i0, 0, kT, kT, d.l, d.P);  // dy[i]
       __syncthreads();
-      gemm_s<true>(sG, sA, ld64, sB, ld64, kT);   // dM = dy dtx^T
+      gemm_s(sG, sA, ld64, sB, ld64, kT);   // dM = dy dtx^T
       __syncthreads();
       for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
         const int r = e / kT, c = e - r * kT;

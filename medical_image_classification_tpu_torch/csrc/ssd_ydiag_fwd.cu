@@ -113,9 +113,9 @@ __global__ void __launch_bounds__(kThreads)
       load_tile(sB, ldK, Bb, d.N, j0, n0, kT, kw, d.l, d.N);
       __syncthreads();
       if (n0 == 0)
-        gemm_s<true>(sS, sC, ldK, sB, ldK, kw);
+        gemm_s(sS, sC, ldK, sB, ldK, kw);
       else
-        gemm_s<true, true>(sS, sC, ldK, sB, ldK, kw);
+        gemm_s<true>(sS, sC, ldK, sB, ldK, kw);
       __syncthreads();
     }
     for (int e = threadIdx.x; e < kT * kT; e += kThreads) {

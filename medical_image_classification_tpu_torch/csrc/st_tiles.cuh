@@ -1,9 +1,8 @@
-// Tile pieces shared by the ST-SSD slice's Y_diag and gate kernels
-// (ssd_ydiag_{fwd,bwd}.cu, stf_zgate_{fwd,bwd}.cu): operand-type
-// conversions, masked tile loads into shared memory, reductions over the
-// four threads of a row, and the two block products each of them makes per
+// Tile pieces of the Y_diag kernels (ssd_ydiag_{fwd,bwd}.cu): operand-type
+// conversions, masked tile loads into shared memory, a sum over the four
+// threads of a row, and the two block products each of them makes per
 // step:
-//   gemm_s       S[64][64] (fp32, shared) = (or +=) A[64][K] . B[K][64]
+//   gemm_s       S[64][64] (fp32, shared) = (or +=) A[64][K] . B[64][K]^T
 //   Acc<T, CW>   O[64][CW] += A[64][64] . B[64][CW], held in registers
 // In bf16 both run on the tensor cores through WMMA (16x16x16 bf16
 // fragments, fp32 accumulators); in fp32 on the CUDA cores, without TF32
@@ -86,21 +85,16 @@ __device__ __forceinline__ void load_tile(T* dst, int ldd, const T* src,
   }
 }
 
-// Max and sum over the four neighbouring threads that share a row.
-__device__ __forceinline__ float group4_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
+// Sum over the four neighbouring threads that share a row.
 __device__ __forceinline__ float group4_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// S[64][kLdS] = A[64][K] . B[K][64], or with kAdd S += A . B; A row-major
-// (lda); B row-major [K][64] (ldb) or, with kBT, stored transposed as
-// [64][K] (ldb).  K % 16 == 0.  The caller synchronises before and after.
-template <bool kBT, bool kAdd = false>
+// S[64][kLdS] = A[64][K] . B^T, or with kAdd S += A . B^T; A and B
+// row-major [64][K] (lda, ldb).  K % 16 == 0.  The caller synchronises
+// before and after.
+template <bool kAdd = false>
 __device__ __forceinline__ void gemm_s(float* S, const float* A, int lda,
                                        const float* B, int ldb, int K) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -115,7 +109,7 @@ __device__ __forceinline__ void gemm_s(float* S, const float* A, int lda,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       a[q] = A[(ty * 4 + q) * lda + k];
-      b[q] = kBT ? B[(tx + 16 * q) * ldb + k] : B[k * ldb + tx + 16 * q];
+      b[q] = B[(tx + 16 * q) * ldb + k];
     }
 #pragma unroll
     for (int qi = 0; qi < 4; ++qi)
@@ -129,14 +123,12 @@ __device__ __forceinline__ void gemm_s(float* S, const float* A, int lda,
       S[(ty * 4 + qi) * kLdS + tx + 16 * qj] = acc[qi][qj];
 }
 
-template <bool kBT, bool kAdd = false>
+template <bool kAdd = false>
 __device__ __forceinline__ void gemm_s(float* S, const bf16* A, int lda,
                                        const bf16* B, int ldb, int K) {
   using namespace nvcuda;
   const int warp = threadIdx.x >> 5;
   const int r = (warp & 3) * 16, c0 = (warp >> 2) * 32;
-  typedef typename std::conditional<kBT, wmma::col_major,
-                                    wmma::row_major>::type BLayout;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -152,8 +144,8 @@ __device__ __forceinline__ void gemm_s(float* S, const bf16* A, int lda,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int c = c0 + 16 * j;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-      wmma::load_matrix_sync(b, kBT ? B + c * ldb + k : B + k * ldb + c, ldb);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::load_matrix_sync(b, B + c * ldb + k, ldb);
       wmma::mma_sync(acc[j], a, b, acc[j]);
     }
   }
@@ -165,7 +157,7 @@ __device__ __forceinline__ void gemm_s(float* S, const bf16* A, int lda,
 
 // O[64][CW] += A[64][64] . B[64][CW] over the block, in fp32.  A is
 // row-major [i][k] (lda) or, with kAT, stored transposed as [k][i]; B is
-// row-major [k][c] (ldb) or, with kBT, stored transposed as [c][k].
+// row-major [k][c] (ldb).
 // store(fn, stg) calls fn(row, col, value) once per element; stg is the
 // calling warp's 256 floats of shared staging.
 template <typename T, int CW>
@@ -183,7 +175,7 @@ struct Acc<float, CW> {
       for (int j = 0; j < NC; ++j) v[q][j] = 0.f;
   }
 
-  template <bool kAT, bool kBT = false>
+  template <bool kAT>
   __device__ __forceinline__ void mma(const float* A, int lda,
                                       const float* B, int ldb) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -194,8 +186,7 @@ struct Acc<float, CW> {
         a[q] = kAT ? A[k * lda + ty * 4 + q] : A[(ty * 4 + q) * lda + k];
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const float b =
-            kBT ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
+        const float b = B[k * ldb + tx + 16 * j];
 #pragma unroll
         for (int q = 0; q < 4; ++q) v[q][j] += a[q] * b;
       }
@@ -224,7 +215,7 @@ struct Acc<bf16, CW> {
     for (int j = 0; j < NF; ++j) nvcuda::wmma::fill_fragment(f[j], 0.f);
   }
 
-  template <bool kAT, bool kBT = false>
+  template <bool kAT>
   __device__ __forceinline__ void mma(const bf16* A, int lda, const bf16* B,
                                       int ldb) {
     using namespace nvcuda;
@@ -232,8 +223,6 @@ struct Acc<bf16, CW> {
     const int r = (warp & 3) * 16, c0 = (warp >> 2) * (CW / 2);
     typedef typename std::conditional<kAT, wmma::col_major,
                                       wmma::row_major>::type ALayout;
-    typedef typename std::conditional<kBT, wmma::col_major,
-                                      wmma::row_major>::type BLayout;
 #pragma unroll
     for (int k = 0; k < kT; k += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
@@ -241,9 +230,8 @@ struct Acc<bf16, CW> {
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
         const int c = c0 + 16 * j;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-        wmma::load_matrix_sync(b, kBT ? B + c * ldb + k : B + k * ldb + c,
-                               ldb);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, B + k * ldb + c, ldb);
         wmma::mma_sync(f[j], a, b, f[j]);
       }
     }

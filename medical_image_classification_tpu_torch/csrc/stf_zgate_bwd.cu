@@ -18,211 +18,230 @@
 // bf16) the TPU body's five products are 10 BB P^2 C ~ 0.40 TFLOP against
 // ~0.13 GB moved: operations.
 //
-// Design (simple and right first).  The rows of Z are independent, but dU
-// and dlz sum over them, and the TPU body carried those sums in VMEM over
-// its sequential row axis; Hopper blocks run in no order.  So two kernels,
-// no atomics, the same bits on every run:
-//  1. gate_rows_bwd_kernel, per (64 rows of P, bb): walks the columns q of
-//     Z in 64-wide tiles, recomputes S = pooledT_rows . lz[:, q] and
-//     dZ = dY_rows . U[q]^T, forms dS and accumulates dpooledT.
-//  2. gate_cols_bwd_kernel, per (64 columns q of Z, bb): walks the rows,
-//     recomputes S and dZ, forms rnd(Z) and dS and accumulates dU and the
-//     dlz partial.
-// That makes 7 products where the bound counts 5.  Each block stages its
-// operands through two shared buffers, reloading lz's columns or pooledT's
-// rows where a product needs them again, so that fp32 at C 256 fits.  P 784
-// is not a multiple of 64: every tile edge is masked, and a masked row or
-// column of Z contributes nothing to dU, dlz or dpooledT.  bf16 on the
-// tensor cores (WMMA), fp32 on the CUDA cores (st_tiles.cuh); C is a
-// template parameter (128 or 256).
+// Design.  dpooledT sums over the columns q of Z per row, dU and dlz over
+// the rows i per column, and blocks run in no order; one pass with a
+// dpooledT atomic sum would change the bits from run to run.  So two
+// passes (stf_zgate_tiles.cuh), no atomics, the same bits on every run:
+//  1. rows: per 128 rows i of P (64 at C 256 or fp32) and bb, walks q with
+//     the pooledT and dY rows as A operands: S = pT_i . lz_q,
+//     dZ = dY_i . U_q^T, dS = rnd(dZ Z (1 - Z)) from the fp32 Z, and
+//     dpooledT += dS . lz_q^T; the one lz_q tile serves both S and the
+//     output product.  Three products.
+//  2. cols: per 128 columns q (64 at C 256 or fp32) and bb, walks i
+//     computing the transposes S^T = lz_q^T . pT_i^T and
+//     dZ^T = U_q . dY_i^T directly, so that rnd(Z)^T and dS^T are already
+//     the A operands of dU_q += Z^T . dY_i and dlzp_q += dS^T . pT_i.  Four
+//     products, with chunks of 16 score columns where the operands stay in
+//     registers.
+// Seven products where the TPU body makes five: S and dZ are computed by
+// each pass.  bf16 products run on the tensor cores (mma.sync m16n8k16,
+// fp32 accumulators); at C 128 the A operands and the Z and dS tiles
+// never leave registers.
 
-#include "st_tiles.cuh"
+#include "stf_zgate_tiles.cuh"
 
-namespace {
-
-using namespace st_tiles;
-
-// shared memory of a block, byte offsets: two staging buffers, each a
-// [64][C] row tile or a [C][64] column tile of T; the fp32 S and dZ tiles;
-// the rounded Z and dS tiles (bf16 only: fp32 rounds in place)
-template <typename T, int C>
-struct GateBwdSmem {
-  size_t x, y, s, dz, z, ds, total;
-  __host__ __device__ GateBwdSmem() {
-    const size_t rows = kT * ld<T>(C) * sizeof(T);
-    const size_t cols = C * ld<T>(kT) * sizeof(T);
-    const size_t buf = round128(rows > cols ? rows : cols);
-    const size_t f32 = round128(kT * kLdS * sizeof(float));
-    const size_t rnd = std::is_same<T, float>::value
-                           ? 0
-                           : round128(kT * ld<T>(kT) * sizeof(T));
-    x = 0;
-    y = x + buf;
-    s = y + buf;
-    dz = s + f32;
-    z = dz + f32;
-    ds = z + rnd;
-    total = ds + rnd;
-  }
-};
+namespace stf_zgate {
 
 template <typename T, int C>
-struct GateTiles {
-  T *x, *y, *z, *ds;
-  float *s, *dz;
-  int ldR;  // leading dimension of the rounded Z and dS tiles
-  __device__ explicit GateTiles(unsigned char* smem) {
-    const GateBwdSmem<T, C> L;
-    constexpr bool kF32 = std::is_same<T, float>::value;
-    x = reinterpret_cast<T*>(smem + L.x);
-    y = reinterpret_cast<T*>(smem + L.y);
-    s = reinterpret_cast<float*>(smem + L.s);
-    dz = reinterpret_cast<float*>(smem + L.dz);
-    z = reinterpret_cast<T*>(smem + (kF32 ? L.s : L.z));
-    ds = reinterpret_cast<T*>(smem + (kF32 ? L.dz : L.ds));
-    ldR = kF32 ? kLdS : ld<T>(kT);
-  }
-};
-
-// For the tile (rows i0.., columns q0..): S = pooledT[i0:] . lz[:, q0:],
-// dZ = dY[i0:] . U[q0:]^T, then rnd(Z) and dS = rnd(dZ Z (1 - Z)), zero
-// outside P.  Starts by overwriting both staging buffers; ends synchronised
-// with dY's rows in x and U's rows in y.
-template <typename T, int C>
-__device__ __forceinline__ void gate_grad(const GateTiles<T, C>& t,
-                                          const T* pb, const T* lz,
-                                          const T* Ub, const T* dYb, int i0,
-                                          int q0, int P) {
-  const int ldC = ld<T>(C), ld64 = ld<T>(kT);
-  load_tile(t.x, ldC, pb, C, i0, 0, kT, C, P, C);
-  load_tile(t.y, ld64, lz, P, 0, q0, C, kT, C, P);
-  __syncthreads();
-  gemm_s<false>(t.s, t.x, ldC, t.y, ld64, C);        // S = pooledT lz
-  __syncthreads();
-  load_tile(t.x, ldC, dYb, C, i0, 0, kT, C, P, C);
-  load_tile(t.y, ldC, Ub, C, q0, 0, kT, C, P, C);
-  __syncthreads();
-  gemm_s<true>(t.dz, t.x, ldC, t.y, ldC, C);         // dZ = dY U^T
-  __syncthreads();
-  for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-    const int r = i / kT, c = i - r * kT;
-    float z = 0.f, ds = 0.f;
-    if (i0 + r < P && q0 + c < P) {
-      z = 1.f / (1.f + expf(-t.s[r * kLdS + c]));
-      ds = t.dz[r * kLdS + c] * z * (1.f - z);
-    }
-    t.z[r * t.ldR + c] = from_f32<T>(z);
-    t.ds[r * t.ldR + c] = from_f32<T>(ds);
-  }
-  __syncthreads();
+constexpr size_t bwd_rows_smem() {
+  using F = Cfg<T, C>;
+  return 2 * tile_bytes<T>(F::kRows, C) +
+         kStages * (tile_bytes<T>(C, F::kStep) + tile_bytes<T>(F::kStep, C)) +
+         xch_bytes<T, C>();
 }
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    gate_rows_bwd_kernel(const T* __restrict__ pooledT,
-                         const T* __restrict__ lz, const T* __restrict__ U,
-                         const T* __restrict__ dY, T* __restrict__ dpT,
-                         int P) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const GateTiles<T, C> t(smem);
-  const int ld64 = ld<T>(kT);
-  const int bb = blockIdx.y, i0 = blockIdx.x * kT;
-  const size_t base = static_cast<size_t>(bb) * P * C;
-
-  Acc<T, C> acc;
-  acc.zero();
-  for (int q0 = 0; q0 < P; q0 += kT) {
-    gate_grad(t, pooledT + base, lz, U + base, dY + base, i0, q0, P);
-    load_tile(t.y, ld64, lz, P, 0, q0, C, kT, C, P);  // lz's columns again
-    __syncthreads();
-    acc.template mma<false, true>(t.ds, t.ldR, t.y, ld64);   // += dS lz^T
-    __syncthreads();
-  }
-  acc.store(
-      [&](int r, int c, float v) {
-        if (i0 + r < P)
-          dpT[base + static_cast<size_t>(i0 + r) * C + c] = from_f32<T>(v);
-      },
-      t.s + (threadIdx.x >> 5) * 256);
+constexpr size_t bwd_cols_smem() {
+  using F = Cfg<T, C>;
+  return tile_bytes<T>(C, F::kRows) + tile_bytes<T>(F::kRows, C) +
+         kStages * 2 * tile_bytes<T>(F::kStep, C) + 2 * xch_bytes<T, C>();
 }
 
+// dpooledT[bb] = dS lz^T over kRows rows of P.  Grid (ceil(P / kRows),
+// BB).
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    gate_cols_bwd_kernel(const T* __restrict__ pooledT,
-                         const T* __restrict__ lz, const T* __restrict__ U,
-                         const T* __restrict__ dY, T* __restrict__ dU,
-                         float* __restrict__ dlzp, int P) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const GateTiles<T, C> t(smem);
-  const int ldC = ld<T>(C);
-  const int bb = blockIdx.y, q0 = blockIdx.x * kT;
+__global__ void __launch_bounds__(kThreads, 1)
+    zgate_bwd_rows_kernel(const T* __restrict__ pooledT,
+                          const T* __restrict__ lz, const T* __restrict__ U,
+                          const T* __restrict__ dY, T* __restrict__ dpT,
+                          int P) {
+  using F = Cfg<T, C>;
+  extern __shared__ __align__(16) char smem_raw[];
+  Bump bump{smem_raw};
+  T* sA = bump.take<T>(F::kRows * F::ldC);
+  T* sD = bump.take<T>(F::kRows * F::ldC);
+  T* sL[kStages];
+  T* sU[kStages];
+  for (int i = 0; i < kStages; ++i) {
+    sL[i] = bump.take<T>(C * F::ldS);
+    sU[i] = bump.take<T>(F::kStep * F::ldC);
+  }
+  const Role<F> rl;
+  T* xg = F::kRegs ? nullptr
+                   : bump.take<T>(F::kGroups * 16 * F::ldS) +
+                         rl.group * 16 * F::ldS;
+  const int bb = blockIdx.y, i0 = blockIdx.x * F::kRows;
   const size_t base = static_cast<size_t>(bb) * P * C;
 
-  Acc<T, C> accU, accL;
-  accU.zero();
-  accL.zero();
-  for (int i0 = 0; i0 < P; i0 += kT) {
-    gate_grad(t, pooledT + base, lz, U + base, dY + base, i0, q0, P);
-    accU.template mma<true>(t.z, t.ldR, t.x, ldC);    // += rnd(Z)^T dY
-    __syncthreads();
-    load_tile(t.x, ldC, pooledT + base, C, i0, 0, kT, C, P, C);
-    __syncthreads();
-    accL.template mma<true>(t.ds, t.ldR, t.x, ldC);   // += dS^T pooledT
-    __syncthreads();
+  stage_rows<T, C>(sA, pooledT + base, i0, F::kRows, P);
+  stage_rows<T, C>(sD, dY + base, i0, F::kRows, P);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  OpA<T, C, false> Ap, Ad;  // pooledT rows, dY rows
+  Ap.init(sA, F::ldC, 16 * rl.group);
+  Ad.init(sD, F::ldC, 16 * rl.group);
+
+  float o[1][F::NIo][4];
+  zero_acc(o);
+  pipeline(
+      (P + F::kStep - 1) / F::kStep,
+      [&](int s, int buf) {
+        stage_cols<T, C>(sL[buf], F::ldS, lz, P, s * F::kStep, F::kStep);
+        stage_rows<T, C>(sU[buf], U + base, s * F::kStep, F::kStep, P);
+      },
+      [&](int s, int buf) {
+        step_product<T, C, false>(
+            [&](float(&v)[1][F::NIs][4], int n0) {
+              float D[1][F::NIs][4];
+              zero_acc(v);
+              zero_acc(D);
+              Ap.template mma<F::NIs, true>(v, sL[buf], F::ldS, n0);   // S
+              Ad.template mma<F::NIs, false>(D, sU[buf], F::ldC, n0);  // dZ
+              gate<T>(v, s * F::kStep + n0 + 2 * rl.q, P, D);
+#pragma unroll
+              for (int ni = 0; ni < F::NIs; ++ni)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) v[0][ni][e] = D[0][ni][e];
+            },
+            o, sL[buf], F::ldS, xg, rl);  // dpooledT += dS lz^T
+      });
+  store_tile<F, C>(dpT + base, i0 + 16 * rl.group, P, rl.half * F::kOut, o);
+}
+
+// dU[bb] = rnd(Z)^T dY[bb] and dlzp[bb] = dS^T pooledT[bb] over kRows
+// columns of P.  Grid (ceil(P / kRows), BB).
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    zgate_bwd_cols_kernel(const T* __restrict__ pooledT,
+                          const T* __restrict__ lz, const T* __restrict__ U,
+                          const T* __restrict__ dY, T* __restrict__ dU,
+                          float* __restrict__ dlzp, int P) {
+  using F = ColsCfg<T, C>;
+  extern __shared__ __align__(16) char smem_raw[];
+  Bump bump{smem_raw};
+  T* sL = bump.take<T>(C * F::ldR);
+  T* sUq = bump.take<T>(F::kRows * F::ldC);
+  T* sP[kStages];
+  T* sD[kStages];
+  for (int i = 0; i < kStages; ++i) {
+    sP[i] = bump.take<T>(F::kStep * F::ldC);
+    sD[i] = bump.take<T>(F::kStep * F::ldC);
   }
-  float* stg = t.s + (threadIdx.x >> 5) * 256;
-  accU.store(
-      [&](int r, int c, float v) {
-        if (q0 + r < P)
-          dU[base + static_cast<size_t>(q0 + r) * C + c] = from_f32<T>(v);
+  const Role<F> rl;
+  // the group's exchange tiles of rnd(Z)^T and dS^T (none where kRegs)
+  T* xz = nullptr;
+  T* xs = nullptr;
+  if constexpr (!F::kRegs) {
+    xz = bump.take<T>(F::kGroups * 16 * F::ldS) + rl.group * 16 * F::ldS;
+    xs = bump.take<T>(F::kGroups * 16 * F::ldS) + rl.group * 16 * F::ldS;
+  }
+  const int bb = blockIdx.y, q0 = blockIdx.x * F::kRows;
+  const size_t base = static_cast<size_t>(bb) * P * C;
+
+  stage_cols<T, C>(sL, F::ldR, lz, P, q0, F::kRows);
+  stage_rows<T, C>(sUq, U + base, q0, F::kRows, P);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  OpA<T, C, true> Al;   // lz^T: A(q, c) = lz[c, q]
+  Al.init(sL, F::ldR, 16 * rl.group);
+  OpA<T, C, false> Au;  // U rows
+  Au.init(sUq, F::ldC, 16 * rl.group);
+
+  float oU[1][F::NIo][4], oL[1][F::NIo][4];
+  zero_acc(oU);
+  zero_acc(oL);
+  pipeline(
+      (P + F::kStep - 1) / F::kStep,
+      [&](int s, int buf) {
+        stage_rows<T, C>(sP[buf], pooledT + base, s * F::kStep, F::kStep, P);
+        stage_rows<T, C>(sD[buf], dY + base, s * F::kStep, F::kStep, P);
       },
-      stg);
-  accL.store(
-      [&](int r, int c, float v) {
-        if (q0 + r < P) dlzp[base + static_cast<size_t>(q0 + r) * C + c] = v;
-      },
-      stg);
+      [&](int s, int buf) {
+#pragma unroll
+        for (int ch = 0; ch < F::kCols / F::kChunk; ++ch) {
+          const int n0 = rl.half * F::kCols + ch * F::kChunk;
+          float v[1][F::NIs][4], D[1][F::NIs][4];
+          zero_acc(v);
+          zero_acc(D);
+          Al.template mma<F::NIs, false>(v, sP[buf], F::ldC, n0);  // S^T
+          Au.template mma<F::NIs, false>(D, sD[buf], F::ldC, n0);  // dZ^T
+          gate<T>(v, s * F::kStep + n0 + 2 * rl.q, P, D);
+          if constexpr (F::kRegs) {
+            unsigned a[F::NIs / 2][4];
+            acc_to_a(a, v);
+            warp_mma_ra<F::NIs / 2, F::NIo, true>(oU, a, sD[buf], F::ldC, 0,
+                                                   n0);
+            acc_to_a(a, D);
+            warp_mma_ra<F::NIs / 2, F::NIo, true>(oL, a, sP[buf], F::ldC, 0,
+                                                   n0);
+          } else {
+            put_tile(xz, F::ldS, n0, v);
+            put_tile(xs, F::ldS, n0, D);
+          }
+        }
+        if constexpr (!F::kRegs) {
+          group_sync(1 + rl.group, 32 * F::NW);
+          warp_mma<1, F::NIo, false, true>(oU, xz, F::ldS, 0, sD[buf], F::ldC,
+                                           rl.half * F::kOut, 0,
+                                           F::kStep / 16);
+          warp_mma<1, F::NIo, false, true>(oL, xs, F::ldS, 0, sP[buf], F::ldC,
+                                           rl.half * F::kOut, 0,
+                                           F::kStep / 16);
+        }
+      });
+  store_tile<F, C>(dU + base, q0 + 16 * rl.group, P, rl.half * F::kOut, oU);
+  store_tile<F, C>(dlzp + base, q0 + 16 * rl.group, P, rl.half * F::kOut, oL);
 }
 
 template <typename T, int C>
 cudaError_t launch(const void* pooledT, const void* lz, const void* U,
                    const void* dY, void* dpT, void* dU, float* dlzp, int BB,
                    int P, cudaStream_t stream) {
-  const int smem = static_cast<int>(GateBwdSmem<T, C>().total);
-  cudaError_t err = cudaFuncSetAttribute(
-      gate_rows_bwd_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  using F = Cfg<T, C>;
+  constexpr size_t rows_smem = bwd_rows_smem<T, C>();
+  constexpr size_t cols_smem = bwd_cols_smem<T, C>();
+  static_assert(rows_smem <= 232448 && cols_smem <= 232448,
+                "a block's shared memory");
+  cudaError_t err = allow_smem(zgate_bwd_rows_kernel<T, C>, rows_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gate_cols_bwd_kernel<T, C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  err = allow_smem(zgate_bwd_cols_kernel<T, C>, cols_smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((P + kT - 1) / kT, BB);
+  const dim3 grid((P + F::kRows - 1) / F::kRows, BB);
   const T* pt = static_cast<const T*>(pooledT);
   const T* lt = static_cast<const T*>(lz);
   const T* ut = static_cast<const T*>(U);
   const T* dyt = static_cast<const T*>(dY);
-  gate_rows_bwd_kernel<T, C><<<grid, kThreads, smem, stream>>>(
+  zgate_bwd_rows_kernel<T, C><<<grid, kThreads, rows_smem, stream>>>(
       pt, lt, ut, dyt, static_cast<T*>(dpT), P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gate_cols_bwd_kernel<T, C><<<grid, kThreads, smem, stream>>>(
+  zgate_bwd_cols_kernel<T, C><<<grid, kThreads, cols_smem, stream>>>(
       pt, lt, ut, dyt, static_cast<T*>(dU), dlzp, P);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_c(const void* pooledT, const void* lz, const void* U,
-                     const void* dY, void* dpT, void* dU, float* dlzp, int BB,
-                     int P, int C, cudaStream_t stream) {
-  if (C == 128)
-    return launch<T, 128>(pooledT, lz, U, dY, dpT, dU, dlzp, BB, P, stream);
-  if (C == 256)
-    return launch<T, 256>(pooledT, lz, U, dY, dpT, dU, dlzp, BB, P, stream);
-  return cudaErrorInvalidValue;
+template <typename T, int C>
+cudaError_t info(int* out) {
+  cudaError_t err =
+      pass_info(zgate_bwd_rows_kernel<T, C>, bwd_rows_smem<T, C>(), out);
+  if (err != cudaSuccess) return err;
+  return pass_info(zgate_bwd_cols_kernel<T, C>, bwd_cols_smem<T, C>(),
+                   out + 4);
 }
 
-}  // namespace
+}  // namespace stf_zgate
 
 // Plain C interface, loaded with ctypes.  Returns the first CUDA error of
 // the two launches (0 on success).  is_bf16 selects the type of pooledT,
@@ -233,13 +252,32 @@ extern "C" int stf_zgate_bwd(const void* pooledT, const void* lz,
                              const void* U, const void* dY, void* dpT,
                              void* dU, void* dlzp, int BB, int P, int C,
                              int is_bf16, void* stream) {
+  using namespace stf_zgate;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(dlzp);
-  if (is_bf16)
-    return static_cast<int>(
-        launch_c<bf16>(pooledT, lz, U, dY, dpT, dU, p, BB, P, C, s));
-  return static_cast<int>(
-      launch_c<float>(pooledT, lz, U, dY, dpT, dU, p, BB, P, C, s));
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && C == 128)
+    err = launch<bf16, 128>(pooledT, lz, U, dY, dpT, dU, p, BB, P, s);
+  else if (is_bf16 && C == 256)
+    err = launch<bf16, 256>(pooledT, lz, U, dY, dpT, dU, p, BB, P, s);
+  else if (!is_bf16 && C == 128)
+    err = launch<float, 128>(pooledT, lz, U, dY, dpT, dU, p, BB, P, s);
+  else if (!is_bf16 && C == 256)
+    err = launch<float, 256>(pooledT, lz, U, dY, dpT, dU, p, BB, P, s);
+  return static_cast<int>(err);
+}
+
+// What the card grants the two passes (rows, cols) at (C, is_bf16):
+// out[4 * pass ..] = registers a thread, local (spill) bytes a thread,
+// shared bytes a block, resident warps per SM.
+extern "C" int stf_zgate_bwd_pass_info(int C, int is_bf16, int* out) {
+  using namespace stf_zgate;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && C == 128) err = info<bf16, 128>(out);
+  else if (is_bf16 && C == 256) err = info<bf16, 256>(out);
+  else if (!is_bf16 && C == 128) err = info<float, 128>(out);
+  else if (!is_bf16 && C == 256) err = info<float, 256>(out);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* stf_zgate_bwd_error_string(int code) {

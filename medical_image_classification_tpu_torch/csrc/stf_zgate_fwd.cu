@@ -13,110 +13,103 @@
 //
 // What bounds it on this card: at ST-SSD stage 0 (BB 32, P 3136, C 128,
 // bf16) the two products are 4 BB P^2 C ~ 0.16 TFLOP against ~0.08 GB
-// moved: operations.
+// moved: operations (the BB P^2 sigmoids on the MUFU unit come close).
 //
-// Design (simple and right first): the rows of Z are independent, so one
-// block per (64 rows of P, bb) keeps its pooledT rows and a [64, C] fp32
-// accumulator (32 KB at stage 0's C 128, 64 KB at stage 1's 256) and walks
-// the columns of Z in 64-wide tiles: S = pooledT_rows . lz[:, q], Z =
-// rnd(sigmoid(S)), Y += Z . U[q].  P 784 is not a multiple of 64: the tile
-// edges are masked (a masked column gets Z = 0, not sigmoid(0)).  bf16 on
-// the tensor cores (WMMA), fp32 on the CUDA cores (st_tiles.cuh); C is a
-// template parameter (128 or 256).
+// Design.  Rows of Z are independent, so one pass (stf_zgate_tiles.cuh):
+// per 128 rows of P (64 at C 256 or fp32) and bb, the block walks the
+// columns q of Z in steps of kStep, lz's columns [C, kStep] (the same for
+// every bb, L2-resident) and U's rows [kStep, C] coming through two
+// cp.async buffers.  Each step a warp computes S = pooledT_rows . lz_q into
+// fp32 accumulators, Z = sigmoid(S) in registers (0 at q >= P, not
+// sigmoid(0)), rounds Z at the TPU body's rounding point and adds Z . U_q
+// into its [16, C] fp32 output.  bf16 products run on the tensor cores
+// (mma.sync m16n8k16); at C 128 the pooledT rows and Z never leave
+// registers.
 
-#include "st_tiles.cuh"
+#include "stf_zgate_tiles.cuh"
 
-namespace {
+namespace stf_zgate {
 
-using namespace st_tiles;
-
-// shared memory of a block, byte offsets: the pooledT rows [64][C], lz's
-// columns [C][64], the U rows [64][C], the fp32 S tile and the rounded Z
-// tile (bf16 only: fp32 gates in place)
 template <typename T, int C>
-struct StfSmem {
-  size_t a, lz, u, s, z, total;
-  __host__ __device__ StfSmem() {
-    const size_t rows = round128(kT * ld<T>(C) * sizeof(T));
-    a = 0;
-    lz = a + rows;
-    u = lz + round128(C * ld<T>(kT) * sizeof(T));
-    s = u + rows;
-    z = s + round128(kT * kLdS * sizeof(float));
-    total = z + (std::is_same<T, float>::value
-                     ? 0
-                     : round128(kT * ld<T>(kT) * sizeof(T)));
+constexpr size_t fwd_smem() {
+  using F = Cfg<T, C>;
+  return tile_bytes<T>(F::kRows, C) +
+         kStages * (tile_bytes<T>(C, F::kStep) + tile_bytes<T>(F::kStep, C)) +
+         xch_bytes<T, C>();
+}
+
+// Y[bb] = rnd(sigmoid(pooledT[bb] lz)) U[bb] over kRows rows of P.  Grid
+// (ceil(P / kRows), BB).
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    zgate_fwd_rows_kernel(const T* __restrict__ pooledT,
+                          const T* __restrict__ lz, const T* __restrict__ U,
+                          T* __restrict__ Y, int P) {
+  using F = Cfg<T, C>;
+  extern __shared__ __align__(16) char smem_raw[];
+  Bump bump{smem_raw};
+  T* sA = bump.take<T>(F::kRows * F::ldC);
+  T* sL[kStages];
+  T* sU[kStages];
+  for (int i = 0; i < kStages; ++i) {
+    sL[i] = bump.take<T>(C * F::ldS);
+    sU[i] = bump.take<T>(F::kStep * F::ldC);
   }
-};
-
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    zgate_kernel(const T* __restrict__ pooledT, const T* __restrict__ lz,
-                 const T* __restrict__ U, T* __restrict__ Y, int P) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const StfSmem<T, C> S;
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  T* sA = reinterpret_cast<T*>(smem + S.a);
-  T* sLz = reinterpret_cast<T*>(smem + S.lz);
-  T* sU = reinterpret_cast<T*>(smem + S.u);
-  float* sS = reinterpret_cast<float*>(smem + S.s);
-  T* sZ = reinterpret_cast<T*>(smem + (kF32 ? S.s : S.z));
-  const int ldC = ld<T>(C), ld64 = ld<T>(kT);
-  const int ldZ = kF32 ? kLdS : ld64;
-  const int bb = blockIdx.y, p0 = blockIdx.x * kT;
+  const Role<F> rl;
+  T* xg = F::kRegs ? nullptr
+                   : bump.take<T>(F::kGroups * 16 * F::ldS) +
+                         rl.group * 16 * F::ldS;
+  const int bb = blockIdx.y, i0 = blockIdx.x * F::kRows;
   const size_t base = static_cast<size_t>(bb) * P * C;
 
-  load_tile(sA, ldC, pooledT + base, C, p0, 0, kT, C, P, C);
-  Acc<T, C> acc;
-  acc.zero();
-  for (int q0 = 0; q0 < P; q0 += kT) {
-    load_tile(sLz, ld64, lz, P, 0, q0, C, kT, C, P);
-    load_tile(sU, ldC, U + base, C, q0, 0, kT, C, P, C);
-    __syncthreads();
-    gemm_s<false>(sS, sA, ldC, sLz, ld64, C);        // S = pooledT lz
-    __syncthreads();
-    for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
-      const int r = e / kT, c = e - r * kT;
-      const float z =
-          q0 + c < P ? 1.f / (1.f + expf(-sS[r * kLdS + c])) : 0.f;
-      sZ[r * ldZ + c] = from_f32<T>(z);
-    }
-    __syncthreads();
-    acc.template mma<false>(sZ, ldZ, sU, ldC);       // Y += Z U
-    __syncthreads();
-  }
-  T* Yb = Y + base;
-  acc.store(
-      [&](int r, int c, float v) {
-        if (p0 + r < P)
-          Yb[static_cast<size_t>(p0 + r) * C + c] = from_f32<T>(v);
+  stage_rows<T, C>(sA, pooledT + base, i0, F::kRows, P);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  OpA<T, C, false> A;  // pooledT rows
+  A.init(sA, F::ldC, 16 * rl.group);
+
+  float o[1][F::NIo][4];
+  zero_acc(o);
+  pipeline(
+      (P + F::kStep - 1) / F::kStep,
+      [&](int s, int buf) {
+        stage_cols<T, C>(sL[buf], F::ldS, lz, P, s * F::kStep, F::kStep);
+        stage_rows<T, C>(sU[buf], U + base, s * F::kStep, F::kStep, P);
       },
-      sS + (threadIdx.x >> 5) * 256);
+      [&](int s, int buf) {
+        step_product<T, C, true>(
+            [&](float(&v)[1][F::NIs][4], int n0) {
+              zero_acc(v);
+              A.template mma<F::NIs, true>(v, sL[buf], F::ldS, n0);  // S
+              gate<T>(v, s * F::kStep + n0 + 2 * rl.q, P);
+            },
+            o, sU[buf], F::ldC, xg, rl);
+      });
+  store_tile<F, C>(Y + base, i0 + 16 * rl.group, P, rl.half * F::kOut, o);
 }
 
 template <typename T, int C>
 cudaError_t launch(const void* pooledT, const void* lz, const void* U,
                    void* Y, int BB, int P, cudaStream_t stream) {
-  const size_t smem = StfSmem<T, C>().total;
-  const cudaError_t err = cudaFuncSetAttribute(
-      zgate_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  using F = Cfg<T, C>;
+  constexpr size_t smem = fwd_smem<T, C>();
+  static_assert(smem <= 232448, "a block's shared memory");
+  const cudaError_t err = allow_smem(zgate_fwd_rows_kernel<T, C>, smem);
   if (err != cudaSuccess) return err;
-  zgate_kernel<T, C><<<dim3((P + kT - 1) / kT, BB), kThreads, smem, stream>>>(
-      static_cast<const T*>(pooledT), static_cast<const T*>(lz),
-      static_cast<const T*>(U), static_cast<T*>(Y), P);
+  zgate_fwd_rows_kernel<T, C>
+      <<<dim3((P + F::kRows - 1) / F::kRows, BB), kThreads, smem, stream>>>(
+          static_cast<const T*>(pooledT), static_cast<const T*>(lz),
+          static_cast<const T*>(U), static_cast<T*>(Y), P);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_c(const void* pooledT, const void* lz, const void* U,
-                     void* Y, int BB, int P, int C, cudaStream_t stream) {
-  if (C == 128) return launch<T, 128>(pooledT, lz, U, Y, BB, P, stream);
-  if (C == 256) return launch<T, 256>(pooledT, lz, U, Y, BB, P, stream);
-  return cudaErrorInvalidValue;
+template <typename T, int C>
+cudaError_t info(int* out) {
+  return pass_info(zgate_fwd_rows_kernel<T, C>, fwd_smem<T, C>(), out);
 }
 
-}  // namespace
+}  // namespace stf_zgate
 
 // Plain C interface, loaded with ctypes.  Returns the CUDA error of the
 // launch (0 on success).  is_bf16 selects the type of every operand.  The
@@ -124,10 +117,31 @@ cudaError_t launch_c(const void* pooledT, const void* lz, const void* U,
 extern "C" int stf_zgate_fwd(const void* pooledT, const void* lz,
                              const void* U, void* Y, int BB, int P, int C,
                              int is_bf16, void* stream) {
+  using namespace stf_zgate;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return static_cast<int>(launch_c<bf16>(pooledT, lz, U, Y, BB, P, C, s));
-  return static_cast<int>(launch_c<float>(pooledT, lz, U, Y, BB, P, C, s));
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && C == 128)
+    err = launch<bf16, 128>(pooledT, lz, U, Y, BB, P, s);
+  else if (is_bf16 && C == 256)
+    err = launch<bf16, 256>(pooledT, lz, U, Y, BB, P, s);
+  else if (!is_bf16 && C == 128)
+    err = launch<float, 128>(pooledT, lz, U, Y, BB, P, s);
+  else if (!is_bf16 && C == 256)
+    err = launch<float, 256>(pooledT, lz, U, Y, BB, P, s);
+  return static_cast<int>(err);
+}
+
+// What the card grants the one pass (rows) at (C, is_bf16): out[0 .. 3] =
+// registers a thread, local (spill) bytes a thread, shared bytes a block,
+// resident warps per SM.
+extern "C" int stf_zgate_fwd_pass_info(int C, int is_bf16, int* out) {
+  using namespace stf_zgate;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && C == 128) err = info<bf16, 128>(out);
+  else if (is_bf16 && C == 256) err = info<bf16, 256>(out);
+  else if (!is_bf16 && C == 128) err = info<float, 128>(out);
+  else if (!is_bf16 && C == 256) err = info<float, 256>(out);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* stf_zgate_fwd_error_string(int code) {

@@ -1,5 +1,6 @@
 // The STL token mixer's tiles for Hopper (sm_90a), shared by
-// stl_mixer_fwd.cu and stl_mixer_bwd.cu.
+// stl_mixer_fwd.cu and stl_mixer_bwd.cu, and through stf_zgate_tiles.cuh
+// by the STF gate's kernels, which have the mixer's shapes.
 //
 // Every pass of the mixer walks one axis in steps of kStep through
 // mma_tiles.cuh's two-buffer cp.async pipeline: a row pass owns rows of L

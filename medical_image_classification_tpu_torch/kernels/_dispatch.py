@@ -45,3 +45,22 @@ def call(name: str, argtypes, args) -> None:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     _build.raise_on_error(lib, name, fn(*args))
+
+
+def pass_info(name: str, passes, C: int, dtype) -> dict:
+    """What the card grants each pass of ``csrc/<name>.cu`` at channels
+    ``C`` and operand type ``dtype``, from its C entry
+    ``<name>_pass_info``: {pass: (registers a thread, local-memory bytes a
+    thread (spills), shared bytes a block, resident warps per SM)}, from
+    cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    from medical_image_classification_tpu_torch.kernels import _build
+
+    lib = _build.library(name)
+    fn = getattr(lib, f"{name}_pass_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (4 * len(passes)))()
+    _build.raise_on_error(lib, name, fn(C, int(dtype == torch.bfloat16),
+                                        ctypes.addressof(out)))
+    return {p: tuple(out[4 * i:4 * i + 4]) for i, p in enumerate(passes)}

@@ -5,7 +5,8 @@ joins them.
 Port of ``medical_image_classification_tpu/kernels/stf_zgate_pallas.py``
 (``stf_zgate_supported``, the forward body ``_fwd_kernel``, the backward
 body ``_bwd_kernel`` and the custom VJP ``stf_zgate``).  Kernels:
-``csrc/stf_zgate_fwd.cu`` and ``csrc/stf_zgate_bwd.cu``.
+``csrc/stf_zgate_fwd.cu`` (one rows pass) and ``csrc/stf_zgate_bwd.cu``
+(a rows pass and a columns pass), on ``csrc/stf_zgate_tiles.cuh``.
 
   Z = rnd(sigmoid(pooledT lz))  [P, P]  summed and gated in fp32, rounded
                                         to the operand dtype
@@ -31,8 +32,12 @@ import torch
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     dense,
+    pass_info,
     resolve_impl,
 )
+# the kernels' step along the walked axis: the gate's passes run on the
+# mixer's tiles (Cfg::kStep), and the decomposition twins follow it
+from medical_image_classification_tpu_torch.kernels.stl_mixer import STEP
 
 _FWD_KERNEL = "stf_zgate_fwd"
 _BWD_KERNEL = "stf_zgate_bwd"
@@ -40,8 +45,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # below this the JAX package keeps XLA's gate; a module constant so that
 # tests can widen the gate to small shapes
 _MIN_PP = 512 * 512
-# channel widths the CUDA kernels are instantiated for (a block keeps one
-# or two [64, C] fp32 accumulators)
+# channel widths the CUDA kernels are instantiated for (a warp holds 16
+# output rows of 128 (bf16) or 64 (fp32) channels in fp32 registers)
 KERNEL_C = (128, 256)
 
 
@@ -71,6 +76,55 @@ def stf_zgate_bwd_ref(pooledT, lz, U, dY):
     dpT = (dS @ lz32.t()).to(pooledT.dtype)
     dlz = (dS.transpose(1, 2) @ p32).sum(0).t().to(lz.dtype)
     return dpT, dlz, dU
+
+
+def stf_zgate_fwd_passes_ref(pooledT, lz, U):
+    """The forward kernel's decomposition (``csrc/stf_zgate_fwd.cu``) in
+    plain PyTorch: the rows pass's Y = sum over steps of q of
+    rnd(sigmoid(pooledT lz_q)) U_q, each step's product summed in fp32
+    (the last step cut at P, where the kernel sets Z to 0)."""
+    mm = pooledT.dtype
+    BB, P, C = pooledT.shape
+    step = STEP[mm]
+    p32, lz32, U32 = pooledT.float(), lz.to(mm).float(), U.to(mm).float()
+    Y = torch.zeros(BB, P, C, device=pooledT.device)
+    for q0 in range(0, P, step):
+        q = slice(q0, q0 + step)
+        Z = torch.sigmoid(p32 @ lz32[:, q]).to(mm).float()
+        Y += Z @ U32[:, q]
+    return Y.to(mm)
+
+
+def stf_zgate_bwd_passes_ref(pooledT, lz, U, dY):
+    """The backward kernels' decomposition (``csrc/stf_zgate_bwd.cu``) in
+    plain PyTorch: (dpooledT, dlz, dU).  Rows pass over steps of q:
+    dpooledT += dS_q lz_q^T; columns pass over steps of i: dU += rnd(Z_i)^T
+    dY_i and the per-batch dlz partials += dS_i^T pooledT_i, summed over
+    the batch at the end; dS = rnd(dZ Z (1 - Z)) from the fp32 Z."""
+    mm = pooledT.dtype
+    BB, P, C = pooledT.shape
+    step = STEP[mm]
+    p32, lz32 = pooledT.float(), lz.to(mm).float()
+    U32, dY32 = U.to(mm).float(), dY.to(mm).float()
+
+    def tile(rows, cols):
+        Z = torch.sigmoid(p32[:, rows] @ lz32[:, cols])
+        dZ = dY32[:, rows] @ U32[:, cols].transpose(1, 2)
+        return Z, (dZ * Z * (1.0 - Z)).to(mm).float()
+
+    f32 = dict(dtype=torch.float32, device=pooledT.device)
+    dpT = torch.zeros(BB, P, C, **f32)
+    for q0 in range(0, P, step):
+        q = slice(q0, q0 + step)
+        dpT += tile(slice(None), q)[1] @ lz32[:, q].t()
+    dU, dlzp = torch.zeros(BB, P, C, **f32), torch.zeros(BB, P, C, **f32)
+    for i0 in range(0, P, step):
+        i = slice(i0, i0 + step)
+        Z, dS = tile(i, slice(None))
+        dU += Z.to(mm).float().transpose(1, 2) @ dY32[:, i]
+        dlzp += dS.transpose(1, 2) @ p32[:, i]
+    return (dpT.to(pooledT.dtype), dlzp.sum(0).t().to(lz.dtype),
+            dU.to(U.dtype))
 
 
 def _check_cuda_args(pooledT, lz, U, dY=None):
@@ -133,6 +187,18 @@ def _launch_bwd_cuda(pooledT, lz, U, dY):
              ptrs + [BB, P, C, int(pooledT.dtype == torch.bfloat16), stream])
     stf_zgate_bwd.launches += 1
     return dpT, dlz_part.sum(0).t().to(lz.dtype), dU
+
+
+def fwd_pass_info(C: int, dtype) -> dict:
+    """What the card grants the forward's pass at channels ``C`` and
+    operand type ``dtype`` (``_dispatch.pass_info``): {"rows":
+    (registers, local bytes, shared bytes, warps per SM)}."""
+    return pass_info(_FWD_KERNEL, ("rows",), C, dtype)
+
+
+def bwd_pass_info(C: int, dtype) -> dict:
+    """The same for the backward's passes, "rows" and "cols"."""
+    return pass_info(_BWD_KERNEL, ("rows", "cols"), C, dtype)
 
 
 def stf_zgate_fwd(pooledT, lz, U, impl: str = "auto"):

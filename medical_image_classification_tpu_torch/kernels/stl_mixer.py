@@ -33,6 +33,7 @@ import torch
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     dense,
+    pass_info,
     resolve_impl,
 )
 
@@ -244,30 +245,16 @@ def _launch_bwd_cuda(w, u1, V, dU, lse):
     return dw, du1_part.sum(0).t().to(u1.dtype), dV
 
 
-def _pass_info(kernel, passes, C, dtype):
-    from medical_image_classification_tpu_torch.kernels import _build
-    lib = _build.library(kernel)
-    fn = getattr(lib, f"{kernel}_pass_info")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * (4 * len(passes)))()
-    _build.raise_on_error(lib, kernel, fn(C, int(dtype == torch.bfloat16),
-                                          ctypes.addressof(out)))
-    return {p: tuple(out[4 * i:4 * i + 4]) for i, p in enumerate(passes)}
-
-
 def fwd_pass_info(C: int, dtype) -> dict:
     """What the card grants the forward's passes at channels ``C`` and
-    operand type ``dtype``: {"rows" | "cols": (registers a thread,
-    local-memory bytes a thread (spills), shared bytes a block, resident
-    warps per SM)}, from cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
-    return _pass_info(_FWD_KERNEL, ("rows", "cols"), C, dtype)
+    operand type ``dtype`` (``_dispatch.pass_info``): {"rows" | "cols":
+    (registers, local bytes, shared bytes, warps per SM)}."""
+    return pass_info(_FWD_KERNEL, ("rows", "cols"), C, dtype)
 
 
 def bwd_pass_info(C: int, dtype) -> dict:
     """The same for the backward's passes."""
-    return _pass_info(_BWD_KERNEL, ("rows", "cols"), C, dtype)
+    return pass_info(_BWD_KERNEL, ("rows", "cols"), C, dtype)
 
 
 def stl_mixer_fwd(w, u1, V, impl: str = "auto", want_stats: bool = False):

@@ -58,6 +58,22 @@ def test_eval_cli_on_image_folder(tmp_path, monkeypatch, caplog):
     assert "test top-1 accuracy" in caplog.text and "(6 images)" in caplog.text
 
 
+@pytest.mark.parametrize("cli", ["test", "train"])
+def test_clis_default_to_the_card_and_raise_without_one(monkeypatch,
+                                                        tmp_path, cli):
+    """Both CLIs run on the card unless asked for the CPU (--device cuda by
+    default), and without a card their main() raises before it reads the
+    data: nothing falls back to the CPU."""
+    import importlib
+    mod = importlib.import_module(
+        f"medical_image_classification_tpu_torch.cli.{cli}")
+    args = mod.parse_args(["--data-path", str(tmp_path / "missing")])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(args)
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports, and a train epoch and an eval pass
     through run_train and run_eval run, without jax, flax, optax or the JAX

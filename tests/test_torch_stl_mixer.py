@@ -211,15 +211,16 @@ def _csrc_names():
 
 def test_chip_smoke_profile_names_are_kernels_in_csrc(monkeypatch):
     """Every name chip_smoke looks for in a profile (the model paths' shares
-    and the per-pass splits of 2, 2b, 2c/2d and 2f/2i) is a __global__
-    kernel that csrc/ defines, or the layout type the SSD walks are
-    instantiated with: a stale name would print an empty split."""
+    and the per-pass splits of 2, 2b, 2c/2d, 2f/2i and 2g/2j) is a
+    __global__ kernel that csrc/ defines, or the layout type the SSD walks
+    are instantiated with: a stale name would print an empty split."""
     cs = _chip_smoke(monkeypatch)
     kernels, layouts = _csrc_names()
     patterns = [p for _, (_, shares) in cs.PATHS.items()
                 for names in shares.values() for p in names]
     for split in (cs.SSD_WALK_SPLIT, cs.SCAN_FWD_SPLIT, cs.SCAN_BWD_SPLIT,
-                  cs.STL_FWD_SPLIT, cs.STL_BWD_SPLIT):
+                  cs.STL_FWD_SPLIT, cs.STL_BWD_SPLIT, cs.STF_FWD_SPLIT,
+                  cs.STF_BWD_SPLIT):
         patterns += list(split.values())
     assert patterns
     for p in patterns:
@@ -228,6 +229,8 @@ def test_chip_smoke_profile_names_are_kernels_in_csrc(monkeypatch):
     shares = cs.PATHS[("st_ssd", cs.SIZE)][1]
     assert shares["stl mixer"] == tuple(cs.STL_FWD_SPLIT.values())
     assert shares["stl mixer backward"] == tuple(cs.STL_BWD_SPLIT.values())
+    assert shares["stf gate"] == tuple(cs.STF_FWD_SPLIT.values())
+    assert shares["stf gate backward"] == tuple(cs.STF_BWD_SPLIT.values())
 
 
 _SASS = """
