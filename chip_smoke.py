@@ -36,7 +36,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      32 x 14 chunks of l 224, H 8, N 64, P 64) and at N 512: MedSSD's
      stage 2 at 240x240 (BC 32, l 232 for L 225, H 32, P 64) and the shape
      of MedSSD's stage 3 at 512x512 (BC 32, l 256, H 64, P 64), fp32 and
-     bf16;
+     bf16, and at each bf16 case the device time of its one pass (rows),
+     with what the card grants it and the HMMA instructions in its bf16
+     SASS (so too in 2h for the backward's three passes: intra, cols,
+     flush);
   2f. STL token-mixer kernel vs plain at ST-SSD's stages 0 and 1 (BB 128;
      L = P 3136, C 128 and L = P 784, C 256), fp32 and bf16: U and the
      rows' lse, and at each bf16 case the device time of its two passes
@@ -522,6 +525,17 @@ STL_BWD_SPLIT = {"rows": "mixer_bwd_rows_kernel",
 STF_FWD_SPLIT = {"rows": "zgate_fwd_rows_kernel"}
 STF_BWD_SPLIT = {"rows": "zgate_bwd_rows_kernel",
                  "cols": "zgate_bwd_cols_kernel"}
+# Y_diag's passes: the forward's rows strip; the backward's SSD walk intra
+# pass, columns strip and walk flush pass (the walk's two over YDiagLayout,
+# which no other path instantiates)
+YDIAG_FWD_SPLIT = {"rows": "ssd_ydiag::rows_kernel"}
+YDIAG_BWD_SPLIT = {"intra": "bwd::intra_kernel",
+                   "cols": "ssd_ydiag::cols_kernel",
+                   "flush": "bwd::flush_kernel"}
+# the same in a model's profile, beside the walks of the other layouts
+YDIAG_SHARES = {"ssd ydiag": tuple(YDIAG_FWD_SPLIT.values()),
+                "ssd ydiag backward": ("ssd_ydiag::cols_kernel",
+                                       "YDiagLayout")}
 
 
 def _walk_split(c, fn, names=SSD_WALK_SPLIT):
@@ -554,16 +568,21 @@ def _walk_split(c, fn, names=SSD_WALK_SPLIT):
 
 @functools.lru_cache(maxsize=None)
 def _ssd_passes(kernel):
-    """What the card grants each pass of the SSD walk as ``kernel`` (a
-    forward, *_fwd, or a backward) builds it: {dtype: {pass: {registers,
-    local_bytes, shared_bytes, warps_per_sm}}}."""
+    """What the card grants each pass of the SSD walk or of Y_diag as
+    ``kernel`` (a forward, *_fwd, or a backward) builds it: {dtype: {pass:
+    {registers, local_bytes, shared_bytes, warps_per_sm}}}."""
     import torch
-    from medical_image_classification_tpu_torch.kernels import ssd_fused
-    info = (ssd_fused.fwd_pass_info if kernel.endswith("fwd")
-            else ssd_fused.bwd_pass_info)
+    from medical_image_classification_tpu_torch.kernels import (
+        ssd_fused, ssd_ydiag)
+    fwd = kernel.endswith("fwd")
+    if kernel.startswith("ssd_ydiag"):
+        fn = ssd_ydiag.fwd_pass_info if fwd else ssd_ydiag.bwd_pass_info
+        info = fn
+    else:
+        fn = ssd_fused.fwd_pass_info if fwd else ssd_fused.bwd_pass_info
+        info = functools.partial(fn, kernel)
     keys = ("registers", "local_bytes", "shared_bytes", "warps_per_sm")
-    return {dt: {p: dict(zip(keys, v))
-                 for p, v in info(kernel, dtype).items()}
+    return {dt: {p: dict(zip(keys, v)) for p, v in info(dtype).items()}
             for dt, dtype in (("fp32", torch.float32),
                               ("bf16", torch.bfloat16))}
 
@@ -605,9 +624,11 @@ def _sass_mma(kernel, pattern, exempt=()):
 @functools.lru_cache(maxsize=None)
 def _ssd_mma(kernel):
     """The SSD walk's passes, forward or backward (all but prep compute
-    products; the gram pass is in namespace tiles)."""
-    return _sass_mma(kernel, r"8ssd_walk(?:3fwd|3bwd|5tiles)\d+(\w+?)_kernel",
-                     ("prep",))
+    products; the gram pass is in namespace tiles), and Y_diag's: the
+    strip passes (namespace ssd_ydiag), the walk's intra and flush, and in
+    fp32 the backward's grad and dcb (namespace f32)."""
+    return _sass_mma(kernel, r"(?:8ssd_walk(?:3fwd|3bwd|5tiles)|9ssd_ydiag|3f32)"
+                     r"\d+(\w+?)_kernel", ("prep",))
 
 
 @functools.lru_cache(maxsize=None)
@@ -868,15 +889,19 @@ def phase_ydiag_vs_plain():
         ssd_ydiag as yd)
     cases = []
     for shape, dt_name, args, _ in _ydiag_cases():
+        run_k = lambda: yd.ydiag_fused_fwd(*args, impl="cuda")
         c = _st_case(f"Y_diag kernel vs plain {shape['shape']} {dt_name}",
-                     lambda: yd.ydiag_fused_fwd(*args, impl="cuda"),
-                     lambda: yd.ydiag_fused_ref(*args), dt_name, (5, 2))
+                     run_k, lambda: yd.ydiag_fused_ref(*args), dt_name,
+                     (5, 2))
         c.update(shape, bound=_ydiag_bound(args, dt_name, False))
+        _walk_split(c, run_k, YDIAG_FWD_SPLIT)
         cases.append(c)
     print(f"phase 2e Y_diag forward kernel vs plain: {len(cases)}/"
           f"{2 * len(YDIAG_CASES)} cases within {ST_TOL} (rtol, atol x "
           f"max|plain|), second launch bit-identical | "
-          f"{_st_summary(cases)}", flush=True)
+          f"{_ssd_passes_text('ssd_ydiag_fwd')} | "
+          f"{_ssd_mma_text('ssd_ydiag_fwd')} | {_st_summary(cases)}",
+          flush=True)
     return cases
 
 
@@ -1081,11 +1106,13 @@ def phase_ydiag_bwd_vs_plain():
     names = ST_GRAD_NAMES["ssd_ydiag"]
     cases, auto = [], 0.0
     for shape, dt_name, args, dy in _ydiag_cases():
+        run_k = lambda: yd.ydiag_fused_bwd(*args, dy, impl="cuda")
         c = _st_bwd_case(
             f"Y_diag backward kernel vs plain {shape['shape']} {dt_name}",
-            names, lambda: yd.ydiag_fused_bwd(*args, dy, impl="cuda"),
-            lambda: yd.ydiag_fused_bwd_ref(*args, dy), dt_name, (5, 2))
+            names, run_k, lambda: yd.ydiag_fused_bwd_ref(*args, dy), dt_name,
+            (5, 2))
         c.update(shape, bound=_ydiag_bound(args, dt_name, True))
+        _walk_split(c, run_k, YDIAG_BWD_SPLIT)
         cases.append(c)
         if dt_name == "fp32":
             auto = max(auto, _vs_autograd(
@@ -1097,7 +1124,10 @@ def phase_ydiag_bwd_vs_plain():
           f"max|plain|) on all 4 cotangents, second launch bit-identical | "
           f"YDiagFused vs torch.autograd through the plain forward, fp32, "
           f"worst of {len(YDIAG_CASES)} shapes: max err {auto:.2e} | "
-          f"{_st_bwd_summary(cases)}", flush=True)
+          f"{_ssd_passes_text('ssd_ydiag_bwd')} | "
+          f"{_ssd_mma_text('ssd_ydiag_bwd')} | "
+          + "; ".join(_st_bwd_summary([c]) + _split_text(c) for c in cases),
+          flush=True)
     return dict(cases=cases, autograd_err=auto)
 
 
@@ -1862,8 +1892,7 @@ PATHS = {
     # of stages 0-1
     ("st_ssd", SIZE): (
         {"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4, "stf_zgate_fwd": 4},
-        {"ssd ydiag": ("ydiag_kernel",),
-         "ssd ydiag backward": ("ydiag_grad_kernel", "ydiag_dcb_kernel"),
+        {**YDIAG_SHARES,
          "stl mixer": tuple(STL_FWD_SPLIT.values()),
          "stl mixer backward": tuple(STL_BWD_SPLIT.values()),
          "stf gate": tuple(STF_FWD_SPLIT.values()),
@@ -1877,8 +1906,7 @@ PATHS = {
         {"ssd_fused_dirs_fwd": 2, "ssd_fused_fwd": 2, "ssd_ydiag_fwd": 4},
         {"ssd dirs": ("DirsLayout",),
          "ssd fused": ("FlatLayout",),
-         "ssd ydiag": ("ydiag_kernel",),
-         "ssd ydiag backward": ("ydiag_grad_kernel", "ydiag_dcb_kernel")}),
+         **YDIAG_SHARES}),
 }
 
 
@@ -2695,15 +2723,17 @@ def main(argv=None):
         entries.append(_entry(name, replaces, st_cases,
                               launches["launches"][name], head,
                               next(c for c in st_cases if head(c))["bound"]))
-    # the walks' and the mixer's passes: what the card grants each, and the
-    # split of the reported case's time; the forwards' time with Ssave (the
-    # call training runs) beside its bound
+    # the walks', Y_diag's and the mixer's passes: what the card grants
+    # each, and the split of the reported case's time; the forwards' time
+    # with Ssave (the call training runs) beside its bound
     for name, head, w_cases in (("ssd_fused_dirs_fwd", ssd_head, ssd_cases),
                                 ("ssd_fused_fwd", fused_head, fused_cases),
                                 ("ssd_fused_dirs_bwd", ssd_head,
                                  ssd_bwd["cases"]),
                                 ("ssd_fused_bwd", fused_head,
-                                 fused_bwd["cases"])):
+                                 fused_bwd["cases"]),
+                                ("ssd_ydiag_fwd", st_head, yd_cases),
+                                ("ssd_ydiag_bwd", st_head, yd_bwd["cases"])):
         c = next(c for c in w_cases if head(c))
         e = next(e for e in entries if e["name"] == name)
         e.update(passes=_ssd_passes(name), hmma=_ssd_mma(name),

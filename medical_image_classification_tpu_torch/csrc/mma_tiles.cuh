@@ -10,8 +10,9 @@
 // allow_smem and pass_info.  Every block that uses stage_as or pipeline
 // has kThreads threads.
 //
-// Included by ssd_walk_bwd.cuh (the SSD walks' backward) and
-// stl_mixer_tiles.cuh (the STL token mixer's passes).
+// Included by ssd_walk_tiles.cuh (the SSD walks' passes, which the Y_diag
+// backward also runs), ssd_ydiag_strip.cuh (Y_diag's strip passes) and
+// stl_mixer_tiles.cuh (the STL token mixer's and STF gate's passes).
 
 #pragma once
 
@@ -151,8 +152,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 // sA[k lda + m] when AK (stored k-major) else sA[m lda + k]; B(k, n) is
 // sB[k ldb + n] when BK else sB[n ldb + k].  bf16: ldmatrix (.trans for
 // the k-major operands) and mma.sync on the tensor cores; fp32: the same
-// fragments as fp32 FMAs on the CUDA cores.
-template <int MI, int NI, bool AK, bool BK>
+// fragments as fp32 FMAs on the CUDA cores (K4: see the fp32 overload).
+template <int MI, int NI, bool AK, bool BK, bool K4 = false>
 __device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][4],
                                          const __nv_bfloat16* sA, int lda,
                                          int m0, const __nv_bfloat16* sB,
@@ -193,39 +194,76 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][4],
   }
 }
 
-// The fp32 instantiation's warp_mma: FMAs on the CUDA cores.
-template <int MI, int NI, bool AK, bool BK>
+// The fp32 instantiation's warp_mma: FMAs on the CUDA cores.  K4 (both
+// operands k-contiguous, row strides and tiles 16-byte aligned, as ld_of's
+// tiles are): four k a load, one float4 from each row, the FMAs in the
+// same k order (the same bits).
+template <int MI, int NI, bool AK, bool BK, bool K4 = false>
 __device__ __forceinline__ void warp_mma(float (&acc)[MI][NI][4],
                                          const float* sA, int lda, int m0,
                                          const float* sB, int ldb, int n0,
                                          int k0, int ks) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
-  for (int k = k0; k < k0 + 16 * ks; ++k) {
-    float a[MI][2], b[NI][2];
+  if constexpr (K4) {
+    static_assert(!AK && !BK, "K4 reads four k of a row at once");
+    for (int k = k0; k < k0 + 16 * ks; k += 4) {
+      float4 a[MI][2], b[NI][2];
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int m = m0 + 16 * mi + g + 8 * e;
-        a[mi][e] = AK ? sA[k * lda + m] : sA[m * lda + k];
+        for (int e = 0; e < 2; ++e)
+          a[mi][e] = *reinterpret_cast<const float4*>(
+              sA + (m0 + 16 * mi + g + 8 * e) * lda + k);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          b[ni][e] = *reinterpret_cast<const float4*>(
+              sB + (n0 + 8 * ni + 2 * q + e) * ldb + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const auto at = [kk](const float4& v) {
+          return kk == 0 ? v.x : kk == 1 ? v.y : kk == 2 ? v.z : v.w;
+        };
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            acc[mi][ni][0] += at(a[mi][0]) * at(b[ni][0]);
+            acc[mi][ni][1] += at(a[mi][0]) * at(b[ni][1]);
+            acc[mi][ni][2] += at(a[mi][1]) * at(b[ni][0]);
+            acc[mi][ni][3] += at(a[mi][1]) * at(b[ni][1]);
+          }
       }
+    }
+  } else {
+    for (int k = k0; k < k0 + 16 * ks; ++k) {
+      float a[MI][2], b[NI][2];
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * ni + 2 * q + e;
-        b[ni][e] = BK ? sB[k * ldb + n] : sB[n * ldb + k];
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 16 * mi + g + 8 * e;
+          a[mi][e] = AK ? sA[k * lda + m] : sA[m * lda + k];
+        }
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+      for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        acc[mi][ni][0] += a[mi][0] * b[ni][0];
-        acc[mi][ni][1] += a[mi][0] * b[ni][1];
-        acc[mi][ni][2] += a[mi][1] * b[ni][0];
-        acc[mi][ni][3] += a[mi][1] * b[ni][1];
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 8 * ni + 2 * q + e;
+          b[ni][e] = BK ? sB[k * ldb + n] : sB[n * ldb + k];
+        }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          acc[mi][ni][0] += a[mi][0] * b[ni][0];
+          acc[mi][ni][1] += a[mi][0] * b[ni][1];
+          acc[mi][ni][2] += a[mi][1] * b[ni][0];
+          acc[mi][ni][3] += a[mi][1] * b[ni][1];
+        }
+    }
   }
 }
 

@@ -140,11 +140,14 @@ constexpr size_t intra_smem() {
 // rnd(dscores) and the row/column sums of G over one 64 x 64 tile, summed
 // over the heads.  Grid (nt, nt, B nc); warps 4 (rows i) x 2 (columns j)
 // of 16 x 32.  Upper tiles (jt > it) write zeros.  Stages walk (head, 64
-// of P) over dy and dtx (pre[1]); each head ends in its epilogue.
+// of P) over dy and dtx (the walks' pre[1]); each head ends in its
+// epilogue.  Without a scores workspace (Lay::kScoresWorkspace false) the
+// first stages build the tile's scores = C B^T over N in 64s, in the
+// registers the gram pass's warp would hold them in.
 template <typename T, class Lay>
 __global__ void __launch_bounds__(kThreads, 2)
     intra_kernel(Lay lay, const float* __restrict__ acum,
-                 const T* __restrict__ dy, const T* __restrict__ pre,
+                 const T* __restrict__ dy, const T* __restrict__ dtx,
                  const float* __restrict__ scores, T* __restrict__ dsr,
                  float* __restrict__ row_part, float* __restrict__ col_part,
                  Dims d) {
@@ -190,25 +193,45 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int wr = warp & 3, wc = warp >> 2;
   const int wm = wr * 16, wn = wc * 32;
   const int npc = (P + kT - 1) / kT;
-  const T* dtx = pre + static_cast<size_t>(d.B) * d.nc * d.H * l * P;
+  constexpr bool kGram = !Lay::kScoresWorkspace;
+  const int nns = kGram ? (d.N + kT - 1) / kT : 0;  // stages of the scores
 
-  float sc[4][4], ds[4][4], dm[1][4][4];
+  float sc[1][4][4], ds[4][4], dm[1][4][4];
+  zero_acc(sc);
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = i0 + wm + g + 8 * (e >> 1);
       const int j = j0 + wn + 8 * ni + 2 * q + (e & 1);
-      sc[ni][e] = (i < l && j < l)
-                      ? scores[(static_cast<size_t>(bc) * l + i) * l + j]
-                      : 0.f;
+      if constexpr (!kGram)
+        if (i < l && j < l)
+          sc[0][ni][e] = scores[(static_cast<size_t>(bc) * l + i) * l + j];
       ds[ni][e] = 0.f;
     }
   zero_acc(dm);
 
   pipeline(
-      d.H * npc,
+      nns + d.H * npc,
       [&](int s, int buf) {
+        if constexpr (kGram)
+          if (s < nns) {
+            const int n0 = s * kT, N = d.N;
+            stage_as<T, 16>(sDy[buf], ld, kT, kT,
+                            [&](int r, int k) -> const T* {
+                              return i0 + r < l && n0 + k < N
+                                         ? lay.C_ptr(d, b, c, i0 + r, n0 + k)
+                                         : nullptr;
+                            });
+            stage_as<T, 16>(sX[buf], ld, kT, kT,
+                            [&](int r, int k) -> const T* {
+                              return j0 + r < l && n0 + k < N
+                                         ? lay.B_ptr(d, b, c, j0 + r, n0 + k)
+                                         : nullptr;
+                            });
+            return;
+          }
+        s -= nns;
         const int h = s / npc, pc = (s - h * npc) * kT;
         const size_t bch = d.bch(b, c, h);
         const T* dtx_h = dtx + bch * l * P;
@@ -226,6 +249,13 @@ __global__ void __launch_bounds__(kThreads, 2)
         stage_row(sA[buf] + kT, acum + bch * l, j0, l);
       },
       [&](int s, int buf) {
+        if constexpr (kGram)
+          if (s < nns) {
+            warp_mma<1, 4, false, false>(sc, sDy[buf], ld, wm, sX[buf], ld,
+                                         wn, 0, kT / 16);
+            return;
+          }
+        s -= nns;
         const int h = s / npc;
         warp_mma<1, 4, false, false>(dm, sDy[buf], ld, wm, sX[buf], ld, wn,
                                      0, kT / 16);
@@ -244,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             const float E =
                 (i < l && j <= i) ? expf(ai[r] - aj[cc]) : 0.f;
             ds[ni][e] += dm[0][ni][e] * E;
-            const float G = dm[0][ni][e] * (sc[ni][e] * E);
+            const float G = dm[0][ni][e] * (sc[0][ni][e] * E);
             rs[e >> 1] += G;
             cs[ni][e & 1] += G;
             dm[0][ni][e] = 0.f;
@@ -651,7 +681,8 @@ constexpr size_t flush_smem() {
 //   dB: U = rnd(dtx dte) (pre[2]), V = rnd(dSout), W = rnd(dscores)^T,
 //       Z = C
 // stored through the layout.  Warps 2 (rows) x 4 (N) of 32 x 32.  Stages
-// of depth 64 (32 where P is an odd multiple of 32): the heads' P, then k
+// of depth 64 (32 where P is an odd multiple of 32): the heads' P (none
+// without the state: Y_diag's cotangents are the W Z terms alone), then k
 // of W, which is zero off its triangle: dC's k runs to this row tile's
 // end, dB's from its start.
 template <typename T, class Lay>
@@ -681,10 +712,12 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
   const bool active = n0 + wn < N;
   const T* ds = dsr + static_cast<size_t>(bc) * l * l;
-  const T* U = pre + (which == 0 ? 0 : 2) * static_cast<size_t>(d.B) * d.nc *
-                         d.H * l * P;
+  const T* U = Lay::kHasState ? pre + (which == 0 ? 0 : 2) *
+                                          static_cast<size_t>(d.B) * d.nc *
+                                          d.H * l * P
+                              : nullptr;
   const int kp = P % kT == 0 ? kT : 32;  // depth of a P stage
-  const int nhp = d.HP / kp;
+  const int nhp = Lay::kHasState ? d.HP / kp : 0;
   const int k_lo = which == 0 ? 0 : r0;
   const int k_hi = which == 0 ? min(l, r0 + kT) : l;
   const T* Z = (which == 0 ? Bm : Cm) + d.row(b, c, 0) * N;
@@ -841,7 +874,8 @@ cudaError_t launch_bwd(const Lay& lay, const float* acum, const float* dte,
   if (err != cudaSuccess) return err;
   SSD_BWD_LAUNCH(tiles::gram_kernel, tiles::gram_smem, grid_tiles, Bm, Cm,
                  w.scores, d)
-  SSD_BWD_LAUNCH(intra_kernel, intra_smem, grid_tiles, lay, acum, dy, pre,
+  SSD_BWD_LAUNCH(intra_kernel, intra_smem, grid_tiles, lay, acum, dy,
+                 pre + static_cast<size_t>(d.B) * d.nc * d.H * d.l * d.P,
                  w.scores, dsr, w.row_part, w.col_part, d)
   SSD_BWD_LAUNCH(state_kernel, state_smem, dim3(npt * nnt, d.H, d.B), Cm,
                  cdec, ssave, pre, dso, w.dcdec_part, d)

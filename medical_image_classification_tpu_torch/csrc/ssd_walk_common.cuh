@@ -20,6 +20,15 @@
 //               chunk nc-1-c, row l-1-t; the coupled B/C row t of chunk c is
 //               [direct slab of (c, t) | direct slab of (nc-1-c, l-1-t)],
 //               each 2 gn wide (N = 4 gn); a per-head D skip.
+//   YDiagLayout (ssd_ydiag_pallas.py): the intra-chunk output Y_diag alone,
+//               no state: B = BC chunks of nc 1; C, B [BC, 1, l, N]; x (dtx),
+//               y, dy, dx (ddtx) head-major [BC, H, l, P]; no D skip.  The
+//               Y_diag backward runs the walk backward's intra and flush
+//               passes over it (ssd_ydiag_bwd.cu).
+// Two traits say what a pass may skip: kHasState (the chunk states enter:
+// the walks) and kScoresWorkspace (a gram pass writes the fp32 [l, l]
+// scores for the later passes to read; without it a pass builds the scores
+// tile it needs from B and C).
 
 #pragma once
 
@@ -74,6 +83,8 @@ template <typename T>
 struct FlatLayout {
   static constexpr bool kHasD = false;
   static constexpr bool kCoupled = false;  // B/C rows are plain arrays
+  static constexpr bool kHasState = true;
+  static constexpr bool kScoresWorkspace = true;
   const T* C;
   const T* Bm;
   const T* x;
@@ -113,6 +124,8 @@ template <typename T>
 struct DirsLayout {
   static constexpr bool kHasD = true;
   static constexpr bool kCoupled = true;  // B/C rows come from two places
+  static constexpr bool kHasState = true;
+  static constexpr bool kScoresWorkspace = true;
   const T* stack;
   const float* Dsk;
   T* dBC;  // [4, B, nc, l, 2 gn]: dB_dir, dC_dir, dB_flip, dC_flip; null in
@@ -170,6 +183,22 @@ struct DirsLayout {
                         d.row(b, d.nc - 1 - c, d.l - 1 - r) * g2 + n - g2;
     o[0] = from_f32<T>(v0);
     o[1] = from_f32<T>(v1);
+  }
+};
+
+// FlatLayout's B/C rows with head-major x and y: Y_diag's operands
+template <typename T>
+struct YDiagLayout : FlatLayout<T> {
+  static constexpr bool kHasState = false;
+  static constexpr bool kScoresWorkspace = false;
+
+  __device__ __forceinline__ size_t yrow(const Dims& d, int b, int h, int c,
+                                         int t) const {
+    return (d.bch(b, c, h) * d.l + t) * d.P;
+  }
+  __device__ __forceinline__ const T* x_ptr(const Dims& d, int b, int h,
+                                            int c, int t) const {
+    return this->x + yrow(d, b, h, c, t);
   }
 };
 

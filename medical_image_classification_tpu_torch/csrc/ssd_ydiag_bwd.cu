@@ -11,63 +11,74 @@
 //   ddtx[bc, h, j] = sum_{i >= j} rnd(M)[i, j] dy[bc, h, i]
 //   dM             = dy[bc, h] . dtx[bc, h]^T,  G = dM * M
 //   dacum          = rowsums(G) - colsums(G)
-//   dscores        = sum over the H heads of dM * decay     (fp32)
-//   dC = rnd(dscores) . Bc[bc],  dB = rnd(dscores)^T . Cc[bc]
+//   dscores        = rnd(sum over the H heads of dM * decay)
+//   dC = dscores . Bc[bc],  dB = dscores^T . Cc[bc]
 // every product summed in fp32 (the TPU body's rounding points: M rounded
 // for ddtx only, G and dscores from the unrounded M and decay, dscores
-// summed over all heads before it is rounded).  No [l, l] tensor per head
-// goes to device memory; the head-summed dscores does, once per chunk.
+// summed over all heads in fp32 before it is rounded once).
 //
-// What bounds it on this card: at ST-SSD stage 0 (BC 448 = batch 32 x 14
-// chunks of l 224, H 8, N 64, P 64, bf16) the products are ~27 GFLOP
-// against ~0.37 GB moved: the bytes.
+// What bounds it on this card: the bytes.  At ST-SSD stage 0 (BC 448 =
+// batch 32 x 14 chunks of l 224, H 8, N 64, P 64, bf16) dtx and dy in and
+// ddtx out are ~0.31 GB against ~27 GFLOP.
 //
-// Design (simple and right first).  The TPU body walked the heads of a
-// chunk in order, with the scores and the dscores sum in VMEM scratch; its
-// row sums of G and its dscores sum span tiles that Hopper blocks, which
-// run in no order, cannot share.  So two kernels, no atomics, the same bits
-// on every run:
-//  1. ydiag_grad_kernel, per (64-column tile of source positions j, chunk
-//     bc): computes its column strip of the scores (rows j0..l) once into
-//     shared memory, then per head walks the causal row tiles i >= j0: dM
-//     from dy and dtx, M and G from the strip and the decay, ddtx
-//     accumulated in registers, the strip's dscores summed over the heads
-//     in shared memory, G's column sums in registers, and G's row sums
-//     written per (head, column tile) as fp32 partials that the caller
-//     sums.  The block owns its strip of dscores, written once to an fp32
-//     [BC, l, l] workspace.
-//  2. ydiag_dcb_kernel, per (64-row tile, which of dC / dB, 64 columns of
-//     N, bc): the two products of the rounded dscores with Bc and Cc over
-//     the causal tiles.
-// The strips hold up to 256 rows (l <= 256), ~140 KB of shared memory in
-// all, so one block runs per SM; neither kernel holds more than 64
-// columns of N at a time (the strip sums N in 64-wide chunks, the dC/dB
-// kernel takes 64 columns per block), so N does not bound shared memory.  l 224 is not a multiple of 64: every tile
-// edge is masked, and entries above the diagonal give M = G = 0.  P must
-// be <= 64 (one 64-wide ddtx accumulator per block).  bf16 on the tensor
-// cores (WMMA), fp32 on the CUDA cores (st_tiles.cuh).
+// Design (bf16): three passes, no atomics, the same bits on every run:
+//  1. the SSD walk backward's intra pass (ssd_walk_bwd.cuh) over
+//     YDiagLayout: per (64 x 64 tile, chunk) the tile's scores built once
+//     from C and B, then the heads in turn: dM on the tensor cores, the head
+//     sum of dM decay in fp32 registers, rounded once into the operand-type
+//     workspace dsr [BC, l, l], and G's row and column sums as per-tile fp32
+//     partials that the caller sums;
+//  2. ssd_ydiag_strip.cuh's cols_kernel: ddtx = rnd(M)^T dy, per 64
+//     positions j a strip of the scores' columns built once for the heads;
+//  3. the walk's flush pass without its state terms: dC = dsr Bc and
+//     dB = dsr^T Cc over the causal tiles.
+// The scores are built once per tile in pass 1 and once per strip and head
+// group in pass 2; no fp32 [l, l] tensor goes to device memory.
+//
+// fp32 keeps the two passes of the first port (st_tiles.cuh's 4 x 4 FMA
+// register tiles): the three above on warp_mma's FMA fragments took
+// 1.36x (ST-SSD stage 0) and 1.50x (N 512) their time on an H100 SXM at
+// 700 W.
+//  1. grad_kernel, per (64-column tile of positions j, chunk bc): its
+//     column strip of the scores (rows j0..l) once into shared memory, then
+//     per head the row tiles i >= j0: dM, M, G, ddtx in registers, the
+//     strip's dscores summed over the heads in shared memory (fp32, the
+//     operand type), G's column sums whole and its row sums per column
+//     tile; the strip of dscores to an fp32 [BC, l, l] workspace;
+//  2. dcb_kernel, per (64-row tile, dC or dB, 64 of N, bc): the two
+//     products of dscores with Bc and Cc over the causal tiles.
+// The strips hold up to 256 rows (~140 KB of shared memory, one block an
+// SM), and P <= 64 (one 64-wide ddtx accumulator a block).
 
+#include <cstdint>
+#include <initializer_list>
+
+#include "ssd_walk_bwd.cuh"
+#include "ssd_ydiag_strip.cuh"
 #include "st_tiles.cuh"
 
 namespace {
 
+// ------------------------------------------------------------ fp32 passes
+
+namespace f32 {
+
 using namespace st_tiles;
 
-struct YdDims {
+struct Dims {
   int BC, l, N, H, P, nt;  // nt: 64-row tiles of the chunk
 };
 
-// Dynamic shared memory of a ydiag_grad_kernel block, byte offsets: the scores
+// Dynamic shared memory of a grad_kernel block, byte offsets: the scores
 // strip and the dscores strip ([nt * 64][kLdS] fp32), the two operand
 // tiles (C and B chunks while the strip is built, then dy's and dtx's
-// tiles), the fp32 dM / G tile, the rounded M tile, the head's cumsum row
+// tiles), the dM / G tile, the M tile, the head's cumsum row
 // and the column-sum staging.
-template <typename T>
-struct YdBwdSmem {
+struct GradSmem {
   size_t sc, ds, a, b, g, mm, acum, cols, total;
-  __host__ __device__ explicit YdBwdSmem(int nt) {
+  __host__ __device__ explicit GradSmem(int nt) {
     const size_t strip = round128(static_cast<size_t>(nt) * kT * kLdS * 4);
-    const size_t tile = round128(kT * ld<T>(kT) * sizeof(T));
+    const size_t tile = round128(kT * ld(kT) * sizeof(float));
     sc = 0;
     ds = sc + strip;
     a = ds + strip;
@@ -80,27 +91,26 @@ struct YdBwdSmem {
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ydiag_grad_kernel(const T* __restrict__ Cc, const T* __restrict__ Bc,
-                const float* __restrict__ acum, const T* __restrict__ dtx,
-                const T* __restrict__ dy, T* __restrict__ ddtx,
-                float* __restrict__ row_part, float* __restrict__ col_sums,
-                float* __restrict__ dscores, YdDims d) {
+    grad_kernel(const float* __restrict__ Cc, const float* __restrict__ Bc,
+                const float* __restrict__ acum, const float* __restrict__ dtx,
+                const float* __restrict__ dy, float* __restrict__ ddtx,
+                float* __restrict__ row_part, float* __restrict__ col_part,
+                float* __restrict__ dscores, Dims d) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const YdBwdSmem<T> L(d.nt);
+  const GradSmem L(d.nt);
   float* sSc = reinterpret_cast<float*>(smem + L.sc);
   float* sDs = reinterpret_cast<float*>(smem + L.ds);
-  T* sA = reinterpret_cast<T*>(smem + L.a);
-  T* sB = reinterpret_cast<T*>(smem + L.b);
+  float* sA = reinterpret_cast<float*>(smem + L.a);
+  float* sB = reinterpret_cast<float*>(smem + L.b);
   float* sG = reinterpret_cast<float*>(smem + L.g);
-  T* sM = reinterpret_cast<T*>(smem + L.mm);
+  float* sM = reinterpret_cast<float*>(smem + L.mm);
   float* sa = reinterpret_cast<float*>(smem + L.acum);
   float* scol = reinterpret_cast<float*>(smem + L.cols);
-  const int ld64 = ld<T>(kT);
+  const int ld64 = ld(kT);
   const int jt = blockIdx.x, bc = blockIdx.y, j0 = jt * kT;
-  const T* Cb = Cc + static_cast<size_t>(bc) * d.l * d.N;
-  const T* Bb = Bc + static_cast<size_t>(bc) * d.l * d.N;
+  const float* Cb = Cc + static_cast<size_t>(bc) * d.l * d.N;
+  const float* Bb = Bc + static_cast<size_t>(bc) * d.l * d.N;
 
   // the scores strip [i][j0 + c] for the row tiles i >= j0, summed over N
   // in 64-wide chunks; the dscores strip starts at 0
@@ -125,12 +135,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int h = 0; h < d.H; ++h) {
     const size_t row = static_cast<size_t>(bc) * d.H + h;
     const float* ab = acum + row * d.l;
-    const T* xb = dtx + row * d.l * d.P;
-    const T* yb = dy + row * d.l * d.P;
+    const float* xb = dtx + row * d.l * d.P;
+    const float* yb = dy + row * d.l * d.P;
     load_tile(sB, ld64, xb, d.P, j0, 0, kT, kT, d.l, d.P);   // dtx[j]
     for (int i = threadIdx.x; i < d.nt * kT; i += kThreads)
       sa[i] = i < d.l ? ab[i] : 0.f;
-    Acc<T, kT> acc;
+    Acc<kT> acc;
     acc.zero();
     float colsum = 0.f;
     for (int it = jt; it < d.nt; ++it) {
@@ -151,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
           sDs[i * kLdS + c] += dm * dec;
         }
         sG[r * kLdS + c] = g;
-        sM[r * ld64 + c] = from_f32<T>(m);
+        sM[r * ld64 + c] = m;
       }
       __syncthreads();
       float rs = 0.f;
@@ -166,16 +176,15 @@ __global__ void __launch_bounds__(kThreads)
     scol[threadIdx.x] = colsum;      // [4][64]: the four 16-row groups
     __syncthreads();
     if (threadIdx.x < kT && j0 + threadIdx.x < d.l)
-      col_sums[row * d.l + j0 + threadIdx.x] =
+      col_part[row * d.l + j0 + threadIdx.x] =
           scol[threadIdx.x] + scol[kT + threadIdx.x] +
           scol[2 * kT + threadIdx.x] + scol[3 * kT + threadIdx.x];
-    T* ob = ddtx + row * d.l * d.P;
+    float* ob = ddtx + row * d.l * d.P;
     acc.store(
         [&](int r, int c, float v) {
           if (j0 + r < d.l && c < d.P)
-            ob[static_cast<size_t>(j0 + r) * d.P + c] = from_f32<T>(v);
-        },
-        sG + (threadIdx.x >> 5) * 256);
+            ob[static_cast<size_t>(j0 + r) * d.P + c] = v;
+        });
     __syncthreads();
   }
 
@@ -191,22 +200,20 @@ __global__ void __launch_bounds__(kThreads)
 // dC (which 0) for the rows of tile t: sum over j <= i of rnd(ds)[i, j]
 // B[j]; dB (which 1) for the rows j of tile t: sum over i >= j of
 // rnd(ds)[i, j] C[i]; 64 columns of N per block.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ydiag_dcb_kernel(const T* __restrict__ Cc, const T* __restrict__ Bc,
-               const float* __restrict__ dscores, T* __restrict__ dC,
-               T* __restrict__ dB, YdDims d) {
-  constexpr int kLd = ld<T>(kT);
-  __shared__ __align__(128) T sD[kT * kLd];
-  __shared__ __align__(128) T sX[kT * kLd];
-  __shared__ __align__(128) float stg[8 * 256];
+    dcb_kernel(const float* __restrict__ Cc, const float* __restrict__ Bc,
+               const float* __restrict__ dscores, float* __restrict__ dC,
+               float* __restrict__ dB, Dims d) {
+  constexpr int kLd = ld(kT);
+  __shared__ __align__(128) float sD[kT * kLd];
+  __shared__ __align__(128) float sX[kT * kLd];
   const int which = blockIdx.x / d.nt, t = blockIdx.x % d.nt;
   const int n0 = blockIdx.y * kT, bc = blockIdx.z;
   const size_t rows = static_cast<size_t>(bc) * d.l * d.N;
   const float* db = dscores + static_cast<size_t>(bc) * d.l * d.l;
-  const T* other = which == 0 ? Bc + rows : Cc + rows;
+  const float* other = which == 0 ? Bc + rows : Cc + rows;
 
-  Acc<T, kT> acc;
+  Acc<kT> acc;
   acc.zero();
   const int first = which == 0 ? 0 : t, last = which == 0 ? t : d.nt - 1;
   for (int u = first; u <= last; ++u) {
@@ -216,7 +223,7 @@ __global__ void __launch_bounds__(kThreads)
       const int i = i0 + r, j = k0 + c;
       const float v = (i < d.l && j <= i)
                           ? db[static_cast<size_t>(i) * d.l + j] : 0.f;
-      sD[r * kLd + c] = from_f32<T>(v);   // the rounded dscores tile [i][j]
+      sD[r * kLd + c] = v;   // the dscores tile [i][j]
     }
     // B's rows j (dC) or C's rows i (dB)
     load_tile(sX, kLd, other, d.N, which == 0 ? k0 : i0, n0, kT, kT, d.l,
@@ -228,64 +235,147 @@ __global__ void __launch_bounds__(kThreads)
       acc.template mma<true>(sD, kLd, sX, kLd);    // dB[j] += ds[i, j] C[i]
     __syncthreads();
   }
-  T* out = (which == 0 ? dC : dB) + rows;
+  float* out = (which == 0 ? dC : dB) + rows;
   acc.store(
       [&](int r, int c, float v) {
         if (t * kT + r < d.l && n0 + c < d.N)
-          out[static_cast<size_t>(t * kT + r) * d.N + n0 + c] =
-              from_f32<T>(v);
-      },
-      stg + (threadIdx.x >> 5) * 256);
+          out[static_cast<size_t>(t * kT + r) * d.N + n0 + c] = v;
+      });
 }
 
-template <typename T>
-cudaError_t launch(const void* Cc, const void* Bc, const float* acum,
-                   const void* dtx, const void* dy, void* ddtx,
-                   float* row_part, float* col_sums, float* dscores, void* dC,
-                   void* dB, const YdDims& d, cudaStream_t stream) {
-  const size_t smem = YdBwdSmem<T>(d.nt).total;
+cudaError_t launch(const float* Cc, const float* Bc, const float* acum,
+                   const float* dtx, const float* dy, float* ddtx,
+                   float* dscores, float* row_part, float* col_part,
+                   float* dC, float* dB, const Dims& d, cudaStream_t stream) {
+  const size_t smem = GradSmem(d.nt).total;
   cudaError_t err = cudaFuncSetAttribute(
-      ydiag_grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const T* Ct = static_cast<const T*>(Cc);
-  const T* Bt = static_cast<const T*>(Bc);
-  ydiag_grad_kernel<T><<<dim3(d.nt, d.BC), kThreads, smem, stream>>>(
-      Ct, Bt, acum, static_cast<const T*>(dtx), static_cast<const T*>(dy),
-      static_cast<T*>(ddtx), row_part, col_sums, dscores, d);
+  grad_kernel<<<dim3(d.nt, d.BC), kThreads, smem, stream>>>(
+      Cc, Bc, acum, dtx, dy, ddtx, row_part, col_part, dscores, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ydiag_dcb_kernel<T><<<dim3(2 * d.nt, (d.N + kT - 1) / kT, d.BC), kThreads, 0,
-                  stream>>>(Ct, Bt, dscores, static_cast<T*>(dC),
-                            static_cast<T*>(dB), d);
+  dcb_kernel<<<dim3(2 * d.nt, (d.N + kT - 1) / kT, d.BC), kThreads, 0,
+               stream>>>(Cc, Bc, dscores, dC, dB, d);
   return cudaGetLastError();
+}
+
+}  // namespace f32
+
+// ------------------------------------------------------------ bf16 passes
+
+using ssd_walk::YDiagLayout;
+
+cudaError_t launch_bf16(const void* Cc, const void* Bc, const float* acum,
+                        const void* dtx, const void* dy, void* ddtx, void* dsr,
+                        float* row_part, float* col_part, void* dC, void* dB,
+                        const ssd_ydiag::Dims& d, cudaStream_t stream) {
+  namespace bwd = ssd_walk::bwd;
+  using T = __nv_bfloat16;
+  using Lay = YDiagLayout<T>;
+  const T* C = static_cast<const T*>(Cc);
+  const T* B = static_cast<const T*>(Bc);
+  const Lay lay{{C, B, static_cast<const T*>(dtx), static_cast<T*>(dC),
+                 static_cast<T*>(dB)}};
+  const ssd_walk::Dims wd(d.BC, 1, d.l, d.H, d.P, d.N);
+  const int nt = (d.l + ssd_walk::kT - 1) / ssd_walk::kT;
+  const auto intra = bwd::intra_kernel<T, Lay>;
+  const auto cols = ssd_ydiag::cols_kernel<T>;
+  const auto flush = bwd::flush_kernel<T, Lay>;
+  cudaError_t err;
+#define YDIAG_BWD_LAUNCH(kernel, smem, grid, ...)                       \
+  err = mma_tiles::allow_smem(kernel, smem);                            \
+  if (err != cudaSuccess) return err;                                   \
+  kernel<<<grid, mma_tiles::kThreads, smem, stream>>>(__VA_ARGS__);     \
+  err = cudaGetLastError();                                             \
+  if (err != cudaSuccess) return err;
+  YDIAG_BWD_LAUNCH(intra, bwd::intra_smem<T>(), dim3(nt, nt, d.BC), lay,
+                   acum, static_cast<const T*>(dy),
+                   static_cast<const T*>(dtx), nullptr, static_cast<T*>(dsr),
+                   row_part, col_part, wd)
+  YDIAG_BWD_LAUNCH(cols, ssd_ydiag::strip_smem<T>(), ssd_ydiag::strip_grid(d),
+                   B, C, acum, static_cast<const T*>(dy),
+                   static_cast<T*>(ddtx), d)
+  YDIAG_BWD_LAUNCH(flush, bwd::flush_smem<T>(),
+                   dim3(2 * ((d.N + bwd::kFlushN - 1) / bwd::kFlushN), nt,
+                        d.BC),
+                   lay, B, C, nullptr, nullptr, nullptr,
+                   static_cast<const T*>(dsr), wd)
+#undef YDIAG_BWD_LAUNCH
+  return cudaSuccess;
+}
+
+cudaError_t bf16_pass_info(int* out) {
+  namespace bwd = ssd_walk::bwd;
+  using T = __nv_bfloat16;
+  using Lay = YDiagLayout<T>;
+  cudaError_t err =
+      mma_tiles::pass_info(bwd::intra_kernel<T, Lay>, bwd::intra_smem<T>(),
+                           out);
+  if (err == cudaSuccess)
+    err = mma_tiles::pass_info(ssd_ydiag::cols_kernel<T>,
+                               ssd_ydiag::strip_smem<T>(), out + 4);
+  if (err == cudaSuccess)
+    err = mma_tiles::pass_info(bwd::flush_kernel<T, Lay>,
+                               bwd::flush_smem<T>(), out + 8);
+  return err;
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Returns the first CUDA error of
-// the two launches (0 on success).  is_bf16 selects the type of Cc, Bc,
-// dtx, dy, ddtx, dC and dB; acum is fp32.  row_part [BC, H, nt, l] (zeroed
-// by the caller: each column tile writes only its causal rows) takes G's
-// row sums per 64-column tile, col_sums [BC, H, l] its column sums, and
-// dscores [BC, l, l] is an fp32 workspace.  The caller checks the shapes:
-// l <= 256, N <= 512, P <= 64, BC <= 65535.
+// the launches (0 on success); cudaErrorInvalidValue, before any launch,
+// for a shape outside the passes' tiles (l <= 256 and l % 4 == 0, P % 8 ==
+// 0: 16-byte pieces; N % 32 == 0: the flush pass's warps store 32 columns;
+// fp32 P <= 64) or an operand that is not 16-byte aligned.  is_bf16
+// selects the type of Cc, Bc, dtx, dy, ddtx, ws, dC and dB; acum is fp32.
+// ws [BC, l, l] takes the head-summed dscores (a workspace).  row_part
+// [BC, H, ceil(l / 64), l] takes G's row sums per column tile (fp32:
+// zeroed by the caller, each column tile writing only its causal rows),
+// col_part [BC, H, ceil(l / 64), l] its column sums per row tile (fp32:
+// [BC, H, 1, l], the whole sums).  The caller checks BC <= 65535.
 extern "C" int ssd_ydiag_bwd(const void* Cc, const void* Bc, const void* acum,
                              const void* dtx, const void* dy, void* ddtx,
-                             void* row_part, void* col_sums, void* dscores,
+                             void* ws, void* row_part, void* col_part,
                              void* dC, void* dB, int BC, int l, int N, int H,
                              int P, int is_bf16, void* stream) {
-  const YdDims d{BC, l, N, H, P, (l + kT - 1) / kT};
+  if (l > ssd_ydiag::kMaxL || l % 4 || N % 32 || P % 8 ||
+      (!is_bf16 && P > st_tiles::kT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* p : {Cc, Bc, acum, dtx, dy, static_cast<const void*>(ddtx),
+                        static_cast<const void*>(ws),
+                        static_cast<const void*>(dC),
+                        static_cast<const void*>(dB)})
+    if (reinterpret_cast<std::uintptr_t>(p) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(acum);
   float* rp = static_cast<float*>(row_part);
-  float* cs = static_cast<float*>(col_sums);
-  float* ds = static_cast<float*>(dscores);
+  float* cp = static_cast<float*>(col_part);
   if (is_bf16)
-    return static_cast<int>(launch<bf16>(Cc, Bc, a, dtx, dy, ddtx, rp, cs, ds,
-                                         dC, dB, d, s));
-  return static_cast<int>(launch<float>(Cc, Bc, a, dtx, dy, ddtx, rp, cs, ds,
-                                        dC, dB, d, s));
+    return static_cast<int>(launch_bf16(Cc, Bc, a, dtx, dy, ddtx, ws, rp, cp,
+                                        dC, dB,
+                                        ssd_ydiag::make_dims(BC, l, N, H, P),
+                                        s));
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto w = [](void* p) { return static_cast<float*>(p); };
+  const f32::Dims d{BC, l, N, H, P, (l + st_tiles::kT - 1) / st_tiles::kT};
+  return static_cast<int>(f32::launch(f(Cc), f(Bc), a, f(dtx), f(dy),
+                                      w(ddtx), w(ws), rp, cp, w(dC), w(dB), d,
+                                      s));
+}
+
+// Registers, local (spill) bytes, dynamic shared bytes and resident warps
+// per SM of the passes: bf16 (intra, cols, flush), out[12]; fp32 (grad,
+// dcb), out[8].
+extern "C" int ssd_ydiag_bwd_pass_info(int is_bf16, int* out) {
+  if (is_bf16) return static_cast<int>(bf16_pass_info(out));
+  const int nt = ssd_ydiag::kMaxL / st_tiles::kT;
+  cudaError_t err =
+      mma_tiles::pass_info(f32::grad_kernel, f32::GradSmem(nt).total, out);
+  if (err == cudaSuccess) err = mma_tiles::pass_info(f32::dcb_kernel, 0, out + 4);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* ssd_ydiag_bwd_error_string(int code) {

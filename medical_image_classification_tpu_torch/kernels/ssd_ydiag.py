@@ -5,7 +5,12 @@ Function that joins them.
 Port of ``medical_image_classification_tpu/kernels/ssd_ydiag_pallas.py``
 (``ydiag_supported``, the forward body ``_fwd_kernel``, the backward body
 ``_bwd_kernel`` and the custom VJP ``ydiag_fused``).  Kernels:
-``csrc/ssd_ydiag_fwd.cu`` and ``csrc/ssd_ydiag_bwd.cu``.
+``csrc/ssd_ydiag_fwd.cu`` (one pass, the rows strip of
+``csrc/ssd_ydiag_strip.cuh``) and ``csrc/ssd_ydiag_bwd.cu`` (in bf16 three:
+the SSD walk backward's intra pass, the columns strip, the walk's flush
+pass; in fp32 the two passes of the first port, which run faster there);
+``ydiag_fwd_passes_ref`` and ``ydiag_bwd_passes_ref`` are their
+decomposition in plain PyTorch.
 
 Layouts (one B/C group, ref_flat; BC = batch x chunks):
   Cc, Bc : [BC, l, N]     the operand dtype (fp32 or bf16)
@@ -39,6 +44,9 @@ from medical_image_classification_tpu_torch.kernels._dispatch import (
     dense,
     resolve_impl,
 )
+from medical_image_classification_tpu_torch.kernels.ssd_fused import (
+    _pass_info,
+)
 
 _FWD_KERNEL = "ssd_ydiag_fwd"
 _BWD_KERNEL = "ssd_ydiag_bwd"
@@ -47,14 +55,23 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # it to small shapes, as the JAX package's tests patch its ``_MIN_L``.
 _MIN_L = 224
 _MAX_L = 256
-# shape limits of the CUDA kernels: the forward sums the scores over N in
-# slabs of 128 and the backward over 64-column chunks, so shared memory
-# does not grow with N; MAX_N is the widest state the card's checks cover
-# (MedSSD's N 512).  The backward keeps a head's [64, P] cotangent tile in
-# one 64-wide accumulator and two [l, 64] fp32 strips (l <= _MAX_L) in
-# shared memory
+# The kernels' tiles (kT of csrc/ssd_ydiag_strip.cuh and of the walks'
+# csrc/ssd_walk_tiles.cuh): rows, columns, N and P in 64s; the
+# decomposition twins follow them.
+TILE = 64
+# shape limits of the CUDA kernels: a strip keeps all of a chunk's MAX_L
+# columns; N is tiled, so it does not bound shared memory, and MAX_N is the
+# widest state the card's checks cover (MedSSD's N 512); the backward's
+# flush pass stores N in 32s; the 16-byte pieces of every tile copy need
+# l % 4 and P % 8; the fp32 backward keeps a head's [64, P] cotangent tile
+# in one 64-wide accumulator (bf16 takes the same P, one rule for the gate)
+MAX_L = 256
 MAX_N = 512
+N_STEP = 32
 MAX_P_BWD = 64
+FWD_PASSES = ("rows",)
+BWD_PASSES = {torch.bfloat16: ("intra", "cols", "flush"),
+              torch.float32: ("grad", "dcb")}
 
 
 def ydiag_supported(l: int, N: int, P: int, G: int, card: bool = False,
@@ -62,10 +79,11 @@ def ydiag_supported(l: int, N: int, P: int, G: int, card: bool = False,
     """The shape terms of the JAX gate (``ssd_ydiag_pallas.py:127-128``),
     without its backend term and its VMEM fit (``_pick_hb``).  ``card``:
     the operands lie on the GPU, where the CUDA kernels also need what
-    ``_check_cuda_args`` asks of the forward and the backward: N <=
-    ``MAX_N``, P <= ``MAX_P_BWD``, l <= ``_MAX_L``, BC <= 65535 and a
-    float32 or bfloat16 dtype; elsewhere the plain version takes any of
-    these shapes."""
+    ``_check_cuda_args`` asks of the forward and the backward beyond those
+    terms: N <= ``MAX_N``, P <= ``MAX_P_BWD``, BC <= 65535 and a float32 or
+    bfloat16 dtype (l <= ``MAX_L``, l % 4, N % ``N_STEP`` and P % 8 follow
+    from the shape terms); elsewhere the plain version takes any of these
+    shapes."""
     if not (G == 1 and _MIN_L <= l <= _MAX_L and l % 8 == 0 and N % 64 == 0
             and P % 8 == 0):
         return False
@@ -108,9 +126,115 @@ def ydiag_fused_bwd_ref(Cc, Bc, acum, dtx, dy):
     return dC, dB, dacum, ddtx
 
 
+def _tiles(l):
+    """The kernels' 64-wide tiles of a chunk of l rows: [(t0, t1), ...]."""
+    return [(t0, min(l, t0 + TILE)) for t0 in range(0, l, TILE)]
+
+
+def _slab_scores(X, Y):
+    """X Y^T [BC, m, n] in fp32, summed over N in the kernels' 64-wide
+    slabs (fp32 X [BC, m, N], Y [BC, n, N])."""
+    out = 0.0
+    for n0 in range(0, X.shape[-1], TILE):
+        out = out + X[..., n0:n0 + TILE] @ Y[..., n0:n0 + TILE].transpose(1, 2)
+    return out
+
+
+def _masked_decay(acum, i, j):
+    """exp(a_i - a_j) [BC, H, len(i), len(j)] for the chunk rows i and
+    columns j (ranges), 0 where j > i."""
+    ii = torch.arange(*i, device=acum.device)
+    jj = torch.arange(*j, device=acum.device)
+    causal = jj[None, :] <= ii[:, None]
+    seg = acum[:, :, i[0]:i[1], None] - acum[:, :, None, j[0]:j[1]]
+    return torch.where(causal, torch.exp(seg.masked_fill(~causal, 0.0)), 0.0)
+
+
+def _strip_product(A, V, c0, c1):
+    """sum over the strip's columns c0..c1 of A V as the strip pass sums
+    it, one 64-wide column tile after the other (A [BC, H, m, c1 - c0]
+    rounded, V [BC, H, l, P] fp32)."""
+    out = 0.0
+    for t0 in range(c0, c1, TILE):
+        t1 = min(c1, t0 + TILE)
+        out = out + A[..., t0 - c0:t1 - c0] @ V[:, :, t0:t1]
+    return out
+
+
+def ydiag_fwd_passes_ref(Cc, Bc, acum, dtx):
+    """The forward kernel's decomposition (``csrc/ssd_ydiag_fwd.cu``) in
+    plain PyTorch: per 64-row strip r0.. of a chunk, its scores C B^T over
+    the columns j < r0 + 64 (fp32, N in 64s), then per head y = the strip
+    product of rnd(scores exp(a_i - a_j)) (masked j > i) with dtx."""
+    mm = Cc.dtype
+    BC, l, _ = Cc.shape
+    C32, B32, x32 = Cc.float(), Bc.float(), dtx.to(mm).float()
+    y = torch.empty_like(dtx)
+    for r0, r1 in _tiles(l):
+        S = _slab_scores(C32[:, r0:r1], B32[:, :r1])        # [BC, m, r1]
+        M = (S[:, None] * _masked_decay(acum, (r0, r1), (0, r1))).to(mm)
+        y[:, :, r0:r1] = _strip_product(M.float(), x32, 0, r1).to(dtx.dtype)
+    return y
+
+
+def ydiag_bwd_passes_ref(Cc, Bc, acum, dtx, dy):
+    """The backward kernels' decomposition (``csrc/ssd_ydiag_bwd.cu``) in
+    plain PyTorch: (dCc, dBc, dacum, ddtx).  The intra pass per lower
+    64 x 64 tile: its scores (fp32, N in 64s), then the heads in turn: dM =
+    dy dtx^T over P in 64s, dscores += dM decay in fp32, rounded once to
+    the operand type (the workspace dsr), G's row sums per column tile and
+    column sums per row tile as fp32 partials, summed at the end; the
+    columns strip pass ddtx = the strip product of rnd(M)^T with dy; the
+    flush pass dC = dsr B and dB = dsr^T C in 64-deep stages over the causal
+    tiles.  The fp32 kernels (the first port's two passes) compute the same
+    fp32 sums over the same 64-wide tiles in another order."""
+    mm = Cc.dtype
+    BC, l, _ = Cc.shape
+    H, P = dtx.shape[1], dtx.shape[3]
+    C32, B32 = Cc.float(), Bc.float()
+    x32, dy32 = dtx.to(mm).float(), dy.to(mm).float()
+    tiles = _tiles(l)
+    f32 = dict(dtype=torch.float32, device=Cc.device)
+    dsr = torch.zeros(BC, l, l, dtype=mm, device=Cc.device)
+    row_part = torch.zeros(BC, H, len(tiles), l, **f32)
+    col_part = torch.zeros(BC, H, len(tiles), l, **f32)
+    for it, (i0, i1) in enumerate(tiles):
+        for jt, (j0, j1) in enumerate(tiles[:it + 1]):
+            sc = _slab_scores(C32[:, i0:i1], B32[:, j0:j1])
+            E = _masked_decay(acum, (i0, i1), (j0, j1))
+            ds = torch.zeros_like(sc)
+            for h in range(H):
+                dM = 0.0
+                for p0 in range(0, P, TILE):
+                    dM = dM + (dy32[:, h, i0:i1, p0:p0 + TILE]
+                               @ x32[:, h, j0:j1, p0:p0 + TILE].transpose(1, 2))
+                ds = ds + dM * E[:, h]
+                G = dM * (sc * E[:, h])
+                row_part[:, h, jt, i0:i1] = G.sum(2)
+                col_part[:, h, it, j0:j1] = G.sum(1)
+            dsr[:, i0:i1, j0:j1] = ds.to(mm)
+    ddtx = torch.empty_like(dtx)
+    for j0, j1 in tiles:
+        St = _slab_scores(B32[:, j0:j1], C32[:, j0:])       # [BC, m, l - j0]
+        E = _masked_decay(acum, (j0, l), (j0, j1)).transpose(2, 3)
+        Mt = (St[:, None] * E).to(mm).float()
+        ddtx[:, :, j0:j1] = _strip_product(Mt, dy32, j0, l).to(dtx.dtype)
+    ds32 = dsr.float()
+    dC, dB = torch.empty_like(Cc), torch.empty_like(Bc)
+    for rt, (r0, r1) in enumerate(tiles):
+        accC = accB = 0.0
+        for k0, k1 in tiles[:rt + 1]:
+            accC = accC + ds32[:, r0:r1, k0:k1] @ B32[:, k0:k1]
+        for k0, k1 in tiles[rt:]:
+            accB = accB + ds32[:, k0:k1, r0:r1].transpose(1, 2) @ C32[:, k0:k1]
+        dC[:, r0:r1] = accC.to(Cc.dtype)
+        dB[:, r0:r1] = accB.to(Bc.dtype)
+    return dC, dB, row_part.sum(2) - col_part.sum(2), ddtx
+
+
 def _check_cuda_args(Cc, Bc, acum, dtx, dy=None):
     """Raise on operands the kernels do not take; ``dy`` (the backward's
-    cotangent) also limits P to ``MAX_P_BWD`` and l to ``_MAX_L``."""
+    cotangent) also limits P to ``MAX_P_BWD``."""
     if Cc.dim() != 3 or dtx.dim() != 4:
         raise ValueError(f"Cc must be [BC, l, N] and dtx [BC, H, l, P], got "
                          f"{tuple(Cc.shape)} and {tuple(dtx.shape)}")
@@ -119,11 +243,13 @@ def _check_cuda_args(Cc, Bc, acum, dtx, dy=None):
     if Cc.dtype not in _DTYPES or dtx.dtype != Cc.dtype:
         raise TypeError(f"Cc and dtx must both be float32 or bfloat16, got "
                         f"{Cc.dtype} and {dtx.dtype}")
-    if N > MAX_N or BC > 65535 or (dy is not None and (P > MAX_P_BWD
-                                                         or l > _MAX_L)):
-        raise ValueError(f"shape outside the kernel's limits: N={N} (<= "
-                         f"{MAX_N}), BC={BC} (<= 65535), P={P} and l={l} "
-                         f"(<= {MAX_P_BWD} and {_MAX_L} in the backward)")
+    if (l > MAX_L or l % 4 or N > MAX_N or N % N_STEP or P % 8
+            or BC > 65535 or (dy is not None and P > MAX_P_BWD)):
+        raise ValueError(f"shape outside the kernels' limits: l={l} (<= "
+                         f"{MAX_L}, a multiple of 4), N={N} (<= {MAX_N}, a "
+                         f"multiple of {N_STEP}), P={P} (a multiple of 8, "
+                         f"<= {MAX_P_BWD} in the backward), BC={BC} (<= "
+                         "65535)")
     named = [("Bc", Bc, (BC, l, N), Cc.dtype),
              ("acum", acum, (BC, H, l), torch.float32),
              ("dtx", dtx, (BC, H, l, P), Cc.dtype)]
@@ -138,7 +264,7 @@ def _check_cuda_args(Cc, Bc, acum, dtx, dy=None):
     for name, t in [("Cc", Cc)] + [(n, t) for n, t, _, _ in named]:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned "
-                             "(the kernel loads 16-byte vectors)")
+                             "(the kernels load 16-byte vectors)")
 
 
 def _launch_fwd_cuda(Cc, Bc, acum, dtx):
@@ -160,29 +286,47 @@ def _launch_fwd_cuda(Cc, Bc, acum, dtx):
 
 
 def _launch_bwd_cuda(Cc, Bc, acum, dtx, dy):
-    """The backward kernel's wrapper: checks, allocates the cotangents, the
-    fp32 dscores workspace [BC, l, l] and the per-column-tile row sums of G
-    [BC, H, l / 64, l], launches, counts, and sums the row sums (no
+    """The backward kernels' wrapper: checks, allocates the cotangents, the
+    head-summed dscores workspace [BC, l, l] in the operand dtype and G's
+    per-tile fp32 row and column sums [BC, H, l / 64, l] (fp32: the row
+    sums zeroed, the passes writing only the causal ones, and the column
+    sums whole, [BC, H, 1, l]), launches, counts, and sums the partials (no
     atomics: the same bits on every run)."""
     _check_cuda_args(Cc, Bc, acum, dtx, dy)
     BC, l, N = Cc.shape
     H, P = dtx.shape[1], dtx.shape[3]
     f32 = dict(dtype=torch.float32, device=Cc.device)
+    nt = -(-l // TILE)
     ddtx = torch.empty_like(dtx)
-    row_part = torch.zeros(BC, H, -(-l // 64), l, **f32)
-    col_sums = torch.empty(BC, H, l, **f32)
-    dscores = torch.empty(BC, l, l, **f32)
+    dsr = torch.empty(BC, l, l, dtype=Cc.dtype, device=Cc.device)
+    bf16 = Cc.dtype == torch.bfloat16
+    row_part = (torch.empty if bf16 else torch.zeros)(BC, H, nt, l, **f32)
+    col_part = torch.empty(BC, H, nt if bf16 else 1, l, **f32)
     dC, dB = torch.empty_like(Cc), torch.empty_like(Bc)
-    ptrs = [t.data_ptr() for t in (Cc, Bc, acum, dtx, dy, ddtx, row_part,
-                                   col_sums, dscores, dC, dB)]
+    ptrs = [t.data_ptr() for t in (Cc, Bc, acum, dtx, dy, ddtx, dsr, row_part,
+                                   col_part, dC, dB)]
     with torch.cuda.device(Cc.device):
         stream = torch.cuda.current_stream(Cc.device).cuda_stream
         call(_BWD_KERNEL, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6
              + [ctypes.c_void_p],
-             ptrs + [BC, l, N, H, P, int(Cc.dtype == torch.bfloat16),
+             ptrs + [BC, l, N, H, P, int(bf16),
                      stream])
     ydiag_fused_bwd.launches += 1
-    return dC, dB, row_part.sum(2) - col_sums, ddtx
+    cols = col_part.sum(2) if bf16 else col_part[:, :, 0]
+    return dC, dB, row_part.sum(2) - cols, ddtx
+
+
+def fwd_pass_info(dtype) -> dict:
+    """What the card grants the forward's pass (``FWD_PASSES``) at operand
+    type ``dtype``: {pass: (registers a thread, local-memory bytes a thread
+    (spills), dynamic shared bytes a block, resident warps per SM)}."""
+    return _pass_info(_FWD_KERNEL, dtype, FWD_PASSES)
+
+
+def bwd_pass_info(dtype) -> dict:
+    """The same for the backward's passes at ``dtype``
+    (``BWD_PASSES[dtype]``)."""
+    return _pass_info(_BWD_KERNEL, dtype, BWD_PASSES[dtype])
 
 
 def ydiag_fused_fwd(Cc, Bc, acum, dtx, impl: str = "auto"):

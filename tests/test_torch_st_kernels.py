@@ -371,6 +371,14 @@ def _bad_cases():
     yield "ydiag ok", tyd._check_cuda_args, ok_yd, None
     yield "ydiag N", tyd._check_cuda_args, (
         z(2, 32, 576), z(2, 32, 576)) + ok_yd[2:], ValueError
+    # the passes' tiles: N in 32s (the flush pass's stores), l % 4 and
+    # P % 8 (16-byte pieces)
+    yield "ydiag N step", tyd._check_cuda_args, (
+        z(2, 32, 80), z(2, 32, 80)) + ok_yd[2:], ValueError
+    yield "ydiag l step", tyd._check_cuda_args, (
+        z(2, 30, 64), z(2, 30, 64), z(2, 4, 30), z(2, 4, 30, 8)), ValueError
+    yield "ydiag P step", tyd._check_cuda_args, ok_yd[:3] + (
+        z(2, 4, 32, 12),), ValueError
     yield "ydiag dtype", tyd._check_cuda_args, (
         z(2, 32, 64, dt=torch.float16),) * 2 + ok_yd[2:], TypeError
     yield "ydiag acum", tyd._check_cuda_args, ok_yd[:2] + (
