@@ -75,15 +75,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      bit-identical, a zero dlast bit-identical to none; 2m and 2n print
      occupancy and bounds as 2 does; ScanFolded with the flags against
      torch.autograd through the plain forward;
-  2o. the v1 selective-scan forward kernel (the doubling scan in chunks of
-     T) vs its plain twin at the kernel bench's four stages (G 128 = 32 x
-     4 directions, N 16) at T 50, stage 0 at T 100, and at G 8 chunks of
-     T 1, 7, 33 and 240 over L 300 and N 64 over 36 channels at L 257, fp32
-     and bf16: y and xsave, a second launch bit-identical;
+  2o. the v1 selective-scan forward kernel (one walk in time per state,
+     xsave at the chunks of T) vs its plain twin (the doubling scan) at the
+     kernel bench's four stages (G 128 = 32 x 4 directions, N 16) at T 50,
+     stage 0 at T 100, and at G 8 chunks of T 1, 7, 33 and 240 over L 300
+     and N 64 over 36 channels at L 257, fp32 and bf16: y and xsave, a
+     second launch bit-identical; at stage 0 bf16 the device time of its
+     one pass (torch.profiler), and what the card grants it (registers,
+     local bytes, shared bytes, warps per SM; so too in 2p);
   2p. its backward at the same cases, all seven gradients, a second launch
-     bit-identical; ScanFolded on the v1 pair (the cap at 50) against
-     torch.autograd through the plain forward; ValueError under v1 for
-     reverse and each flag;
+     bit-identical, and in fp32 and bf16 one case with an xsave that is not
+     the forward's (the forward's plus seeded noise: each chunk's states
+     come from the xsave given); ScanFolded on the v1 pair (the cap at 50)
+     against torch.autograd through the plain forward; ValueError under v1
+     for reverse and each flag;
   2q. the bench's calibration kernel vs its plain twin at the bench's four
      stages and inputs, fp32 and bf16 compute, a second launch
      bit-identical;
@@ -157,14 +162,16 @@ KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "ssd_fused_dirs_fwd",
 # MedMamba-T stages (STAGES).  The v1 scan's cases (name, G, L, Dm, N, T):
 # the four stages at T 50 (the bench's --t-cap 50), stage 0 at T 100
 # (--t-cap 100), chunks of 1, 7, 33 and 240 steps over L 300 (each leaves a
-# ragged last chunk), and N 64 over 36 channels (a block's 8 channels cut
-# short) with a ragged chunk
+# ragged last chunk), and N 64 over 36 channels (a block's second group of
+# 32 channels cut short) with a ragged chunk
 BENCH_G = 128
 V1_CASES = tuple((f"stage{i}", BENCH_G, L, Dm, 16, 50)
                  for i, (L, Dm) in enumerate(STAGES)) + (
     ("stage0", BENCH_G, 3136, 96, 16, 100),) + tuple(
     ("edge", 8, 300, 96, 16, T) for T in (1, 7, 33, 240)) + (
     ("ragged", 8, 257, 36, 64, 50),)
+# the case 2p also runs with an xsave that is not the forward's
+V1_PERTURBED = V1_CASES[0]
 # calibration kernel vs plain: |k - p| <= atol x max|p| + rtol |p|; y is
 # bf16 in both modes, and a sum that straddles a rounding point (or, with
 # bf16 compute, an exp or softplus one ulp apart) lands one bf16 step away
@@ -1502,17 +1509,58 @@ def _v1_cases():
 
 
 def _v1_bound(L, Dm, T, dtype, backward, g=BENCH_G, n=N):
-    """The v1 scan at ``g`` sequences and chunk T: bytes of u, Δ, B, C in,
-    y out and the fp32 xsave [g, ceil(L / T), n, Dm] out (backward: u, Δ,
-    B, C, dy and xsave in, du, dΔ, dB, dC out in fp32), and ~7 fp32
-    operations per state per step forward (~20 backward), on the CUDA
-    cores."""
+    """The v1 scan at ``g`` sequences and chunk T: the largest of three
+    times, as ``_scan_bound`` takes them.  Bytes: u, Δ, B, C in, y out and
+    the fp32 xsave [g, ceil(L / T), n, Dm] out (backward: u, Δ, B, C, dy
+    and xsave in, du, dΔ, dB, dC out in fp32).  CUDA-core operations: ~7
+    fp32 operations per state per step forward (~20 backward).  Exps at the
+    MUFU rate: the function's own, one exp(dt A) per (step, channel,
+    state).  Returns (ms, "bytes" or "operations"); the exps are
+    operations."""
     isz = 4 if dtype == "fp32" else 2
     seq = g * L * (3 * Dm + 2 * n) * isz
     xsave = g * -(-L // T) * n * Dm * 4
     ops = (20 if backward else 7) * g * L * Dm * n
     out = g * L * (2 * Dm + 2 * n) * 4 if backward else 0
-    return _bound(seq + xsave + out, ops, "fp32")
+    t, by = _bound(seq + xsave + out, ops, "fp32")
+    t_mufu = g * L * Dm * n / MUFU_PER_S * 1e3
+    return (t_mufu, "operations") if t_mufu > t else (t, by)
+
+
+# the v1 kernels' one pass each, by the name torch.profiler gives it
+V1_FWD_SPLIT = {"walk": "scan_v1_fwd_kernel"}
+V1_BWD_SPLIT = {"walk": "scan_v1_bwd_kernel"}
+V1_SPLIT_T = 50          # the chunk of the reported case (--t-cap 50)
+
+
+def _v1_head(c):
+    """The case whose times the kernels line reports: the bench's stage 0
+    at T 50 in bf16."""
+    return c["name"] == "stage0" and c["T"] == V1_SPLIT_T and \
+        c["dtype"] == "bf16"
+
+
+@functools.lru_cache(maxsize=None)
+def _v1_passes(kernel):
+    """What the card grants the v1 forward's or backward's one pass at N 16
+    (the backward at chunk ``V1_SPLIT_T``): {dtype: {pass: {registers,
+    local_bytes, shared_bytes, warps_per_sm}}}."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_v1 as v1)
+    keys = ("registers", "local_bytes", "shared_bytes", "warps_per_sm")
+    info = (v1.fwd_pass_info if kernel.endswith("fwd") else
+            functools.partial(v1.bwd_pass_info, T=V1_SPLIT_T))
+    return {dt: {p: dict(zip(keys, v)) for p, v in info(N, dtype).items()}
+            for dt, dtype in (("fp32", torch.float32),
+                              ("bf16", torch.bfloat16))}
+
+
+def _v1_passes_text(kernel):
+    return "passes (registers/local B/shared B/warps per SM): " + "; ".join(
+        f"{dt} " + ", ".join(f"{p} " + "/".join(str(x) for x in v.values())
+                             for p, v in passes.items())
+        for dt, passes in _v1_passes(kernel).items())
 
 
 def phase_v1_fwd_vs_plain():
@@ -1549,15 +1597,18 @@ def phase_v1_fwd_vs_plain():
                           plain_ms=_events_ms(run_p, 1),
                           bound=_v1_bound(case["L"], case["Dm"], T, dt_name,
                                           False, case["G"], case["N"])))
+        if _v1_head(cases[-1]):
+            _walk_split(cases[-1], run_k, V1_FWD_SPLIT)
     summary = "; ".join(
         f"{c['shape']} {c['dtype']} y={c['errs']['y']:.2e} "
         f"xsave={c['errs']['xsave']:.2e} kernel={c['ms']:.4f}ms "
         f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
-        f"({c['bound'][1]})" for c in cases)
+        f"({c['bound'][1]}){_split_text(c)}" for c in cases)
     print(f"phase 2o v1 forward kernel vs plain: {len(cases)}/"
           f"{2 * len(V1_CASES)} cases within fp32 {TOL['fp32']} bf16 "
           f"{TOL['bf16']} (rtol, atol) on y and xsave, second launch "
-          f"bit-identical | {summary}", flush=True)
+          f"bit-identical | {_v1_passes_text('selective_scan_v1_fwd')} | "
+          f"{summary}", flush=True)
     return cases
 
 
@@ -1572,7 +1623,7 @@ def phase_v1_bwd_vs_plain():
     import torch
     from medical_image_classification_tpu_torch.kernels import (
         selective_scan_fwd as fwd, selective_scan_v1 as v1)
-    cases = []
+    cases, perturbed = [], {}
     for case, dt_name, args in _v1_cases():
         T = case["T"]
         what = f"v1 backward {case['shape']} {dt_name}"
@@ -1596,6 +1647,28 @@ def phase_v1_bwd_vs_plain():
                           plain_ms=_events_ms(run_p, 1),
                           bound=_v1_bound(case["L"], case["Dm"], T, dt_name,
                                           True, case["G"], case["N"])))
+        if _v1_head(cases[-1]):
+            _walk_split(cases[-1], run_k, V1_BWD_SPLIT)
+        if tuple(case[k] for k in ("name", "G", "L", "Dm", "N", "T")) \
+                == V1_PERTURBED:
+            # an xsave that is not the forward's: the kernel must seed each
+            # chunk from the xsave it is given, as the plain version does
+            gen = torch.Generator(device="cuda").manual_seed(case["L"] - T)
+            xs_p = xsave + 0.5 * torch.randn(xsave.shape, device="cuda",
+                                             generator=gen)
+            gk = v1.scan_v1_bwd(*args, xs_p, dy, T, impl="cuda")
+            gp = v1.scan_v1_bwd_ref(*args, xs_p, dy, T)
+            torch.cuda.synchronize()
+            perturbed[dt_name] = max(
+                _check_close(f"{what} perturbed xsave {nm}", a, b, rtol, atol)
+                for nm, a, b in zip(GRAD_NAMES, gk, gp))
+            # and the gradients moved with it
+            moved = max(float((a - b).abs().max()) for a, b in zip(
+                gk, v1.scan_v1_bwd(*args, xsave, dy, T, impl="cuda")))
+            if moved <= 10 * atol:
+                raise AssertionError(f"{what}: the gradients did not follow "
+                                     f"the perturbed xsave ({moved:.2e})")
+            del gk, gp, xs_p
 
     # ScanFolded on the v1 pair against torch.autograd through the plain
     # (sequential) forward, and the refusals, with the bench's cap
@@ -1636,18 +1709,25 @@ def phase_v1_bwd_vs_plain():
                 raise AssertionError(f"v1 took {kw}")
     finally:
         v1._T_CAP = saved_cap
+    if len(perturbed) != 2:
+        raise AssertionError(f"perturbed-xsave cases ran for {perturbed}")
     summary = "; ".join(
         f"{c['shape']} {c['dtype']} err={c['max_abs_err']:.2e} "
         f"kernel={c['ms']:.4f}ms plain={c['plain_ms']:.1f}ms "
-        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]})" for c in cases)
+        f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}){_split_text(c)}"
+        for c in cases)
     print(f"phase 2p v1 backward kernel vs plain: {len(cases)}/"
           f"{2 * len(V1_CASES)} cases within fp32 {GRAD_TOL['fp32']} bf16 "
           f"{GRAD_TOL['bf16']} (rtol, atol) on all 7 gradients, second "
-          f"launch bit-identical | ScanFolded on the v1 pair (T 50) vs "
+          f"launch bit-identical | an xsave not the forward's at "
+          f"{V1_PERTURBED[0]} T{V1_PERTURBED[5]}: max err fp32 "
+          f"{perturbed['fp32']:.2e}, bf16 {perturbed['bf16']:.2e} | "
+          f"ScanFolded on the v1 pair (T 50) vs "
           f"torch.autograd through the plain forward at {L}x{Dm} K{K} fp32: "
           f"max err {auto:.2e}; ValueError under v1 for {', '.join(refused)}"
-          f" | {summary}", flush=True)
-    return dict(cases=cases, autograd_err=auto)
+          f" | {_v1_passes_text('selective_scan_v1_bwd')} | {summary}",
+          flush=True)
+    return dict(cases=cases, autograd_err=auto, perturbed_err=perturbed)
 
 
 def phase_calib_vs_plain():
@@ -2604,7 +2684,7 @@ def phase_kernel_bench(card):
           f"per call, nothing else) | at {compare['shape']} with xsave: "
           f"row 1 (two-level, chunks of {fwd.CHUNK}) {ms['row1']:.4f} ms vs "
           f"row 3 "
-          f"(doubling scan, T {T}) {ms['row3']:.4f} ms; row 2 "
+          f"(one walk a state, T {T}) {ms['row3']:.4f} ms; row 2 "
           f"{ms['row2']:.4f} ms vs row 4 {ms['row4']:.4f} ms (turns 1, 3, "
           f"3, 1)", flush=True)
     return dict(runs=result, compare=compare)
@@ -2752,25 +2832,26 @@ def main(argv=None):
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)
-    v1_head = lambda c: (c["name"] == "stage0" and c["T"] == 50
-                         and c["dtype"] == "bf16")
     calib_head = lambda c: c["stage"] == "0" and c["compute"] == "fp32"
     bench_launches = {k: bench["runs"][run]["launches"][k] for run, k in (
         ("t-cap 50", "selective_scan_v1_fwd"),
         ("t-cap 50", "selective_scan_v1_bwd"), ("calibrate", "scan_calib"))}
     for name, replaces, k_cases, head in (
             ("selective_scan_v1_fwd", "selective_scan_pallas.py:100",
-             v1_cases, v1_head),
+             v1_cases, _v1_head),
             ("selective_scan_v1_bwd", "selective_scan_pallas_bwd.py:52",
-             v1_bwd["cases"], v1_head),
+             v1_bwd["cases"], _v1_head),
             ("scan_calib", "scripts/kernel_bench.py:134", calib_cases,
              calib_head)):
         entries.append(_entry(name, replaces, k_cases, bench_launches[name],
                               head, next(c for c in k_cases
                                          if head(c))["bound"]))
     cmp = bench["compare"]
-    for e, own, other in ((entries[-3], "row3", "row1"),
-                          (entries[-2], "row4", "row2")):
+    for e, own, other, k_cases in ((entries[-3], "row3", "row1", v1_cases),
+                                   (entries[-2], "row4", "row2",
+                                    v1_bwd["cases"])):
+        e.update(passes=_v1_passes(e["name"]), split_ms=next(
+            c for c in k_cases if _v1_head(c)).get("split"))
         e["per"] = "bench call (--stage all --t-cap 50 --iters 3)"
         e["vs_" + other] = dict(shape=cmp["shape"], ms=cmp["ms"][own],
                                 other_ms=cmp["ms"][other],

@@ -72,9 +72,10 @@
 // The sums over the states (du, ddelta) go through shared memory, one
 // partial per warp, added in warp order; the sums over the block's
 // channels (dB, dC) by a warp-shuffle reduce-scatter of the 8 values per
-// lane and step (9 shuffles), so no block barrier sits inside a walk.  Two
-// states a thread (32 registers of states, 24 warps an SM) measured slower:
-// the reduce-scatter and the staged rows cost more per state.
+// lane and step (9 shuffles, scan2l::lane_reduce_scatter), so no block
+// barrier sits inside a walk.  Two states a thread (32 registers of
+// states, 24 warps an SM) measured slower: the reduce-scatter and the
+// staged rows cost more per state.
 //
 // What is left: (c) is bound by the latency of each step's chain (the
 // shuffles and the exps), at 16 warps an SM; it spends two exps per (step,
@@ -94,7 +95,6 @@ using scan2l::kLog2e;
 using scan2l::softplus_f32;
 using scan2l::to_f32;
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;    // chunks per block of the local pass
 constexpr int kStates = 4;   // states per thread in the last pass (a float4)
 constexpr int kFinalWarps = 16;  // resident warps an SM the last pass needs
@@ -363,26 +363,9 @@ __global__ void __launch_bounds__(final_threads<NMAX>(),
         sGB[(w * kChunk + r) * 32 + lane] = gB;
         sGX[(w * kChunk + r) * 32 + lane] = gxA;
         // dB and dC: the kVals values summed over the 32 lanes, each lane
-        // left with one: halve them across lane bits 4, 3, ... (each lane
-        // keeps the half its bit names and adds its partner's), then add
-        // over the remaining bits
-#pragma unroll
-        for (int bit = 0; bit < kSplit; ++bit) {
-          const int m = 16 >> bit;
-          const int half = kVals >> (bit + 1);
-          const bool hi = lane & m;
-#pragma unroll
-          for (int j = 0; j < half; ++j) {
-            const float keep = hi ? v[j + half] : v[j];
-            const float send = hi ? v[j] : v[j + half];
-            v[j] = keep + __shfl_xor_sync(kFull, send, m);
-          }
-        }
-#pragma unroll
-        for (int m = 16 >> kSplit; m >= 1; m >>= 1) {
-          v[0] += __shfl_xor_sync(kFull, v[0], m);
-        }
-        if (red_writes) red_row[r * N] = v[0];
+        // left with one
+        const float red = scan2l::lane_reduce_scatter(v, lane);
+        if (red_writes) red_row[r * N] = red;
       }
     }
     __syncthreads();

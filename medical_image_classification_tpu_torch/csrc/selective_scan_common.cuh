@@ -1,6 +1,8 @@
-// What the two-level selective-scan kernels share
-// (csrc/selective_scan_fwd.cu and csrc/selective_scan_bwd.cu): the chunk,
-// the type conversions, softplus, and the carry pass.
+// What the selective-scan kernels share: for the two-level pair
+// (csrc/selective_scan_fwd.cu and csrc/selective_scan_bwd.cu) the chunk and
+// the carry pass; for them and the v1 pair (csrc/selective_scan_v1_*.cu)
+// the type conversions, the exp, softplus, the backwards' warp
+// reduce-scatter of the dB/dC terms, and what the card grants a pass.
 //
 // Both directions of the scan are linear recurrences with the same decays:
 // the state x_t = a_t x_{t-1} + b_t runs in scan order, its adjoint
@@ -156,6 +158,53 @@ cudaError_t pass_info(Kernel kernel, int threads, size_t smem, int* out) {
   out[1] = static_cast<int>(attr.localSizeBytes);
   out[2] = blocks * threads / 32;
   return cudaSuccess;
+}
+
+// pass_info with the shared bytes a block (the launch's dynamic bytes and
+// the kernel's static ones): registers, local bytes, shared bytes, warps
+// an SM into out[0..3].  The caller has allowed `smem` dynamic bytes.
+template <typename Kernel>
+cudaError_t pass_info_shared(Kernel kernel, int threads, size_t smem,
+                             int* out) {
+  int info[3];
+  cudaError_t err = pass_info(kernel, threads, smem, info);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = info[0];
+  out[1] = info[1];
+  out[2] = static_cast<int>(smem + attr.sharedSizeBytes);
+  out[3] = info[2];
+  return cudaSuccess;
+}
+
+// The 8 values of each lane summed over the warp's 32 lanes, each lane
+// left with one: value lane >> 2, complete in the lanes whose low 2 bits
+// are 0 (the return elsewhere is partial).  The values are halved across
+// lane bits 4, 3, 2 (each lane keeps the half its bit names and adds its
+// partner's), then added over bits 1 and 0: 9 shuffles, where a butterfly
+// of each value would take 40.  The backwards sum their dB and dC terms
+// (4 states each) over the lanes' channels so.
+__device__ __forceinline__ float lane_reduce_scatter(float (&v)[8],
+                                                     int lane) {
+#pragma unroll
+  for (int bit = 0; bit < 3; ++bit) {
+    const int m = 16 >> bit;
+    const int half = 8 >> (bit + 1);
+    const bool hi = lane & m;
+#pragma unroll
+    for (int j = 0; j < half; ++j) {
+      const float keep = hi ? v[j + half] : v[j];
+      const float send = hi ? v[j] : v[j + half];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+  }
+#pragma unroll
+  for (int m = 2; m >= 1; m >>= 1) {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], m);
+  }
+  return v[0];
 }
 
 }  // namespace scan2l

@@ -1,5 +1,6 @@
 """The v1 selective scan (doubling scan inside chunks of T timesteps) in the
-folded layout: the tile chooser, plain versions, CUDA kernel wrappers.
+folded layout: the tile chooser, plain versions, CUDA kernel wrappers, and
+plain twins of the kernels' decomposition.
 
 Port of ``medical_image_classification_tpu/kernels/selective_scan_pallas.py``
 ``_choose_tiles`` and ``_scan_kernel`` / ``_fwd_folded`` (the forward), and
@@ -15,6 +16,16 @@ v1 has no flags: no reverse scan, no initial or last state, softplus
 always on (``check_v1_flags`` raises where the JAX dispatch asserts).
 xsave [G, ceil(L / T), N, Dm] fp32 is the state entering each chunk.
 Layout as in ``selective_scan_fwd.py``.
+
+The CUDA kernels (csrc/selective_scan_v1_{fwd,bwd}.cu) compute the same
+functions another way: the forward walks each state through time
+(``scan_v1_fwd_walk_ref``); the backward seeds each chunk from xsave,
+walks it forward once to keep the state entering each piece of ``PIECE``
+steps, then recomputes each piece and sweeps the adjoint back through it,
+summing dB and dC over groups of 32 channels, then over the blocks of a
+cluster (``scan_v1_bwd_pieces_ref``).  Only tests use these
+twins; the plain versions above are what the CPU route runs and what the
+kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -44,8 +55,13 @@ _S_SUB = 16          # the two-level kernel's sub-block length
 
 _FWD_KERNEL = "selective_scan_v1_fwd"
 _BWD_KERNEL = "selective_scan_v1_bwd"
-_WARPS = 8           # channels per block of both kernels (dB/dC partials)
-_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+# the CUDA kernels' constants (csrc/selective_scan_v1_bwd.cu): states a
+# thread, steps a piece of the backward's sweep, steps a staged window at
+# most, blocks a cluster (the blocks whose dB/dC it adds)
+STATES = 4
+PIECE = 8
+WIN_CAP = 56
+CLUSTER = 8
 
 
 def _choose_tiles(L: int, Dm: int, N: int):
@@ -203,18 +219,171 @@ def scan_v1_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy, T: int):
     return du, ddelta, dA, dB, dC, dD, dbias
 
 
+def _nmax(N: int) -> int:
+    """The kernels' template width for d_state N (8, 16, 32 or 64)."""
+    return next(n for n in (8, 16, 32, 64) if N <= n)
+
+
+def _sum_channels(v, Dm):
+    """v [G, N, Dm] summed over the channels as the backward kernel adds
+    them: within each group of 32 (a warp's lanes), then the groups in
+    order (those of a block, the blocks of a cluster, the clusters); [G,
+    N]."""
+    G, N, _ = v.shape
+    ngrp = -(-Dm // 32)
+    per_group = F.pad(v, (0, 32 * ngrp - Dm)).reshape(G, N, ngrp, 32).sum(-1)
+    return per_group.sum(-1)
+
+
+def scan_v1_fwd_walk_ref(u, delta, A, B, C, D, bias, T: int):
+    """The forward kernel's decomposition in plain PyTorch: every state
+    walked through time in fp32, one step at a time (no doubling scan, no
+    padding), the state stored as xsave where a chunk of T steps begins,
+    y summed over the states.  Returns (y in u's dtype, xsave) as
+    ``scan_v1_fwd_ref``."""
+    G, L, Dm = u.shape
+    N = A.shape[2]
+    uf, df, Bf, Cf = (t.float() for t in (u, delta, B, C))
+    Ag, Dg, bg = _per_seq(G, A.transpose(1, 2), D, bias)   # [G, N, Dm], ...
+    dt = F.softplus(df + bg[:, None])                       # [G, L, Dm]
+    x = torch.zeros(G, N, Dm, dtype=torch.float32, device=u.device)
+    ys, xs = [], []
+    for t in range(L):
+        if t % T == 0:
+            xs.append(x)
+        x = torch.exp(dt[:, t, None] * Ag) * x \
+            + (dt[:, t] * uf[:, t])[:, None] * Bf[:, t, :, None]
+        ys.append((Cf[:, t, :, None] * x).sum(1) + uf[:, t] * Dg)
+    return torch.stack(ys, 1).to(u.dtype), torch.stack(xs, 1)
+
+
+def scan_v1_bwd_pieces_ref(u, delta, A, B, C, D, bias, xsave, dy, T: int):
+    """The backward kernel's decomposition in plain PyTorch: the chunks in
+    reverse, each seeded from the xsave it is given; a checkpoint walk from
+    it keeps the state entering each piece of ``PIECE`` steps; the pieces
+    last to first recompute their states and decays, then sweep the adjoint
+    g_t = C_t dy_t + a_{t+1} g_{t+1} back through them, with the carry
+    crossing pieces and chunks; dB and dC summed over the channels as the
+    kernel adds them (``_sum_channels``).  Returns what ``scan_v1_bwd_ref``
+    returns."""
+    G, L, Dm = u.shape
+    N = A.shape[2]
+    uf, df, Bf, Cf, dyf = (t.float() for t in (u, delta, B, C, dy))
+    Ag, Dg, bg = _per_seq(G, A.transpose(1, 2), D, bias)
+    raw = df + bg[:, None]
+    dt, sig = F.softplus(raw), torch.sigmoid(raw)           # [G, L, Dm]
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du = torch.zeros(G, L, Dm, **f32)
+    ddelta = torch.zeros_like(du)
+    dB = torch.zeros(G, L, N, **f32)
+    dC = torch.zeros_like(dB)
+    gc = torch.zeros(G, N, Dm, **f32)
+    dA_acc = torch.zeros(G, N, Dm, **f32)
+
+    def step(t, x):
+        a = torch.exp(dt[:, t, None] * Ag)
+        b = (dt[:, t] * uf[:, t])[:, None] * Bf[:, t, :, None]
+        return a, a * x + b, b
+
+    for t0 in reversed(range(0, L, T)):
+        tl = min(T, L - t0)
+        starts = list(range(t0, t0 + tl, PIECE))
+        x = xsave[:, t0 // T].float()
+        checkpoints = [x]
+        for t in range(t0, starts[-1]):
+            x = step(t, x)[1]
+            if (t + 1 - t0) % PIECE == 0:
+                checkpoints.append(x)
+        for p in reversed(range(len(starts))):
+            x = checkpoints[p]
+            kept = []
+            for t in range(starts[p], min(starts[p] + PIECE, t0 + tl)):
+                a, x, b = step(t, x)
+                kept.append((t, a, x, b))
+            for t, a, x, b in reversed(kept):
+                g = Cf[:, t, :, None] * dyf[:, t, None] + gc
+                gax = g * (x - b)                           # g a_t x_{t-1}
+                gB = (g * Bf[:, t, :, None]).sum(1)         # [G, Dm]
+                du[:, t] = dt[:, t] * gB + Dg * dyf[:, t]
+                ddelta[:, t] = sig[:, t] * ((gax * Ag).sum(1) + uf[:, t] * gB)
+                dA_acc += gax * dt[:, t, None]
+                dB[:, t] = _sum_channels(g * (dt[:, t] * uf[:, t])[:, None],
+                                         Dm)
+                dC[:, t] = _sum_channels(dyf[:, t, None] * x, Dm)
+                gc = a * g
+    dA, dD, dbias = _sum_partials(u, A, dA_acc, (dyf * uf).sum(1),
+                                  ddelta.sum(1))
+    return du, ddelta, dA, dB, dC, dD, dbias
+
+
 def _check_T(T):
     if not isinstance(T, int) or T < 1:
         raise ValueError(f"chunk T must be a positive int, got {T!r}")
 
 
-def bwd_smem_bytes(T: int, N: int) -> int:
-    """Shared memory of the backward kernel's block at chunk T and state
-    size N (csrc/selective_scan_v1_bwd.cu, smem_bytes)."""
-    nmax = next(n for n in (8, 16, 32, 64) if N <= n)
-    nsub = -(-T // 32)
-    return 4 * (6 * 32 * (_WARPS + 1) + 2 * 32 * (nmax + 1) + _WARPS * nmax
-                + 2 * _WARPS * 32 * (nmax + 1) + nsub * _WARPS * nmax)
+def _check_sizes(u, A):
+    """Every size the C entries refuse below 1: L, Dm, N, K and G."""
+    G, L, Dm = u.shape
+    K, _, N = A.shape
+    for name, v in (("G", G), ("L", L), ("Dm", Dm), ("K", K), ("N", N)):
+        if v < 1:
+            raise ValueError(f"{name}={v}: the v1 kernels need every size "
+                             ">= 1")
+
+
+def _groups(N: int) -> int:
+    """Channel groups of 32 a block of the backward kernel: 3 at N <= 16,
+    else 1 (``groups``)."""
+    return 3 if _nmax(N) <= 16 else 1
+
+
+def bwd_grid(Dm: int, N: int):
+    """(blocks a sequence, clusters a sequence, threads a block) of the
+    backward kernel (``cluster_shape``, ``bwd_threads``): blocks of 32
+    ``_groups(N)`` channels, as few clusters of at most ``CLUSTER`` blocks
+    as cover Dm, the blocks spread evenly over them."""
+    nblk = -(-Dm // (32 * _groups(N)))
+    nclus = -(-nblk // CLUSTER)
+    return nclus * -(-nblk // nclus), nclus, \
+        _groups(N) * _nmax(N) // STATES * 32
+
+
+def bwd_clusters(Dm: int, N: int) -> int:
+    """The dB and dC sums the backward writes a sequence, one a cluster:
+    ceil(Dm / 768) at N <= 16, ceil(Dm / 256) above."""
+    return bwd_grid(Dm, N)[1]
+
+
+def bwd_ckpt_floats(G: int, Dm: int, N: int, T: int) -> int:
+    """fp32 values of the backward's checkpoint scratch: a float4 a thread
+    and piece of a chunk, for every block."""
+    blocks, _, threads = bwd_grid(Dm, N)
+    return G * blocks * -(-T // PIECE) * threads * STATES
+
+
+def _pass_info(name: str, args) -> dict:
+    from medical_image_classification_tpu_torch.kernels import _build
+    lib = _build.library(name)
+    fn = getattr(lib, f"{name}_pass_info")
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _build.raise_on_error(lib, name, fn(*args, ctypes.addressof(out)))
+    return {"walk": tuple(out)}
+
+
+def fwd_pass_info(N: int, dtype) -> dict:
+    """What the card grants the forward kernel's one pass at d_state N and
+    operand type ``dtype``: {"walk": (registers a thread, local-memory
+    bytes a thread (spills), shared bytes a block, resident warps per
+    SM)}."""
+    return _pass_info(_FWD_KERNEL, (N, int(dtype == torch.bfloat16)))
+
+
+def bwd_pass_info(N: int, dtype, T: int) -> dict:
+    """``fwd_pass_info`` for the backward kernel's one pass at chunk T (its
+    shared memory grows with T)."""
+    return _pass_info(_BWD_KERNEL, (N, T, int(dtype == torch.bfloat16)))
 
 
 def _stream(t):
@@ -224,6 +393,7 @@ def _stream(t):
 def _launch_fwd_cuda(u, delta, A, B, C, D, bias, T, want_xsave):
     """The forward kernel's wrapper: checks, allocates y (and xsave),
     launches csrc/selective_scan_v1_fwd.cu, counts the launch."""
+    _check_sizes(u, A)
     _check_cuda_args(u, delta, A, B, C, D, bias)
     G, L, Dm = u.shape
     K, _, N = A.shape
@@ -260,10 +430,12 @@ scan_v1_fwd.launches = 0
 
 
 def _launch_bwd_cuda(u, delta, A, B, C, D, bias, xsave, dy, T):
-    """The backward kernel's wrapper: checks, allocates the outputs and
-    the partials, launches csrc/selective_scan_v1_bwd.cu, counts the
-    launch, sums the partials (dB and dC over the blocks' channel groups,
-    dA, dD and dbias over the batch)."""
+    """The backward kernel's wrapper: checks, allocates the outputs (dB and
+    dC as ``bwd_clusters`` sums, added here in order where there are more
+    than one), the per-sequence partials and the checkpoint scratch,
+    launches csrc/selective_scan_v1_bwd.cu, counts the launch, sums dA, dD
+    and dbias over the batch."""
+    _check_sizes(u, A)
     _check_cuda_args(u, delta, A, B, C, D, bias)
     G, L, Dm = u.shape
     K, _, N = A.shape
@@ -280,29 +452,27 @@ def _launch_bwd_cuda(u, delta, A, B, C, D, bias, xsave, dy, T):
             raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    smem = bwd_smem_bytes(T, N)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"chunk T={T} at N={N} needs {smem} bytes of shared "
-                         f"memory a block, over the card's {_SMEM_LIMIT}")
     f32 = dict(dtype=torch.float32, device=u.device)
     du = torch.empty(G, L, Dm, **f32)
     ddelta = torch.empty_like(du)
-    dB_part = torch.empty(-(-Dm // _WARPS), G, L, N, **f32)
+    dB_part = torch.empty(bwd_clusters(Dm, N), G, L, N, **f32)
     dC_part = torch.empty_like(dB_part)
     dA_part = torch.empty(G, N, Dm, **f32)
     dD_part = torch.empty(G, Dm, **f32)
     dbias_part = torch.empty(G, Dm, **f32)
+    ckpt = torch.empty(bwd_ckpt_floats(G, Dm, N, T), **f32)
     ptrs = [t.data_ptr() for t in (u, delta, A, B, C, D, bias, xsave, dy, du,
                                    ddelta, dB_part, dC_part, dA_part, dD_part,
-                                   dbias_part)]
+                                   dbias_part, ckpt)]
     with torch.cuda.device(u.device):
-        call(_BWD_KERNEL, [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p],
-             ptrs + [G, L, Dm, K, N, T, int(u.dtype == torch.bfloat16),
-                     _stream(u)])
+        call(_BWD_KERNEL, [ctypes.c_void_p] * 17 + [ctypes.c_longlong]
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+             ptrs + [ckpt.numel(), G, L, Dm, K, N, T,
+                     int(u.dtype == torch.bfloat16), _stream(u)])
     scan_v1_bwd.launches += 1
     dA, dD, dbias = _sum_partials(u, A, dA_part, dD_part, dbias_part)
-    return du, ddelta, dA, dB_part.sum(0), dC_part.sum(0), dD, dbias
+    sums = [p[0] if len(p) == 1 else p.sum(0) for p in (dB_part, dC_part)]
+    return (du, ddelta, dA, *sums, dD, dbias)
 
 
 def scan_v1_bwd(u, delta, A, B, C, D, bias, xsave, dy, T: int,

@@ -234,8 +234,10 @@ def test_v1_refuses_the_flags_and_the_generic_entry_stays_off(monkeypatch):
 
 def test_v1_wrappers_check_before_launching():
     """The CUDA route refuses CPU tensors, and the wrappers' checks raise
-    before any launch: a wrong xsave shape, a chunk the backward's shared
-    memory cannot hold."""
+    before any launch: a wrong xsave shape, a chunk below 1, and every
+    size the C entries refuse below 1 (G, L, Dm, K, N).  No chunk is too
+    long: the backward keeps its checkpoints outside shared memory, and
+    its block's shared memory is bounded at compile time."""
     inp, dy = _inputs(6, 1, 2, 40, 16, 8)
     args = _torch(inp)
     with pytest.raises(ValueError):
@@ -246,9 +248,18 @@ def test_v1_wrappers_check_before_launching():
                             torch.from_numpy(dy), 20)
     with pytest.raises(ValueError):
         v1._launch_fwd_cuda(*args, 0, False)
-    assert v1.bwd_smem_bytes(240, 16) < v1._SMEM_LIMIT
-    assert v1.bwd_smem_bytes(100000, 16) > v1._SMEM_LIMIT
-    big = v1.scan_v1_fwd_ref(*args, 40000)[1]
-    with pytest.raises(ValueError, match="shared memory"):
-        v1._launch_bwd_cuda(*args, big, torch.from_numpy(dy), 40000)
+    u, delta, A, B, C, D, bias = args
+    dyt = torch.from_numpy(dy)
+    for name, bad in (
+            ("G", (u[:0], delta[:0], A, B[:0], C[:0], D, bias)),
+            ("L", (u[:, :0], delta[:, :0], A, B[:, :0], C[:, :0], D, bias)),
+            ("Dm", (u[..., :0], delta[..., :0], A[:, :0], B, C, D[:, :0],
+                    bias[:, :0])),
+            ("K", (u, delta, A[:0], B, C, D[:0], bias[:0])),
+            ("N", (u, delta, A[..., :0], B[..., :0], C[..., :0], D, bias))):
+        bad = [t.contiguous() for t in bad]
+        with pytest.raises(ValueError, match=f"{name}=0"):
+            v1._launch_fwd_cuda(*bad, 20, True)
+        with pytest.raises(ValueError, match=f"{name}=0"):
+            v1._launch_bwd_cuda(*bad, xs, dyt, 20)
     assert v1.scan_v1_fwd.launches == 0 and v1.scan_v1_bwd.launches == 0
