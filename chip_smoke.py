@@ -89,9 +89,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      come from the xsave given); ScanFolded on the v1 pair (the cap at 50)
      against torch.autograd through the plain forward; ValueError under v1
      for reverse and each flag;
-  2q. the bench's calibration kernel vs its plain twin at the bench's four
-     stages and inputs, fp32 and bf16 compute, a second launch
-     bit-identical;
+  2q. the bench's calibration kernel vs its plain twins at the bench's
+     four stages and inputs (bf16) and at two ragged cases (G 8, odd Dm,
+     pad rows; N 24 and N 5; bf16 and fp32), fp32 and bf16 compute: within
+     CALIB_TOL of kern's order, in fp32 compute also within CALIB_TWIN_TOL
+     of the kernel's own order, a second launch bit-identical, times
+     beside the bound (bytes, operations or the exps at the MUFU rate), at
+     each stage what the card grants the pass, at stage 0 its device time;
   3. medmamba eval and 4. medmamba training, 5. medssd eval and
      6. medssd training, 7. st_ssd eval and 8. st_ssd training, each model
      at full width (224x224), then 9. medssd eval and 10. medssd training
@@ -120,11 +124,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   12. greedy generate with the full LM on the card (4 prompts x 64 tokens,
      32 new): each new token the full forward's argmax, decode_step's
      logits against the full forward's, ms per decode step and tokens/s;
-  13. the kernel bench (scripts/kernel_bench.py) through its main() at
-     --iters 3: --stage all at the default cap (the two-level scan kernels
-     only), --stage all --t-cap 50 (the v1 pair only: one forward launch
-     per forward and per fwd+bwd call, one backward launch per fwd+bwd
-     call, at each stage), --calibrate (the calibration kernel only); then
+  13. the kernel bench (scripts/kernel_bench.py) through its main():
+     --stage all at the default cap (the two-level scan kernels only) and
+     --stage all --t-cap 50 (the v1 pair only: one forward launch per
+     forward and per fwd+bwd call, one backward launch per fwd+bwd call,
+     at each stage), each at --iters 3, and --calibrate at --iters 20 (the
+     calibration kernel only), its reading beside --t-cap 50's forward; then
      row 1 against row 3 and row 2 against row 4 at the bench's stage 0 in
      bf16, timed in turns.
 The model phases (3-12) also hold the v1 and calibration counters at 0.
@@ -176,6 +181,22 @@ V1_PERTURBED = V1_CASES[0]
 # bf16 in both modes, and a sum that straddles a rounding point (or, with
 # bf16 compute, an exp or softplus one ulp apart) lands one bf16 step away
 CALIB_TOL = (3e-2, 2e-2)
+# its fp32 compute vs the plain twin of its own order (dt u out of the sum,
+# B C once, exp2 of dt A log2 e): the fp32 sums agree to ~1e-6 of their
+# terms (ex2.approx against exp2), so y lands within one step of its type
+# of the twin's: rtol 2^-7 in bf16 (a bf16 step), 1e-5 in fp32; atol 1e-5
+# x max|twin|
+CALIB_TWIN_TOL = {"bf16": (2.0 ** -7, 1e-5), "fp32": (1e-5, 1e-5)}
+# the ragged calibration cases, G 8 over K 4, each with an odd Dm (a half
+# pair at the channel tail) and L not a multiple of the chooser's T (pad
+# rows, the last row tile cut short): N 24 (states past the 16 the kernel
+# keeps in registers) at L 300 over T 152, and N 5 (zero-padded states)
+# at L 49 over T 56
+CALIB_RAGGED = (dict(G=8, L=300, Dm=95, N=24), dict(G=8, L=49, Dm=33, N=5))
+# the calibration's one pass, by the name torch.profiler gives it
+CALIB_SPLIT = {"kernel": "calib_kernel"}
+# phase 13 runs the bench's --calibrate at its default --iters
+CALIB_BENCH_ITERS = 20
 # exps per second at the MUFU rate: 16 per clock per SM, 132 SMs, 1.98 GHz
 # (the H100 SXM's boost clock)
 MUFU_PER_S = 16 * 132 * 1.98e9
@@ -1730,24 +1751,56 @@ def phase_v1_bwd_vs_plain():
     return dict(cases=cases, autograd_err=auto, perturbed_err=perturbed)
 
 
+def _calib_bound(cfg, T, dtype="bf16"):
+    """The calibration at a bench stage ``cfg`` (G, L, Dm, N; K 4 unless
+    given) and chunk T, operands in ``dtype``: the largest of three times,
+    as ``_v1_bound`` takes them.  Bytes: u, Δ, B, C in and y [G, Lp, Dm]
+    out, At [K, N, Dm] fp32 in.  CUDA-core operations: an exp, four
+    products and a sum a (g, t, d, n), at the fp32 rate in either compute
+    (bf16 compute's products run on the CUDA cores too).  Exps at the MUFU
+    rate: one a (g, t, d, n), the same in either compute.  Returns (ms,
+    "bytes" or "operations"); the exps are operations."""
+    G, L, Dm, n = cfg["G"], cfg["L"], cfg["Dm"], cfg["N"]
+    isz = 4 if dtype == "fp32" else 2
+    Lp = -(-L // T) * T
+    exps = G * L * Dm * n
+    nbytes = (G * L * (2 * Dm + 2 * n) + G * Lp * Dm) * isz \
+        + cfg.get("K", 4) * n * Dm * 4
+    t, by = _bound(nbytes, 5 * exps, "fp32")
+    t_mufu = exps / MUFU_PER_S * 1e3
+    return (t_mufu, "operations") if t_mufu > t else (t, by)
+
+
 def phase_calib_vs_plain():
     """2q: the calibration kernel (csrc/scan_calib.cu) against its plain
-    twin at the bench's four stages (its inputs, T from the tile chooser at
-    the default cap), fp32 and bf16 compute, within CALIB_TOL x max|plain|,
-    a second launch bit-identical; kernel and plain times from CUDA
-    events."""
+    twins at the bench's four stages (its inputs, bf16, T from the tile
+    chooser at the default cap) and at the CALIB_RAGGED cases in bf16 and
+    fp32, in fp32 and bf16 compute: within CALIB_TOL x max|plain| of
+    scan_calib_ref (``kern``'s order, and its roundings in bf16 compute),
+    and in fp32 compute within CALIB_TWIN_TOL of scan_calib_factored_ref
+    (the kernel's order); a second launch bit-identical; kernel and plain
+    times from CUDA events beside ``_calib_bound``; at each stage what the
+    card grants the pass, and at stage 0 its device time
+    (torch.profiler)."""
     import torch
     from medical_image_classification_tpu_torch.kernels import (
         scan_calib as calib, selective_scan_v1 as v1)
     from medical_image_classification_tpu_torch.scripts.kernel_bench import (
         STAGES as BENCH_STAGES, make_inputs)
+    shapes = [(st, cfg, torch.bfloat16) for st, cfg in BENCH_STAGES.items()]
+    shapes += [("ragged", cfg, dt) for cfg in CALIB_RAGGED
+               for dt in (torch.bfloat16, torch.float32)]
     cases = []
-    for st, cfg in BENCH_STAGES.items():
+    for st, cfg, dtype in shapes:
         T, _ = v1._choose_tiles(cfg["L"], cfg["Dm"], cfg["N"])
-        u, delta, A, B, C, _, _ = make_inputs(**cfg, device="cuda")
+        u, delta, A, B, C, _, _ = make_inputs(**cfg, dtype=dtype,
+                                              device="cuda")
         At = A.transpose(1, 2).contiguous()
+        dt_name = "fp32" if dtype == torch.float32 else "bf16"
+        G_, L, Dm, n = cfg["G"], cfg["L"], cfg["Dm"], cfg["N"]
         for mode, bf in (("fp32", False), ("bf16", True)):
-            what = f"calibration stage {st} T{T} {mode} compute"
+            what = (f"calibration {st} G{G_} L{L} Dm{Dm} N{n} T{T} {dt_name} "
+                    f"{mode} compute")
             run_k = lambda: calib.scan_calib(u, delta, At, B, C, T,
                                              bf16_compute=bf, impl="cuda")
             run_p = lambda: calib.scan_calib_ref(u, delta, At, B, C, T, bf)
@@ -1757,27 +1810,41 @@ def phase_calib_vs_plain():
                 raise AssertionError(f"{what}: two launches differ in the "
                                      "bits")
             err = _check_scaled(what, yk, yp, *CALIB_TOL)
+            twin_err = None
+            if not bf:
+                twin = calib.scan_calib_factored_ref(u, delta, At, B, C, T)
+                twin_err = _check_scaled(what + " vs its factored twin", yk,
+                                         twin, *CALIB_TWIN_TOL[dt_name])
+                del twin
             Lp = yk.shape[1]
             del yk, yk2, yp
-            isz = u.element_size()
-            G_, L, Dm, n = cfg["G"], cfg["L"], cfg["Dm"], cfg["N"]
             exps = G_ * L * Dm * n
-            nbytes = (G_ * L * (2 * Dm + 2 * n) + G_ * Lp * Dm) * isz \
-                + At.numel() * 4
-            cases.append(dict(stage=st, L=L, Dm=Dm, T=T, Lp=Lp, dtype="bf16",
-                              compute=mode, max_abs_err=err,
-                              ms=_events_ms(run_k, 10),
-                              plain_ms=_events_ms(run_p, 1),
-                              bound=_bound(nbytes, 5 * exps, "fp32"),
-                              exps=exps, mufu_ms=exps / MUFU_PER_S * 1e3))
+            c = dict(stage=st, G=G_, L=L, Dm=Dm, N=n, T=T, Lp=Lp,
+                     dtype=dt_name, compute=mode, max_abs_err=err,
+                     twin_err=twin_err, ms=_events_ms(run_k, 10),
+                     plain_ms=_events_ms(run_p, 1),
+                     bound=_calib_bound(cfg, T, dt_name), exps=exps,
+                     mufu_ms=exps / MUFU_PER_S * 1e3)
+            if st != "ragged":
+                c["pass"] = calib.pass_info(G_, Lp, Dm, dtype, bf)
+            if st == "0":
+                _walk_split(c, run_k, CALIB_SPLIT)
+            cases.append(c)
     summary = "; ".join(
-        f"stage {c['stage']} L{c['L']}->{c['Lp']} Dm{c['Dm']} T{c['T']} "
-        f"{c['compute']} compute err={c['max_abs_err']:.2e} "
-        f"kernel={c['ms']:.4f}ms plain={c['plain_ms']:.2f}ms "
+        f"{c['stage']} G{c['G']} L{c['L']}->{c['Lp']} Dm{c['Dm']} N{c['N']} "
+        f"T{c['T']} {c['dtype']} {c['compute']} compute "
+        f"err={c['max_abs_err']:.2e}"
+        + (f" twin={c['twin_err']:.2e}" if c["twin_err"] is not None else "")
+        + f" kernel={c['ms']:.4f}ms plain={c['plain_ms']:.2f}ms "
         f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}) exps={c['exps']} "
-        f"({c['mufu_ms']:.4f}ms at the MUFU rate)" for c in cases)
-    print(f"phase 2q calibration kernel vs plain: {len(cases)}/8 cases "
-          f"within {CALIB_TOL} (rtol, atol x max|plain|), second launch "
+        f"({c['mufu_ms']:.4f}ms at the MUFU rate)"
+        + (" pass (registers/local B/shared B/warps per SM/threads/rows/"
+           "blocks) " + "/".join(str(v) for v in c["pass"].values())
+           if "pass" in c else "") + _split_text(c) for c in cases)
+    print(f"phase 2q calibration kernel vs plain: {len(cases)}/"
+          f"{2 * len(shapes)} cases within {CALIB_TOL} of kern's order "
+          f"(rtol, atol x max|plain|), fp32 compute within "
+          f"{CALIB_TWIN_TOL} of the kernel's order, second launch "
           f"bit-identical | {summary}", flush=True)
     return cases
 
@@ -2565,13 +2632,16 @@ def phase_lm_generate(card):
 
 def phase_kernel_bench(card):
     """13: the port's kernel bench (``scripts/kernel_bench.py``) through its
-    ``main`` at --iters 3, three times: --stage all at the default cap
-    (each stage on the two-level kernels: one forward launch per forward
-    call and per fwd+bwd call, one backward launch per fwd+bwd call),
-    --stage all --t-cap 50 (the same counts on the v1 pair, and no
-    two-level launch), --calibrate (the calibration kernel once per call,
-    nothing else); every counter set to 0 just before each run, and read
-    around each stage.  Then rows 1 and 3 (and 2 and 4) at the bench's
+    ``main`` three times: --stage all at the default cap (each stage on the
+    two-level kernels: one forward launch per forward call and per fwd+bwd
+    call, one backward launch per fwd+bwd call) and --stage all --t-cap 50
+    (the same counts on the v1 pair, and no two-level launch), each at
+    --iters 3, and --stage all --calibrate at the script's default --iters
+    20 (the calibration kernel once per call, nothing else: at ~0.2 ms a
+    call, 3 calls would time the host); every counter set to 0 just before
+    each run, and read around each stage; the calibration's reading beside
+    the --t-cap 50 forward's at each stage (both calls end in the same
+    ``y.float().sum()``).  Then rows 1 and 3 (and 2 and 4) at the bench's
     stage 0 in bf16, each writing the xsave its backward reads (chunks of
     fwd.CHUNK and of T 50), timed in turns (1, 3, 3, 1) with CUDA events."""
     import torch
@@ -2581,7 +2651,6 @@ def phase_kernel_bench(card):
     from medical_image_classification_tpu_torch.scripts import (
         kernel_bench as kb)
     counters = _counters()
-    iters = 3
     per_stage = []
 
     def counted(fn):
@@ -2603,13 +2672,14 @@ def phase_kernel_bench(card):
                 bwd_name: rec["fwd_bwd_calls"]}
 
     runs = (
-        ("default cap", [],
+        ("default cap", ["--iters", "3"],
          lambda r: want_two_level(r, "selective_scan_fwd",
                                   "selective_scan_bwd", "v2")),
-        ("t-cap 50", ["--t-cap", "50"],
+        ("t-cap 50", ["--iters", "3", "--t-cap", "50"],
          lambda r: want_two_level(r, "selective_scan_v1_fwd",
                                   "selective_scan_v1_bwd", "v1")),
-        ("calibrate", ["--calibrate"], lambda r: {"scan_calib": r["calls"]}))
+        ("calibrate", ["--iters", str(CALIB_BENCH_ITERS), "--calibrate"],
+         lambda r: {"scan_calib": r["calls"]}))
     saved = kb._bench_stage, kb.calib_kernel_bench
     kb._bench_stage, kb.calib_kernel_bench = (counted(f) for f in saved)
     result = {}
@@ -2619,8 +2689,7 @@ def phase_kernel_bench(card):
             for c in counters.values():
                 c.launches = 0
             t0 = time.perf_counter()
-            records = kb.main(["--stage", "all", "--iters", str(iters)]
-                              + extra)
+            records = kb.main(["--stage", "all"] + extra)
             seconds = time.perf_counter() - t0
             if len(records) != 4 or len(per_stage) != 4:
                 raise AssertionError(f"bench {label}: {len(records)} "
@@ -2668,6 +2737,8 @@ def phase_kernel_bench(card):
                                           st0["G"]),
                    bound_row4=_v1_bound(st0["L"], st0["Dm"], T, "bf16", True))
     del xs1, xs3
+    floor = {x["stage"]: (x["calib_ms"], y["fwd_ms"]) for x, y in zip(
+        result["calibrate"]["records"], result["t-cap 50"]["records"])}
     lines = " | ".join(
         f"{label}: {r['seconds']:.1f} s, launches "
         + ", ".join(f"{k} {v}" for k, v in r["launches"].items() if v)
@@ -2677,8 +2748,11 @@ def phase_kernel_bench(card):
                 else f"{x['kernel']} T{x['T']} fwd {x['fwd_ms']:.3f} ms "
                 f"fwd+bwd {x['fwd_bwd_ms']:.3f} ms") for x in r["records"])
         for label, r in result.items())
-    print(f"phase 13 kernel bench via scripts/kernel_bench.py main(), "
-          f"--iters {iters}, on {card}: {lines} | launches per stage as "
+    print(f"phase 13 kernel bench via scripts/kernel_bench.py main() on "
+          f"{card}: {lines} | calibrate (--iters {CALIB_BENCH_ITERS}) vs "
+          f"--t-cap 50 fwd (--iters 3): " + ", ".join(
+              f"stage{st} {c:.3f} vs {f:.3f} ms" for st, (c, f) in
+              floor.items()) + " | launches per stage as "
           f"expected (each bench call: the forward once per fwd and fwd+bwd "
           f"call, the backward once per fwd+bwd call, the calibration once "
           f"per call, nothing else) | at {compare['shape']} with xsave: "
@@ -2687,7 +2761,7 @@ def phase_kernel_bench(card):
           f"(one walk a state, T {T}) {ms['row3']:.4f} ms; row 2 "
           f"{ms['row2']:.4f} ms vs row 4 {ms['row4']:.4f} ms (turns 1, 3, "
           f"3, 1)", flush=True)
-    return dict(runs=result, compare=compare)
+    return dict(runs=result, compare=compare, floor=floor)
 
 
 def _entry(name, replaces, cases, launches, head, bound):
@@ -2857,7 +2931,9 @@ def main(argv=None):
                                 other_ms=cmp["ms"][other],
                                 other_bound_ms=cmp["bound_" + other][0])
     c0 = next(c for c in calib_cases if calib_head(c))
-    entries[-1].update(per="bench call (--stage all --calibrate --iters 3)",
+    entries[-1].update(per="bench call (--stage all --calibrate --iters "
+                       f"{CALIB_BENCH_ITERS})", twin_err=c0["twin_err"],
+                       passes=c0["pass"], split_ms=c0.get("split"),
                        exps=c0["exps"], mufu_ms=c0["mufu_ms"],
                        bf16_compute_ms=next(
                            c["ms"] for c in calib_cases

@@ -11,6 +11,12 @@ Layout: u, Δ [G, L, Dm] and B, C [G, L, N] in one type; At [K, N, Dm] fp32
 (A transposed, as ``run`` takes it), sequence g in group g % K.  y is [G,
 Lp, Dm] in u's type, L padded to Lp, the next multiple of the bench's chunk
 T, as the TPU kernel writes it; the pad rows are 0.
+
+Two plain versions: ``scan_calib_ref`` computes in ``kern``'s order (and,
+with ``bf16_compute``, rounds where it rounds); ``scan_calib_factored_ref``
+is the fp32 order of the CUDA kernel (``csrc/scan_calib.cu``), dt u taken
+out of the sum and B C formed once, against which ``chip_smoke.py`` holds
+the kernel's fp32 compute on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from medical_image_classification_tpu_torch.kernels._dispatch import (
 
 _KERNEL = "scan_calib"
 _DTYPES = (torch.float32, torch.bfloat16)
+LOG2E = 1.4426950408889634      # the kernel's kLog2e, rounded to fp32
 
 
 def scan_calib_ref(u, delta, At, B, C, T: int, bf16_compute: bool = False):
@@ -50,9 +57,31 @@ def scan_calib_ref(u, delta, At, B, C, T: int, bf16_compute: bool = False):
     return acc.to(u.dtype)
 
 
+def scan_calib_factored_ref(u, delta, At, B, C, T: int):
+    """Plain PyTorch version of the kernel's fp32 compute, in its order:
+    y = (dt u) sum_n 2^(dt A'_n) (B_n C_n), with A' = A log2 e rounded to
+    fp32 and B C formed once a (t, n); the sum over n in fp32, in order.
+    The same function as ``scan_calib_ref``'s fp32 compute, its roundings
+    taken in another order."""
+    G, L, Dm = u.shape
+    K = At.shape[0]
+    pad = (-L) % T
+    dt = F.softplus(delta.float())
+    A2 = (At * torch.tensor(LOG2E, dtype=torch.float32)).repeat(G // K, 1, 1)
+    BC = B.float() * C.float()                             # [G, L, N]
+    acc = torch.zeros(G, L, Dm, dtype=torch.float32, device=u.device)
+    for n in range(At.shape[1]):
+        acc += torch.exp2(dt * A2[:, None, n]) * BC[..., n:n + 1]
+    return F.pad((dt * u.float()) * acc, (0, 0, 0, pad)).to(u.dtype)
+
+
 def _check_cuda_args(u, delta, At, B, C, T):
     G, L, Dm = u.shape
     K, N, _ = At.shape
+    # the C entry refuses every size below 1
+    for name, size in (("G", G), ("L", L), ("Dm", Dm), ("K", K), ("N", N)):
+        if size < 1:
+            raise ValueError(f"{name}={size}: every size must be at least 1")
     if u.dtype not in _DTYPES:
         raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
     for name, t, shape, dtype in (("delta", delta, (G, L, Dm), u.dtype),
@@ -93,6 +122,25 @@ def _launch_cuda(u, delta, At, B, C, T, bf16_compute):
               int(u.dtype == torch.bfloat16), int(bf16_compute), stream])
     scan_calib.launches += 1
     return y
+
+
+def pass_info(G: int, Lp: int, Dm: int, dtype, bf16_compute: bool) -> dict:
+    """What the card grants the kernel's one pass at (G, Lp, Dm), operand
+    type ``dtype`` and the compute: {"registers", "local_bytes" (spills),
+    "shared_bytes" a block, "warps_per_sm", "threads" a block, "rows" a
+    tile, "blocks"}, from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    from medical_image_classification_tpu_torch.kernels import _build
+    lib = _build.library(_KERNEL)
+    fn = getattr(lib, f"{_KERNEL}_pass_info")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    _build.raise_on_error(lib, _KERNEL, fn(
+        G, Lp, Dm, int(dtype == torch.bfloat16), int(bf16_compute),
+        ctypes.addressof(out)))
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "warps_per_sm", "threads", "rows", "blocks"), out))
 
 
 def scan_calib(u, delta, At, B, C, T: int, bf16_compute: bool = False,

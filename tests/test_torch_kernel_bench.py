@@ -221,3 +221,113 @@ def test_bench_imports_nothing_of_jax():
                          capture_output=True, text=True, check=True,
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("shape", [
+    dict(G=8, L=49, Dm=32, N=4, T=56),      # the padding shape
+    dict(G=8, L=30, Dm=15, N=24, T=16),     # odd Dm, N past 16, ragged L
+], ids=["pad", "ragged"])
+def test_factored_twin_matches_ref_and_kern(shape):
+    """``scan_calib_factored_ref`` (the CUDA kernel's fp32 order: dt u out
+    of the sum, B C once, exp2 of dt A log2 e) against ``scan_calib_ref``
+    and the numpy restatement of ``kern`` in fp32 at 1e-5, the pad rows 0:
+    the same function, its roundings in another order."""
+    rng = np.random.default_rng(17)
+    G, L, Dm, N, T = (shape[k] for k in ("G", "L", "Dm", "N", "T"))
+    K = 4
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    u, delta, B, C = f(G, L, Dm), 0.1 * f(G, L, Dm), f(G, L, N), f(G, L, N)
+    At = -np.abs(f(K, N, Dm)) - 0.5
+    args = [torch.from_numpy(a) for a in (u, delta, At, B, C)]
+    y = calib.scan_calib_factored_ref(*args, T)
+    Lp = -(-L // T) * T
+    assert y.shape == (G, Lp, Dm) and y.dtype == torch.float32
+    assert not bool(y[:, L:].any())
+    np.testing.assert_allclose(y.numpy(), calib.scan_calib_ref(*args, T),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), _kern_numpy(u, delta, At, B, C, T,
+                                                      False),
+                               rtol=1e-5, atol=1e-5)
+    # in bf16 operands the output keeps u's type
+    ub, db, Bb, Cb = (args[i].bfloat16() for i in (0, 1, 3, 4))
+    yb = calib.scan_calib_factored_ref(ub, db, args[2], Bb, Cb, T)
+    assert yb.dtype == torch.bfloat16 and yb.shape == (G, Lp, Dm)
+
+
+def test_calibration_wrapper_checks_before_launching():
+    """The CUDA route refuses CPU tensors, and the wrapper's checks raise
+    before any launch for every size the C entry refuses below 1 (G, L,
+    Dm, K, N) and for a chunk below 1; no size above 1 is refused (odd Dm
+    and any N run on the card)."""
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    u, delta, At, B, C = f(4, 9, 5), f(4, 9, 5), f(2, 3, 5), f(4, 9, 3), \
+        f(4, 9, 3)
+    before = calib.scan_calib.launches
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        calib.scan_calib(u, delta, At, B, C, 4, impl="cuda")
+    with pytest.raises(ValueError, match="chunk T"):
+        calib._launch_cuda(u, delta, At, B, C, 0, False)
+    for name, bad in (
+            ("G", (u[:0], delta[:0], At, B[:0], C[:0])),
+            ("L", (u[:, :0], delta[:, :0], At, B[:, :0], C[:, :0])),
+            ("Dm", (u[..., :0], delta[..., :0], At[..., :0], B, C)),
+            ("K", (u, delta, At[:0], B, C)),
+            ("N", (u, delta, At[:, :0], B[..., :0], C[..., :0]))):
+        bad = [t.contiguous() for t in bad]
+        with pytest.raises(ValueError, match=f"{name}=0"):
+            calib._launch_cuda(*bad, 4, False)
+    assert calib.scan_calib.launches == before
+
+
+def _chip_smoke(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("stage,mufu_ms", [("0", 0.1474), ("1", 0.0737),
+                                           ("2", 0.0369), ("3", 0.0184)])
+def test_chip_smoke_calib_bound(monkeypatch, stage, mufu_ms):
+    """At each of the bench's stages (bf16, T from the tile chooser) the
+    calibration's bound is its exps at the MUFU rate, above its bytes and
+    its CUDA-core operations; at stage 0 617 M exps, 0.1474 ms, over 256.9
+    MB of bytes (0.0767 ms)."""
+    cs = _chip_smoke(monkeypatch)
+    cfg = kb.STAGES[stage]
+    T, _ = v1._choose_tiles(cfg["L"], cfg["Dm"], cfg["N"])
+    exps = cfg["G"] * cfg["L"] * cfg["Dm"] * cfg["N"]
+    got = cs._calib_bound(cfg, T, "bf16")
+    assert got == (pytest.approx(exps / cs.MUFU_PER_S * 1e3), "operations")
+    assert got[0] == pytest.approx(mufu_ms, abs=1e-4)
+    if stage == "0":
+        assert exps == 616_562_688 and T == 224
+        nbytes = 128 * 3136 * (2 * 96 + 2 * 16) * 2 + 128 * 3136 * 96 * 2 \
+            + 4 * 16 * 96 * 4
+        assert nbytes == 256_925_696
+        assert cs._bound(nbytes, 5 * exps, "fp32") == (
+            pytest.approx(0.0767, abs=1e-4), "bytes")
+        # fp32 operands move twice the bytes: 0.1534 ms, above the MUFU
+        assert cs._calib_bound(cfg, T, "fp32") == (
+            pytest.approx(2 * (nbytes - 4 * 16 * 96 * 4) / cs.HBM_BPS * 1e3
+                          + 4 * 16 * 96 * 4 / cs.HBM_BPS * 1e3), "bytes")
+
+
+def test_chip_smoke_calib_cases_reach_the_tails(monkeypatch):
+    """Phase 2q's ragged cases run the kernel's edges: each an odd Dm (a
+    half pair), L not a multiple of the chooser's T (pad rows), G a
+    multiple of the bench's K 4; one N past the 16 states the kernel keeps
+    in registers, one N below it (zero-padded states); and the profile name
+    of its one pass is a ``__global__`` of the source."""
+    cs = _chip_smoke(monkeypatch)
+    src = (ROOT / "medical_image_classification_tpu_torch" / "csrc"
+           / "scan_calib.cu").read_text()
+    assert "constexpr int kRegN = 16;" in src
+    for r in cs.CALIB_RAGGED:
+        T, _ = v1._choose_tiles(r["L"], r["Dm"], r["N"])
+        assert r["Dm"] % 2 == 1 and r["L"] % T and r["G"] % 4 == 0
+    assert sorted(r["N"] > 16 for r in cs.CALIB_RAGGED) == [False, True]
+    assert all(r["N"] % 4 for r in cs.CALIB_RAGGED if r["N"] < 16)
+    for pattern in cs.CALIB_SPLIT.values():
+        assert f"{pattern}(const T* __restrict__ u" in src
