@@ -22,16 +22,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      against torch.autograd through the plain forward;
   2c. four-direction fused SSD forward kernel vs its plain twin at MedSSD's
      stages 0 and 1 (B 32; L 3136, l 224, H4 8 and L 784, l 196, H4 16;
-     P 64, N 512) and its stage 0 at 240x240 (L 3600, l 240, nc 15, H4 8),
-     fp32 and bf16: y and Ssave, a second launch bit-identical, times from
-     CUDA events with and without Ssave beside the bound of each call, at
+     P 64, N 512), its stage 0 at 240x240 (L 3600, l 240, nc 15, H4 8) and
+     the same two stages at N 64 (gn 16: cnn_mamba and the other SSD
+     models at d_state 16), fp32 and bf16: y and Ssave, a second launch
+     bit-identical, times from CUDA events with and without Ssave beside
+     the bound of each call, at
      each bf16 case the device time of each of the walk's passes
      (torch.profiler; so too in 2d, 2k and 2l), and what the card grants
      each pass and the HMMA instructions in each bf16 pass's SASS (so too
      in 2d, 2k and 2l);
-  2d. its backward kernel vs the plain backward at the same 6 cases, all six
-     cotangents, a second launch bit-identical; at stage 1 fp32,
-     SSDFusedDirs against torch.autograd through the plain forward;
+  2d. its backward kernel vs the plain backward at the same 10 cases, all
+     six cotangents, a second launch bit-identical; SSDFusedDirs against
+     torch.autograd through the plain forward at MedSSD's stage 1 in fp32
+     and at both N 64 stages in fp32 and bf16;
   2e. SSD Y_diag forward kernel vs plain at ST-SSD's stage 0 (BC 448 =
      32 x 14 chunks of l 224, H 8, N 64, P 64) and at N 512: MedSSD's
      stage 2 at 240x240 (BC 32, l 232 for L 225, H 32, P 64) and the shape
@@ -96,6 +99,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      of the kernel's own order, a second launch bit-identical, times
      beside the bound (bytes, operations or the exps at the MUFU rate), at
      each stage what the card grants the pass, at stage 0 its device time;
+  2r. the d_state-16 models' SSD core (ss2d_core_ssd) at their stages 0-1
+     at 224x224 (B 32, bf16, N 64) through the dirs path the gate picks
+     and through the einsum path (forced; Y_diag at stage 0): forward and
+     forward + backward times from CUDA events, each path's launches, the
+     two paths' outputs against each other;
   3. medmamba eval and 4. medmamba training, 5. medssd eval and
      6. medssd training, 7. st_ssd eval and 8. st_ssd training, each model
      at full width (224x224), then 9. medssd eval and 10. medssd training
@@ -112,7 +120,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      steps: every kernel's launches (the path's forward and backward
      kernels exactly their calls per step, the others none), a finite loss,
      every parameter moved, every parameter's gradient at batch 4 against
-     the plain versions (fp32 and bf16), img/s and a profile of one step;
+     the plain versions (fp32 and bf16; on the same training's weights made
+     again, and the gradients taken, under cuDNN's deterministic
+     algorithms: everything else runs with cuDNN's defaults, as the CLIs
+     do), img/s and a profile of one step;
   11. the Mamba-1 LM at mamba-130m width and depth (d_model 768, 24
      layers, vocab 50280, fp32, seeded random weights with the scan
      parameters drawn away from init) scoring 8 x 2048 tokens: 24 scan
@@ -132,12 +143,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      calibration kernel only), its reading beside --t-cap 50's forward; then
      row 1 against row 3 and row 2 against row 4 at the bench's stage 0 in
      bf16, timed in turns.
-The model phases (3-12) also hold the v1 and calibration counters at 0.
+  14.-17. cnn_mamba_mifa and kanin_ssd eval and training at 224x224 as
+     in 5 and 6 (the dirs kernels at N 64 at stages 0-1: 4 + 4 launches a
+     step); 18.-24. cnn_mamba, kanout_ssd and medssd with each KAN head
+     (ekan, okan, kan_stack, kan_module, 3kan) at full width: one eval
+     forward through run_eval and one Adam step through run_train each,
+     launches exactly the path's, logits against the plain versions, every
+     parameter moved; 25.-26. kan_grid_update of medssd_ekan and
+     medssd_okan on one batch on the card: the head's grid and spline
+     weights re-fit in place, the logits on the batch kept within
+     REGRID_TOL x max|logit|, the knots and the refit head's output
+     against the same re-grid in fp64 on the host (REFIT_GRID_TOL,
+     REFIT_TOL).
+The model phases (3-26) also hold the v1 and calibration counters at 0.
 Then one JSON line describing the fifteen kernels (launches in the training
 runs, in the bench's runs for v1 and the calibration; errors, times, the
 bound of each from this run's shapes; times and bounds at stage 0 in bf16,
 the fused SSD's at MedSSD's stage 1 at 240x240; rows 1-2 also at the LM's
-layer call under "lm"), the card's name
+layer call under "lm"; rows 5/5b also at N 64 under "n64", with their
+launches per cnn_mamba_mifa training step), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -146,6 +170,7 @@ writes the per-case numbers and the profiles as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -201,12 +226,17 @@ CALIB_BENCH_ITERS = 20
 # (the H100 SXM's boost clock)
 MUFU_PER_S = 16 * 132 * 1.98e9
 # MedSSD's stages on the fused dirs path at 224x224: (L, chunk l, H4,
-# d_ssm); P 64, gn 128 (N 512).  Stages 2-3 take the einsum path
-SSD_STAGES = ((3136, 224, 8, 128), (784, 196, 16, 256))
-# the dirs kernel's cases: those stages, and stage 0 at 240x240 (L 3600,
-# chunk 240, nc 15)
-SSD_CASES = SSD_STAGES + ((3600, 240, 8, 128),)
+# d_ssm, gn); P 64, gn 128 (N 512).  Stages 2-3 take the einsum path
 SSD_P, SSD_GN = 64, 128
+SSD_STAGES = ((3136, 224, 8, 128, SSD_GN), (784, 196, 16, 256, SSD_GN))
+# the same stages at gn 16 (N 64: d_state 16 coupled over the four
+# directions), where cnn_mamba, cnn_mamba_mifa, kanin_ssd, kanout_ssd and
+# the medssd KAN heads take the dirs kernels at 224x224
+SSD16_GN = 16
+SSD16_STAGES = tuple(c[:4] + (SSD16_GN,) for c in SSD_STAGES)
+# the dirs kernel's cases: those stages, and MedSSD's stage 0 at 240x240
+# (L 3600, chunk 240, nc 15)
+SSD_CASES = SSD_STAGES + ((3600, 240, 8, 128, SSD_GN),) + SSD16_STAGES
 # SSD kernels vs plain twin: |k - p| <= atol x max|p| + rtol |p|.  fp32
 # differs in summation order (sums of up to l + N products); bf16 also
 # where a rounded operand (M, dtx, S) or output lands one bf16 step from
@@ -215,6 +245,26 @@ SSD_TOL = {"fp32": (2e-3, 2e-3), "bf16": (3e-2, 2e-2)}
 SSD_GRAD_TOL = {"fp32": (3e-3, 3e-3), "bf16": (6e-2, 3e-2)}
 SSD_GRAD_NAMES = ("dstack", "dacum", "ddte", "dcdec", "ddtp", "dD")
 MEDSSD_240 = 240                                    # PATHS says what runs
+# the SSD models at d_state 16 (N 64): the two driven through the full
+# eval and training phases, the seven given one eval forward and one train
+# step, the two KAN heads re-gridded on the card
+SSD16_FULL = ("cnn_mamba_mifa", "kanin_ssd")
+SSD16_STEP = ("cnn_mamba", "kanout_ssd", "medssd_ekan", "medssd_okan",
+              "medssd_kan", "medssd_kanmodule", "medssd_3kan")
+SSD16_REGRID = ("medssd_ekan", "medssd_okan")
+# a re-grid refits the head's splines to the batch by ridge least squares,
+# which keeps its function up to the fit's residual: the logits on that
+# batch move by at most this share of max|logit| (phases 25-26 read
+# 1.4e-05 for the ekan head and 8.3e-05 for the okan head on an H100)
+REGRID_TOL = 1e-3
+# the card's re-grid (fp32) against the same re-grid in fp64 on the host,
+# from the same head inputs and weights: the knots within this share of
+# each input's knot span, the refit head's output on those inputs within
+# this share of its max|y|
+REFIT_GRID_TOL, REFIT_TOL = 1e-5, 1e-4
+# their SSD core at stages 0-1 at 224x224 (side, d_ssm; H4 = 4 d_ssm / 64):
+# phase 2r times the dirs path against the einsum path (Y_diag at stage 0)
+SSD16_CORE = ((56, 128), (28, 256))
 # the single-layout fused SSD's cases (B, L, chunk l, H, N), P 64: MedSSD
 # 240x240 stage 1, padded as ssd_chunked pads it, and an in-window shape
 # at the bottom of the chunk window with N 128
@@ -489,17 +539,17 @@ def phase_bwd_vs_plain():
 
 def _ssd_cases():
     """The dirs SSD's cases, SSD_CASES in fp32 and bf16: (L, l, dtype
-    name, args, d_ssm, dy), args the kernel's (stackr, acum, dte, cdec, dtp,
-    Dsk) on the card, built as ssd_chunked_dirs builds them (dtp a softplus,
-    acum its cumsum against A = -U(1, 4))."""
+    name, args, d_ssm, dy, gn), args the kernel's (stackr, acum, dte, cdec,
+    dtp, Dsk) on the card, built as ssd_chunked_dirs builds them (dtp a
+    softplus, acum its cumsum against A = -U(1, 4))."""
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    for i, (L, l, H4, d_ssm) in enumerate(SSD_CASES):
+    for i, (L, l, H4, d_ssm, gn) in enumerate(SSD_CASES):
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
         nc = L // l
-        C2 = 2 * (d_ssm + 2 * SSD_GN + H4 // 4)
+        C2 = 2 * (d_ssm + 2 * gn + H4 // 4)
         stack = 0.5 * rnd(BATCH, nc, l, C2)
         dtp = F.softplus(0.5 * rnd(BATCH, nc, H4, l) - 3.0)
         A = -(1.0 + 3.0 * torch.rand(H4, device=dev, generator=gen))
@@ -511,7 +561,7 @@ def _ssd_cases():
         for dt_name, dtype in (("fp32", torch.float32),
                                ("bf16", torch.bfloat16)):
             yield L, l, dt_name, (stack.to(dtype).contiguous(), acum, dte,
-                                  cdec, dtp, D), d_ssm, dy.to(dtype)
+                                  cdec, dtp, D), d_ssm, dy.to(dtype), gn
 
 
 def _check_scaled(what, got, want, rtol, atol_rel):
@@ -759,24 +809,28 @@ def phase_ssd_fwd_vs_plain():
     from medical_image_classification_tpu_torch.kernels import (
         ssd_fused_dirs as sfd)
     cases = []
-    for L, l, dt_name, args, d_ssm, _ in _ssd_cases():
-        run_k = lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, SSD_GN,
+    for L, l, dt_name, args, d_ssm, _, gn in _ssd_cases():
+        run_k = lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, gn,
                                                impl="cuda")
         c = _fwd_case(
-            f"SSD forward kernel vs plain L={L} l={l} {dt_name}", run_k,
-            lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, SSD_GN,
+            f"SSD forward kernel vs plain L={L} l={l} N={4 * gn} {dt_name}",
+            run_k,
+            lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, gn,
                                            want_save=True, impl="cuda"),
-            lambda **kw: sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN,
+            lambda **kw: sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, gn,
                                                     **kw), dt_name)
-        c.update(L=L, l=l, bound=_ssd_bound(args, d_ssm, dt_name, False),
-                 save_bound=_ssd_bound(args, d_ssm, dt_name, False, True))
+        N = 4 * gn
+        c.update(L=L, l=l, N=N,
+                 bound=_ssd_bound(args, d_ssm, N, dt_name, False),
+                 save_bound=_ssd_bound(args, d_ssm, N, dt_name, False, True))
         _walk_split(c, run_k, SSD_FWD_SPLIT)
         cases.append(c)
-    summary = "; ".join(f"{c['L']}/{c['l']} " + _fwd_summary(c)
+    summary = "; ".join(f"{c['L']}/{c['l']} N{c['N']} " + _fwd_summary(c)
                         for c in cases)
     print(f"phase 2c SSD dirs forward kernel vs plain: {len(cases)} cases "
           f"within {SSD_TOL} (rtol, atol x max|plain|), y and Ssave "
-          f"(B={BATCH} P={SSD_P} N={4 * SSD_GN}), second launch "
+          f"(B={BATCH} P={SSD_P} N={4 * SSD_GN} and {4 * SSD16_GN}), second "
+          f"launch "
           f"bit-identical | {_ssd_passes_text('ssd_fused_dirs_fwd')} | "
           f"{_ssd_mma_text('ssd_fused_dirs_fwd')} | {summary}", flush=True)
     return cases
@@ -787,16 +841,17 @@ def phase_ssd_bwd_vs_plain():
     from medical_image_classification_tpu_torch.kernels import (
         ssd_fused_dirs as sfd)
     cases = []
-    for L, l, dt_name, args, d_ssm, dy in _ssd_cases():
-        _, Ssave = sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, SSD_GN,
+    for L, l, dt_name, args, d_ssm, dy, gn in _ssd_cases():
+        _, Ssave = sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, gn,
                                               want_save=True)
-        run_k = lambda: sfd.ssd_fused_dirs_bwd(*args, d_ssm, SSD_GN, Ssave,
+        run_k = lambda: sfd.ssd_fused_dirs_bwd(*args, d_ssm, gn, Ssave,
                                                dy, impl="cuda")
-        run_p = lambda: sfd.ssd_fused_dirs_bwd_ref(*args, d_ssm, SSD_GN,
+        run_p = lambda: sfd.ssd_fused_dirs_bwd_ref(*args, d_ssm, gn,
                                                    Ssave, dy)
         gk, gk2, gp = run_k(), run_k(), run_p()
         torch.cuda.synchronize()
-        what = f"SSD backward kernel vs plain L={L} l={l} {dt_name}"
+        what = (f"SSD backward kernel vs plain L={L} l={l} N={4 * gn} "
+                f"{dt_name}")
         if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
             raise AssertionError(f"{what}: two launches differ in the bits")
         rtol, atol = SSD_GRAD_TOL[dt_name]
@@ -804,29 +859,36 @@ def phase_ssd_bwd_vs_plain():
                 for nm, a, b in zip(SSD_GRAD_NAMES, gk, gp)}
         k_ms = _events_ms(run_k, 3)
         p_ms = _events_ms(run_p, 1)
-        cases.append(dict(L=L, l=l, dtype=dt_name, errs=errs,
+        cases.append(dict(L=L, l=l, N=4 * gn, dtype=dt_name, errs=errs,
                           max_abs_err=max(errs.values()), ms=k_ms,
                           plain_ms=p_ms,
-                          bound=_ssd_bound(args, d_ssm, dt_name, True)))
+                          bound=_ssd_bound(args, d_ssm, 4 * gn, dt_name,
+                                           True)))
         _walk_split(cases[-1], run_k)
 
     # SSDFusedDirs (kernels) against torch.autograd through the plain
-    # forward, at stage 1 in fp32
-    L, l, dt_name, args, d_ssm, dy = next(
-        c for c in _ssd_cases() if c[0] == SSD_STAGES[1][0]
-        and c[2] == "fp32")
-    leaves = [a.detach().clone().requires_grad_(True) for a in args]
-    sfd.ssd_fused_dirs(*leaves, d_ssm, SSD_GN, impl="cuda").backward(dy)
-    got = [a.grad for a in leaves]
-    leaves = [a.detach().clone().requires_grad_(True) for a in args]
-    want = torch.autograd.grad(
-        sfd.ssd_fused_dirs_fwd_ref(*leaves, d_ssm, SSD_GN), leaves, dy)
-    rtol, atol = SSD_GRAD_TOL[dt_name]
-    auto_err = max(_check_scaled(f"SSDFusedDirs vs autograd {nm}", a, b,
-                                 rtol, atol)
-                   for nm, a, b in zip(SSD_GRAD_NAMES, got, want))
+    # forward: at MedSSD's stage 1 in fp32, and at gn 16 at both stages in
+    # fp32 and bf16
+    auto = {}
+    for L, l, dt_name, args, d_ssm, dy, gn in _ssd_cases():
+        if not ((L, gn, dt_name) == (SSD_STAGES[1][0], SSD_GN, "fp32")
+                or gn == SSD16_GN):
+            continue
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        sfd.ssd_fused_dirs(*leaves, d_ssm, gn, impl="cuda").backward(dy)
+        got = [a.grad for a in leaves]
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        want = torch.autograd.grad(
+            sfd.ssd_fused_dirs_fwd_ref(*leaves, d_ssm, gn), leaves, dy)
+        rtol, atol = SSD_GRAD_TOL[dt_name]
+        auto[f"L{L} N{4 * gn} {dt_name}"] = max(
+            _check_scaled(f"SSDFusedDirs vs autograd L={L} N={4 * gn} "
+                          f"{dt_name} {nm}", a, b, rtol, atol)
+            for nm, a, b in zip(SSD_GRAD_NAMES, got, want))
+        del leaves, got, want
+    auto_err = max(auto.values())
     summary = "; ".join(
-        f"{c['L']}/{c['l']} {c['dtype']} " + " ".join(
+        f"{c['L']}/{c['l']} N{c['N']} {c['dtype']} " + " ".join(
             f"{k}={v:.2e}" for k, v in c["errs"].items())
         + f" kernel={c['ms']:.3f}ms plain={c['plain_ms']:.1f}ms "
         f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}){_split_text(c)}"
@@ -834,11 +896,12 @@ def phase_ssd_bwd_vs_plain():
     print(f"phase 2d SSD dirs backward kernel vs plain: {len(cases)} cases "
           f"within {SSD_GRAD_TOL} (rtol, atol x max|plain|) on all 6 "
           f"cotangents, second launch bit-identical | SSDFusedDirs vs "
-          f"torch.autograd through the plain forward at L={L} fp32: max err "
-          f"{auto_err:.2e} | {_ssd_passes_text('ssd_fused_dirs_bwd')} | "
+          f"torch.autograd through the plain forward: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in auto.items())
+          + f" | {_ssd_passes_text('ssd_fused_dirs_bwd')} | "
           f"{_ssd_mma_text('ssd_fused_dirs_bwd')} | {summary}",
           flush=True)
-    return dict(cases=cases, autograd_err=auto_err,
+    return dict(cases=cases, autograd_err=auto_err, autograd=auto,
                 passes=_ssd_passes("ssd_fused_dirs_bwd"),
                 hmma=_ssd_mma("ssd_fused_dirs_bwd"))
 
@@ -1881,13 +1944,14 @@ def _walk_bound(operand_bytes, B, nc, l, H, P, N, isz, dtype, backward,
     return _bound(nbytes, ops, dtype)
 
 
-def _ssd_bound(args, d_ssm, dtype, backward, save=False):
-    """The dirs SSD's bound (``_walk_bound``; the operands are the stack)."""
+def _ssd_bound(args, d_ssm, N, dtype, backward, save=False):
+    """The dirs SSD's bound (``_walk_bound``; the operands are the stack;
+    ``N`` the coupled state width, 4 gn)."""
     stack, acum = args[0], args[1]
     B, nc, l, _ = stack.shape
     H4 = acum.shape[2]
     return _walk_bound(stack.numel() * stack.element_size(), B, nc, l, H4,
-                       d_ssm // (H4 // 4), 4 * SSD_GN, stack.element_size(),
+                       d_ssm // (H4 // 4), N, stack.element_size(),
                        dtype, backward, save)
 
 
@@ -2055,6 +2119,13 @@ PATHS = {
          "ssd fused": ("FlatLayout",),
          **YDIAG_SHARES}),
 }
+
+
+# the SSD models at d_state 16 take medssd's kernels at 224x224: the dirs
+# kernels at N 64 in the blocks of stages 0-1 (phase 2r holds that path
+# against the einsum path)
+for _name in ("cnn_mamba",) + SSD16_FULL + SSD16_STEP:
+    PATHS[(_name, SIZE)] = PATHS[("medssd", SIZE)]
 
 
 def _path(name, size=SIZE):
@@ -2230,19 +2301,63 @@ def _check_grad_tree(what, got, want, rtol, min_cos, abs_floor):
     return worst_rel, worst_cos
 
 
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block, its defaults (the
+    CLIs') outside it."""
+    import torch
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _trained_state(name, size):
+    """The weights of phase_train's training (the seeded model, one warm-up
+    step and STEPS Adam steps on the same batches) made again under cuDNN's
+    deterministic algorithms, so that the gradient check sees the same
+    weights in every run: with cuDNN's defaults cnn_mamba_mifa's stem and
+    MIFA convs sum their weight gradients in another order from run to
+    run."""
+    import torch
+    from medical_image_classification_tpu_torch.cli.train import run_train
+    from medical_image_classification_tpu_torch.data.loader import (
+        SyntheticLoader)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        TrainState)
+    with _cudnn_deterministic():
+        model = _model(name, torch.bfloat16, "auto")
+        model.seed_drop_path(1)
+        opt = make_optimizer("adam", model.named_parameters())
+        sched = make_lr_scheduler(opt, make_schedule("constant", 1e-4))
+        state = TrainState()
+        for steps, seed in ((1, 1), (STEPS, 2)):
+            run_train(model, opt, sched,
+                      SyntheticLoader(BATCH, size, CLASSES, steps=steps,
+                                      seed=seed), torch.device("cuda"),
+                      state=state)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
 def _grad_check(name, sd, imgs, labels):
     """Every parameter's gradient of ``name`` at the weights ``sd`` on one
-    batch (the same DropPath masks), kernels against the plain versions:
-    in fp32 leaf-wise within PARAM_GRAD_TOL of the plain gradients, in
-    bf16 each path's median leaf distance from the fp32 plain gradients,
-    the kernels' at most BF16_GRAD_RATIO times the plain versions'.
-    Returns the numbers and a line that states them."""
+    batch (the same DropPath masks), kernels against the plain versions,
+    under cuDNN's deterministic algorithms: in fp32 leaf-wise within
+    PARAM_GRAD_TOL of the plain gradients, in bf16 each path's median leaf
+    distance from the fp32 plain gradients, the kernels' at most
+    BF16_GRAD_RATIO times the plain versions'.  Returns the numbers and a
+    line that states them."""
     import torch
     loss, grads = {}, {}
     for dt_name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
         for impl in ("cuda", "torch"):
-            loss[dt_name, impl], grads[dt_name, impl] = _param_grads(
-                _model(name, dtype, impl, sd), imgs, labels, 7)
+            with _cudnn_deterministic():
+                loss[dt_name, impl], grads[dt_name, impl] = _param_grads(
+                    _model(name, dtype, impl, sd), imgs, labels, 7)
     ref = grads["fp32", "torch"]
     rel32, cos32 = _check_grad_tree("fp32 param grad", grads["fp32", "cuda"],
                                     ref, *PARAM_GRAD_TOL)
@@ -2314,12 +2429,14 @@ def phase_train(card, name, num, size=SIZE):
                              f"{STEPS} Adam steps: {still[:5]}")
 
     # every parameter's gradient: kernels against the plain versions, same
-    # weights, same batch of GRAD_BATCH, same DropPath masks
+    # weights (this training's, made again deterministically), same batch
+    # of GRAD_BATCH, same DropPath masks
     imgs, labels = next(SyntheticLoader(GRAD_BATCH, size, CLASSES, steps=1,
                                         seed=3).epoch(0))
     imgs = torch.from_numpy(imgs).to(dev)
     labels = torch.from_numpy(labels).long().to(dev)
-    grad_check, gc = _grad_check(name, model.state_dict(), imgs, labels)
+    grad_check, gc = _grad_check(name, _trained_state(name, size), imgs,
+                                 labels)
 
     step = make_train_step(model, opt, sched, state=state)
     x = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
@@ -2362,6 +2479,275 @@ def phase_train(card, name, num, size=SIZE):
     return dict(launches=launches, loss=m["loss"], img_s=m["img_s"], seconds=m["seconds"],
                 resident_step_ms=resident_ms, device_step_ms=total_ms,
                 grad_check=grad_check, step_ms=times, profile=rows)
+
+
+def _ssd16_core_inputs(side, d_ssm, seed):
+    """The d_state-16 core's inputs at one stage, bf16 on the card: xBCdt
+    [B, side, side, d_ssm + 2 x 16 + nheads], A_log, dt_bias and Ds drawn
+    as _perturb_scan_params draws them, and a cotangent."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nheads = d_ssm // SSD_P
+    x = (0.5 * torch.randn(BATCH, side, side, d_ssm + 2 * 16 + nheads,
+                           device=dev, generator=gen)).bfloat16()
+    A_log = (1.0 + 15.0 * torch.rand(4, nheads, device=dev,
+                                     generator=gen)).log()
+    dt = 0.05 + 0.45 * torch.rand(4, nheads, device=dev, generator=gen)
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    Ds = 2.0 * torch.rand(4, nheads, device=dev, generator=gen) - 1.0
+    dy = torch.randn(BATCH, side, side, d_ssm, device=dev,
+                     generator=gen).bfloat16()
+    return (x, A_log, dt_bias, Ds), dy, nheads
+
+
+def phase_ssd16_paths():
+    """2r: the d_state-16 models' SSD core at their stages 0-1 (224x224,
+    B 32, bf16) through the port's two paths: the dirs kernels (the gate's
+    choice) and the einsum path (forced), which takes Y_diag at stage 0
+    where ``ydiag_supported(card=True)`` says so.  Forward (no_grad) and
+    forward + backward, CUDA events, the two paths' outputs against each
+    other, each path's kernel launches."""
+    import torch
+    from medical_image_classification_tpu_torch.ops import ss2d as oss
+    counters = _counters()
+    gate = oss.ssd_dirs_chunk
+    rows = []
+    for side, d_ssm in SSD16_CORE:
+        args, dy, nheads = _ssd16_core_inputs(side, d_ssm, side)
+        kw = dict(d_ssm=d_ssm, d_state=16, nheads=nheads, headdim=SSD_P,
+                  chunk_size=256)
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+
+        def fwd():
+            with torch.no_grad():
+                return oss.ss2d_core_ssd(*args, **kw)
+
+        def fwd_bwd():
+            y = oss.ss2d_core_ssd(*leaves, **kw)
+            torch.autograd.backward(y, dy)
+            return y
+
+        row = dict(side=side, L=side * side, d_ssm=d_ssm)
+        outs = {}
+        for path in ("dirs", "einsum"):
+            oss.ssd_dirs_chunk = gate if path == "dirs" else \
+                (lambda *a, **k: None)
+            try:
+                fwd(), fwd_bwd()                          # warm-up
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                outs[path] = fwd()
+                fwd_bwd()
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in _launches(counters).items()
+                            if v}
+                row[path] = dict(fwd_ms=_events_ms(fwd, 10),
+                                 fwd_bwd_ms=_events_ms(fwd_bwd, 10),
+                                 launches=launches)
+            finally:
+                oss.ssd_dirs_chunk = gate
+        want = {"dirs": {"ssd_fused_dirs_fwd": 2, "ssd_fused_dirs_bwd": 1},
+                "einsum": ({"ssd_ydiag_fwd": 2, "ssd_ydiag_bwd": 1}
+                           if side == SSD16_CORE[0][0] else {})}
+        for path, w in want.items():
+            if row[path]["launches"] != w:
+                raise AssertionError(f"2r L={side * side} {path}: launches "
+                                     f"{row[path]['launches']}, expected {w}")
+        rtol, atol = SSD_TOL["bf16"]
+        row["paths_err"] = _check_scaled(
+            f"2r L={side * side} dirs vs einsum y", outs["dirs"],
+            outs["einsum"], rtol, atol)
+        row["faster"] = {m: min(("dirs", "einsum"),
+                                key=lambda p: row[p][m + "_ms"])
+                         for m in ("fwd", "fwd_bwd")}
+        rows.append(row)
+        del leaves, outs
+    print("phase 2r d_state-16 SSD core, dirs path vs einsum path (Y_diag at "
+          "stage 0), B 32 bf16, N 64: " + "; ".join(
+              f"L {r['L']} d_ssm {r['d_ssm']}: forward dirs "
+              f"{r['dirs']['fwd_ms']:.3f} ms vs einsum "
+              f"{r['einsum']['fwd_ms']:.3f} ms, forward+backward dirs "
+              f"{r['dirs']['fwd_bwd_ms']:.3f} ms vs einsum "
+              f"{r['einsum']['fwd_bwd_ms']:.3f} ms (faster: {r['faster']}), "
+              f"launches dirs {r['dirs']['launches']} einsum "
+              f"{r['einsum']['launches']}, y of the two paths within "
+              f"{SSD_TOL['bf16']} (max err {r['paths_err']:.2e})"
+              for r in rows), flush=True)
+    return rows
+
+
+def phase_model_step(card, name, num, size=SIZE):
+    """One eval forward through run_eval and one Adam step through
+    run_train at full width (b32, bf16): each kernel's launches exactly
+    the path's, the logits against the same weights with the plain
+    versions, a finite loss, every parameter moved."""
+    import math
+
+    import torch
+    from medical_image_classification_tpu_torch.cli.test import run_eval
+    from medical_image_classification_tpu_torch.cli.train import run_train
+    from medical_image_classification_tpu_torch.data.loader import (
+        SyntheticLoader)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        TrainState)
+    calls, _ = _path(name, size)
+    counters = _counters()
+    dev = torch.device("cuda")
+    model = _model(name, torch.bfloat16, "auto")
+    one = SyntheticLoader(BATCH, size, CLASSES, steps=1, seed=0)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, _, logits = run_eval(model, one, dev)
+    eval_s = time.perf_counter() - t0
+    want = {k: calls.get(k, 0) for k in counters}
+    if _launches(counters) != want:
+        raise AssertionError(f"{name}: launches in one forward "
+                             f"{_launches(counters)}, expected {want}")
+    _, _, ref = run_eval(_model(name, torch.bfloat16, "torch",
+                                model.state_dict()), one, dev)
+    err = _check_logits(f"{name} bf16", logits, ref, LOGIT_TOL["bf16"])
+    model.seed_drop_path(1)
+    opt = make_optimizer("adam", model.named_parameters())
+    sched = make_lr_scheduler(opt, make_schedule("constant", 1e-4))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for c in counters.values():
+        c.launches = 0
+    m = run_train(model, opt, sched, SyntheticLoader(BATCH, size, CLASSES,
+                                                     steps=1, seed=2), dev,
+                  state=TrainState())
+    want = {k: 0 for k in counters}
+    for f, n in calls.items():
+        want[f] = want[f[:-len("fwd")] + "bwd"] = n
+    if _launches(counters) != want:
+        raise AssertionError(f"{name}: launches in one train step "
+                             f"{_launches(counters)}, expected {want}")
+    still = sorted(n for n, p in model.named_parameters()
+                   if torch.equal(p, before[n]))
+    if not math.isfinite(m["loss"]) or still:
+        raise AssertionError(f"{name}: loss {m['loss']}, {len(still)} "
+                             f"parameters did not move: {still[:5]}")
+    per = ", ".join(f"{k} {v}" for k, v in want.items() if v)
+    print(f"phase {num} {name} {size}x{size} b{BATCH} bf16: one forward "
+          f"via run_eval and one Adam step via run_train, kernel launches "
+          f"{per} (forward + step), the other kernels none; logits "
+          f"{tuple(logits.shape)} finite, vs plain max err {err:.3e} (tol "
+          f"{LOGIT_TOL['bf16']} x max|logit|); loss {m['loss']:.4f}, all "
+          f"{len(before)} parameters moved | first-call wall time on {card}: "
+          f"eval {eval_s:.3f} s, train step {m['seconds']:.3f} s",
+          flush=True)
+    return dict(logit_err_bf16=err, loss=m["loss"], launches=want,
+                params=len(before), eval_s=eval_s, step_s=m["seconds"])
+
+
+def _refit_err(head, before, w_name, feats):
+    """The card's re-grid of the ekan or okan ``head`` against the same
+    re-grid in fp64 on the host (``ops/kan.py`` from the head's inputs
+    ``feats`` and its weights ``before`` the re-grid): the knots' largest
+    distance over each input's knot span, and the two refit heads' outputs
+    on ``feats`` (fp32 on the host), the largest difference over max|y|."""
+    from medical_image_classification_tpu_torch.ops import kan as kan_ops
+    host = {k[len("kan."):]: v.cpu() for k, v in before.items()
+            if k.startswith("kan.")}
+    x = feats.cpu().double()
+    w0 = host[w_name].double()
+    if w_name == "spline_weight":
+        grid, w = kan_ops.kan_update_grid(
+            x, host["grid"].double(), w0, host["spline_scaler"].double(),
+            grid_size=head.grid_size, spline_order=head.spline_order)
+
+        def out(g, w):
+            return kan_ops.kan_linear(x.float(), g, host["base_weight"],
+                                      w, host["spline_scaler"],
+                                      head.spline_order)
+    else:
+        grid, w = kan_ops.okan_update_grid(x, host["grid"].double(), w0,
+                                           head.k, head.num)
+
+        def out(g, c):
+            return kan_ops.okan_forward(x.float(), g, c,
+                                        host["scale_base"],
+                                        host["scale_sp"], host["mask"],
+                                        head.k)
+    card_grid = head.grid.cpu()
+    span = grid[:, -1:] - grid[:, :1]
+    grid_err = float(((card_grid.double() - grid).abs() / span).max())
+    y_card = out(card_grid, getattr(head, w_name).detach().cpu())
+    y_host = out(grid.float(), w.float())
+    y_err = float((y_card - y_host).abs().max() / y_host.abs().max())
+    return grid_err, y_err
+
+
+def phase_kan_regrid(card, name, num, size=SIZE):
+    """``kan_grid_update`` of the full model on one batch on the card: the
+    head's grid and spline weights re-fit in place (the same Parameter),
+    no other state moved, one forward's kernel launches, the logits on
+    that batch kept within REGRID_TOL x max|logit|, and the re-grid within
+    REFIT_GRID_TOL / REFIT_TOL of the same re-grid in fp64 on the host."""
+    import torch
+    from medical_image_classification_tpu_torch.data.image_folder import (
+        normalize_batch)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        kan_grid_update)
+    calls, _ = _path(name, size)
+    counters = _counters()
+    model = _model(name, torch.bfloat16, "auto")
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
+                      generator=gen).cuda()
+    head = model.kan
+    w_name = "spline_weight" if hasattr(head, "spline_weight") else "coef"
+    param = getattr(head, w_name)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        y0 = model(normalize_batch(x))
+    feats = []
+    hook = head.register_forward_pre_hook(
+        lambda m, args: feats.append(args[0].detach().clone()))
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    kan_grid_update(model, x)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    hook.remove()
+    want = {k: calls.get(k, 0) for k in counters}
+    if _launches(counters) != want:
+        raise AssertionError(f"{name} re-grid: launches "
+                             f"{_launches(counters)}, expected {want}")
+    moved = sorted(k for k, v in model.state_dict().items()
+                   if not torch.equal(v, before[k]))
+    if moved != sorted(["kan.grid", f"kan.{w_name}"]) or \
+            getattr(head, w_name) is not param:
+        raise AssertionError(f"{name} re-grid moved {moved}")
+    with torch.no_grad():
+        y1 = model(normalize_batch(x))
+    scale = float(y0.abs().max())
+    err = float((y1 - y0).abs().max())
+    if not bool(torch.isfinite(y1).all()) or err > REGRID_TOL * scale:
+        raise AssertionError(f"{name} re-grid: logits moved by {err:.3e} > "
+                             f"{REGRID_TOL} x {scale:.3f}")
+    grid_err, refit_err = _refit_err(head, before, w_name, feats[0])
+    if not (grid_err <= REFIT_GRID_TOL and refit_err <= REFIT_TOL):
+        raise AssertionError(
+            f"{name} re-grid against fp64 on the host: knots {grid_err:.3e}"
+            f" x span (tol {REFIT_GRID_TOL}), refit output {refit_err:.3e}"
+            f" x max|y| (tol {REFIT_TOL})")
+    print(f"phase {num} {name} kan_grid_update on the card ({size}x{size} "
+          f"b{BATCH} bf16 backbone, fp32 head): head grid and {w_name} "
+          f"re-fit in place, nothing else moved, one forward's launches; "
+          f"logits on the batch moved by {err:.3e} = {err / scale:.2e} x "
+          f"max|logit| (tol {REGRID_TOL}); against the same re-grid in fp64"
+          f" on the host: knots within {grid_err:.2e} x span (tol "
+          f"{REFIT_GRID_TOL}), refit output within {refit_err:.2e} x "
+          f"max|y| (tol {REFIT_TOL}); {seconds * 1e3:.1f} ms wall on "
+          f"{card}", flush=True)
+    return dict(logit_shift=err, logit_scale=scale, grid_err=grid_err,
+                refit_err=refit_err, ms=seconds * 1e3)
 
 
 def _lm_model(n_layer, scan_impl="auto"):
@@ -2808,6 +3194,7 @@ def main(argv=None):
     v1_cases = phase_v1_fwd_vs_plain()
     v1_bwd = phase_v1_bwd_vs_plain()
     calib_cases = phase_calib_vs_plain()
+    ssd16_paths = phase_ssd16_paths()
     full = phase_full_model(card, "medmamba", 3)
     train = phase_train(card, "medmamba", 4)
     ssd_full = phase_full_model(card, "medssd", 5)
@@ -2819,6 +3206,20 @@ def main(argv=None):
     lm = phase_lm_scoring(card)
     lm_gen = phase_lm_generate(card)
     bench = phase_kernel_bench(card)
+    # the SSD models at d_state 16: two through the full eval and training
+    # phases, the other seven one forward and one step each, the two
+    # re-gridding heads once on the card
+    ssd16, num = {}, 14
+    for name in SSD16_FULL:
+        ssd16[name] = dict(eval=phase_full_model(card, name, num),
+                           train=phase_train(card, name, num + 1))
+        num += 2
+    for name in SSD16_STEP:
+        ssd16[name] = phase_model_step(card, name, num)
+        num += 1
+    for name in SSD16_REGRID:
+        ssd16[name + " regrid"] = phase_kan_regrid(card, name, num)
+        num += 1
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -2829,7 +3230,8 @@ def main(argv=None):
     # (the forward scan's direction 0)
     scan_head = lambda c: (c["L"] == STAGES[0][0] and c["dtype"] == "bf16"
                            and not c["reverse"])
-    ssd_head = lambda c: c["L"] == SSD_STAGES[0][0] and c["dtype"] == "bf16"
+    ssd_head = lambda c: c["L"] == SSD_STAGES[0][0] and \
+        c["dtype"] == "bf16" and c["N"] == 4 * SSD_GN
     st_head = lambda c: c["L"] == ST_STAGES[0][0] and c["dtype"] == "bf16"
     fused_head = lambda c: c["L"] == FUSED_CASES[0][1] and \
         c["dtype"] == "bf16"
@@ -2903,6 +3305,26 @@ def main(argv=None):
             passes=_stl_passes(name), hmma=_stl_mma(name),
             split_ms=c.get("split"),
             **({"mufu_ms": c["mufu_ms"]} if "mufu_ms" in c else {}))
+    # rows 5/5b at N 64 (gn 16): the d_state-16 models' stages 0-1 at
+    # 224x224 in bf16, launches per training step of SSD16_FULL[0]
+    steps16 = ssd16[SSD16_FULL[0]]["train"]["launches"]
+    for name, k_cases in (("ssd_fused_dirs_fwd", ssd_cases),
+                          ("ssd_fused_dirs_bwd", ssd_bwd["cases"])):
+        e = next(e for e in entries if e["name"] == name)
+        n64 = dict(model=SSD16_FULL[0],
+                   launches_per_train_step=steps16[name] // STEPS)
+        for i, (L, l, H4, d_ssm, gn) in enumerate(SSD16_STAGES):
+            c = next(c for c in k_cases if c["L"] == L and c["N"] == 4 * gn
+                     and c["dtype"] == "bf16")
+            n64[f"stage{i}"] = dict(
+                shape=dict(B=BATCH, L=L, l=l, H4=H4, P=SSD_P, N=4 * gn),
+                ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+                bound_by=c["bound"][1], max_abs_err=max(
+                    x["max_abs_err"] for x in k_cases if x["N"] == 4 * gn),
+                **({"save_ms": c["save_ms"],
+                    "save_bound_ms": c["save_bound"][0]}
+                   if "save_ms" in c else {}))
+        e["n64"] = n64
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)
@@ -2955,7 +3377,8 @@ def main(argv=None):
                            flag_cases=flag_cases, flag_bwd=flag_bwd,
                            lm_scoring=lm, lm_generate=lm_gen,
                            v1_cases=v1_cases, v1_bwd=v1_bwd,
-                           calib_cases=calib_cases, kernel_bench=bench),
+                           calib_cases=calib_cases, kernel_bench=bench,
+                           ssd16_paths=ssd16_paths, ssd16_models=ssd16),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

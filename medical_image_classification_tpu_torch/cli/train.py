@@ -9,9 +9,18 @@ Each epoch trains, evaluates top-1 on the validation folder (``--val-path``,
 default the sibling ``val`` of ``--data-path``) through ``cli/test.py::
 run_eval``, writes ``<save-path>.best`` (the model's ``state_dict``) when
 the accuracy improves, and the composite checkpoint under ``<save-path>/``.
-``--resume <save-path>`` continues after the newest saved epoch.  Not
-ported yet: data parallelism (``cli/ddp_train.py``), ``--tp``, ``--sp`` and
-KAN grid updates.
+``--resume <save-path>`` continues after the newest saved epoch.
+
+``--kan-update-grid-every N`` re-grids a KAN model every N epochs, after
+the epoch's training and before its evaluation, on the first batch of the
+epoch (``train/train_step.py::kan_grid_update``): the ekan and okan heads
+re-fit their grids and spline weights in place, in eval mode, so no
+BatchNorm stat moves and Adam's state stays with its parameters; the grids
+are buffers, saved in the checkpoint and restored by ``--resume``.  The
+other heads and the in-block KANs take no re-grid, as in the JAX package.
+
+Not ported yet: data parallelism (``cli/ddp_train.py``), ``--tp`` and
+``--sp``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from medical_image_classification_tpu_torch.train.optim import (
 )
 from medical_image_classification_tpu_torch.train.train_step import (
     TrainState,
+    has_kan_grids,
+    kan_grid_update,
     make_train_step,
 )
 from medical_image_classification_tpu_torch.utils.config import (
@@ -134,6 +145,13 @@ def main(cfg: TrainConfig) -> float:
                       epoch, cfg.label_smoothing, state, cfg.log_every)
         log.info("epoch %d done: loss %.4f acc %.4f (%.1f img/s)", epoch,
                  m["loss"], m["accuracy"], m["img_s"])
+        every = cfg.kan_update_grid_every
+        if every and (epoch + 1) % every == 0 and has_kan_grids(model):
+            batches = train_loader.epoch(epoch)
+            imgs0, _ = next(batches)
+            batches.close()
+            kan_grid_update(model, torch.from_numpy(imgs0).to(device))
+            log.info("KAN grids updated at epoch %d", epoch)
         if val_ds is not None:
             val_loader = BatchLoader(val_ds, cfg.batch_size, cfg.image_size,
                                      train=False)

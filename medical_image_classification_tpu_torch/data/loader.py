@@ -71,6 +71,16 @@ class BatchLoader:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        def put(item):
+            # a consumer that stops early (closes the generator) sets
+            # ``stop``; the producer then gives up instead of blocking
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
+
         def producer():
             with ThreadPoolExecutor(self.num_threads) as pool:
                 for b in range(nb):
@@ -84,8 +94,8 @@ class BatchLoader:
                     done = pool.map(self._load_one, sel, seeds)
                     for i, (img, label) in enumerate(done):
                         imgs[i], labels[i] = img, label
-                    out_q.put((imgs, labels))
-            out_q.put(None)
+                    put((imgs, labels))
+            put(None)
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()

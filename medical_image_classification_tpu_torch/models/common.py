@@ -17,6 +17,8 @@ Parameter names follow the reference PyTorch ``state_dict`` so that
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -35,6 +37,14 @@ def kaiming_conv_(w, generator=None):
     """Flax ``variance_scaling(2.0, "fan_out", "normal")``: the conv init."""
     return nn.init.kaiming_normal_(w, mode="fan_out", nonlinearity="relu",
                                    generator=generator)
+
+
+def lecun_normal_(w, fan_in: int, generator=None):
+    """Flax's default kernel init (``lecun_normal``): a normal of variance
+    1 / fan_in cut at +-2 std, the std corrected for the cut."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
 
 
 def _compute_dtype(dtype, x):
@@ -172,10 +182,10 @@ class PatchMerging(nn.Module):
         return linear(self.reduction, x, self.dtype)
 
 
-def batch_norm(mod: nn.BatchNorm2d, x, training: bool,
+def batch_norm(mod: nn.modules.batchnorm._BatchNorm, x, training: bool,
                update_stats: bool = True):
-    """``mod`` on an NCHW tensor, in fp32, returned in fp32 (Flax's
-    BatchNorm with fp32 parameters).  Eval normalises with the running
+    """``mod`` on an NCHW (or [B, C]) tensor, in fp32, returned in fp32
+    (Flax's BatchNorm with fp32 parameters).  Eval normalises with the running
     stats.  Train uses Flax's batch statistics: biased, the variance as
     E[x^2] - E[x]^2 clipped at 0 (``use_fast_variance``; F.batch_norm
     would update running_var with the unbiased n/(n-1)); the running stats
@@ -185,7 +195,7 @@ def batch_norm(mod: nn.BatchNorm2d, x, training: bool,
     if not training:
         return F.batch_norm(x, mod.running_mean, mod.running_var,
                             mod.weight, mod.bias, False, 0.0, mod.eps)
-    dims = (0, 2, 3)
+    dims = (0,) + tuple(range(2, x.dim()))
     mean = x.mean(dims)
     var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
     if update_stats:
@@ -196,7 +206,7 @@ def batch_norm(mod: nn.BatchNorm2d, x, training: bool,
             mod.running_mean.copy_((1 - m) * mod.running_mean + m * mean)
             mod.running_var.copy_((1 - m) * mod.running_var + m * var)
             mod.num_batches_tracked.add_(1)
-    shape = (1, -1, 1, 1)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
     mul = torch.rsqrt(var + mod.eps) * mod.weight
     return (x - mean.view(shape)) * mul.view(shape) + mod.bias.view(shape)
 
@@ -230,3 +240,69 @@ class ConvBranch(nn.Sequential):
             else:
                 x = mod(x)
         return x.permute(0, 2, 3, 1)
+
+
+class ConvTConvPW(nn.Module):
+    """CNN-Mamba's pre-stem on raw RGB, in fp32: BN -> 3x3 conv -> BN ->
+    ReLU -> 5x5 conv -> + input -> 1x1 conv.  ONE BatchNorm at both of its
+    call sites, as in the reference, so in train mode its running stats
+    move twice a forward, one after the other.  NHWC in/out; the children
+    carry the reference's names (``conv_T_conv.{bn,conv1,conv2,PW_conv}``
+    in the model)."""
+
+    def __init__(self, channels: int = 3):
+        super().__init__()
+        c = channels
+        self.bn = nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+        self.conv1 = nn.Conv2d(c, c, 3, padding=1)
+        self.conv2 = nn.Conv2d(c, c, 5, padding=2)
+        self.PW_conv = nn.Conv2d(c, c, 1)
+
+    def forward(self, x):
+        identity = x = x.float().permute(0, 3, 1, 2)
+        x = self.conv1(batch_norm(self.bn, x, self.training))
+        x = F.relu(batch_norm(self.bn, x, self.training))
+        x = self.conv2(x) + identity
+        return self.PW_conv(x).permute(0, 2, 3, 1)
+
+
+class ECALayer(nn.Module):
+    """Efficient channel attention: global average pool -> 1-D conv over
+    the channel axis (k 3, no bias) -> sigmoid gate, in fp32, the gate
+    cast to the activation's dtype.  NHWC in/out."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv1d(1, 1, 3, padding=1, bias=False)
+
+    def reset_parameters(self, generator=None):
+        # no kernel_init in the JAX module: Flax's lecun_normal, fan_in 3
+        lecun_normal_(self.conv.weight, 3, generator)
+
+    def forward(self, x):
+        y = x.float().mean(dim=(1, 2))[:, None, :]         # [B, 1, C]
+        y = torch.sigmoid(self.conv(y)[:, 0])
+        return x * y.to(x.dtype)[:, None, None, :]
+
+
+class MIFABlock(nn.Module):
+    """Local/global feature interaction: a depthwise 3x3 conv (ReLU) and a
+    1x1 conv (tanh GELU, Flax's ``nn.gelu``) gate each other through
+    sigmoids; concat, channel shuffle, 1x1 merge, ECA, + input.  Its convs
+    have no compute dtype in the JAX module, so they run in fp32 and a bf16
+    stream leaves the block in fp32.  NHWC in/out."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dw = nn.Conv2d(dim, dim, 3, padding=1, groups=dim)
+        self.pw = nn.Conv2d(dim, dim, 1)
+        self.merge = nn.Conv2d(2 * dim, dim, 1)
+        self.eca = ECALayer()
+
+    def forward(self, x):
+        local = F.relu(conv_nhwc(self.dw, x))
+        glob = F.gelu(conv_nhwc(self.pw, x), approximate="tanh")
+        a = local * torch.sigmoid(glob)
+        b = glob * torch.sigmoid(local)
+        out = channel_shuffle(torch.cat([a, b], dim=-1), 2)
+        return self.eca(conv_nhwc(self.merge, out)) + x

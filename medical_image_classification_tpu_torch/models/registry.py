@@ -1,8 +1,11 @@
-"""Model zoo of the port: the registry names ported so far.
+"""Model zoo of the port: every single-input classifier of the JAX
+registry.
 
-Port of ``medical_image_classification_tpu/models/registry.py`` for the
-Mamba-1 MedMamba configurations, MedSSD and ST-SSD.  The other names of
-the JAX registry come with later slices (ROADMAP.md Queue 1).
+Port of ``medical_image_classification_tpu/models/registry.py``: the
+Mamba-1 MedMamba configurations, MedSSD, CNN-Mamba (with and without
+MIFA), ST-SSD, the in-block KAN models (kaninSSD, kanoutSSD) and MedSSD
+with each KAN head.  The dual-input fusion registry is not ported yet
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -28,8 +31,7 @@ def available_models():
 def create_model(name: str, num_classes: int, **kw):
     if name not in _REGISTRY:
         raise KeyError(
-            f"model {name!r} is not ported to the torch package yet; ported: "
-            f"{available_models()} (the rest: ROADMAP.md Queue 1)")
+            f"unknown model {name!r}; available: {available_models()}")
     return _REGISTRY[name](num_classes=num_classes, **kw)
 
 
@@ -81,3 +83,66 @@ def st_ssd(num_classes, **kw):
     return _build(num_classes, dict(depths=(2, 2, 4, 2),
                   dims=(128, 256, 512, 1024), d_state=16, core="ssd",
                   st_tokens=(56, 28, 14, 7)), kw)
+
+
+def _ssd16(num_classes, kw, **extra):
+    """The SSD family at d_state 16 (N 64 over the four directions):
+    depths 2-2-4-2, dims 128..1024, headdim 64."""
+    return _build(num_classes, dict(depths=(2, 2, 4, 2),
+                  dims=(128, 256, 512, 1024), d_state=16, core="ssd",
+                  **extra), kw)
+
+
+@register("cnn_mamba")
+def cnn_mamba(num_classes, **kw):
+    """CNN-Mamba: the SSD core at d_state 16 behind the ConvTConvPW RGB
+    pre-stem."""
+    return _ssd16(num_classes, kw, conv_stem=True)
+
+
+@register("cnn_mamba_mifa")
+def cnn_mamba_mifa(num_classes, **kw):
+    """CNN-Mamba with a MIFA block after the patch embed."""
+    return _ssd16(num_classes, kw, conv_stem=True, use_mifa=True)
+
+
+@register("kanin_ssd")
+def kanin_ssd(num_classes, **kw):
+    """kaninSSD: an efficient-KAN in_proj in every SS2DSSD (order 1)."""
+    return _ssd16(num_classes, kw, kan_in=True, kan_spline_order=1)
+
+
+@register("kanout_ssd")
+def kanout_ssd(num_classes, **kw):
+    """kanoutSSD: an efficient-KAN filter before every in_proj (order 1)."""
+    return _ssd16(num_classes, kw, kan_filter=True, kan_spline_order=1)
+
+
+@register("medssd_ekan")
+def medssd_ekan(num_classes, **kw):
+    """MedSSD (d_state 16) with one efficient-KAN head, spline order 3."""
+    return _ssd16(num_classes, kw, head="ekan", kan_spline_order=3)
+
+
+@register("medssd_okan")
+def medssd_okan(num_classes, **kw):
+    """MedSSD (d_state 16) with one original-KAN head."""
+    return _ssd16(num_classes, kw, head="okan")
+
+
+@register("medssd_kan")
+def medssd_kan(num_classes, **kw):
+    """MedSSD (d_state 16) with three chained original-KAN layers."""
+    return _ssd16(num_classes, kw, head="kan_stack")
+
+
+@register("medssd_kanmodule")
+def medssd_kanmodule(num_classes, **kw):
+    """MedSSD (d_state 16) with the KansModule head."""
+    return _ssd16(num_classes, kw, head="kan_module")
+
+
+@register("medssd_3kan")
+def medssd_3kan(num_classes, **kw):
+    """MedSSD (d_state 16) with the ThreeKansModule head."""
+    return _ssd16(num_classes, kw, head="3kan")

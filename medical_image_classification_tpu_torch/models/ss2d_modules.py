@@ -31,7 +31,11 @@ from medical_image_classification_tpu_torch.models.common import (
     batch_norm,
     conv_nhwc,
     layer_norm,
+    lecun_normal_,
     linear,
+)
+from medical_image_classification_tpu_torch.models.kan_modules import (
+    KANLinear,
 )
 from medical_image_classification_tpu_torch.ops.ss2d import (
     rmsnorm_gated,
@@ -132,14 +136,6 @@ class RMSNormGated(nn.Module):
     def __init__(self, d: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(d))
-
-
-def lecun_normal_(w, fan_in: int, generator=None):
-    """Flax's default Dense kernel init (``lecun_normal``): a normal of
-    variance 1 / fan_in cut at +-2 std, the std corrected for the cut."""
-    std = math.sqrt(1.0 / fan_in) / .87962566103423978
-    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                 generator=generator)
 
 
 def _mix(conv1d: nn.Conv1d, a, b, dtype):
@@ -270,12 +266,19 @@ class SS2DSSD(nn.Module):
     direction outputs (scan order), one ``STL`` over them (directions
     folded into the batch), the WMF merge (softmax of ``k_weights``)
     folded into one ``STF`` over the ``o_norm`` (BatchNorm) ->
-    ``o_linear`` (1x1 conv) features of the layer's input.  The KAN
-    projections and dropout are not ported yet (ROADMAP.md Queue 1)."""
+    ``o_linear`` (1x1 conv) features of the layer's input.
+
+    ``kan_filter`` puts an efficient-KAN d_model -> d_model in front of
+    in_proj (kanoutSSD, ``filter_kan``); ``kan_in`` replaces in_proj by an
+    efficient-KAN (kaninSSD, ``in_proj_kan``).  Both compute in fp32 and
+    return their input's dtype (fp32 after the block's LayerNorm).  The
+    JAX module's ``dropout`` is 0 in every model (no VSSLayer passes its
+    blocks an ``attn_drop``), so the layer has none."""
 
     def __init__(self, d_model: int, d_state: int = 64, headdim: int = 64,
                  chunk_size: int = 256, st_tokens: int | None = None,
-                 scan_impl: str = "auto", dtype=None):
+                 kan_in: bool = False, kan_filter: bool = False,
+                 kan_spline_order: int = 1, scan_impl: str = "auto", dtype=None):
         super().__init__()
         self.d_model = d_model
         self.d_ssm = d_ssm = 2 * d_model                   # expand 2
@@ -287,7 +290,12 @@ class SS2DSSD(nn.Module):
         self.scan_impl = scan_impl
         self.dtype = dtype
         conv_dim = d_ssm + 2 * d_state + nheads
-        self.in_proj = nn.Linear(d_model, d_ssm + conv_dim, bias=False)
+        kan = lambda out: KANLinear(d_model, out,
+                                    spline_order=kan_spline_order)
+        self.filter_kan = kan(d_model) if kan_filter else None
+        self.in_proj_kan = kan(d_ssm + conv_dim) if kan_in else None
+        self.in_proj = None if kan_in else nn.Linear(
+            d_model, d_ssm + conv_dim, bias=False)
         self.conv2d = nn.Conv2d(conv_dim, conv_dim, 3, groups=conv_dim,
                                 padding=1)
         self.dt_bias = nn.Parameter(torch.empty(K, nheads))
@@ -315,7 +323,12 @@ class SS2DSSD(nn.Module):
     def forward(self, u, update_stats: bool = True):
         """``update_stats``: whether a train-mode forward moves the running
         stats of ``o_norm`` (False in an activation-checkpoint recompute)."""
-        zxbcdt = linear(self.in_proj, u, self.dtype)
+        if self.filter_kan is not None:
+            u = self.filter_kan(u)
+        if self.in_proj_kan is not None:
+            zxbcdt = self.in_proj_kan(u)
+        else:
+            zxbcdt = linear(self.in_proj, u, self.dtype)
         z, xBCdt = zxbcdt.split([self.d_ssm, zxbcdt.shape[-1] - self.d_ssm],
                                 dim=-1)
         xBCdt = F.silu(conv_nhwc(self.conv2d, xBCdt, self.dtype))

@@ -1,10 +1,11 @@
 """The VSSM classifier skeleton, Mamba-1 (``core="mamba1"``) and SSD
 (``core="ssd"``) cores.
 
-Port of ``medical_image_classification_tpu/models/vssm.py``: PatchEmbed
--> stages of SS-Conv blocks with PatchMerging between them -> global
-average pool (fp32) -> linear head.  NHWC float input [B, H, W, 3] ->
-logits [B, num_classes] (fp32).
+Port of ``medical_image_classification_tpu/models/vssm.py``: [ConvTConvPW
+pre-stem] -> PatchEmbed -> [MIFA] -> stages of SS-Conv blocks
+with PatchMerging between them -> global average pool (fp32) ->
+classifier head (linear or one of the KAN heads).  NHWC float input
+[B, H, W, 3] -> logits [B, num_classes] (fp32).
 
 ``use_checkpoint`` wraps each SS-Conv block in
 ``torch.utils.checkpoint.checkpoint`` (the JAX package's ``nn.remat``): the
@@ -25,7 +26,10 @@ from torch.utils.checkpoint import checkpoint
 
 from medical_image_classification_tpu_torch.models.common import (
     ConvBranch,
+    ConvTConvPW,
     DropPath,
+    ECALayer,
+    MIFABlock,
     PatchEmbed,
     PatchMerging,
     SeededGenerators,
@@ -34,7 +38,10 @@ from medical_image_classification_tpu_torch.models.common import (
     trunc_normal_02_,
 )
 from medical_image_classification_tpu_torch.models.kan_modules import (
-    ClassifierHead,
+    KANLinear,
+    OKANLayer,
+    classify,
+    head_modules,
 )
 from medical_image_classification_tpu_torch.models.ss2d_modules import (
     SS2D,
@@ -51,7 +58,8 @@ class SSConvBlock(nn.Module):
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
                  d_state: int = 16, core: str = "mamba1",
                  ssd_chunk_size: int = 256, ssd_headdim: int = 64,
-                 st_tokens: int | None = None,
+                 st_tokens: int | None = None, kan_in: bool = False,
+                 kan_filter: bool = False, kan_spline_order: int = 1,
                  scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
                  rng: SeededGenerators | None = None):
@@ -66,7 +74,9 @@ class SSConvBlock(nn.Module):
             self.self_attention = SS2DSSD(
                 d_model=half, d_state=d_state, headdim=ssd_headdim,
                 chunk_size=ssd_chunk_size, st_tokens=st_tokens,
-                scan_impl=scan_impl, dtype=dtype)
+                kan_in=kan_in, kan_filter=kan_filter,
+                kan_spline_order=kan_spline_order, scan_impl=scan_impl,
+                dtype=dtype)
         else:
             raise ValueError(f"unknown core: {core!r}")
         self.drop_path = DropPath(drop_path, rng=rng)
@@ -105,7 +115,8 @@ class VSSLayer(nn.Module):
     def __init__(self, dim: int, drop_paths: Sequence[float],
                  d_state: int = 16, core: str = "mamba1",
                  ssd_chunk_size: int = 256, ssd_headdim: int = 64,
-                 st_tokens: int | None = None,
+                 st_tokens: int | None = None, kan_in: bool = False,
+                 kan_filter: bool = False, kan_spline_order: int = 1,
                  downsample: bool = True, scan_impl: str = "auto",
                  dtype=None, use_checkpoint: bool = False,
                  rng: SeededGenerators | None = None):
@@ -114,6 +125,8 @@ class VSSLayer(nn.Module):
             SSConvBlock(dim, drop_path=dp, d_state=d_state, core=core,
                         ssd_chunk_size=ssd_chunk_size,
                         ssd_headdim=ssd_headdim, st_tokens=st_tokens,
+                        kan_in=kan_in, kan_filter=kan_filter,
+                        kan_spline_order=kan_spline_order,
                         scan_impl=scan_impl, dtype=dtype,
                         use_checkpoint=use_checkpoint, rng=rng)
             for dp in drop_paths)
@@ -138,7 +151,18 @@ class VSSM(nn.Module):
     (the selective scan; the SSD kernels and ST-SSD's): "auto" (by the
     tensor's device), "cuda" or "torch".  ``generator`` seeds the
     init.  The model owns ``drop_path_rng``, the source of every
-    DropPath mask; a trainer seeds it with ``seed_drop_path``."""
+    DropPath mask; a trainer seeds it with ``seed_drop_path``.
+
+    ``conv_stem`` puts CNN-Mamba's ConvTConvPW in front of the patch
+    embed (fp32, before the cast to ``dtype``), ``use_mifa`` a MIFA block
+    after it.  ``kan_in`` / ``kan_filter`` (with ``kan_spline_order``) put
+    efficient-KANs into every SS2DSSD; ``head`` picks the classifier head
+    (one of ``HEAD_KINDS``; the ekan head's spline order is
+    ``kan_spline_order``), whose modules are the model's own children
+    under the reference's names.  ``forward(x, update_grid=True)``
+    re-grids the ekan and okan heads on the batch.  The JAX model's
+    ``drop_rate`` and ``attn_drop_rate`` are 0 in every registry model and
+    CLI, and are not ported."""
 
     def __init__(self, num_classes: int,
                  depths: Sequence[int] = (2, 2, 4, 2),
@@ -146,25 +170,35 @@ class VSSM(nn.Module):
                  d_state: int = 16, core: str = "mamba1",
                  ssd_chunk_size: int = 256, ssd_headdim: int = 64,
                  st_tokens: Sequence[int] | None = None,
-                 drop_path_rate: float = 0.1, head: str = "linear",
-                 scan_impl: str = "auto", dtype=None,
+                 drop_path_rate: float = 0.1, conv_stem: bool = False,
+                 use_mifa: bool = False, kan_in: bool = False,
+                 kan_filter: bool = False, kan_spline_order: int = 1,
+                 head: str = "linear", scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
         self.drop_path_rng = SeededGenerators(0)
+        # the reference's name for the stem
+        self.conv_T_conv = ConvTConvPW() if conv_stem else None
         self.patch_embed = PatchEmbed(dims[0], dtype=dtype)
+        self.mifa = MIFABlock(dims[0]) if use_mifa else None
         dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
         self.layers = nn.ModuleList(
             VSSLayer(dims[i], dpr[sum(depths[:i]):sum(depths[:i + 1])],
                      d_state=d_state, core=core,
                      ssd_chunk_size=ssd_chunk_size, ssd_headdim=ssd_headdim,
                      st_tokens=st_tokens[i] if st_tokens else None,
+                     kan_in=kan_in, kan_filter=kan_filter,
+                     kan_spline_order=kan_spline_order,
                      downsample=i < len(depths) - 1,
                      scan_impl=scan_impl, dtype=dtype,
                      use_checkpoint=use_checkpoint, rng=self.drop_path_rng)
             for i in range(len(depths)))
-        self.head = ClassifierHead(dims[-1], num_classes, kind=head)
+        self.head_kind = head
+        for name, mod in head_modules(dims[-1], num_classes, head,
+                                      kan_spline_order).items():
+            self.add_module(name, mod)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
@@ -181,20 +215,27 @@ class VSSM(nn.Module):
                 kaiming_conv_(m.weight, generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
-            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d,
+                                nn.BatchNorm1d)):
                 m.reset_parameters()
             elif isinstance(m, (SS2D, SS2DSSD)):
                 m.reset_scan_parameters(generator)
+            elif isinstance(m, (ECALayer, KANLinear, OKANLayer)):
+                m.reset_parameters(generator)
 
     def seed_drop_path(self, seed: int):
         """Restart every DropPath mask stream from ``seed``."""
         self.drop_path_rng.manual_seed(seed)
 
-    def forward(self, x):
+    def forward(self, x, update_grid: bool = False):
+        if self.conv_T_conv is not None:
+            x = self.conv_T_conv(x)
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self.patch_embed(x)
+        if self.mifa is not None:
+            x = self.mifa(x)
         for layer in self.layers:
             x = layer(x)
         x = x.float().mean(dim=(1, 2))                 # global pool in fp32
-        return self.head(x)
+        return classify(self, self.head_kind, x, update_grid)

@@ -32,7 +32,7 @@ import torch.nn as nn
 # weight is Flax's "scale")
 _NO_DECAY = ("A_logs", "Ds", "dt_projs_bias", "dt_bias", "bias", "scale",
              "norm_weight", "k_weights")
-_NORMS = (nn.LayerNorm, nn.BatchNorm2d)
+_NORMS = (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)
 
 
 def _constant(value):

@@ -1,6 +1,7 @@
 """The train step.  Port of
 ``medical_image_classification_tpu/train/train_state.py``:
-``cross_entropy_loss`` (``:55-61``) and ``make_train_step_fn`` (``:64-96``).
+``cross_entropy_loss`` (``:55-61``), ``make_train_step_fn`` (``:64-96``)
+and ``kan_grid_update`` (``:119-133``).
 
 The JAX step is a pure function of a ``TrainState``; here the model and the
 optimizer carry the parameters, the BatchNorm running stats and the
@@ -62,3 +63,26 @@ def make_train_step(model, optimizer, scheduler=None,
         return {"loss": loss.detach(), "accuracy": acc}
 
     return step_fn
+
+
+def has_kan_grids(model) -> bool:
+    """Whether the model holds KAN grids (the JAX ``kan_state``)."""
+    return any(name == "grid" or name.endswith(".grid")
+               for name, _ in model.named_buffers())
+
+
+@torch.no_grad()
+def kan_grid_update(model, images):
+    """Re-grid the model's KAN head on ``images`` (uint8 [B, H, W, 3]): one
+    forward in eval mode (no BatchNorm stat moves) with ``update_grid``,
+    which re-fits the ekan and okan heads' grids to the head's inputs and
+    their spline weights to keep the function, in place, so an optimizer's
+    state stays attached to the parameter.  The other heads and the
+    in-block KANs ignore it, as in the JAX package.  The model's mode is
+    given back."""
+    was_training = model.training
+    model.eval()
+    try:
+        model(normalize_batch(images), update_grid=True)
+    finally:
+        model.train(was_training)

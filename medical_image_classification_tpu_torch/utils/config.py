@@ -3,8 +3,8 @@
 A copy of ``medical_image_classification_tpu/utils/config.py``
 (``TrainConfig``, ``add_args``, ``from_args``), kept here so that the
 port's training path imports nothing of the JAX package, plus ``device``.
-``tp``, ``sp`` and ``kan_update_grid_every`` are accepted, and any value
-but the default raises (``check_ported``).
+``tp`` and ``sp`` are accepted, and any value but the default raises
+(``check_ported``).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ class TrainConfig:
     save_path: str = "runs/model.ckpt"
     resume: Optional[str] = None
     log_every: int = 50
-    # kan (not ported yet)
+    # kan: re-grid the KAN head every N epochs (0: never)
     kan_update_grid_every: int = 0
     # the port's own
     device: str = "cuda"
@@ -53,7 +53,7 @@ class TrainConfig:
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise for the options whose code paths are not ported yet."""
-    for name in ("tp", "sp", "kan_update_grid_every"):
+    for name in ("tp", "sp"):
         default = getattr(TrainConfig, name)
         if getattr(cfg, name) != default:
             raise NotImplementedError(

@@ -1,19 +1,24 @@
-"""Carry MedMamba, MedSSD, ST-SSD and Mamba-1 LM weights from the JAX
-package to the port.
+"""Carry MedMamba, the MedSSD family (MedSSD, CNN-Mamba, ST-SSD, the KAN
+models) and Mamba-1 LM weights from the JAX package to the port.
 
 The reverse of ``medical_image_classification_tpu/utils/torch_import.py::
-import_medmamba_state_dict`` and ``import_medssd_state_dict`` (with
-``st_tokens=True`` for ST-SSD): the JAX
-``params`` and ``batch_stats`` trees (nested dicts of numpy arrays) become
-the port's ``state_dict``, ready for ``load_state_dict(strict=True)``.  The
-port names its parameters as the reference ``state_dict`` does, so the JAX
-importers map a port ``state_dict()`` back to the JAX trees.
+import_medmamba_state_dict`` and ``import_medssd_family_state_dict`` (with
+``st_tokens=True`` for ST-SSD, ``conv_stem=True`` for CNN-Mamba and
+``head=`` for the KAN heads): the JAX ``params``, ``batch_stats`` and
+``kan_state`` trees (nested dicts of numpy arrays) become the port's
+``state_dict``, ready for ``load_state_dict(strict=True)``.  The port names
+its parameters as the reference ``state_dict`` does, so the JAX importers
+map a port ``state_dict()`` back to the JAX trees.  The reference has no
+names for MIFA (``mifa.*``) and the in-block KANs (``filter_kan``,
+``in_proj_kan``), so the port names those as the JAX modules do.
 
 Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv HWIO ->
 OIHW; MedMamba ``A_logs`` [K, d_inner, N] -> [K * d_inner, N] and ``Ds``
 [K, d_inner] -> [K * d_inner]; MedSSD ``A_logs`` and ``Ds`` [K, nheads] ->
 [K * nheads], ``dt_bias`` [K, nheads] as it is, ``norm_weight`` ->
-``norm.weight``; ST-SSD's ``stl``/``stf`` ``u1``, ``u2``, ``z`` ->
+``norm.weight``; the ECA's 1-D conv kernel [k, 1, 1] -> [1, 1, k]; the
+KAN layers' parameters and their ``grid`` / ``mask`` buffers as they are;
+ST-SSD's ``stl``/``stf`` ``u1``, ``u2``, ``z`` ->
 ``learnable_*`` and the Dense(2 -> 1) ``mix`` kernel [2, 1] -> the
 ``conv1d`` weight [1, 2, 1], ``o_norm`` with its batch stats, ``o_linear``
 and ``k_weights``.  The Mamba LM (``mamba_lm_state_dict``) is the exact
@@ -32,11 +37,13 @@ def _count(tree, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix))
 
 
-def _vssm_state_dict(params, batch_stats, self_attention):
-    """The skeleton's keys; ``self_attention(h, q, sa, sa_stats)`` writes
-    one block's scan layer (params ``sa``, batch stats ``sa_stats`` or
-    None) under the prefix ``q`` through the helpers ``h``."""
+def _vssm_state_dict(params, batch_stats, self_attention, kan_state=None):
+    """The skeleton's keys; ``self_attention(h, q, sa, sa_stats, sa_kan)``
+    writes one block's scan layer (params ``sa``, batch stats ``sa_stats``
+    and KAN state ``sa_kan``, each None where it has none) under the prefix
+    ``q`` through the helpers ``h``."""
     sd: Dict[str, torch.Tensor] = {}
+    kan_state = kan_state or {}
 
     def put(key, arr):
         sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
@@ -61,18 +68,37 @@ def _vssm_state_dict(params, batch_stats, self_attention):
         put(prefix + ".running_var", s["var"])
         sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
 
-    h = dict(put=put, dense=dense, conv=conv, ln=ln, bn=bn)
+    def kan(prefix, p, s):
+        for name, arr in {**p, **s}.items():
+            put(f"{prefix}.{name}", arr)
+
+    h = dict(put=put, dense=dense, conv=conv, ln=ln, bn=bn, kan=kan)
+    if "conv_t_conv" in params:
+        stem = params["conv_t_conv"]
+        bn("conv_T_conv.bn", stem["bn"], batch_stats["conv_t_conv"]["bn"])
+        conv("conv_T_conv.conv1", stem["conv1"])
+        conv("conv_T_conv.conv2", stem["conv2"])
+        conv("conv_T_conv.PW_conv", stem["pw"])
     conv("patch_embed.proj", params["patch_embed"]["proj"])
     ln("patch_embed.norm", params["patch_embed"]["norm"])
+    if "mifa" in params:
+        mifa = params["mifa"]
+        for name in ("dw", "pw", "merge"):
+            conv("mifa." + name, mifa[name])
+        put("mifa.eca.conv.weight",
+            np.asarray(mifa["eca"]["conv"]["kernel"]).transpose(2, 1, 0))
     for i in range(_count(params, "layers_")):
         layer = params[f"layers_{i}"]
         stats = batch_stats[f"layers_{i}"]
+        layer_kan = kan_state.get(f"layers_{i}", {})
         for j in range(_count(layer, "blocks_")):
             blk = layer[f"blocks_{j}"]
             p = f"layers.{i}.blocks.{j}"
             ln(p + ".ln_1", blk["ln_1"])
             self_attention(h, p + ".self_attention", blk["self_attention"],
-                           stats[f"blocks_{j}"].get("self_attention"))
+                           stats[f"blocks_{j}"].get("self_attention"),
+                           layer_kan.get(f"blocks_{j}", {}).get(
+                               "self_attention"))
             cb = blk["conv_branch"]
             cs = stats[f"blocks_{j}"]["conv_branch"]
             c = p + ".conv33conv33conv11"
@@ -86,11 +112,31 @@ def _vssm_state_dict(params, batch_stats, self_attention):
             ln(f"layers.{i}.downsample.norm", layer["downsample"]["norm"])
             put(f"layers.{i}.downsample.reduction.weight",
                 np.asarray(layer["downsample"]["reduction"]["kernel"]).T)
-    dense("head", params["classifier"]["head"])
+    _head(h, params["classifier"], batch_stats.get("classifier", {}),
+          kan_state.get("classifier", {}))
     return sd
 
 
-def _ss2d(h, q, sa, sa_stats):
+def _head(h, p, s, k):
+    """The classifier head under the reference's names: ``head`` (linear),
+    ``kan`` (ekan, okan: the JAX module's ``head``), ``kan1``-``kan3``
+    (kan_stack), ``kans`` (kan_module, 3kan, with its BatchNorm)."""
+    if "kernel" in p.get("head", {}):
+        h["dense"]("head", p["head"])
+    elif "head" in p:
+        h["kan"]("kan", p["head"], k["head"])
+    elif "kans" in p:
+        kans = p["kans"]
+        for name in kans:
+            if name != "bn":
+                h["kan"]("kans." + name, kans[name], k["kans"][name])
+        h["bn"]("kans.bn", kans["bn"], s["kans"]["bn"])
+    else:
+        for name in p:
+            h["kan"](name, p[name], k[name])
+
+
+def _ss2d(h, q, sa, sa_stats, sa_kan):
     h["dense"](q + ".in_proj", sa["in_proj"])
     h["conv"](q + ".conv2d", sa["conv2d"])
     for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
@@ -102,9 +148,13 @@ def _ss2d(h, q, sa, sa_stats):
     h["dense"](q + ".out_proj", sa["out_proj"])
 
 
-def _ss2d_ssd(h, q, sa, sa_stats):
+def _ss2d_ssd(h, q, sa, sa_stats, sa_kan):
     put = h["put"]
-    h["dense"](q + ".in_proj", sa["in_proj"])
+    for name in ("filter_kan", "in_proj_kan"):
+        if name in sa:
+            h["kan"](f"{q}.{name}", sa[name], sa_kan[name])
+    if "in_proj" in sa:
+        h["dense"](q + ".in_proj", sa["in_proj"])
     h["conv"](q + ".conv2d", sa["conv2d"])
     put(q + ".dt_bias", sa["dt_bias"])
     put(q + ".A_logs", np.asarray(sa["A_logs"]).reshape(-1))
@@ -131,15 +181,16 @@ def medmamba_state_dict_from_jax(params, batch_stats) -> Dict[str,
     return _vssm_state_dict(params, batch_stats, _ss2d)
 
 
-def medssd_state_dict_from_jax(params, batch_stats) -> Dict[str,
-                                                            torch.Tensor]:
-    """JAX MedSSD or ST-SSD (params, batch_stats) -> the port's
-    ``state_dict``."""
-    return _vssm_state_dict(params, batch_stats, _ss2d_ssd)
+def medssd_state_dict_from_jax(params, batch_stats, kan_state=None
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX MedSSD-family (params, batch_stats, kan_state) -> the port's
+    ``state_dict``: MedSSD, ST-SSD (the ST tail wherever a block's params
+    have one), CNN-Mamba (the stem and MIFA wherever the params have them)
+    and the KAN models (their ``kan_state`` buffers beside the
+    parameters)."""
+    return _vssm_state_dict(params, batch_stats, _ss2d_ssd, kan_state)
 
 
-# JAX ST-SSD (params, batch_stats) -> the port's ``state_dict``: the MedSSD
-# carrier writes the ST tail wherever a block's params have one
 st_ssd_state_dict_from_jax = medssd_state_dict_from_jax
 
 

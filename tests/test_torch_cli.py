@@ -117,7 +117,9 @@ def test_port_imports_no_jax():
     ("medmamba", "depths=(1, 1), dims=(16, 32), d_state=4"),
     ("medssd", "depths=(1, 1), dims=(32, 64), d_state=8, ssd_headdim=8"),
     ("st_ssd", "depths=(1, 1), dims=(32, 64), d_state=8, ssd_headdim=8, "
-               "st_tokens=(4, 2)")])
+               "st_tokens=(4, 2)"),
+    ("cnn_mamba_mifa", "depths=(1, 1), dims=(32, 64), ssd_headdim=8"),
+    ("kanin_ssd", "depths=(1, 1), dims=(32, 64), ssd_headdim=8")])
 def test_cli_mains_on_image_folder_import_no_jax(tmp_path, model, tiny):
     """cli.train.main (one epoch, then its val pass) and cli.test.main on a
     generated 3-class ImageFolder, in a fresh interpreter, with a tiny

@@ -1,4 +1,6 @@
-"""Which SSD kernel each stage of ``medssd`` and ``st_ssd`` reaches at
+"""Which SSD kernel each stage of ``medssd``, ``st_ssd`` and ``cnn_mamba``
+(and so the other SSD models at d_state 16: cnn_mamba_mifa, kanin_ssd,
+kanout_ssd and the medssd KAN heads, whose cores are cnn_mamba's) reaches at
 224, 240, 256 and 512 pixels a side: the port's dispatch (its
 ``ss2d_core_ssd`` run on meta tensors at the stage's full shape, batch 32,
 bf16, with the card's gates; the kernels' entry points replaced by stubs
@@ -8,7 +10,14 @@ the single-layout fused SSD, then Y_diag, else the einsums), with the three
 JAX kernel modules in interpret mode standing in for the TPU backend.  The
 table pins the paths: ``medssd`` at 240x240 takes the single-layout fused
 SSD at stage 1 (L 900 padded to 4 chunks of 256) and Y_diag at N 512 at
-stage 2."""
+stage 2.
+
+``cnn_mamba`` (N 64, merged) is where the port departs from the JAX gates:
+the JAX dirs gate needs N % 128 == 0 (a TPU lane term,
+``kernels/ssd_fused_dirs_pallas.py:154``), so the JAX package takes Y_diag
+or the einsums at its stage 0; the port's card gate has no lane term (P
+and N multiples of 32, N <= 512), so its stages 0-1 at 224 take the dirs
+kernels at N 64 (``JAX_PATHS`` holds the JAX side)."""
 
 import pytest
 import torch
@@ -24,7 +33,8 @@ torch.set_num_threads(1)
 
 # the registry's SSD models: (d_state, merge); both have depths 2-2-4-2,
 # d_ssm 128, 256, 512, 1024 over the stages, headdim 64, chunk 256
-MODELS = {"medssd": (128, True), "st_ssd": (16, False)}
+MODELS = {"medssd": (128, True), "st_ssd": (16, False),
+          "cnn_mamba": (16, True)}
 D_SSM, HEADDIM, CHUNK, BATCH, K = (128, 256, 512, 1024), 64, 256, 32, 4
 
 # (path, chunk l, chunks nc) per stage
@@ -45,6 +55,17 @@ EXPECTED = {
                       ("ydiag", 256, 1), ("einsum", 64, 1)],
     ("st_ssd", 512): [("ydiag", 256, 64), ("ydiag", 256, 16),
                       ("ydiag", 256, 4), ("ydiag", 256, 1)],
+    ("cnn_mamba", 224): [("dirs", 224, 14), ("dirs", 196, 4),
+                         ("einsum", 200, 1), ("einsum", 56, 1)],
+    ("cnn_mamba", 240): [("dirs", 240, 15), ("einsum", 225, 4),
+                         ("ydiag", 232, 1), ("einsum", 56, 1)],
+}
+# the JAX package's paths where they are not the port's
+JAX_PATHS = {
+    ("cnn_mamba", 224): [("ydiag", 224, 14), ("einsum", 196, 4),
+                         ("einsum", 200, 1), ("einsum", 56, 1)],
+    ("cnn_mamba", 240): [("ydiag", 240, 15), ("einsum", 225, 4),
+                         ("ydiag", 232, 1), ("einsum", 56, 1)],
 }
 
 
@@ -132,4 +153,5 @@ def test_port_reaches_the_kernels_the_jax_gates_pick(monkeypatch, model,
         want.append(_jax_path(side * side, N, H, d_ssm, merge))
         with monkeypatch.context() as mp:
             got.append(_port_path(mp, side, d_state, d_ssm, merge))
-    assert got == want == EXPECTED[model, size]
+    assert got == EXPECTED[model, size]
+    assert want == JAX_PATHS.get((model, size), EXPECTED[model, size])

@@ -161,10 +161,17 @@ def test_seeded_init_is_reproducible_and_unported_names_raise():
     sa = a.layers[0].blocks[0].self_attention
     assert torch.equal(sa.A_logs[0], torch.log(torch.arange(1.0, 9.0)))
     assert torch.equal(sa.Ds, torch.ones_like(sa.Ds))
-    with pytest.raises(KeyError, match="not ported"):
-        create_model("cnn_mamba", 4)
-    with pytest.raises(NotImplementedError):
-        create_model("medmamba", 4, head="ekan", **CFG)
+    # every single-input name of the JAX registry is ported; an unknown
+    # name raises KeyError, and the KAN heads build on any skeleton
+    from medical_image_classification_tpu.models.registry import (
+        available_models as jax_available_models)
+    from medical_image_classification_tpu_torch.models.registry import (
+        available_models)
+    assert available_models() == sorted(jax_available_models())
+    with pytest.raises(KeyError, match="unknown model"):
+        create_model("no_such_model", 4)
+    ekan = create_model("medmamba", 4, head="ekan", **CFG)
+    assert ekan(torch.zeros(1, 32, 32, 3)).shape == (1, 4)
 
 
 def test_init_distributions_match_jax():

@@ -243,7 +243,8 @@ def test_init_distributions_match_jax():
 def test_bf16_compute_and_unported_options():
     """dtype=bf16 runs with fp32 parameters and gives logits close to fp32
     (0.1 x max|logit|: bf16 activations through 5 blocks); SS2DSSD takes
-    none of the unported options (KAN, dropout)."""
+    the KAN projections, and neither it nor the model takes the JAX
+    dropouts (0 in every model, not ported)."""
     port = create_model("medssd", NUM_CLASSES, drop_path_rate=0.0,
                         generator=torch.Generator().manual_seed(2), **CFG)
     port16 = create_model("medssd", NUM_CLASSES, drop_path_rate=0.0,
@@ -258,9 +259,27 @@ def test_bf16_compute_and_unported_options():
     scale = float(y32.abs().max())
     np.testing.assert_allclose(y16.numpy(), y32.numpy(), rtol=0.1,
                                atol=0.1 * scale)
-    for kw in (dict(kan_in=True), dict(dropout=0.1)):
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        SS2DSSD(16, d_state=8, headdim=8, dropout=0.1)
+    for kw in (dict(drop_rate=0.1), dict(attn_drop_rate=0.1)):
         with pytest.raises(TypeError, match="unexpected keyword"):
-            SS2DSSD(16, d_state=8, headdim=8, **kw)
+            create_model("medssd", NUM_CLASSES, **CFG, **kw)
+    # the KAN projections are ported: kan_in replaces in_proj, kan_filter
+    # goes in front of it; both are deterministic in train mode
+    u = torch.randn(2, 4, 4, 16)
+    for kw, names in ((dict(kan_in=True), ("in_proj_kan",)),
+                      (dict(kan_filter=True), ("filter_kan", "in_proj"))):
+        sa = SS2DSSD(16, d_state=8, headdim=8, chunk_size=8, **kw)
+        assert all(getattr(sa, n) is not None for n in names), kw
+        assert (sa.in_proj is None) == ("in_proj" not in names), kw
+        nn_init = torch.Generator().manual_seed(0)
+        for p in sa.parameters():
+            torch.nn.init.normal_(p, 0.0, 0.1, generator=nn_init)
+        with torch.no_grad():
+            y_eval = sa.eval()(u)
+            y_train = sa.train()(u)
+        assert y_eval.shape == (2, 4, 4, 16)
+        assert torch.equal(y_eval, y_train), kw
 
 
 PADDED_SIZE, PADDED_BATCH = 68, 2       # sides 17, 8, 4, 2

@@ -20,6 +20,7 @@ from medical_image_classification_tpu.train.optim import (
 )
 from medical_image_classification_tpu.utils.torch_import import (
     import_medmamba_state_dict,
+    import_medssd_family_state_dict,
 )
 from medical_image_classification_tpu_torch.models import create_model
 from medical_image_classification_tpu_torch.train.optim import (
@@ -116,9 +117,55 @@ def test_schedule_matches_optax(name):
                                    err_msg=k)
 
 
+# the SSD-family names at d_state 16 and the reference head kinds they
+# carry (the JAX importer's ``head``)
+SSD16_HEADS = {"cnn_mamba": "linear", "cnn_mamba_mifa": "linear",
+               "kanin_ssd": "linear", "kanout_ssd": "linear",
+               "medssd_ekan": "ekan", "medssd_okan": "okan",
+               "medssd_kan": "kan_stack", "medssd_kanmodule": "kan_module",
+               "medssd_3kan": "3kan"}
+
+
+def _mask_tree(name, cfg, headdim):
+    """The port's mask of a reduced ``name`` as the JAX params tree (1.0
+    decayed, 0.0 not), through the JAX importer and, for MIFA and the
+    in-block KANs, which the reference does not name,
+    ``jax_trees_of_port_names``; kaninSSD's in_proj, which the importer
+    reads, is a stand-in dropped again."""
+    model = create_model(name, 3, ssd_headdim=headdim, **cfg)
+    mask = no_weight_decay_mask(model)
+    assert set(mask) == {n for n, _ in model.named_parameters()}
+    sd = {k: (torch.full_like(v, float(mask[k])) if k in mask
+              else torch.zeros_like(v, dtype=torch.float32))
+          for k, v in model.state_dict().items()}
+    feed = dict(sd)
+    for k in [k for k in sd if k.endswith("in_proj_kan.base_weight")]:
+        feed[k.replace("in_proj_kan.base_weight", "in_proj.weight")] = sd[k]
+    params, _ = import_medssd_family_state_dict(
+        feed, head=SSD16_HEADS[name], headdim=headdim,
+        conv_stem=name.startswith("cnn_mamba"), **cfg)
+    if name == "kanin_ssd":
+        for key, layer in params.items():
+            for sub, blk in layer.items() if key.startswith("layers_") \
+                    else ():
+                if sub.startswith("blocks_"):
+                    blk["self_attention"].pop("in_proj")
+    from test_torch_ssd16_models import jax_trees_of_port_names
+    extra = jax_trees_of_port_names(sd)["params"]
+
+    def merge(a, b):
+        for k, v in b.items():
+            a[k] = merge(a.get(k, {}), v) if isinstance(v, dict) else v
+        return a
+
+    return merge(params, extra)
+
+
 def test_no_weight_decay_mask_matches_jax():
-    """The port's mask on a reduced MedMamba, carried through the JAX
-    package's importer, equals the JAX mask on the same tree."""
+    """The port's mask on a reduced MedMamba and on each SSD-family model
+    at d_state 16 (the CNN-Mamba stem and MIFA, the in-block KANs, every
+    KAN head: a 1-D BatchNorm's weight is not decayed), carried through
+    the JAX package's importer, equals the JAX mask on the same tree."""
     cfg = dict(depths=(1, 1), dims=(16, 32), d_state=4)
     model = create_model("medmamba", 3, **cfg)
     mask = no_weight_decay_mask(model)
@@ -126,14 +173,20 @@ def test_no_weight_decay_mask_matches_jax():
     sd = {k: (torch.full_like(v, float(mask[k])) if k in mask
               else torch.zeros_like(v, dtype=torch.float32))
           for k, v in model.state_dict().items()}
-    got, _ = import_medmamba_state_dict(sd, **cfg)
-    want = jax_no_weight_decay_mask(got)
-    flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
-    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
-    assert len(flat_g) == len(flat_w)
-    for (key, g), (_, w) in zip(flat_g, flat_w):
-        g = np.asarray(g)
-        assert g.min() == g.max() == float(w), jax.tree_util.keystr(key)
+    trees = [import_medmamba_state_dict(sd, **cfg)[0]]
+    trees += [_mask_tree(name, dict(depths=(1, 1), dims=(16, 32)), 8)
+              for name in SSD16_HEADS]
+    for got in trees:
+        want = jax_no_weight_decay_mask(got)
+        flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+        flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+        assert len(flat_g) == len(flat_w)
+        for (key, g), (_, w) in zip(flat_g, flat_w):
+            g = np.asarray(g)
+            assert g.min() == g.max() == float(w), jax.tree_util.keystr(key)
+    kans = dict(no_weight_decay_mask(create_model(
+        "medssd_3kan", 3, ssd_headdim=8, depths=(1, 1), dims=(16, 32))))
+    assert not kans["kans.bn.weight"] and kans["kans.kan1.coef"]
 
 
 def test_unknown_names_raise():

@@ -181,7 +181,7 @@ def _sides(size):
 def test_default_cap_keeps_every_model_path_on_v2():
     """At the default cap every scan shape the port's models reach chooses
     the two-level kernels: each registry name's SS2D blocks (the Mamba-1
-    scan; medssd and st_ssd have none) at the CLIs' image sizes, and the
+    scan; the SSD family has none) at the CLIs' image sizes, and the
     Mamba LM's layer call at the published widths for any length up to
     4096.  This guards every model path against the v1 branch."""
     from medical_image_classification_tpu_torch.models import create_model
@@ -196,7 +196,7 @@ def test_default_cap_keeps_every_model_path_on_v2():
             model = create_model(name, 8)
         blocks = [m for m in model.modules() if isinstance(m, SS2D)]
         widths = sorted({(m.d_inner, m.d_state) for m in blocks})
-        if name in ("medssd", "st_ssd"):
+        if not name.startswith("medmamba"):     # the SSD family
             assert not widths, name
         for size in (224, 240, 256, 384, 512):
             for side, (Dm, N) in zip(_sides(size), widths):

@@ -114,6 +114,30 @@ def test_core_ssd_matches_jax(monkeypatch, path, nheads, case):
                                    atol=atol * scale(w), err_msg=nm)
 
 
+@pytest.mark.parametrize("path", ["dirs", "einsum"])
+def test_core_ssd_matches_jax_at_d_state_16(monkeypatch, path):
+    """d_state 16 (N 64 over the four directions, gn 16): the port's dirs
+    path and its einsum path each against the JAX core, which takes its
+    einsum path here (its dirs gate needs N % 128 == 0), fp32, forward and
+    the four gradients within 1e-4 of each output's scale."""
+    name, jdt, tdt, rtol, atol = CASES[0]
+    arrs, kw = _core_args(d_state=16, seed=16)
+    dirs = tssd.ssd_dirs_chunk(64, 16, 64, 8, 16, 32)
+    assert jssd.ssd_dirs_chunk(64, 16, 64, 8, 16, 4, 32) is None
+    if path == "einsum":
+        _off(monkeypatch)
+    else:
+        assert dirs == 16
+    yj, gj = _jax_fwd_grads(arrs, kw, jdt)
+    yt, gt = _torch_fwd_grads(arrs, kw, tdt)
+    scale = lambda a: max(1.0, float(np.abs(np.asarray(a, np.float32)).max()))
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj),
+                               rtol=rtol, atol=atol * scale(yj))
+    for nm, g, w in zip(("dxBCdt", "dA_log", "ddt_bias", "dDs"), gt, gj):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
+                                   atol=atol * scale(w), err_msg=nm)
+
+
 def test_dirs_and_einsum_paths_agree():
     """The port's two paths on the same inputs (fp32, 2e-5 as the JAX
     package's own dirs test)."""

@@ -100,6 +100,31 @@ def test_backward_matches_jax_vjp(name, jdt, tdt, rtol, atol_rel, atol, nh):
         _close(g, w, rtol, atol_rel, atol, nm)
 
 
+@pytest.mark.parametrize("name,jdt,tdt,rtol,atol_rel,atol", CASES,
+                         ids=[c[0] for c in CASES])
+def test_forward_and_backward_match_jax_at_gn16(name, jdt, tdt, rtol,
+                                                atol_rel, atol):
+    """gn 16 (N 64, the d_state-16 models: B/C slabs 16 channels wide in
+    the role-major stack): y, Ssave and all six cotangents against the JAX
+    kernel in interpret mode (``_run_fwd`` and the custom VJP; the JAX
+    dirs gate takes no N 64, the kernel itself does)."""
+    args, dy, d_ssm, gn = _inputs(nh=4, gn=16, seed=21)
+    ja, ta = _jax(args, jdt), _torch(args, tdt)
+    yj, Sj = jsfd._run_fwd(*ja, d_ssm, gn, save=True)
+    yt, St = tsf.ssd_fused_dirs_fwd(*ta, d_ssm, gn, want_save=True,
+                                    impl="torch")
+    assert St.shape[-1] == 4 * gn
+    _close(yt, yj, rtol, atol_rel, atol, "y")
+    _close(St, Sj, rtol, atol_rel, atol, "Ssave")
+    _, vjp = jax.vjp(lambda *z: jsfd.ssd_fused_dirs(*z, d_ssm, gn), *ja)
+    want = vjp(jnp.asarray(dy, jdt))
+    got = tsf.ssd_fused_dirs_bwd(*ta, d_ssm, gn, St,
+                                 torch.from_numpy(dy).to(tdt), impl="torch")
+    for nm, g, w, a in zip(NAMES, got, want, ta):
+        assert g.shape == a.shape and g.dtype == a.dtype, nm
+        _close(g, w, rtol, atol_rel, atol, nm)
+
+
 def test_autograd_function_matches_autograd_of_plain_forward():
     """SSDFusedDirs (the plain backward) against torch.autograd through the
     plain forward, all six inputs, fp32 (1e-4 of each gradient's scale)."""

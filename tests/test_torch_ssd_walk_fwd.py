@@ -292,3 +292,40 @@ def test_chip_smoke_bound_counts_the_saved_states(monkeypatch):
     assert eval_ms == pytest.approx((ops + rows + y) / cs.HBM_BPS * 1e3)
     assert save_ms - eval_ms == pytest.approx(
         B * nc * H * P * N * isz / cs.HBM_BPS * 1e3)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_chip_smoke_dirs_bound_takes_n_from_the_case(monkeypatch, backward):
+    """The dirs SSD's bound at the d_state-16 models' stage 0 (B 32, L 3136
+    over 14 chunks of 224, H4 8, d_ssm 128, P 64) at N 64 (gn 16), on meta
+    tensors: N comes from the case, not from MedSSD's gn 128, and the
+    bound is the larger of the bytes time and the operations time (the
+    walk's causal pairs, the state products at N 64), with its label."""
+    cs = _chip_smoke(monkeypatch)
+    B, nc, l, H4, d_ssm, gn = 32, 14, 224, 8, 128, 16
+    P, N = d_ssm // (H4 // 4), 4 * gn
+    meta = dict(device="meta")
+    stack = torch.empty(B, nc, l, 2 * (d_ssm + 2 * gn + H4 // 4),
+                        dtype=torch.bfloat16, **meta)
+    acum = torch.empty(B, nc, H4, l, **meta)
+    args = (stack, acum)
+    got = cs._ssd_bound(args, d_ssm, N, "bf16", backward)
+    pairs = l * (l + 1) // 2
+    rows = 3 * B * nc * H4 * l * 4 + B * nc * H4 * 4
+    y = B * nc * l * H4 * P * 2
+    ssave = B * nc * H4 * P * N * 2
+    operands = stack.numel() * 2
+    if backward:
+        nbytes = 2 * operands + 2 * rows + ssave + y
+        ops = B * nc * (6 * pairs * N + H4 * (4 * pairs * P + 10 * l * N * P))
+    else:
+        nbytes = operands + rows + y
+        ops = B * nc * (2 * pairs * N + H4 * (2 * pairs * P + 4 * l * N * P))
+    t_bytes = nbytes / cs.HBM_BPS * 1e3
+    t_ops = ops / cs.PEAK_OPS["bf16"] * 1e3
+    want = max(t_bytes, t_ops)
+    assert got[0] == pytest.approx(want)
+    assert got[1] == ("bytes" if t_bytes >= t_ops else "operations")
+    assert cs._ssd_bound(args, d_ssm, 4 * cs.SSD_GN, "bf16", backward)[0] \
+        > got[0]
+    assert cs.SSD16_STAGES[0] == (nc * l, l, H4, d_ssm, gn)
