@@ -154,14 +154,37 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      weights re-fit in place, the logits on the batch kept within
      REGRID_TOL x max|logit|, the knots and the refit head's output
      against the same re-grid in fp64 on the host (REFIT_GRID_TOL,
-     REFIT_TOL).
-The model phases (3-26) also hold the v1 and calibration counters at 0.
+     REFIT_TOL);
+  27.-31. the CrossMamba family at full width (blocks and fusions at
+     N 512): 27. cross_cls_stage3 (224x224, batch 8, bf16) through the
+     two-input eval and train steps on host pairs: 4 eval batches, one
+     warm-up and 4 Adam steps (8 dirs launches a forward, 8 + 8 a step);
+     28.-29. cross_cls_4ef (12 a forward) and cross_cls_3e1fadd1e (8) one
+     forward and one step each; 30. vfefm_2b2 (256x256, batch 2) through
+     cli/fusion_train.py's main() on 8 generated CT/MRI PNG pairs for 2
+     epochs in fp32 (the CLI's default) and with --dtype bf16 (44 dirs +
+     16 Y_diag launches a forward, as many backward), then
+     cli/fusion_test.py's main() on the pairs with the fp32 run's weights
+     (one PNG a pair); 31. vfefm_2c1 one step through
+     cli/fusion_train.py --single-decoder (25 + 12).  Each: launches
+     exactly the path's (the counters at 0 just before each run), every
+     parameter moved, and against the same model with the plain twins and
+     the same weights the output (logits, fused image) within LOGIT_TOL in
+     bf16 and fp32 and every fp32 parameter gradient within
+     PARAM_GRAD_TOL (cuDNN's deterministic algorithms; for the U-Nets,
+     of the fusion loss and of mean(out), both fp32 paths against the
+     same step in float64, on every leaf the kernels within
+     PARAM_GRAD_TOL + COND_RATIO x the plain twins' own error); pairs/s,
+     resident wall and device ms of a forward and a step.
+The model phases (3-31) also hold the v1 and calibration counters at 0.
 Then one JSON line describing the fifteen kernels (launches in the training
 runs, in the bench's runs for v1 and the calibration; errors, times, the
 bound of each from this run's shapes; times and bounds at stage 0 in bf16,
 the fused SSD's at MedSSD's stage 1 at 240x240; rows 1-2 also at the LM's
 layer call under "lm"; rows 5/5b also at N 64 under "n64", with their
-launches per cnn_mamba_mifa training step), the card's name
+launches per cnn_mamba_mifa training step; rows 5/5b and 7/7b also the
+launches per train step of each CrossMamba model under "crossmamba"), the
+card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -237,6 +260,14 @@ SSD16_STAGES = tuple(c[:4] + (SSD16_GN,) for c in SSD_STAGES)
 # the dirs kernel's cases: those stages, and MedSSD's stage 0 at 240x240
 # (L 3600, chunk 240, nc 15)
 SSD_CASES = SSD_STAGES + ((3600, 240, 8, 128, SSD_GN),) + SSD16_STAGES
+# and the CrossMamba family's new dirs shapes, each at its batch (the
+# sixth term; BATCH where there is none): cross_cls_4ef's fusions at
+# stages 0-1 (H4 16 at l 224, H4 32 at l 196, B 8), vfefm's 64x64 blocks
+# and fusions (l 256, nc 16, H4 8 and 16) and 32x32 fusions (nc 4, H4 32)
+# at B 2
+SSD_CASES += ((3136, 224, 16, 256, SSD_GN, 8), (784, 196, 32, 512, SSD_GN, 8),
+              (4096, 256, 8, 128, SSD_GN, 2), (4096, 256, 16, 256, SSD_GN, 2),
+              (1024, 256, 32, 512, SSD_GN, 2))
 # SSD kernels vs plain twin: |k - p| <= atol x max|p| + rtol |p|.  fp32
 # differs in summation order (sums of up to l + N products); bf16 also
 # where a rounded operand (M, dtx, S) or output lands one bf16 step from
@@ -265,6 +296,37 @@ REFIT_GRID_TOL, REFIT_TOL = 1e-5, 1e-4
 # their SSD core at stages 0-1 at 224x224 (side, d_ssm; H4 = 4 d_ssm / 64):
 # phase 2r times the dirs path against the einsum path (Y_diag at stage 0)
 SSD16_CORE = ((56, 128), (28, 256))
+# The CrossMamba family (blocks and fusions at d_state 128: N 512).  The
+# cross classifiers at 224x224, batch 8 (the JAX bench's batch for
+# cross_cls_stage3); the fusion U-Nets at 256x256, batch 2 (the fusion
+# trainer's), through its CLIs on FUSION_PAIRS generated pairs for
+# FUSION_EPOCHS epochs, written under FUSION_DIR.  {forward kernel:
+# launches per forward}: the dirs kernels at the 56/28 sides (64/32 for
+# the U-Nets) in every block (one call a branch) and every CrossMamba
+# fusion there (two calls), Y_diag at N 512 at the U-Nets' 16x16, the
+# einsums below (tests/test_torch_kernel_reach.py pins each call site)
+CROSS_BATCH, FUSION_SIZE, FUSION_BATCH = 8, 256, 2
+FUSION_PAIRS, FUSION_EPOCHS = 8, 2
+FUSION_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_fusion")
+CROSS_PATHS = {
+    # the blocks of stages 0-1 in both branches; the fusion after stage 3
+    # (L 196) on the einsums
+    "cross_cls_stage3": {"ssd_fused_dirs_fwd": 2 * (2 + 2)},
+    "cross_cls_3e1fadd1e": {"ssd_fused_dirs_fwd": 2 * (2 + 2)},
+    # and the fusions of stages 0-1
+    "cross_cls_4ef": {"ssd_fused_dirs_fwd": 2 * (2 + 2) + 2 * 2},
+    # encoder 2-2-4-2 and decoder 2-9-2-2, both branches and a fusion at
+    # every stage: dirs at encoder stages 0-1 and decoder stages 1-3, Y_diag
+    # at encoder stage 2 and decoder stage 0
+    "vfefm_2b2": {"ssd_fused_dirs_fwd": 2 * (2 + 2 + 9 + 2 + 2) + 2 * 5,
+                  "ssd_ydiag_fwd": 2 * (4 + 2) + 2 * 2},
+    # one decoder stream, no decoder fusions
+    "vfefm_2c1": {"ssd_fused_dirs_fwd": 2 * (2 + 2) + 2 * 2 + (9 + 2 + 2),
+                  "ssd_ydiag_fwd": 2 * 4 + 2 + 2},
+}
+CROSS_FULL, CROSS_STEP = "cross_cls_stage3", ("cross_cls_4ef",
+                                              "cross_cls_3e1fadd1e")
 # the single-layout fused SSD's cases (B, L, chunk l, H, N), P 64: MedSSD
 # 240x240 stage 1, padded as ssd_chunked pads it, and an in-window shape
 # at the bottom of the chunk window with N 128
@@ -279,7 +341,10 @@ ST_YDIAG = (BATCH * 14, 224, 8, 64, 64)             # BC, l, H, N, P
 # stage 2 at 240x240 (one chunk of 232 for L 225) and the shape MedSSD's
 # stage 3 at 512x512 (and the fusion U-Nets) reach
 YDIAG_CASES = (ST_YDIAG + (3136,), (BATCH, 232, 32, 512, 64, 225),
-               (BATCH, 256, 64, 512, 64, 256))
+               (BATCH, 256, 64, 512, 64, 256),
+               # vfefm's 16x16 stages at B 2: the blocks (H 32), the
+               # fusions (H 64)
+               (2, 256, 32, 512, 64, 256), (2, 256, 64, 512, 64, 256))
 ST_STAGES = ((3136, 128), (784, 256))
 # ST kernels vs plain: |k - p| <= atol x max|p| + rtol |p|.  fp32 differs
 # in summation order (sums of up to 3136 products; the mixer's softmax
@@ -330,6 +395,19 @@ PARAM_GRAD_TOL = (2e-2, 0.998, 2e-4)
 # median, because leaves whose true gradient is ~0 (the conv biases that
 # feed a BatchNorm) have relative distances of 1e2-1e4 on both paths
 BF16_GRAD_RATIO = 1.5
+# The fusion U-Nets' fp32 parameter gradients at full width are
+# ill-conditioned: against the same step in float64, both fp32 paths (the
+# kernels and their plain twins) miss PARAM_GRAD_TOL on hundreds of
+# vfefm_2c1's leaves (the D skips, the fusions' B/C/dt weights, most
+# leaves upstream of the 16x16 stages), with the Y_diag kernel or its twin
+# alike and with the BatchNorm variance in one pass or two (an H100).  So
+# both fp32 paths are held against the float64 gradient
+# (``_check_grad_tree_exact``): on every leaf the kernels' rel-norm error
+# may be at most PARAM_GRAD_TOL's plus COND_RATIO x the plain twins' own
+# on that leaf, which is the plain gate where the plain twins are exact; a
+# faulty kernel lands O(1) away.  The gradients are taken of two losses,
+# the fusion step's and the smooth mean of the fused image (no clamp)
+COND_RATIO = 2.0
 GRAD_BATCH = 4
 # The Mamba-1 LM at mamba-130m width (models/mamba_lm.py MambaConfig's
 # defaults: d_model 768, 24 layers, vocab 50277 padded to 50280, d_state
@@ -545,19 +623,20 @@ def _ssd_cases():
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    for i, (L, l, H4, d_ssm, gn) in enumerate(SSD_CASES):
+    for i, (L, l, H4, d_ssm, gn, *batch) in enumerate(SSD_CASES):
+        B = batch[0] if batch else BATCH
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
         nc = L // l
         C2 = 2 * (d_ssm + 2 * gn + H4 // 4)
-        stack = 0.5 * rnd(BATCH, nc, l, C2)
-        dtp = F.softplus(0.5 * rnd(BATCH, nc, H4, l) - 3.0)
+        stack = 0.5 * rnd(B, nc, l, C2)
+        dtp = F.softplus(0.5 * rnd(B, nc, H4, l) - 3.0)
         A = -(1.0 + 3.0 * torch.rand(H4, device=dev, generator=gen))
         acum = torch.cumsum(dtp * A[:, None], dim=-1)
         dte = torch.exp(acum[..., -1:] - acum)
         cdec = torch.exp(acum[..., -1])
         D = 2.0 * torch.rand(H4, device=dev, generator=gen) - 1.0
-        dy = rnd(BATCH, nc, l, H4 * SSD_P)
+        dy = rnd(B, nc, l, H4 * SSD_P)
         for dt_name, dtype in (("fp32", torch.float32),
                                ("bf16", torch.bfloat16)):
             yield L, l, dt_name, (stack.to(dtype).contiguous(), acum, dte,
@@ -614,6 +693,14 @@ YDIAG_BWD_SPLIT = {"intra": "bwd::intra_kernel",
 YDIAG_SHARES = {"ssd ydiag": tuple(YDIAG_FWD_SPLIT.values()),
                 "ssd ydiag backward": ("ssd_ydiag::cols_kernel",
                                        "YDiagLayout")}
+# the CrossMamba models' profiles: the dirs walks by their layout, and
+# Y_diag's passes (in fp32 its backward is the first port's two passes)
+CROSS_SPLIT = {"ssd dirs": ("DirsLayout",)}
+FUSION_SPLIT = {**CROSS_SPLIT,
+                "ssd ydiag": tuple(YDIAG_FWD_SPLIT.values()),
+                "ssd ydiag backward": ("ssd_ydiag::cols_kernel",
+                                       "YDiagLayout", "f32::grad_kernel",
+                                       "f32::dcb_kernel")}
 
 
 def _walk_split(c, fn, names=SSD_WALK_SPLIT):
@@ -820,16 +907,16 @@ def phase_ssd_fwd_vs_plain():
             lambda **kw: sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, gn,
                                                     **kw), dt_name)
         N = 4 * gn
-        c.update(L=L, l=l, N=N,
+        c.update(L=L, l=l, N=N, B=args[0].shape[0], H4=args[1].shape[2],
                  bound=_ssd_bound(args, d_ssm, N, dt_name, False),
                  save_bound=_ssd_bound(args, d_ssm, N, dt_name, False, True))
         _walk_split(c, run_k, SSD_FWD_SPLIT)
         cases.append(c)
-    summary = "; ".join(f"{c['L']}/{c['l']} N{c['N']} " + _fwd_summary(c)
-                        for c in cases)
+    summary = "; ".join(f"B{c['B']} {c['L']}/{c['l']} H4 {c['H4']} "
+                        f"N{c['N']} " + _fwd_summary(c) for c in cases)
     print(f"phase 2c SSD dirs forward kernel vs plain: {len(cases)} cases "
           f"within {SSD_TOL} (rtol, atol x max|plain|), y and Ssave "
-          f"(B={BATCH} P={SSD_P} N={4 * SSD_GN} and {4 * SSD16_GN}), second "
+          f"(P={SSD_P} N={4 * SSD_GN} and {4 * SSD16_GN}), second "
           f"launch "
           f"bit-identical | {_ssd_passes_text('ssd_fused_dirs_fwd')} | "
           f"{_ssd_mma_text('ssd_fused_dirs_fwd')} | {summary}", flush=True)
@@ -859,7 +946,8 @@ def phase_ssd_bwd_vs_plain():
                 for nm, a, b in zip(SSD_GRAD_NAMES, gk, gp)}
         k_ms = _events_ms(run_k, 3)
         p_ms = _events_ms(run_p, 1)
-        cases.append(dict(L=L, l=l, N=4 * gn, dtype=dt_name, errs=errs,
+        cases.append(dict(L=L, l=l, N=4 * gn, B=args[0].shape[0],
+                          H4=args[1].shape[2], dtype=dt_name, errs=errs,
                           max_abs_err=max(errs.values()), ms=k_ms,
                           plain_ms=p_ms,
                           bound=_ssd_bound(args, d_ssm, 4 * gn, dt_name,
@@ -888,7 +976,8 @@ def phase_ssd_bwd_vs_plain():
         del leaves, got, want
     auto_err = max(auto.values())
     summary = "; ".join(
-        f"{c['L']}/{c['l']} N{c['N']} {c['dtype']} " + " ".join(
+        f"B{c['B']} {c['L']}/{c['l']} H4 {c['H4']} N{c['N']} {c['dtype']} "
+        + " ".join(
             f"{k}={v:.2e}" for k, v in c["errs"].items())
         + f" kernel={c['ms']:.3f}ms plain={c['plain_ms']:.1f}ms "
         f"bound={c['bound'][0]:.4f}ms ({c['bound'][1]}){_split_text(c)}"
@@ -2024,6 +2113,8 @@ def _perturb_scan_params(model, gen):
     checks see the state term: at init D = 1 and Δ is small, so each scan
     output rounds back to its input in bf16."""
     import torch
+    from medical_image_classification_tpu_torch.models.crossmamba import (
+        CrossMamba)
     from medical_image_classification_tpu_torch.models.ss2d_modules import (
         SS2D, SS2DSSD)
     with torch.no_grad():
@@ -2034,7 +2125,7 @@ def _perturb_scan_params(model, gen):
                     0.05, 0.5, generator=gen)
                 m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
                 m.x_proj_weight.mul_(4.0)
-            elif isinstance(m, SS2DSSD):
+            elif isinstance(m, (SS2DSSD, CrossMamba)):
                 m.Ds.uniform_(-1.0, 1.0, generator=gen)
                 dt = torch.empty(m.dt_bias.shape).uniform_(
                     0.05, 0.5, generator=gen)
@@ -2282,23 +2373,72 @@ def _check_grad_tree(what, got, want, rtol, min_cos, abs_floor):
     """Leaf-wise: a leaf passes if its error norm is under ``abs_floor`` or
     its rel-norm error is <= rtol with cosine >= min_cos.  Returns the
     worst (rel-norm error, cosine) over the leaves above the floor."""
+    errs = _leaf_errs(what, got, want, abs_floor)
+    for name, (rel, cos) in errs.items():
+        if rel > rtol or cos < min_cos:
+            raise AssertionError(f"{what} {name}: rel-norm err {rel:.3e} "
+                                 f"(tol {rtol}), cosine {cos:.6f} (min "
+                                 f"{min_cos}), |plain| "
+                                 f"{float(want[name].norm()):.3e}")
+    return (max((r for r, _ in errs.values()), default=0.0),
+            min((c for _, c in errs.values()), default=1.0))
+
+
+def _check_grad_tree_exact(what, got, plain, exact, rtol, min_cos,
+                          abs_floor):
+    """The fp32 gradient trees ``got`` (the kernels) and ``plain`` (the
+    plain twins) of one step, leaf-wise against ``exact`` (the same step in
+    float64 through the plain einsums: the same weights, inputs and
+    DropPath masks).  A leaf of ``got`` passes if its error norm is under
+    ``abs_floor``, or if its rel-norm error is at most cap = rtol +
+    COND_RATIO x the plain twins' rel-norm error on that leaf and its
+    cosine at least min(min_cos, sqrt(1 - cap^2)) (where the plain twins
+    are exact: the plain gate).  Returns the worst (rel-norm, cosine) of
+    ``got`` and, for both paths, the leaves beyond (rtol, min_cos) of
+    ``exact``, the worst leaf and the median leaf."""
+    import math
+    k = _leaf_errs(what, got, exact, abs_floor)
+    p = _leaf_errs(what + " (plain twins)", plain, exact, -1.0)
+    bad = {}
+    for n, (r, c) in k.items():
+        cap = rtol + COND_RATIO * p[n][0]
+        if r > cap or c < min(min_cos, math.sqrt(max(0.0, 1.0 - cap * cap))):
+            bad[n] = (r, c, p[n])
+    if bad:
+        raise AssertionError(
+            f"{what}: {len(bad)} leaves beyond rel-norm {rtol} + "
+            f"{COND_RATIO} x the plain twins' own error from the float64 "
+            f"gradient, (kernels' rel, cos, (plain's rel, cos)): "
+            f"{sorted(bad.items(), key=lambda kv: -kv[1][0])[:4]}")
+    stats = {}
+    for path, errs in (("kernels", k), ("plain", {
+            n: v for n, v in p.items()
+            if float((plain[n] - exact[n]).norm()) > abs_floor})):
+        rels = sorted(r for r, _ in errs.values())
+        stats[path] = dict(
+            leaves_over_tol=sum(1 for r, c in errs.values()
+                                if r > rtol or c < min_cos),
+            worst_rel=rels[-1] if rels else 0.0,
+            median_rel=rels[len(rels) // 2] if rels else 0.0,
+            worst_cos=min((c for _, c in errs.values()), default=1.0))
+    return stats["kernels"]["worst_rel"], stats["kernels"]["worst_cos"], stats
+
+
+def _leaf_errs(what, got, want, abs_floor):
+    """{leaf: (rel-norm error, cosine)} of the gradient tree ``got``
+    against ``want``, over the leaves whose error norm is above
+    ``abs_floor``; raises on a non-finite leaf."""
     import torch
-    worst_rel, worst_cos = 0.0, 1.0
+    out = {}
     for name, w in want.items():
         g = got[name]
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{what} {name}: non-finite gradient")
         diff = float((g - w).norm())
-        if diff <= abs_floor:
-            continue
-        rel = diff / (float(w.norm()) + 1e-30)
-        cos = float(g @ w) / (float(g.norm() * w.norm()) + 1e-30)
-        if rel > rtol or cos < min_cos:
-            raise AssertionError(f"{what} {name}: rel-norm err {rel:.3e} "
-                                 f"(tol {rtol}), cosine {cos:.6f} (min "
-                                 f"{min_cos}), |plain| {float(w.norm()):.3e}")
-        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
-    return worst_rel, worst_cos
+        if diff > abs_floor:
+            out[name] = (diff / (float(w.norm()) + 1e-30),
+                         float(g @ w) / (float(g.norm() * w.norm()) + 1e-30))
+    return out
 
 
 @contextlib.contextmanager
@@ -3150,6 +3290,556 @@ def phase_kernel_bench(card):
     return dict(runs=result, compare=compare, floor=floor)
 
 
+# --- the CrossMamba family: the cross classifiers and the fusion U-Nets ---
+
+def _fusion_model(name, dtype, scan_impl, state_dict=None):
+    """Seeded fusion-registry ``name`` on the card, in eval mode; without
+    ``state_dict`` its scan parameters (the blocks' and the CrossMamba
+    fusions') are drawn away from init."""
+    import torch
+    from medical_image_classification_tpu_torch.models import (
+        create_fusion_model)
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(num_classes=CLASSES) if name.startswith("cross") else {}
+    model = create_fusion_model(name, dtype=dtype, scan_impl=scan_impl,
+                                generator=gen, **kw)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    else:
+        _perturb_scan_params(model, gen)
+    return model.cuda().eval()
+
+
+def _cross_pairs(batches, seed, batch=CROSS_BATCH):
+    """Seeded host batches of the cross classifiers: image pairs in [0, 1]
+    (float32 [B, SIZE, SIZE, 3], as the JAX package trains them) and
+    labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for _ in range(batches):
+        yield (rng.random((batch, SIZE, SIZE, 3), dtype=np.float32),
+               rng.random((batch, SIZE, SIZE, 3), dtype=np.float32),
+               rng.integers(0, CLASSES, batch))
+
+
+def _on_card(*arrays):
+    import torch
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def _cross_loss(model, batch):
+    """A cross classifier's train loss on ``batch`` (xa, xb, labels)."""
+    from medical_image_classification_tpu_torch.train.train_step import (
+        cross_entropy_loss)
+    xa, xb, labels = batch
+    return cross_entropy_loss(model(xa, xb), labels.long())
+
+
+def _fusion_loss(model, batch):
+    """A fusion U-Net's train loss on ``batch`` (xa, xb): the fusion step's,
+    the fused image clamped to [0, 1]."""
+    from medical_image_classification_tpu_torch.train.fusion_losses import (
+        fusion_loss)
+    xa, xb = batch
+    return fusion_loss(xa, xb, model(xa, xb).clamp(0.0, 1.0))[0]
+
+
+def _mean_out(model, batch):
+    """The mean of a fusion U-Net's fused image: a smooth loss (no clamp)
+    for the gradient gate."""
+    return model(*batch).mean()
+
+
+FUSION_GRAD_LOSSES = {"fusion loss": _fusion_loss, "mean(out)": _mean_out}
+
+
+def _path_grads(name, sd, batch, losses, path):
+    """{loss: (value, every parameter's gradient as float64)} of ``name``
+    at the weights ``sd`` on ``batch`` in train mode (DropPath masks of
+    seed 7, cuDNN's deterministic algorithms), by ``path``: "cuda" (the
+    kernels, fp32), "torch" (their plain twins, fp32) or "float64" (the
+    model, inputs and step in float64, every SSD through the plain
+    einsums)."""
+    import torch
+    model = _fusion_model(name, None, "cuda" if path == "cuda" else "torch",
+                          sd).train()
+    if path == "float64":
+        model = model.double()
+        batch = [t.double() if t.is_floating_point() else t for t in batch]
+    out = {}
+    for what, loss_of in losses.items():
+        model.zero_grad(set_to_none=True)
+        model.seed_drop_path(7)
+        with _cudnn_deterministic():
+            loss = loss_of(model, batch)
+            loss.backward()
+        out[what] = float(loss.detach()), {
+            n: p.grad.detach().double().flatten()
+            for n, p in model.named_parameters()}
+    return out
+
+
+def _two_input_gates(name, batch, losses, sd=None, exact=False):
+    """The gates of a two-input model against itself with every kernel
+    swapped for its plain twin, the same weights (``sd``, or the seeded
+    weights with the scan parameters off init) and inputs: the eval output
+    (logits or the fused image) within LOGIT_TOL x max|out| in bf16 and
+    fp32; in fp32 every parameter's gradient of each of ``losses`` (a dict
+    of loss functions) on ``batch`` (train mode, the same DropPath masks,
+    cuDNN's deterministic algorithms) leaf-wise within PARAM_GRAD_TOL.
+    ``exact`` (the fusion U-Nets): both fp32 paths against the same step in
+    float64, on every leaf the kernels within PARAM_GRAD_TOL plus
+    COND_RATIO x the plain twins' own error (``_check_grad_tree_exact``).  Returns the numbers
+    and a line that states them."""
+    import torch
+    if sd is None:
+        sd = _fusion_model(name, None, "torch").state_dict()
+    errs = {}
+    for dt_name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        outs = {}
+        for impl in ("cuda", "torch"):
+            with torch.inference_mode():
+                outs[impl] = _fusion_model(name, dtype, impl, sd)(
+                    *batch[:2]).float().cpu().numpy()
+        errs[dt_name] = _check_logits(f"{name} {dt_name} output",
+                                      outs["cuda"], outs["torch"],
+                                      LOGIT_TOL[dt_name])
+    paths = ("cuda", "torch") + (("float64",) if exact else ())
+    res = {path: _path_grads(name, sd, batch, losses, path)
+           for path in paths}
+    text = (f"kernels vs plain twins, same weights: output max err bf16 "
+            f"{errs['bf16']:.3e}, fp32 {errs['fp32']:.3e} (tol "
+            f"{LOGIT_TOL} x max|out|)")
+    grads = {}
+    for what in losses:
+        loss = {path: res[path][what][0] for path in paths}
+        g = {path: res[path][what][1] for path in paths}
+        if exact:
+            rel, cos, st = _check_grad_tree_exact(
+                f"{name} fp32 param grad of the {what}", g["cuda"],
+                g["torch"], g["float64"], *PARAM_GRAD_TOL)
+            vs_plain = _leaf_errs("kernels vs plain twins", g["cuda"],
+                                  g["torch"], PARAM_GRAD_TOL[2])
+            st["kernels_vs_plain_over_tol"] = sum(
+                1 for r, c in vs_plain.values()
+                if r > PARAM_GRAD_TOL[0] or c < PARAM_GRAD_TOL[1])
+            text += (
+                f"; {what}: float64 {loss['float64']:.6f}, fp32 kernels "
+                f"{loss['cuda']:.6f}, plain {loss['torch']:.6f}; leaves "
+                f"beyond {PARAM_GRAD_TOL[:2]} of the float64 gradient (of "
+                f"{len(g['torch'])}): kernels "
+                f"{st['kernels']['leaves_over_tol']} (worst rel-norm "
+                f"{st['kernels']['worst_rel']:.2e} cos "
+                f"{st['kernels']['worst_cos']:.6f}), plain twins "
+                f"{st['plain']['leaves_over_tol']} (worst "
+                f"{st['plain']['worst_rel']:.2e} cos "
+                f"{st['plain']['worst_cos']:.6f}); median leaf rel-norm "
+                f"kernels {st['kernels']['median_rel']:.2e}, plain "
+                f"{st['plain']['median_rel']:.2e}; kernels vs plain twins "
+                f"{st['kernels_vs_plain_over_tol']}; every leaf of the "
+                f"kernels within {PARAM_GRAD_TOL[0]} + {COND_RATIO} x the "
+                f"plain twins' own error")
+        else:
+            rel, cos = _check_grad_tree(
+                f"{name} fp32 param grad of the {what}", g["cuda"],
+                g["torch"], *PARAM_GRAD_TOL)
+            st = {}
+            text += (f"; {what}: fp32 {loss['cuda']:.6f} vs "
+                     f"{loss['torch']:.6f}, worst leaf rel-norm {rel:.2e} "
+                     f"cos {cos:.6f} over {len(g['torch'])} leaves (tol "
+                     f"{PARAM_GRAD_TOL})")
+        grads[what] = dict(loss=loss, fp32_worst_rel=rel, fp32_worst_cos=cos,
+                           leaves=len(g["torch"]), **st)
+    return dict(out_err=errs, grads=grads), text
+
+
+def _want(calls, steps, backward):
+    """Every kernel's expected launches: ``calls`` forward launches (and as
+    many backward ones with ``backward``) ``steps`` times."""
+    want = {k: 0 for k in _counters()}
+    for f, n in calls.items():
+        want[f] = n * steps
+        if backward:
+            want[f[:-len("fwd")] + "bwd"] = n * steps
+    return want
+
+
+def _per_step(calls):
+    """The kernels a train step of the path ``calls`` launches, and how
+    often."""
+    return {k: v for k, v in _want(calls, 1, True).items() if v}
+
+
+def _zero(counters):
+    import torch
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+
+
+def _check_launches(what, counters, want):
+    got = _launches(counters)
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+    return ", ".join(f"{k} {v}" for k, v in want.items() if v)
+
+
+def _moved(model, before):
+    """The parameters of ``model`` still equal to ``before``; raises if
+    any."""
+    import torch
+    still = sorted(n for n, p in model.named_parameters()
+                   if torch.equal(p.detach().cpu(), before[n].cpu()))
+    if still:
+        raise AssertionError(f"{len(still)} parameters did not move: "
+                             f"{still[:5]}")
+    return len(before)
+
+
+def _step_profile(fn, split):
+    """Device ms of one call of ``fn`` (torch.profiler), by ``split``
+    share and the rest."""
+    rows = [r for r in _profile(fn) if r["cpu_us"] == 0.0]
+    hit = lambda r, pats: any(p in r["name"] for p in pats)
+    times = {k: sum(r["device_us"] for r in rows if hit(r, pats)) / 1e3
+             for k, pats in split.items()}
+    total = sum(r["device_us"] for r in rows) / 1e3
+    times["rest"] = total - sum(times.values())
+    return total, times
+
+
+def _resident_ms(fn):
+    """Host-clock ms of one call of ``fn`` on data already on the card,
+    over STEPS calls after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / STEPS * 1e3
+
+
+def _ms_text(total, times):
+    return f"{total:.2f} ms device time in kernels (" + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in times.items()) + ")"
+
+
+def phase_cross_full(card, name, num):
+    """A cross classifier at full width (224x224, batch CROSS_BATCH, bf16):
+    STEPS eval batches through the two-input eval step, then one warm-up
+    and STEPS Adam steps (1e-4) through the two-input train step, each on
+    host batches copied to the card; the launches exactly the path's
+    (counters at 0 just before each run), every parameter moved, the
+    gates of ``_two_input_gates`` on the trained weights; pairs/s, the
+    resident wall ms and the device ms of a forward and of a step."""
+    import math
+
+    import torch
+    from medical_image_classification_tpu_torch.train.eval_step import (
+        make_cross_eval_step)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        TrainState, make_cross_train_step)
+    calls = CROSS_PATHS[name]
+    counters = _counters()
+    model = _fusion_model(name, torch.bfloat16, "auto")
+    eval_step = make_cross_eval_step(model)
+    for xa, xb, y in _cross_pairs(1, 1):                # warm-up
+        eval_step(*_on_card(xa, xb, y))
+    _zero(counters)
+    t0 = time.perf_counter()
+    logits = []
+    for xa, xb, y in _cross_pairs(STEPS, 0):
+        logits.append(eval_step(*_on_card(xa, xb, y))[1])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_calls = _check_launches(f"{name} {STEPS} eval batches", counters,
+                                 _want(calls, STEPS, False))
+    logits = torch.cat(logits)
+    if logits.shape != (CROSS_BATCH * STEPS, CLASSES) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)}")
+    xa, xb, y = _on_card(*next(_cross_pairs(1, 5)))
+    eval_ms = _resident_ms(lambda: eval_step(xa, xb, y))
+    eval_dev = _step_profile(lambda: eval_step(xa, xb, y), CROSS_SPLIT)
+
+    opt = make_optimizer("adam", model.named_parameters())
+    step = make_cross_train_step(model, opt, make_lr_scheduler(
+        opt, make_schedule("constant", 1e-4)), state=TrainState())
+    model.seed_drop_path(1)
+    for xa, xb, y in _cross_pairs(1, 1):                # warm-up
+        step(*_on_card(xa, xb, y))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _zero(counters)
+    t0 = time.perf_counter()
+    losses = [step(*_on_card(xa, xb, y))["loss"]
+              for xa, xb, y in _cross_pairs(STEPS, 2)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_calls = _check_launches(f"{name} {STEPS} train steps", counters,
+                                  _want(calls, STEPS, True))
+    loss = float(torch.stack(losses).mean())
+    if not math.isfinite(loss):
+        raise AssertionError(f"{name}: train loss {loss}")
+    n_params = _moved(model, before)
+    xa, xb, y = _on_card(*next(_cross_pairs(1, 6)))
+    train_ms = _resident_ms(lambda: step(xa, xb, y))
+    train_dev = _step_profile(lambda: step(xa, xb, y), CROSS_SPLIT)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, opt, step, eval_step
+    gates, gates_text = _two_input_gates(
+        name, _on_card(*next(_cross_pairs(1, 3, GRAD_BATCH))),
+        {"cross-entropy": _cross_loss}, sd)
+    n_img = CROSS_BATCH * STEPS
+    print(f"phase {num} {name} {SIZE}x{SIZE} b{CROSS_BATCH} bf16, two-input "
+          f"steps on host pairs: eval {STEPS} batches, kernel launches "
+          f"{eval_calls}; training {STEPS} Adam steps after 1 warm-up, "
+          f"launches {train_calls} (forward + backward), the other kernels "
+          f"none, loss {loss:.4f}, all {n_params} parameters moved | eval "
+          f"{n_img / eval_s:.2f} pairs/s, train {n_img / train_s:.2f} "
+          f"pairs/s (host data and copies included) on {card} | resident "
+          f"wall: forward {eval_ms:.2f} ms, step {train_ms:.2f} ms | one "
+          f"forward: {_ms_text(*eval_dev)} | one step: "
+          f"{_ms_text(*train_dev)} | {gates_text} (batch {GRAD_BATCH}, "
+          f"the trained weights)", flush=True)
+    return dict(eval_pairs_s=n_img / eval_s, train_pairs_s=n_img / train_s,
+                loss=loss, launches_per_step=_per_step(calls),
+                resident_forward_ms=eval_ms, resident_step_ms=train_ms,
+                device_forward_ms=eval_dev[0], forward_ms=eval_dev[1],
+                device_step_ms=train_dev[0], step_ms=train_dev[1],
+                gates=gates)
+
+
+def phase_cross_step(card, name, num):
+    """A cross classifier at full width: one eval forward and one Adam step
+    through the two-input steps (bf16, batch CROSS_BATCH), launches exactly
+    the path's, a finite loss, every parameter moved; the gates of
+    ``_two_input_gates`` on the seeded weights."""
+    import math
+
+    import torch
+    from medical_image_classification_tpu_torch.train.eval_step import (
+        make_cross_eval_step)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        TrainState, make_cross_train_step)
+    calls = CROSS_PATHS[name]
+    counters = _counters()
+    model = _fusion_model(name, torch.bfloat16, "auto")
+    batch = _on_card(*next(_cross_pairs(1, 0)))
+    _zero(counters)
+    t0 = time.perf_counter()
+    _, logits = make_cross_eval_step(model)(*batch)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_calls = _check_launches(f"{name} one forward", counters,
+                                 _want(calls, 1, False))
+    opt = make_optimizer("adam", model.named_parameters())
+    step = make_cross_train_step(model, opt, make_lr_scheduler(
+        opt, make_schedule("constant", 1e-4)), state=TrainState())
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    model.seed_drop_path(1)
+    _zero(counters)
+    t0 = time.perf_counter()
+    loss = float(step(*batch)["loss"])
+    step_s = time.perf_counter() - t0
+    step_calls = _check_launches(f"{name} one train step", counters,
+                                 _want(calls, 1, True))
+    if not math.isfinite(loss) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: loss {loss}, logits not finite")
+    n_params = _moved(model, before)
+    del model, opt, step
+    gates, gates_text = _two_input_gates(
+        name, _on_card(*next(_cross_pairs(1, 3, GRAD_BATCH))),
+        {"cross-entropy": _cross_loss})
+    print(f"phase {num} {name} {SIZE}x{SIZE} b{CROSS_BATCH} bf16: one "
+          f"forward (launches {eval_calls}) and one Adam step (launches "
+          f"{step_calls}, forward + backward) through the two-input steps, "
+          f"the other kernels none; logits {tuple(logits.shape)} finite, "
+          f"loss {loss:.4f}, all {n_params} parameters moved | first-call "
+          f"wall time on {card}: eval {eval_s:.3f} s, step {step_s:.3f} s | "
+          f"{gates_text} (batch {GRAD_BATCH}, seeded weights)", flush=True)
+    return dict(loss=loss, launches_per_step=_per_step(calls),
+                eval_s=eval_s, step_s=step_s, gates=gates)
+
+
+def _write_pairs(root, n, seed):
+    """``n`` CT/MRI pairs of seeded PNGs, FUSION_SIZE a side: a smooth
+    field (a CT-like disc, an MRI-like ring) plus noise."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:FUSION_SIZE, :FUSION_SIZE] / FUSION_SIZE - 0.5
+    r = np.sqrt(xx ** 2 + yy ** 2)
+    for d, base in (("CT", 200.0 * (r < 0.35)),
+                    ("MRI", 180.0 * np.exp(-((r - 0.3) / 0.08) ** 2))):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        for i in range(n):
+            img = base + 40.0 * rng.random((FUSION_SIZE, FUSION_SIZE))
+            cv2.imwrite(os.path.join(root, d, f"{i}.png"),
+                        np.clip(img, 0, 255).astype(np.uint8))
+
+
+def _fusion_batch(batch, seed):
+    """A seeded pair batch on the card as the fusion trainer feeds it:
+    float32 [B, FUSION_SIZE, FUSION_SIZE, 3] in [0, 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shape = (batch, FUSION_SIZE, FUSION_SIZE, 1)
+    return _on_card(*(np.repeat(rng.random(shape, dtype=np.float32), 3, -1)
+                      for _ in range(2)))
+
+
+def _fusion_cli_train(root, save, argv, counters, calls, steps):
+    """cli/fusion_train.py's main() on ``root`` (counters at 0 just before
+    it, read just after): launches exactly ``calls`` per step, forward
+    and backward, over ``steps`` steps; finite losses; every parameter
+    moved from the CLI's own seeded init.  Returns (the model, the last
+    epoch's result, the launches' text)."""
+    import math
+
+    import torch
+    from medical_image_classification_tpu_torch.cli import fusion_train
+    args = fusion_train.parse_args(
+        ["--data-path", root, "--save-path", save, "--log-every", "0",
+         "--image-size", str(FUSION_SIZE), "--batch-size",
+         str(FUSION_BATCH)] + argv)
+    init = {n: p.detach().clone() for n, p in fusion_train.build_model(
+        args, torch.Generator().manual_seed(args.seed)).named_parameters()}
+    _zero(counters)
+    model, epochs = fusion_train.main(args)
+    text = _check_launches(f"fusion_train {' '.join(argv)}", counters,
+                           _want(calls, steps, True))
+    losses = [v for e in epochs for v in e["loss"]]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"fusion_train {argv}: losses {losses}")
+    _moved(model, init)
+    return model, epochs[-1], text
+
+
+def phase_vfefm(card, num):
+    """vfefm_2b2 at full width through its CLIs on a generated folder of
+    FUSION_PAIRS CT/MRI PNG pairs (256x256, batch 2): cli/fusion_train.py
+    for FUSION_EPOCHS epochs in fp32 (the CLI's default) and with --dtype
+    bf16, then cli/fusion_test.py on the folder with the fp32 run's
+    weights, one PNG a pair; each run's launches exactly the path's (the
+    counters at 0 just before each main() and read just after), finite
+    losses, every parameter moved; pairs/s of the last epoch (host data
+    included) and of the test loop; the resident wall ms and device ms of
+    a step in each dtype and of a forward; the gates of
+    ``_two_input_gates`` on the seeded weights (batch 2)."""
+    import shutil
+
+    import cv2
+    import torch
+    from medical_image_classification_tpu_torch.cli import fusion_test
+    from medical_image_classification_tpu_torch.train.eval_step import (
+        make_fusion_eval_step)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        make_fusion_train_step)
+    name, calls = "vfefm_2b2", CROSS_PATHS["vfefm_2b2"]
+    counters = _counters()
+    root = os.path.join(FUSION_DIR, "ctmri")
+    shutil.rmtree(FUSION_DIR, ignore_errors=True)
+    _write_pairs(root, FUSION_PAIRS, 0)
+    steps = FUSION_EPOCHS * FUSION_PAIRS // FUSION_BATCH
+    runs = {}
+    for dt_name in ("fp32", "bf16"):
+        save = os.path.join(FUSION_DIR, f"{dt_name}.pt")
+        model, last, text = _fusion_cli_train(
+            root, save, ["--epochs", str(FUSION_EPOCHS), "--dtype", dt_name],
+            counters, calls, steps)
+        # a step and a forward on a batch already on the card
+        opt = make_optimizer("adam", model.named_parameters())
+        step = make_fusion_train_step(model, opt, make_lr_scheduler(
+            opt, make_schedule("constant", 2e-4)))
+        batch = _fusion_batch(FUSION_BATCH, 4)
+        runs[dt_name] = dict(
+            launches=text, loss=last["loss"][-1], pairs_s=last["pairs_s"],
+            resident_step_ms=_resident_ms(lambda: step(*batch)),
+            step=_step_profile(lambda: step(*batch), FUSION_SPLIT))
+        if dt_name == "fp32":
+            infer = make_fusion_eval_step(model)
+            runs["eval"] = dict(
+                resident_forward_ms=_resident_ms(lambda: infer(*batch)),
+                forward=_step_profile(lambda: infer(*batch), FUSION_SPLIT))
+        del model, opt, step
+    out_dir = os.path.join(FUSION_DIR, "fused")
+    args = fusion_test.parse_args(["--data-path", root, "--weights",
+                                   os.path.join(FUSION_DIR, "fp32.pt"),
+                                   "--out-dir", out_dir, "--image-size",
+                                   str(FUSION_SIZE)])
+    _zero(counters)
+    done = fusion_test.main(args)
+    test_calls = _check_launches("fusion_test", counters,
+                                 _want(calls, FUSION_PAIRS, False))
+    shapes = {cv2.imread(p, cv2.IMREAD_UNCHANGED).shape
+              for p in done["paths"]}
+    if len(os.listdir(out_dir)) != FUSION_PAIRS or \
+            shapes != {(FUSION_SIZE, FUSION_SIZE)}:
+        raise AssertionError(f"fusion_test wrote {os.listdir(out_dir)}, "
+                             f"shapes {shapes}")
+    gates, gates_text = _two_input_gates(
+        name, _fusion_batch(FUSION_BATCH, 3), FUSION_GRAD_LOSSES,
+        exact=True)
+    fwd = runs["eval"]
+    print(f"phase {num} {name} {FUSION_SIZE}x{FUSION_SIZE} b{FUSION_BATCH} "
+          f"through cli/fusion_train.py ({FUSION_PAIRS} generated pairs, "
+          f"{FUSION_EPOCHS} epochs, {steps} steps) and cli/fusion_test.py: "
+          + " | ".join(
+              f"{d}: launches {r['launches']} (forward + backward), the "
+              f"other kernels none, last loss {r['loss']:.4f}, every "
+              f"parameter moved, last epoch {r['pairs_s']:.2f} pairs/s "
+              f"(host data included), resident step "
+              f"{r['resident_step_ms']:.2f} ms, one step: "
+              f"{_ms_text(*r['step'])}"
+              for d, r in runs.items() if d != "eval")
+          + f" | fusion_test: {FUSION_PAIRS} PNGs of {FUSION_SIZE}x"
+          f"{FUSION_SIZE}, launches {test_calls}, "
+          f"{FUSION_PAIRS / done['seconds']:.2f} pairs/s (one pair a "
+          f"forward, reads and writes included); fp32 forward at b"
+          f"{FUSION_BATCH} resident {fwd['resident_forward_ms']:.2f} ms, "
+          f"{_ms_text(*fwd['forward'])} | {gates_text} (batch "
+          f"{FUSION_BATCH}, seeded weights) | on {card}", flush=True)
+    return dict(runs=runs, test_pairs_s=FUSION_PAIRS / done["seconds"],
+                launches_per_step=_per_step(calls), gates=gates)
+
+
+def phase_vfefm_2c1(card, num):
+    """vfefm_2c1 at full width: one fp32 step through cli/fusion_train.py
+    --single-decoder (one batch of the generated pairs), launches exactly
+    the path's, a finite loss, every parameter moved; the gates of
+    ``_two_input_gates`` on the seeded weights."""
+    name, calls = "vfefm_2c1", CROSS_PATHS["vfefm_2c1"]
+    counters = _counters()
+    root = os.path.join(FUSION_DIR, "ctmri")
+    t0 = time.perf_counter()
+    model, last, text = _fusion_cli_train(
+        root, os.path.join(FUSION_DIR, "2c1.pt"),
+        ["--single-decoder", "--epochs", "1", "--max-pairs",
+         str(FUSION_BATCH)], counters, calls, 1)
+    seconds = time.perf_counter() - t0
+    del model
+    gates, gates_text = _two_input_gates(
+        name, _fusion_batch(FUSION_BATCH, 3), FUSION_GRAD_LOSSES,
+        exact=True)
+    print(f"phase {num} {name} {FUSION_SIZE}x{FUSION_SIZE} b{FUSION_BATCH} "
+          f"fp32: one step through cli/fusion_train.py --single-decoder, "
+          f"launches {text} (forward + backward), the other kernels none, "
+          f"loss {last['loss'][0]:.4f}, every parameter moved, "
+          f"{seconds:.2f} s wall on {card} (build included) | {gates_text} "
+          f"(batch {FUSION_BATCH}, seeded weights)", flush=True)
+    return dict(loss=last["loss"][0], launches_per_step=_per_step(calls),
+                gates=gates)
+
+
 def _entry(name, replaces, cases, launches, head, bound):
     """One kernel's record for the kernels line; ``head`` picks the case
     whose times it reports; ``replaces`` is file:line under the JAX
@@ -3220,6 +3910,16 @@ def main(argv=None):
     for name in SSD16_REGRID:
         ssd16[name + " regrid"] = phase_kan_regrid(card, name, num)
         num += 1
+    # the CrossMamba family: cross_cls_stage3 through full eval and
+    # training, the other two classifiers a forward and a step each, the
+    # fusion U-Nets through their CLIs
+    cross = {CROSS_FULL: phase_cross_full(card, CROSS_FULL, num)}
+    num += 1
+    for name in CROSS_STEP:
+        cross[name] = phase_cross_step(card, name, num)
+        num += 1
+    cross["vfefm_2b2"] = phase_vfefm(card, num)
+    cross["vfefm_2c1"] = phase_vfefm_2c1(card, num + 1)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -3231,7 +3931,8 @@ def main(argv=None):
     scan_head = lambda c: (c["L"] == STAGES[0][0] and c["dtype"] == "bf16"
                            and not c["reverse"])
     ssd_head = lambda c: c["L"] == SSD_STAGES[0][0] and \
-        c["dtype"] == "bf16" and c["N"] == 4 * SSD_GN
+        c["dtype"] == "bf16" and c["N"] == 4 * SSD_GN and \
+        c["H4"] == SSD_STAGES[0][2]
     st_head = lambda c: c["L"] == ST_STAGES[0][0] and c["dtype"] == "bf16"
     fused_head = lambda c: c["L"] == FUSED_CASES[0][1] and \
         c["dtype"] == "bf16"
@@ -3325,6 +4026,15 @@ def main(argv=None):
                     "save_bound_ms": c["save_bound"][0]}
                    if "save_ms" in c else {}))
         e["n64"] = n64
+    # rows 5/5b and 7/7b: launches per train step of each CrossMamba model
+    for name in ("ssd_fused_dirs_fwd", "ssd_fused_dirs_bwd", "ssd_ydiag_fwd",
+                 "ssd_ydiag_bwd"):
+        next(e for e in entries if e["name"] == name)["crossmamba"] = {
+            m: dict(launches_per_train_step=r["launches_per_step"][name],
+                    size=FUSION_SIZE if m.startswith("vfefm") else SIZE,
+                    batch=FUSION_BATCH if m.startswith("vfefm")
+                    else CROSS_BATCH)
+            for m, r in cross.items() if r["launches_per_step"].get(name)}
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)
@@ -3378,7 +4088,8 @@ def main(argv=None):
                            lm_scoring=lm, lm_generate=lm_gen,
                            v1_cases=v1_cases, v1_bwd=v1_bwd,
                            calib_cases=calib_cases, kernel_bench=bench,
-                           ssd16_paths=ssd16_paths, ssd16_models=ssd16),
+                           ssd16_paths=ssd16_paths, ssd16_models=ssd16,
+                           crossmamba=cross),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

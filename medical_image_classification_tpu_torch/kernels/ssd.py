@@ -165,9 +165,12 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
         ``kernels/ssd_ydiag.py``), whose gradient reaches dt, dt_bias and A
         through dacum; it rounds M = scores x decay once where the einsum
         rounds the scores and the decay each;
-      - else the einsums."""
+      - else the einsums.
+    float64 operands take the einsums in float64 throughout (the exact
+    reference: the kernels and their plain twins compute in fp32/bf16)."""
     mm = x.dtype
-    f32 = torch.float32
+    f32 = torch.promote_types(mm, torch.float32)
+    exact = mm == torch.float64
     Bsz, L, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
@@ -193,8 +196,8 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
     xs = x.reshape(Bsz, Lp, H, P)[:, :L]
     D_skip = xs * D.to(mm)[None, None, :, None]
 
-    if ssd_fused_supported(l, N, P, G, nc, card=x.is_cuda, batch=Bsz,
-                           dtype=mm):
+    if not exact and ssd_fused_supported(l, N, P, G, nc, card=x.is_cuda,
+                                         batch=Bsz, dtype=mm):
         dte = torch.exp(A_cum_t[..., -1:] - A_cum_t)        # [B, nc, H, l]
         cdec = torch.exp(A_cum_t[..., -1])                  # [B, nc, H]
         y = ssd_fused(Cc.to(mm).reshape(Bsz, nc, l, N),
@@ -208,7 +211,8 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
     Bc_h = Bc.movedim(2, 3).to(mm)                          # [B,nc,G,l,N]
 
     # 1. intra-chunk: scores once per group, modulated per head
-    if ydiag_supported(l, N, P, G, card=x.is_cuda, BC=Bsz * nc, dtype=mm):
+    if not exact and ydiag_supported(l, N, P, G, card=x.is_cuda,
+                                     BC=Bsz * nc, dtype=mm):
         BC = Bsz * nc
         Ydh = ydiag_fused(Cc.to(mm).reshape(BC, l, N),
                           Bc.to(mm).reshape(BC, l, N),

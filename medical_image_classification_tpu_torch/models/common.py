@@ -69,9 +69,10 @@ def conv_nhwc(mod: nn.Conv2d, x, dtype=None):
 
 
 def layer_norm(mod: nn.LayerNorm, x):
-    """fp32 statistics and fp32 output (Flax LayerNorm, fp32 params)."""
-    return F.layer_norm(x.float(), mod.normalized_shape, mod.weight,
-                        mod.bias, mod.eps)
+    """fp32 statistics and fp32 output (Flax LayerNorm, fp32 params); fp64
+    stays fp64."""
+    return F.layer_norm(x.to(_compute_dtype(None, x)), mod.normalized_shape,
+                        mod.weight, mod.bias, mod.eps)
 
 
 def channel_shuffle(x, groups: int):
@@ -182,6 +183,37 @@ class PatchMerging(nn.Module):
         return linear(self.reduction, x, self.dtype)
 
 
+class PatchExpand(nn.Module):
+    """Upsample by ``dim_scale`` in NHWC: a bias-free Linear dim -> s dim,
+    a pixel shuffle into dim / s channels at s x the side, LayerNorm.  The
+    LayerNorm returns fp32 (a bare Flax LayerNorm, eps 1e-6), as the JAX
+    module does; the caller's next Linear casts."""
+
+    def __init__(self, dim: int, dim_scale: int = 2, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.dim_scale = dim_scale
+        self.expand = nn.Linear(dim, dim_scale * dim, bias=False)
+        # parity: Flax's LayerNorm eps
+        self.norm = nn.LayerNorm(dim // dim_scale, eps=1e-6)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        s = self.dim_scale
+        x = linear(self.expand, x, self.dtype)
+        # [b, h, w, s, s, c / s] -> [b, h, s, w, s, c / s]
+        x = x.reshape(b, h, w, s, s, c // s).permute(0, 1, 3, 2, 4, 5)
+        return layer_norm(self.norm, x.reshape(b, h * s, w * s, c // s))
+
+
+class FinalPatchExpand(PatchExpand):
+    """The fusion decoder's x4 upsample: a Linear dim -> 4 dim shuffled
+    4 x 4 into dim / 4 channels, LayerNorm (fp32 out)."""
+
+    def __init__(self, dim: int, dtype=None):
+        super().__init__(dim, dim_scale=4, dtype=dtype)
+
+
 def batch_norm(mod: nn.modules.batchnorm._BatchNorm, x, training: bool,
                update_stats: bool = True):
     """``mod`` on an NCHW (or [B, C]) tensor, in fp32, returned in fp32
@@ -190,8 +222,9 @@ def batch_norm(mod: nn.modules.batchnorm._BatchNorm, x, training: bool,
     E[x^2] - E[x]^2 clipped at 0 (``use_fast_variance``; F.batch_norm
     would update running_var with the unbiased n/(n-1)); the running stats
     move by ``mod.momentum`` unless ``update_stats`` is False (an
-    activation-checkpoint recompute of the same forward)."""
-    x = x.float()
+    activation-checkpoint recompute of the same forward).  fp64 stays
+    fp64."""
+    x = x.to(_compute_dtype(None, x))
     if not training:
         return F.batch_norm(x, mod.running_mean, mod.running_var,
                             mod.weight, mod.bias, False, 0.0, mod.eps)

@@ -4,14 +4,19 @@ registry.
 Port of ``medical_image_classification_tpu/models/registry.py``: the
 Mamba-1 MedMamba configurations, MedSSD, CNN-Mamba (with and without
 MIFA), ST-SSD, the in-block KAN models (kaninSSD, kanoutSSD) and MedSSD
-with each KAN head.  The dual-input fusion registry is not ported yet
-(ROADMAP.md Queue 1).
+with each KAN head; and the dual-input fusion registry: the CrossMamba
+classifiers and fusion U-Nets (FusionMamba is not ported yet, ROADMAP.md
+Queue 1 item 6).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+from medical_image_classification_tpu_torch.models.crossmamba import (
+    CrossVSSMClassifier,
+    FusionVFEFM,
+)
 from medical_image_classification_tpu_torch.models.vssm import VSSM
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
@@ -146,3 +151,66 @@ def medssd_kanmodule(num_classes, **kw):
 def medssd_3kan(num_classes, **kw):
     """MedSSD (d_state 16) with the ThreeKansModule head."""
     return _ssd16(num_classes, kw, head="3kan")
+
+
+# --- dual-input fusion / cross models (two inputs: a registry of their own)
+
+_FUSION_REGISTRY: Dict[str, Callable[..., Any]] = {}
+
+
+def register_fusion(name):
+    def deco(fn):
+        _FUSION_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def available_fusion_models():
+    return sorted(_FUSION_REGISTRY)
+
+
+def create_fusion_model(name: str, **kw):
+    if name == "fusionmamba":
+        raise NotImplementedError(
+            "fusionmamba (models/fusionmamba.py) is not ported yet "
+            "(ROADMAP.md Queue 1 item 6)")
+    if name not in _FUSION_REGISTRY:
+        raise KeyError(f"unknown fusion model {name!r}; available: "
+                       f"{available_fusion_models()}")
+    return _FUSION_REGISTRY[name](**kw)
+
+
+@register_fusion("vfefm_2b2")
+def vfefm_2b2(**kw):
+    """CrossMamba fusion U-Net, dual decoder."""
+    return FusionVFEFM(**kw)
+
+
+@register_fusion("vfefm_2c1")
+def vfefm_2c1(**kw):
+    """The single-decoder variant."""
+    return FusionVFEFM(single_decoder=True, **kw)
+
+
+def _cross_cls(num_classes, fuse_mode, kw):
+    kw.setdefault("d_state", 128)        # the reference classifiers'
+    return CrossVSSMClassifier(num_classes=num_classes, fuse_mode=fuse_mode,
+                               **kw)
+
+
+@register_fusion("cross_cls_stage3")
+def cross_cls_stage3(num_classes=8, **kw):
+    """Dual-branch classifier, fusion after stage 3, branches summed."""
+    return _cross_cls(num_classes, "stage3", kw)
+
+
+@register_fusion("cross_cls_4ef")
+def cross_cls_4ef(num_classes=8, **kw):
+    """Dual-branch classifier, fusion at every stage."""
+    return _cross_cls(num_classes, "all", kw)
+
+
+@register_fusion("cross_cls_3e1fadd1e")
+def cross_cls_3e1fadd1e(num_classes=8, **kw):
+    """Fused branches summed, then one shared downsample and stage 4."""
+    return _cross_cls(num_classes, "stage3_merged", kw)

@@ -49,6 +49,29 @@ from medical_image_classification_tpu_torch.models.ss2d_modules import (
 )
 
 
+def reset_parameters(root: nn.Module, generator=None):
+    """The JAX package's init distributions over ``root``'s modules, drawn
+    from ``generator``: Linear trunc-normal(0.02) with zero bias, conv
+    kaiming-normal (fan_out) with zero bias, norms (1, 0), each scan
+    layer's scan parameters (``reset_scan_parameters``: SS2D, SS2DSSD with
+    the ST-SSD tail's, CrossMamba)."""
+    for m in root.modules():
+        if isinstance(m, nn.Linear):
+            trunc_normal_02_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
+            kaiming_conv_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d, nn.BatchNorm1d)):
+            m.reset_parameters()
+        elif hasattr(m, "reset_scan_parameters"):
+            m.reset_scan_parameters(generator)
+        elif isinstance(m, (ECALayer, KANLinear, OKANLayer)):
+            m.reset_parameters(generator)
+
+
 class SSConvBlock(nn.Module):
     """The MedMamba hybrid block: split the channels; the LEFT half goes
     through the conv branch and the RIGHT half through LN -> SS2D
@@ -202,26 +225,7 @@ class VSSM(nn.Module):
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
-        """The JAX package's init distributions, drawn from ``generator``:
-        Linear trunc-normal(0.02) with zero bias, conv kaiming-normal
-        (fan_out) with zero bias, norms (1, 0), the SS2D / SS2DSSD scan
-        parameters (with the ST-SSD tail's)."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                trunc_normal_02_(m.weight, generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.Conv2d):
-                kaiming_conv_(m.weight, generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d,
-                                nn.BatchNorm1d)):
-                m.reset_parameters()
-            elif isinstance(m, (SS2D, SS2DSSD)):
-                m.reset_scan_parameters(generator)
-            elif isinstance(m, (ECALayer, KANLinear, OKANLayer)):
-                m.reset_parameters(generator)
+        reset_parameters(self, generator)
 
     def seed_drop_path(self, seed: int):
         """Restart every DropPath mask stream from ``seed``."""

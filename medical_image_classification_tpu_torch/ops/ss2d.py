@@ -131,12 +131,15 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     L = H * W
     K = 4
     gn = d_state
-    A = -torch.exp(A_log.float()).reshape(K * nheads)
-    Df = Ds.float().reshape(-1)
-    dtb = dt_bias.float().reshape(K * nheads)
+    wide = torch.promote_types(xBCdt.dtype, torch.float32)
+    A = -torch.exp(A_log.to(wide)).reshape(K * nheads)
+    Df = Ds.to(wide).reshape(-1)
+    dtb = dt_bias.to(wide).reshape(K * nheads)
 
+    # float64 (the exact reference) takes the einsums of ``ssd_chunked``
     eff_c = ssd_dirs_chunk(L, chunk_size, K * d_state, headdim, K * nheads,
-                           d_ssm, card=xBCdt.is_cuda) if merge else None
+                           d_ssm, card=xBCdt.is_cuda) \
+        if merge and wide == torch.float32 else None
     if eff_c is not None:
         stackr = cross_scan_time_major2_roles(xBCdt, d_ssm, gn)
         y = ssd_chunked_dirs(stackr, A, Df, dtb, eff_c, d_ssm=d_ssm, gn=gn,
@@ -158,9 +161,11 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
 
 
 def rmsnorm_gated(x, z, weight, *, eps: float = 1e-5):
-    """Gated RMSNorm in fp32, returned in x's dtype: rmsnorm(x * silu(z))
-    over the last axis, times ``weight`` (the JAX function with the models'
-    settings: the gate before the norm, one group)."""
-    g = x.float() * F.silu(z.float())
+    """Gated RMSNorm in fp32 (fp64 for fp64 x), returned in x's dtype:
+    rmsnorm(x * silu(z)) over the last axis, times ``weight`` (the JAX
+    function with the models' settings: the gate before the norm, one
+    group)."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    g = x.to(wide) * F.silu(z.to(wide))
     y = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps)
-    return (y * weight.float()).to(x.dtype)
+    return (y * weight.to(wide)).to(x.dtype)

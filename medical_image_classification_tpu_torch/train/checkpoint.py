@@ -5,7 +5,8 @@ Port of ``medical_image_classification_tpu/train/checkpoint.py`` with
 ``<dir>/epoch_<n>.pt`` holding {model, optimizer, scheduler, step, epoch,
 best_acc, drop_path_rng} and keeps the newest ``max_to_keep``;
 ``save_params_only`` writes the model's ``state_dict`` alone (what
-``cli/test.py --weights`` loads).
+``cli/test.py --weights`` loads), ``load_params_only`` reads it back into a
+model (``cli/fusion_test.py --weights``).
 """
 
 from __future__ import annotations
@@ -77,3 +78,13 @@ def save_params_only(path: str, model):
     BatchNorm running stats, no optimizer state)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save(model.state_dict(), path)
+
+
+def load_params_only(path: str, model):
+    """Load what ``save_params_only`` wrote into ``model`` (strict), on the
+    device of the model's parameters.  The file also holds the BatchNorm
+    running stats, which the JAX package's weights-only save leaves out."""
+    device = next(model.parameters()).device
+    model.load_state_dict(torch.load(path, map_location=device,
+                                     weights_only=True), strict=True)
+    return model

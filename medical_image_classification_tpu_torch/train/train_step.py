@@ -1,7 +1,10 @@
-"""The train step.  Port of
+"""The train steps.  Port of
 ``medical_image_classification_tpu/train/train_state.py``:
 ``cross_entropy_loss`` (``:55-61``), ``make_train_step_fn`` (``:64-96``)
-and ``kan_grid_update`` (``:119-133``).
+and ``kan_grid_update`` (``:119-133``); and the two-input steps: the cross
+classifiers' (cross-entropy, as ``bench.py::bench_cross_cls`` trains them)
+and the fusion U-Nets' (``cli/fusion_train.py``'s step: the fused image
+clamped to [0, 1], ``fusion_loss``).
 
 The JAX step is a pure function of a ``TrainState``; here the model and the
 optimizer carry the parameters, the BatchNorm running stats and the
@@ -19,6 +22,9 @@ import torch.nn.functional as F
 
 from medical_image_classification_tpu_torch.data.image_folder import (
     normalize_batch,
+)
+from medical_image_classification_tpu_torch.train.fusion_losses import (
+    fusion_loss,
 )
 
 
@@ -52,15 +58,55 @@ def make_train_step(model, optimizer, scheduler=None,
         model.train()
         logits = model(normalize_batch(images))
         loss = cross_entropy_loss(logits, labels, label_smoothing)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        if state is not None:
-            state.step += 1
+        _update(loss, optimizer, scheduler, state)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return {"loss": loss.detach(), "accuracy": acc}
+
+    return step_fn
+
+
+def _update(loss, optimizer, scheduler, state):
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+    if state is not None:
+        state.step += 1
+
+
+def make_cross_train_step(model, optimizer, scheduler=None,
+                          state: TrainState | None = None) -> Callable:
+    """The cross classifiers' step: (xa, xb float [B, H, W, 3], labels [B])
+    -> {loss, accuracy}.  The images go to the model as they are (the JAX
+    package trains these models on [0, 1] pairs); otherwise as
+    ``make_train_step``."""
+
+    def step_fn(xa, xb, labels):
+        model.train()
+        logits = model(xa, xb)
+        loss = cross_entropy_loss(logits, labels)
+        _update(loss, optimizer, scheduler, state)
+        acc = (logits.detach().argmax(-1) == labels).float().mean()
+        return {"loss": loss.detach(), "accuracy": acc}
+
+    return step_fn
+
+
+def make_fusion_train_step(model, optimizer, scheduler=None,
+                           state: TrainState | None = None) -> Callable:
+    """The fusion U-Nets' step: (xa, xb float [B, H, W, C] in [0, 1]) ->
+    {loss, in, ssim, grad} (0-d tensors, not synchronised): the fused image
+    clamped to [0, 1], ``fusion_loss`` against the pair, one optimizer and
+    scheduler step, the step counted in ``state``."""
+
+    def step_fn(xa, xb):
+        model.train()
+        gen = model(xa, xb).clamp(0.0, 1.0)
+        total, l_in, l_ssim, l_grad = fusion_loss(xa, xb, gen)
+        _update(total, optimizer, scheduler, state)
+        return {"loss": total.detach(), "in": l_in.detach(),
+                "ssim": l_ssim.detach(), "grad": l_grad.detach()}
 
     return step_fn
 

@@ -1,10 +1,12 @@
 """Carry MedMamba, the MedSSD family (MedSSD, CNN-Mamba, ST-SSD, the KAN
-models) and Mamba-1 LM weights from the JAX package to the port.
+models), the CrossMamba family (the cross classifiers, the fusion U-Nets)
+and Mamba-1 LM weights from the JAX package to the port.
 
 The reverse of ``medical_image_classification_tpu/utils/torch_import.py::
-import_medmamba_state_dict`` and ``import_medssd_family_state_dict`` (with
+import_medmamba_state_dict``, ``import_medssd_family_state_dict`` (with
 ``st_tokens=True`` for ST-SSD, ``conv_stem=True`` for CNN-Mamba and
-``head=`` for the KAN heads): the JAX ``params``, ``batch_stats`` and
+``head=`` for the KAN heads), ``import_cross_classifier_state_dict`` and
+``import_vfefm_state_dict``: the JAX ``params``, ``batch_stats`` and
 ``kan_state`` trees (nested dicts of numpy arrays) become the port's
 ``state_dict``, ready for ``load_state_dict(strict=True)``.  The port names
 its parameters as the reference ``state_dict`` does, so the JAX importers
@@ -21,7 +23,8 @@ KAN layers' parameters and their ``grid`` / ``mask`` buffers as they are;
 ST-SSD's ``stl``/``stf`` ``u1``, ``u2``, ``z`` ->
 ``learnable_*`` and the Dense(2 -> 1) ``mix`` kernel [2, 1] -> the
 ``conv1d`` weight [1, 2, 1], ``o_norm`` with its batch stats, ``o_linear``
-and ``k_weights``.  The Mamba LM (``mamba_lm_state_dict``) is the exact
+and ``k_weights``; CrossMamba's parameters as MedSSD's core's, and the
+U-Nets' scanned, vmapped block pairs [depth, 2, ...] unstacked.  The Mamba LM (``mamba_lm_state_dict``) is the exact
 inverse of ``import_mamba_lm_state_dict``, with the HF names.
 """
 
@@ -37,13 +40,10 @@ def _count(tree, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix))
 
 
-def _vssm_state_dict(params, batch_stats, self_attention, kan_state=None):
-    """The skeleton's keys; ``self_attention(h, q, sa, sa_stats, sa_kan)``
-    writes one block's scan layer (params ``sa``, batch stats ``sa_stats``
-    and KAN state ``sa_kan``, each None where it has none) under the prefix
-    ``q`` through the helpers ``h``."""
-    sd: Dict[str, torch.Tensor] = {}
-    kan_state = kan_state or {}
+def _writer(sd: Dict[str, torch.Tensor]):
+    """Helpers that write JAX leaves into ``sd`` under a port prefix: put
+    (an fp32 copy, never a view of the JAX array), dense, conv, ln, bn (with
+    its batch stats) and kan."""
 
     def put(key, arr):
         sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
@@ -72,7 +72,39 @@ def _vssm_state_dict(params, batch_stats, self_attention, kan_state=None):
         for name, arr in {**p, **s}.items():
             put(f"{prefix}.{name}", arr)
 
-    h = dict(put=put, dense=dense, conv=conv, ln=ln, bn=bn, kan=kan)
+    return dict(put=put, dense=dense, conv=conv, ln=ln, bn=bn, kan=kan)
+
+
+def _ssconv_block(h, p, blk, stats, self_attention, sa_kan=None):
+    """One SS-Conv block (params ``blk``, batch stats ``stats``) under the
+    prefix ``p``."""
+    h["ln"](p + ".ln_1", blk["ln_1"])
+    self_attention(h, p + ".self_attention", blk["self_attention"],
+                   stats.get("self_attention"), sa_kan)
+    cb, cs = blk["conv_branch"], stats["conv_branch"]
+    c = p + ".conv33conv33conv11"
+    h["bn"](c + ".0", cb["bn0"], cs["bn0"])
+    h["conv"](c + ".1", cb["conv1"])
+    h["bn"](c + ".2", cb["bn1"], cs["bn1"])
+    h["conv"](c + ".4", cb["conv2"])
+    h["bn"](c + ".5", cb["bn2"], cs["bn2"])
+    h["conv"](c + ".7", cb["conv3"])
+
+
+def _merging(h, p, m):
+    h["ln"](p + ".norm", m["norm"])
+    h["put"](p + ".reduction.weight", np.asarray(m["reduction"]["kernel"]).T)
+
+
+def _vssm_state_dict(params, batch_stats, self_attention, kan_state=None):
+    """The skeleton's keys; ``self_attention(h, q, sa, sa_stats, sa_kan)``
+    writes one block's scan layer (params ``sa``, batch stats ``sa_stats``
+    and KAN state ``sa_kan``, each None where it has none) under the prefix
+    ``q`` through the helpers ``h``."""
+    sd: Dict[str, torch.Tensor] = {}
+    kan_state = kan_state or {}
+    h = _writer(sd)
+    put, conv, ln, bn = h["put"], h["conv"], h["ln"], h["bn"]
     if "conv_t_conv" in params:
         stem = params["conv_t_conv"]
         bn("conv_T_conv.bn", stem["bn"], batch_stats["conv_t_conv"]["bn"])
@@ -92,26 +124,12 @@ def _vssm_state_dict(params, batch_stats, self_attention, kan_state=None):
         stats = batch_stats[f"layers_{i}"]
         layer_kan = kan_state.get(f"layers_{i}", {})
         for j in range(_count(layer, "blocks_")):
-            blk = layer[f"blocks_{j}"]
-            p = f"layers.{i}.blocks.{j}"
-            ln(p + ".ln_1", blk["ln_1"])
-            self_attention(h, p + ".self_attention", blk["self_attention"],
-                           stats[f"blocks_{j}"].get("self_attention"),
-                           layer_kan.get(f"blocks_{j}", {}).get(
-                               "self_attention"))
-            cb = blk["conv_branch"]
-            cs = stats[f"blocks_{j}"]["conv_branch"]
-            c = p + ".conv33conv33conv11"
-            bn(c + ".0", cb["bn0"], cs["bn0"])
-            conv(c + ".1", cb["conv1"])
-            bn(c + ".2", cb["bn1"], cs["bn1"])
-            conv(c + ".4", cb["conv2"])
-            bn(c + ".5", cb["bn2"], cs["bn2"])
-            conv(c + ".7", cb["conv3"])
+            _ssconv_block(h, f"layers.{i}.blocks.{j}", layer[f"blocks_{j}"],
+                          stats[f"blocks_{j}"], self_attention,
+                          layer_kan.get(f"blocks_{j}", {}).get(
+                              "self_attention"))
         if "downsample" in layer:
-            ln(f"layers.{i}.downsample.norm", layer["downsample"]["norm"])
-            put(f"layers.{i}.downsample.reduction.weight",
-                np.asarray(layer["downsample"]["reduction"]["kernel"]).T)
+            _merging(h, f"layers.{i}.downsample", layer["downsample"])
     _head(h, params["classifier"], batch_stats.get("classifier", {}),
           kan_state.get("classifier", {}))
     return sd
@@ -192,6 +210,146 @@ def medssd_state_dict_from_jax(params, batch_stats, kan_state=None
 
 
 st_ssd_state_dict_from_jax = medssd_state_dict_from_jax
+
+
+def _crossmamba(h, q, p):
+    """A CrossMamba core (``_crossmamba`` of the JAX importer, inverted)."""
+    for name in ("skip_in_proj", "xs_in_proj", "BCdts_in_proj", "out_proj"):
+        h["dense"](f"{q}.{name}", p[name])
+    for name in ("xs_conv2d", "BCdts_conv2d"):
+        h["conv"](f"{q}.{name}", p[name])
+    h["put"](q + ".dt_bias", p["dt_bias"])
+    h["put"](q + ".A_logs", np.asarray(p["A_logs"]).reshape(-1))
+    h["put"](q + ".Ds", np.asarray(p["Ds"]).reshape(-1))
+    h["put"](q + ".norm.weight", p["norm_weight"])
+
+
+def _expand(h, q, p):
+    h["put"](q + ".expand.weight", np.asarray(p["expand"]["kernel"]).T)
+    h["ln"](q + ".norm", p["norm"])
+
+
+def _patch_embeds(h, params):
+    for b in (1, 2):
+        pe = params[f"patch_embed{b}"]
+        h["conv"](f"patch_embed{b}.proj", pe["proj"])
+        h["ln"](f"patch_embed{b}.norm", pe["norm"])
+
+
+def _pair_blocks(h, q, lp, ls):
+    """A U-Net stage's two block lists from the JAX package's scanned,
+    vmapped pair: leaves [depth, 2, ...] -> ``{q}.blocks{b}.{j}``."""
+    take = lambda t, j, b: {k: take(v, j, b) if hasattr(v, "items")
+                            else np.asarray(v)[j, b] for k, v in t.items()}
+    blk, stats = lp["blocks"]["block"], ls["blocks"]["block"]
+    depth = np.shape(blk["ln_1"]["scale"])[0]
+    for j in range(depth):
+        for b in (1, 2):
+            _ssconv_block(h, f"{q}.blocks{b}.{j}", take(blk, j, b - 1),
+                          take(stats, j, b - 1), _ss2d_ssd)
+
+
+def _fusion_stage(h, q, lp):
+    """A stage's fusion, its cat_proj (with ``cat_method`` "stack") and its
+    downsamples or upsamples and in_projs, wherever the stage has them."""
+    _crossmamba(h, q + ".fusion", lp["fusion"])
+    for name in ("cat_proj", "in_proj1", "in_proj2"):
+        if name in lp:
+            h["dense"](f"{q}.{name}", lp[name])
+    for b in (1, 2):
+        if f"downsample{b}" in lp:
+            _merging(h, f"{q}.downsample{b}", lp[f"downsample{b}"])
+        if f"upsample{b}" in lp:
+            _expand(h, f"{q}.upsample{b}", lp[f"upsample{b}"])
+
+
+def vfefm_state_dict_from_jax(params, batch_stats,
+                              single_decoder: bool = False
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``FusionVFEFM`` (params, batch_stats) -> the port's
+    ``state_dict``: the exact inverse of ``import_vfefm_state_dict``, the
+    scanned block pairs ([depth, 2, ...] leaves) unstacked into
+    ``blocks1.{j}`` / ``blocks2.{j}``; ``single_decoder`` for ``_2c1``
+    (one bridge Linear, single-stream decoder stages)."""
+    sd: Dict[str, torch.Tensor] = {}
+    h = _writer(sd)
+    _patch_embeds(h, params)
+    for i in range(_count(params, "layers_") - _count(params, "layers_up_")):
+        lp, ls = params[f"layers_{i}"], batch_stats[f"layers_{i}"]
+        _pair_blocks(h, f"layers.{i}", lp, ls)
+        _fusion_stage(h, f"layers.{i}", lp)
+    for j in range(_count(params, "layers_up_")):
+        q = f"layers_up.{j}"
+        lp, ls = params[f"layers_up_{j}"], batch_stats[f"layers_up_{j}"]
+        if single_decoder:
+            for k in range(_count(lp, "blocks_")):
+                _ssconv_block(h, f"{q}.blocks.{k}", lp[f"blocks_{k}"],
+                              ls[f"blocks_{k}"], _ss2d_ssd)
+            if "upsample" in lp:
+                _expand(h, q + ".upsample", lp["upsample"])
+            for name in ("cat_down", "in_proj"):
+                if name in lp:
+                    h["dense"](f"{q}.{name}", lp[name])
+        else:
+            _pair_blocks(h, q, lp, ls)
+            _fusion_stage(h, q, lp)
+    if single_decoder:
+        h["dense"]("bridge", params["bridge"])
+    else:
+        h["conv"]("bridge1", params["bridge1"])
+        h["conv"]("bridge2", params["bridge2"])
+        h["ln"]("norm", params["norm"])
+        h["dense"]("final_cat_proj", params["final_cat_proj"])
+    _expand(h, "final_expand", params["final_expand"])
+    h["conv"]("final_conv", params["final_conv"])
+    return sd
+
+
+def cross_classifier_state_dict_from_jax(params, batch_stats,
+                                         fuse_mode: str = "stage3"
+                                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``CrossVSSMClassifier`` (params, batch_stats) -> the port's
+    ``state_dict``: the exact inverse of
+    ``import_cross_classifier_state_dict``.  The JAX blocks
+    ``layers{b}_{i}_blocks_{j}`` go to ``layers{b}.{i}.blocks.{j}``
+    ("stage3", "stage3_merged"; the merged fourth stage ``layers0_*`` to
+    ``fused_layer.blocks.{j}``) or ``layers.{i}.blocks{b}.{j}`` ("all",
+    with ``fusion_{i}``, ``cat_proj_{i}`` and ``down{b}_{i}`` under
+    ``layers.{i}``); the stage downsamples ``down{b}_{i}`` of the stage3
+    modes go to ``layers{b}.{i}.downsample``."""
+    sd: Dict[str, torch.Tensor] = {}
+    h = _writer(sd)
+    _patch_embeds(h, params)
+    every = fuse_mode == "all"
+    for key in sorted(params):
+        if not key.startswith("layers"):
+            continue
+        b, i, _, j = key[len("layers"):].split("_")
+        q = ("fused_layer.blocks" if b == "0" else
+             f"layers.{i}.blocks{b}" if every else f"layers{b}.{i}.blocks")
+        _ssconv_block(h, f"{q}.{j}", params[key], batch_stats[key],
+                      _ss2d_ssd)
+    for key in sorted(params):
+        if key.startswith("down") and key[4:5].isdigit():
+            b, i = key[4:].split("_")
+            q = (f"layers.{i}.downsample{b}" if every
+                 else f"layers{b}.{i}.downsample")
+            _merging(h, q, params[key])
+    if every:
+        for i in range(_count(params, "fusion_")):
+            _crossmamba(h, f"layers.{i}.fusion", params[f"fusion_{i}"])
+            if f"cat_proj_{i}" in params:
+                h["dense"](f"layers.{i}.cat_proj", params[f"cat_proj_{i}"])
+        h["dense"]("before_head_proj", params["before_head_proj"])
+    else:
+        _crossmamba(h, "fusion", params["fusion"])
+        if "cat_proj" in params:
+            h["dense"]("cat_proj", params["cat_proj"])
+        for name in ("downsample", "downsample1", "downsample2"):
+            if name in params:
+                _merging(h, name, params[name])
+    h["dense"]("head", params["head"])
+    return sd
 
 
 def mamba_lm_state_dict(params) -> Dict[str, torch.Tensor]:

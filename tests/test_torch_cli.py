@@ -119,12 +119,18 @@ def test_port_imports_no_jax():
     ("st_ssd", "depths=(1, 1), dims=(32, 64), d_state=8, ssd_headdim=8, "
                "st_tokens=(4, 2)"),
     ("cnn_mamba_mifa", "depths=(1, 1), dims=(32, 64), ssd_headdim=8"),
-    ("kanin_ssd", "depths=(1, 1), dims=(32, 64), ssd_headdim=8")])
+    ("kanin_ssd", "depths=(1, 1), dims=(32, 64), ssd_headdim=8"),
+    ("vfefm_2b2", "--depths 1,1 --dims 8,16 --headdim 4 --d-state 4 "
+                  "--image-size 16")])
 def test_cli_mains_on_image_folder_import_no_jax(tmp_path, model, tiny):
     """cli.train.main (one epoch, then its val pass) and cli.test.main on a
     generated 3-class ImageFolder, in a fresh interpreter, with a tiny
     ``model`` put in the registry: both run, and afterwards no module of
-    jax, flax, optax or the JAX package is loaded."""
+    jax, flax, optax or the JAX package is loaded.  For vfefm_2b2 the
+    fusion CLIs' mains, cli.fusion_train (one epoch) and cli.fusion_test,
+    on generated CT/MRI pairs at the tiny options ``tiny``."""
+    if model == "vfefm_2b2":
+        return _fusion_mains_import_no_jax(tmp_path, tiny.split())
     root = tmp_path / "oct"
     for split in ("train", "val"):
         d = root / split
@@ -165,6 +171,33 @@ def test_cli_mains_on_image_folder_import_no_jax(tmp_path, model, tiny):
     assert "CLI_OK" in proc.stdout
     assert os.path.exists(str(save) + ".best")
     assert (tmp_path / "runs" / "class_indices.json").exists()
+
+
+def _fusion_mains_import_no_jax(tmp_path, tiny):
+    from test_torch_fusion_cli import make_pairs
+    root = str(tmp_path / "ctmri")
+    make_pairs(root, n=2, size=24)
+    save, out = str(tmp_path / "f.pt"), str(tmp_path / "fused")
+    code = (
+        "import sys\n"
+        "from medical_image_classification_tpu_torch.cli import "
+        "fusion_test, fusion_train\n"
+        f"fusion_train.main(fusion_train.parse_args(['--data-path', {root!r},"
+        f" '--epochs', '1', '--device', 'cpu', '--save-path', {save!r}] + "
+        f"{tiny!r}))\n"
+        f"fusion_test.main(fusion_test.parse_args(['--data-path', {root!r}, "
+        f"'--weights', {save!r}, '--out-dir', {out!r}, '--device', 'cpu'] + "
+        f"{tiny!r}))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'optax', "
+        "'medical_image_classification_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('CLI_OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLI_OK" in proc.stdout
+    assert sorted(os.listdir(out)) == ["0_fused.png", "1_fused.png"]
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])

@@ -17,7 +17,16 @@ the JAX dirs gate needs N % 128 == 0 (a TPU lane term,
 ``kernels/ssd_fused_dirs_pallas.py:154``), so the JAX package takes Y_diag
 or the einsums at its stage 0; the port's card gate has no lane term (P
 and N multiples of 32, N <= 512), so its stages 0-1 at 224 take the dirs
-kernels at N 64 (``JAX_PATHS`` holds the JAX side)."""
+kernels at N 64 (``JAX_PATHS`` holds the JAX side).
+
+The CrossMamba family (N 512, merged) has an SSD call at each block and at
+each CrossMamba fusion, whose d_ssm is twice the stage's dim: ``SITES``
+pins each call site of ``cross_cls_stage3`` and ``cross_cls_4ef`` at
+224x224 and of ``vfefm_2b2`` at 256x256 (its decoder stages at the
+encoder's sides), where the port and the JAX gates agree: the dirs
+kernels at the 56/28 (64/32) sides, Y_diag at N 512 at vfefm's 16x16
+(H 32 and 64), the einsums below.  ``cross_cls_3e1fadd1e`` has
+cross_cls_stage3's sites, ``vfefm_2c1`` a subset of vfefm_2b2's."""
 
 import pytest
 import torch
@@ -155,3 +164,95 @@ def test_port_reaches_the_kernels_the_jax_gates_pick(monkeypatch, model,
             got.append(_port_path(mp, side, d_state, d_ssm, merge))
     assert got == EXPECTED[model, size]
     assert want == JAX_PATHS.get((model, size), EXPECTED[model, size])
+
+
+# (side, d_ssm) of each SSD call site of the CrossMamba family (headdim 64,
+# d_state 128: N 512) -> (path, chunk l, chunks nc); blocks at d_ssm = dim,
+# fusions at 2 dim
+_CROSS_224 = {"blocks 0": ((56, 128), ("dirs", 224, 14)),
+              "blocks 1": ((28, 256), ("dirs", 196, 4)),
+              "blocks 2": ((14, 512), ("einsum", 200, 1)),
+              "fusion 2": ((14, 1024), ("einsum", 200, 1)),
+              "blocks 3": ((7, 1024), ("einsum", 56, 1))}
+SITES = {
+    ("cross_cls_stage3", 224): _CROSS_224,
+    ("cross_cls_4ef", 224): {
+        **_CROSS_224,
+        "fusion 0": ((56, 256), ("dirs", 224, 14)),
+        "fusion 1": ((28, 512), ("dirs", 196, 4)),
+        "fusion 3": ((7, 2048), ("einsum", 56, 1))},
+    # encoder stage i and decoder stages at the same side share shapes
+    ("vfefm_2b2", 256): {
+        "blocks 0, up 2-3": ((64, 128), ("dirs", 256, 16)),
+        "fusion 0, up 2-3": ((64, 256), ("dirs", 256, 16)),
+        "blocks 1, up 1": ((32, 256), ("dirs", 256, 4)),
+        "fusion 1, up 1": ((32, 512), ("dirs", 256, 4)),
+        "blocks 2, up 0": ((16, 512), ("ydiag", 256, 1)),
+        "fusion 2, up 0": ((16, 1024), ("ydiag", 256, 1)),
+        "blocks 3": ((8, 1024), ("einsum", 64, 1)),
+        "fusion 3": ((8, 2048), ("einsum", 64, 1))},
+}
+
+
+@pytest.mark.parametrize("model,size", list(SITES),
+                         ids=[f"{m}-{s}" for m, s in SITES])
+def test_crossmamba_family_reaches_the_kernels_the_jax_gates_pick(
+        monkeypatch, model, size):
+    for mod in (jsfd, jsf, jyd):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+    N = K * 128
+    for site, ((side, d_ssm), want) in SITES[model, size].items():
+        H = K * d_ssm // HEADDIM
+        assert _jax_path(side * side, N, H, d_ssm, True) == want, site
+        with monkeypatch.context() as mp:
+            assert _port_path(mp, side, 128, d_ssm, True) == want, site
+
+
+@pytest.mark.parametrize("name", ["cross_cls_stage3", "cross_cls_4ef",
+                                  "cross_cls_3e1fadd1e", "vfefm_2b2",
+                                  "vfefm_2c1"])
+def test_chip_smoke_launches_per_forward_of_the_crossmamba_family(
+        monkeypatch, name):
+    """chip_smoke.py's CROSS_PATHS (the launches it pins per forward) equal
+    the SSD kernels the port's full-width model reaches: its forward on
+    meta tensors (224x224 or 256x256, bf16, batch 2) with the card's
+    gates, each kernel entry point replaced by a stub that counts."""
+    import chip_smoke
+    from medical_image_classification_tpu_torch.models import (
+        create_fusion_model)
+    calls = []
+
+    def card(gate):
+        return lambda *a, **k: gate(*a, **{**k, "card": True})
+
+    def dirs(stackc, acum, *a, **k):
+        calls.append("ssd_fused_dirs_fwd")
+        B, nc, l, _ = stackc.shape
+        return stackc.new_empty(B, nc, l, acum.shape[2] * HEADDIM)
+
+    def ydiag(Cc, Bc, acum, dtx, impl):
+        calls.append("ssd_ydiag_fwd")
+        return torch.empty_like(dtx)
+
+    def fused(Cc, Bc, acum, dte, cdec, dtp, x, impl):
+        calls.append("ssd_fused_fwd")
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(tss2d, "ssd_dirs_chunk", card(tssd.ssd_dirs_chunk))
+    monkeypatch.setattr(tssd, "ssd_fused_supported",
+                        card(tssd.ssd_fused_supported))
+    monkeypatch.setattr(tssd, "ydiag_supported", card(tssd.ydiag_supported))
+    monkeypatch.setattr(tssd, "ssd_fused_dirs", dirs)
+    monkeypatch.setattr(tssd, "ssd_fused", fused)
+    monkeypatch.setattr(tssd, "ydiag_fused", ydiag)
+    unet = name.startswith("vfefm")
+    with torch.device("meta"):
+        model = create_fusion_model(
+            name, dtype=torch.bfloat16,
+            **({} if unet else dict(num_classes=8))).eval()
+        side = chip_smoke.FUSION_SIZE if unet else chip_smoke.SIZE
+        x = torch.empty(2, side, side, 3)
+        with torch.no_grad():
+            model(x, x)
+    assert {k: calls.count(k) for k in set(calls)} == \
+        chip_smoke.CROSS_PATHS[name]
