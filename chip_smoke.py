@@ -15,11 +15,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      CUDA events, each case's bound and the resident warps per SM each
      pass is granted, each pass's registers and local (spill) bytes, and
      at each bf16 case the device time of each pass (torch.profiler);
+     Then FusionMamba's stages 0 and 3 at 256x256 with its four strided
+     sub-sequences as parameter groups (G 8, K 4; L 1024, Dm 192 and L 16,
+     Dm 1536; A, D and the dt bias drawn per group), forward, fp32 and
+     bf16: y and xsave, times and bounds;
   2b. selective-scan backward kernel (four passes: local adjoint, carry,
-     final, partial sums) vs plain, the same 16 cases, all seven
-     gradients, a second launch bit-identical, bounds, occupancy and the
-     passes' device times as in 2; at one shape ScanFolded's gradients
-     against torch.autograd through the plain forward;
+     final, partial sums) vs plain, the same 20 cases, all seven
+     gradients (at K 4 dA, dD and dbias summed per group over the batch),
+     a second launch bit-identical, bounds, occupancy and the passes'
+     device times as in 2; at one shape ScanFolded's gradients against
+     torch.autograd through the plain forward;
   2c. four-direction fused SSD forward kernel vs its plain twin at MedSSD's
      stages 0 and 1 (B 32; L 3136, l 224, H4 8 and L 784, l 196, H4 16;
      P 64, N 512), its stage 0 at 240x240 (L 3600, l 240, nc 15, H4 8) and
@@ -175,16 +180,29 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      of the fusion loss and of mean(out), both fp32 paths against the
      same step in float64, on every leaf the kernels within
      PARAM_GRAD_TOL + COND_RATIO x the plain twins' own error); pairs/s,
-     resident wall and device ms of a forward and a step.
-The model phases (3-31) also hold the v1 and calibration counters at 0.
+     resident wall and device ms of a forward and a step;
+  32. fusionmamba (the EfficientScan U-Net, 256x256, batch 2, one-channel
+     pairs) through cli/fusion_train.py --model fusionmamba on the
+     generated pairs for 2 epochs in fp32 and with --dtype bf16: the
+     Mamba-1 scan pair at K 4, 48 forward launches a forward and as many
+     backward a step (the encoder's 15 blocks on both inputs, the cross
+     blocks of stages 1-3, the decoder's 15 blocks), every other kernel
+     none, every parameter moved but stage 0's unread cross block, the
+     gates as 30's (float64 through the plain scan in float64) on dark
+     pairs with the fusion loss and sum(out w) (FM_GRAD_LOSSES), every
+     leaf whose error is not zero checked (FM_GRAD_FLOOR), pairs/s,
+     resident wall and device ms of a step (the scan forward and backward
+     apart, the rest's largest kernels) and of a forward.
+The model phases (3-32) also hold the v1 and calibration counters at 0.
 Then one JSON line describing the fifteen kernels (launches in the training
 runs, in the bench's runs for v1 and the calibration; errors, times, the
 bound of each from this run's shapes; times and bounds at stage 0 in bf16,
 the fused SSD's at MedSSD's stage 1 at 240x240; rows 1-2 also at the LM's
 layer call under "lm"; rows 5/5b also at N 64 under "n64", with their
 launches per cnn_mamba_mifa training step; rows 5/5b and 7/7b also the
-launches per train step of each CrossMamba model under "crossmamba"), the
-card's name
+launches per train step of each CrossMamba model under "crossmamba";
+rows 1-2 also FusionMamba's launches per train step and their stage-0 K 4
+case under "fusionmamba"), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -324,6 +342,10 @@ CROSS_PATHS = {
     # one decoder stream, no decoder fusions
     "vfefm_2c1": {"ssd_fused_dirs_fwd": 2 * (2 + 2) + 2 * 2 + (9 + 2 + 2),
                   "ssd_ydiag_fwd": 2 * 4 + 2 + 2},
+    # FusionMamba: the Mamba-1 scan (K 4) in every block of the encoder
+    # (2-2-9-2, run on both inputs) and the decoder (2-9-2-2) and in the
+    # cross blocks of stages 1-3 (stage 0's output is never read)
+    "fusionmamba": {"selective_scan_fwd": 2 * 15 + 3 + 15},
 }
 CROSS_FULL, CROSS_STEP = "cross_cls_stage3", ("cross_cls_4ef",
                                               "cross_cls_3e1fadd1e")
@@ -406,7 +428,8 @@ BF16_GRAD_RATIO = 1.5
 # may be at most PARAM_GRAD_TOL's plus COND_RATIO x the plain twins' own
 # on that leaf, which is the plain gate where the plain twins are exact; a
 # faulty kernel lands O(1) away.  The gradients are taken of two losses,
-# the fusion step's and the smooth mean of the fused image (no clamp)
+# the fusion step's and the smooth mean of the fused image (no clamp).
+# A gate whose leaves all lie under its abs floor checks nothing: it raises
 COND_RATIO = 2.0
 GRAD_BATCH = 4
 # The Mamba-1 LM at mamba-130m width (models/mamba_lm.py MambaConfig's
@@ -422,6 +445,15 @@ GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 4, 64, 32
 # groups (G = 8 images x K 4)
 FLAG_CASES = (("lm", 1, LM_BATCH, LM_LEN, LM_DINNER),
               ("medmamba0", 4, 32, 3136, 96))
+# FusionMamba (fusion registry "fusionmamba") at 256x256, batch 2: its
+# four strided sub-sequences folded into the sequence axis, G = 2 x 4 with
+# the parameter group k = g % 4 (A, D and the dt bias per k); phases 2 and
+# 2b check the scan pair at its stage-0 and stage-3 shapes (L / 4, Dm)
+FM_G = 4 * FUSION_BATCH
+FM_STAGES = ((1024, 192), (16, 1536))
+# the parameters stage 0's cross block holds but nothing reads (the decoder
+# adds the fused skips of stages 3-1): they get no gradient and stay put
+FM_UNUSED = ("Cross_block.0.",)
 # LM logits with the kernels vs the plain scan: |k - p| <= tol x max|p|
 LM_LOGIT_TOL = 2e-3
 
@@ -464,26 +496,37 @@ def phase_device_and_build():
 
 
 def _scan_cases():
-    """The 16 stage cases: (L, Dm, dtype name, reverse, args), args the
-    folded scan's (u, delta, A, B, C, D, bias) on the card."""
+    """The 16 stage cases, then FusionMamba's 4: (L, Dm, dtype name,
+    reverse, args, G), args the folded scan's (u, delta, A, B, C, D, bias)
+    on the card.  MedMamba's stages at G 32 with one parameter group (K 1)
+    and A its S4D-real init, forward and reverse; FusionMamba's stages 0
+    and 3 (FM_STAGES) at G 8 with K 4, forward (its only order), A = -U(1,
+    16), D and the bias drawn per group and channel."""
     import torch
     dev = torch.device("cuda")
-    for i, (L, Dm) in enumerate(STAGES):
+    stages = [(L, Dm, G, 1) for L, Dm in STAGES] + [
+        (L, Dm, FM_G, 4) for L, Dm in FM_STAGES]
+    for i, (L, Dm, g, K) in enumerate(stages):
         gen = torch.Generator(device=dev).manual_seed(i)
         rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
-        base = dict(u=rnd(G, L, Dm), delta=0.5 * rnd(G, L, Dm),
-                    B=rnd(G, L, N), C=rnd(G, L, N))
-        # MedMamba's S4D-real init: A = -(1..N) for every channel
-        A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
-            1, Dm, N).contiguous()
-        D = rnd(1, Dm)
-        bias = 0.1 * rnd(1, Dm)
+        base = dict(u=rnd(g, L, Dm), delta=0.5 * rnd(g, L, Dm),
+                    B=rnd(g, L, N), C=rnd(g, L, N))
+        if K == 1:
+            # MedMamba's S4D-real init: A = -(1..N) for every channel
+            A = -torch.arange(1, N + 1, device=dev,
+                              dtype=torch.float32).expand(1, Dm,
+                                                          N).contiguous()
+        else:
+            A = -1.0 - 15.0 * torch.rand(K, Dm, N, device=dev, generator=gen)
+        D = rnd(K, Dm)
+        bias = 0.1 * rnd(K, Dm)
         for dt_name, dtype in (("fp32", torch.float32),
                                ("bf16", torch.bfloat16)):
             act = {k: v.to(dtype) for k, v in base.items()}
-            for reverse in (False, True):
+            for reverse in (False, True)[:2 if K == 1 else 1]:
                 yield L, Dm, dt_name, reverse, (
-                    act["u"], act["delta"], A, act["B"], act["C"], D, bias)
+                    act["u"], act["delta"], A, act["B"], act["C"], D,
+                    bias), g
 
 
 def _check_close(what, got, want, rtol, atol):
@@ -504,7 +547,7 @@ def phase_kernel_vs_plain():
     from medical_image_classification_tpu_torch.kernels import (
         selective_scan_fwd as fwd)
     cases = []
-    for L, Dm, dt_name, reverse, args in _scan_cases():
+    for L, Dm, dt_name, reverse, args, g in _scan_cases():
         run_k = lambda: fwd.scan_folded_fwd(*args, reverse=reverse,
                                             impl="cuda")
         run_p = lambda: fwd.scan_folded_fwd_ref(*args, reverse=reverse)
@@ -513,8 +556,9 @@ def phase_kernel_vs_plain():
         yp, xp = fwd.scan_folded_fwd_ref(*args, reverse=reverse,
                                          want_xsave=True)
         torch.cuda.synchronize()
-        what = f"forward kernel vs plain L={L} Dm={Dm} {dt_name} " \
-               f"reverse={reverse}"
+        K = args[2].shape[0]
+        what = f"forward kernel vs plain G={g} K={K} L={L} Dm={Dm} " \
+               f"{dt_name} reverse={reverse}"
         if not torch.equal(yk, yk2):
             raise AssertionError(f"{what}: y changes when xsave is written")
         rtol, atol = TOL[dt_name]
@@ -524,27 +568,31 @@ def phase_kernel_vs_plain():
         xs_ms = _events_ms(lambda: fwd._launch_cuda(
             *args, reverse, True, want_xsave=True), 20)
         p_ms = _events_ms(run_p, 2)
-        cases.append(dict(L=L, Dm=Dm, dtype=dt_name, reverse=reverse,
-                          max_abs_err=err, xsave_err=xerr, ms=k_ms,
-                          xsave_ms=xs_ms, plain_ms=p_ms,
-                          bound=_scan_bound(L, Dm, dt_name, False),
+        cases.append(dict(L=L, Dm=Dm, G=g, K=K, dtype=dt_name,
+                          reverse=reverse, max_abs_err=err, xsave_err=xerr,
+                          ms=k_ms, xsave_ms=xs_ms, plain_ms=p_ms,
+                          bound=_scan_bound(L, Dm, dt_name, False, g),
                           warps_per_sm=_occupancy_text(dt_name, False)))
-        _walk_split(cases[-1], run_k, SCAN_FWD_SPLIT)
+        if K == 1:
+            _walk_split(cases[-1], run_k, SCAN_FWD_SPLIT)
     worst = {d: max(c["max_abs_err"] for c in cases if c["dtype"] == d)
              for d in TOL}
     xworst = {d: max(c["xsave_err"] for c in cases if c["dtype"] == d)
               for d in TOL}
     summary = "; ".join(
-        f"{c['L']}x{c['Dm']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'}"
+        f"G{c['G']} K{c['K']} {c['L']}x{c['Dm']} {c['dtype']} "
+        f"{'rev' if c['reverse'] else 'fwd'}"
         f" err={c['max_abs_err']:.2e} xsave_err={c['xsave_err']:.2e} "
         f"kernel={c['ms']:.4f}ms with_xsave={c['xsave_ms']:.4f}ms "
         f"plain={c['plain_ms']:.2f}ms bound={c['bound'][0]:.4f}ms "
         f"({c['bound'][1]}) {c['warps_per_sm']}{_split_text(c)}"
         for c in cases)
-    print(f"phase 2 forward kernel vs plain: {len(cases)}/16 cases within "
+    print(f"phase 2 forward kernel vs plain: {len(cases)}/20 cases within "
           f"tolerance, y and xsave (worst y fp32 {worst['fp32']:.2e}, bf16 "
           f"{worst['bf16']:.2e}; xsave fp32 {xworst['fp32']:.2e}, bf16 "
-          f"{xworst['bf16']:.2e}; G={G} N={N}) | passes (chunk from zero, "
+          f"{xworst['bf16']:.2e}; MedMamba's stages at G={G} K=1, "
+          f"FusionMamba's stages 0 and 3 at G={FM_G} K=4; N={N}) | passes "
+          f"(chunk from zero, "
           f"carry, final): {_passes_text(False)} | {summary}", flush=True)
     return cases
 
@@ -554,7 +602,7 @@ def phase_bwd_vs_plain():
     from medical_image_classification_tpu_torch.kernels import (
         selective_scan_bwd as bwd, selective_scan_fwd as fwd)
     cases = []
-    for L, Dm, dt_name, reverse, args in _scan_cases():
+    for L, Dm, dt_name, reverse, args, g in _scan_cases():
         _, xsave = fwd.scan_folded_fwd_ref(*args, reverse=reverse,
                                            want_xsave=True)
         gen = torch.Generator(device="cuda").manual_seed(L + reverse)
@@ -566,8 +614,9 @@ def phase_bwd_vs_plain():
                                                 reverse=reverse)
         gk, gk2, gp = run_k(), run_k(), run_p()
         torch.cuda.synchronize()
-        what = f"backward kernel vs plain L={L} Dm={Dm} {dt_name} " \
-               f"reverse={reverse}"
+        K = args[2].shape[0]
+        what = f"backward kernel vs plain G={g} K={K} L={L} Dm={Dm} " \
+               f"{dt_name} reverse={reverse}"
         if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
             raise AssertionError(f"{what}: two launches differ in the bits")
         rtol, atol = GRAD_TOL[dt_name]
@@ -575,15 +624,17 @@ def phase_bwd_vs_plain():
                 for nm, a, b in zip(GRAD_NAMES, gk, gp)}
         k_ms = _events_ms(run_k, 10)
         p_ms = _events_ms(run_p, 1)
-        cases.append(dict(L=L, Dm=Dm, dtype=dt_name, reverse=reverse,
-                          errs=errs, max_abs_err=max(errs.values()),
-                          ms=k_ms, plain_ms=p_ms,
-                          bound=_scan_bound(L, Dm, dt_name, True),
+        cases.append(dict(L=L, Dm=Dm, G=g, K=K, dtype=dt_name,
+                          reverse=reverse, errs=errs,
+                          max_abs_err=max(errs.values()), ms=k_ms,
+                          plain_ms=p_ms,
+                          bound=_scan_bound(L, Dm, dt_name, True, g),
                           warps_per_sm=_occupancy_text(dt_name, True)))
-        _walk_split(cases[-1], run_k, SCAN_BWD_SPLIT)
+        if K == 1:
+            _walk_split(cases[-1], run_k, SCAN_BWD_SPLIT)
 
     # ScanFolded (kernels) against torch.autograd through the plain forward
-    L, Dm, dt_name, reverse, args = next(
+    L, Dm, dt_name, reverse, args, _ = next(
         c for c in _scan_cases() if c[0] == STAGES[2][0]
         and c[2] == "fp32" and c[3])
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
@@ -600,14 +651,16 @@ def phase_bwd_vs_plain():
                    for nm, a, b in zip(GRAD_NAMES, got, want))
 
     summary = "; ".join(
-        f"{c['L']}x{c['Dm']} {c['dtype']} {'rev' if c['reverse'] else 'fwd'}"
+        f"G{c['G']} K{c['K']} {c['L']}x{c['Dm']} {c['dtype']} "
+        f"{'rev' if c['reverse'] else 'fwd'}"
         f" err={c['max_abs_err']:.2e} kernel={c['ms']:.4f}ms "
         f"plain={c['plain_ms']:.1f}ms bound={c['bound'][0]:.4f}ms "
         f"({c['bound'][1]}) {c['warps_per_sm']}{_split_text(c)}"
         for c in cases)
-    print(f"phase 2b backward kernel vs plain: {len(cases)}/16 cases within "
+    print(f"phase 2b backward kernel vs plain: {len(cases)}/20 cases within "
           f"fp32 {GRAD_TOL['fp32']} bf16 {GRAD_TOL['bf16']} (rtol, atol) on "
-          f"all 7 gradients, second launch bit-identical | ScanFolded vs "
+          f"all 7 gradients (dA, dD, dbias summed per group), second launch "
+          f"bit-identical | ScanFolded vs "
           f"torch.autograd through the plain forward at {L}x{Dm} fp32 rev: "
           f"max err {auto_err:.2e} | passes (local adjoint from zero, carry, "
           f"final, partial sums): {_passes_text(True)} | {summary}",
@@ -673,6 +726,9 @@ SCAN_BWD_SPLIT = {"local": "bwd_local_kernel",
 # all of the scan's passes, at any type and N (the model profiles)
 SCAN_FWD_KERNELS = ("scan_fwd_chunk_kernel", "chunk_carry_kernel<false>")
 SCAN_BWD_KERNELS = tuple(SCAN_BWD_SPLIT.values())
+# the Mamba-1 models' profiles (medmamba, fusionmamba): the scan pair
+SCAN_SPLIT = {"scan forward": SCAN_FWD_KERNELS,
+              "scan backward": SCAN_BWD_KERNELS}
 # the STL mixer's two passes, forward and backward
 STL_FWD_SPLIT = {"rows": "mixer_fwd_rows_kernel",
                  "cols": "mixer_fwd_cols_kernel"}
@@ -2115,11 +2171,23 @@ def _perturb_scan_params(model, gen):
     import torch
     from medical_image_classification_tpu_torch.models.crossmamba import (
         CrossMamba)
+    from medical_image_classification_tpu_torch.models.fusionmamba import (
+        _ScanParams)
     from medical_image_classification_tpu_torch.models.ss2d_modules import (
         SS2D, SS2DSSD)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, SS2D):
+            if isinstance(m, _ScanParams):
+                # FusionMamba's scan layers: A, D and the dt bias also
+                # different for each of the four sub-sequences (K 4)
+                m.Ds.uniform_(-1.0, 1.0, generator=gen)
+                dt = torch.empty(m.dt_projs_bias.shape).uniform_(
+                    0.05, 0.5, generator=gen)
+                m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+                m.A_logs.copy_(torch.empty(m.A_logs.shape).uniform_(
+                    1.0, 16.0, generator=gen).log())
+                m.x_proj_weight.mul_(4.0)
+            elif isinstance(m, SS2D):
                 m.Ds.uniform_(-1.0, 1.0, generator=gen)
                 dt = torch.empty(m.dt_projs_bias.shape).uniform_(
                     0.05, 0.5, generator=gen)
@@ -2181,9 +2249,7 @@ def _counters():
 # share their names; the layout type in the kernel's name tells them apart
 PATHS = {
     ("medmamba", SIZE): (
-        {"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
-        {"scan forward": SCAN_FWD_KERNELS,
-         "scan backward": SCAN_BWD_KERNELS}),
+        {"selective_scan_fwd": SCAN_CALLS_PER_FORWARD}, SCAN_SPLIT),
     ("medssd", SIZE): (
         {"ssd_fused_dirs_fwd": 2 + 2},               # blocks of stages 0-1
         {"ssd scores": (SSD_GRAM,),                  # both directions'
@@ -2332,7 +2398,10 @@ def phase_full_model(card, name, num, size=SIZE):
 
 def _profile(fn):
     """Time by op and kernel over one call of ``fn`` (torch.profiler), after
-    one warm-up call; rows with no CPU time are device kernels."""
+    one warm-up call; rows with no CPU time are device kernels.  A
+    record_function region (the optimizer's step) also shows on the device
+    as a span over its kernels, a row of its name with no CPU time: it is
+    dropped, or the sums would count those kernels twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2341,8 +2410,14 @@ def _profile(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    events = prof.key_averages()
+    cpu_names = {ev.key for ev in events if ev.cpu_time_total > 0}
     rows = []
-    for ev in prof.key_averages():
+    for ev in events:
+        if ev.cpu_time_total == 0 and (
+                ev.key in cpu_names or getattr(ev, "is_user_annotation",
+                                               False)):
+            continue
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
@@ -2393,11 +2468,15 @@ def _check_grad_tree_exact(what, got, plain, exact, rtol, min_cos,
     ``abs_floor``, or if its rel-norm error is at most cap = rtol +
     COND_RATIO x the plain twins' rel-norm error on that leaf and its
     cosine at least min(min_cos, sqrt(1 - cap^2)) (where the plain twins
-    are exact: the plain gate).  Returns the worst (rel-norm, cosine) of
-    ``got`` and, for both paths, the leaves beyond (rtol, min_cos) of
-    ``exact``, the worst leaf and the median leaf."""
+    are exact: the plain gate).  Raises if no leaf's error is over
+    ``abs_floor`` (the gate would check none).  Returns the worst
+    (rel-norm, cosine) of ``got`` and, for both paths, the leaves beyond
+    (rtol, min_cos) of ``exact``, the worst leaf and the median leaf."""
     import math
     k = _leaf_errs(what, got, exact, abs_floor)
+    if not k:
+        raise AssertionError(f"{what}: no leaf's error is over the abs "
+                             f"floor {abs_floor}, the gate checks none")
     p = _leaf_errs(what + " (plain twins)", plain, exact, -1.0)
     bad = {}
     for n, (r, c) in k.items():
@@ -2416,6 +2495,7 @@ def _check_grad_tree_exact(what, got, plain, exact, rtol, min_cos,
             if float((plain[n] - exact[n]).norm()) > abs_floor})):
         rels = sorted(r for r, _ in errs.values())
         stats[path] = dict(
+            leaves_over_floor=len(errs),
             leaves_over_tol=sum(1 for r, c in errs.values()
                                 if r > rtol or c < min_cos),
             worst_rel=rels[-1] if rels else 0.0,
@@ -3353,6 +3433,33 @@ def _mean_out(model, batch):
 FUSION_GRAD_LOSSES = {"fusion loss": _fusion_loss, "mean(out)": _mean_out}
 
 
+def _weighted_out(model, batch):
+    """sum(out w) of a fusion U-Net's fused image, w a seeded N(0, 1) field
+    drawn in fp32 (the same in every dtype)."""
+    import torch
+    out = model(*batch)
+    gen = torch.Generator(device=out.device).manual_seed(11)
+    return (out * torch.randn(out.shape, generator=gen, device=out.device)
+            .to(out.dtype)).sum()
+
+
+# FusionMamba's gradient gate: its fused image carries the 2 (x1 + x2)
+# residual, so on pairs in [0, 1] the clamp at 1 cuts the fusion loss's
+# gradient off most pixels; so the gate takes dark pairs (FM_DARK x the
+# images), and sum(out w) beside the fusion loss (mean(out)'s gradient
+# is smaller still).  Its abs floor is 0: every leaf whose error is not
+# zero is checked.  With no BatchNorm no leaf's float64 gradient is ~0
+# but those of stage 0's unread cross block (0 on every path), and every
+# other leaf's fp32 gradient lies within 2.1e-4 of float64 on both paths
+# (scripts/grad_conditioning.py on an H100), while no leaf's error reaches
+# PARAM_GRAD_TOL's 2e-4 under the fusion loss.  The vfefm U-Nets keep
+# 2e-4: their conv biases that feed a BatchNorm have float64 gradients of
+# ~1e-17, so a floor under ~1e-6 holds fp32 noise there
+FM_GRAD_LOSSES = {"fusion loss": _fusion_loss, "sum(out w)": _weighted_out}
+FM_DARK = 0.25
+FM_GRAD_FLOOR = 0.0
+
+
 def _path_grads(name, sd, batch, losses, path):
     """{loss: (value, every parameter's gradient as float64)} of ``name``
     at the weights ``sd`` on ``batch`` in train mode (DropPath masks of
@@ -3374,12 +3481,23 @@ def _path_grads(name, sd, batch, losses, path):
             loss = loss_of(model, batch)
             loss.backward()
         out[what] = float(loss.detach()), {
-            n: p.grad.detach().double().flatten()
+            n: _grad_of(name, n, p).detach().double().flatten()
             for n, p in model.named_parameters()}
     return out
 
 
-def _two_input_gates(name, batch, losses, sd=None, exact=False):
+def _grad_of(name, n, p):
+    """The gradient of parameter ``n``: zeros for FusionMamba's FM_UNUSED,
+    which no loss reaches; raises for any other parameter without one."""
+    import torch
+    if p.grad is not None:
+        return p.grad
+    if name == "fusionmamba" and n.startswith(FM_UNUSED):
+        return torch.zeros_like(p)
+    raise AssertionError(f"{name} {n}: the loss does not reach it")
+
+
+def _two_input_gates(name, batch, losses, sd=None, exact_floor=None):
     """The gates of a two-input model against itself with every kernel
     swapped for its plain twin, the same weights (``sd``, or the seeded
     weights with the scan parameters off init) and inputs: the eval output
@@ -3387,14 +3505,15 @@ def _two_input_gates(name, batch, losses, sd=None, exact=False):
     fp32; in fp32 every parameter's gradient of each of ``losses`` (a dict
     of loss functions) on ``batch`` (train mode, the same DropPath masks,
     cuDNN's deterministic algorithms) leaf-wise within PARAM_GRAD_TOL.
-    ``exact`` (the fusion U-Nets): both fp32 paths against the same step in
-    float64, on every leaf the kernels within PARAM_GRAD_TOL plus
-    COND_RATIO x the plain twins' own error (``_check_grad_tree_exact``).  Returns the numbers
+    With ``exact_floor`` (the fusion U-Nets): both fp32 paths against the
+    same step in float64, on every leaf whose error is over that abs
+    floor the kernels within PARAM_GRAD_TOL plus COND_RATIO x the plain
+    twins' own error (``_check_grad_tree_exact``).  Returns the numbers
     and a line that states them."""
     import torch
     if sd is None:
         sd = _fusion_model(name, None, "torch").state_dict()
-    errs = {}
+    errs, scale = {}, {}
     for dt_name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
         outs = {}
         for impl in ("cuda", "torch"):
@@ -3404,12 +3523,16 @@ def _two_input_gates(name, batch, losses, sd=None, exact=False):
         errs[dt_name] = _check_logits(f"{name} {dt_name} output",
                                       outs["cuda"], outs["torch"],
                                       LOGIT_TOL[dt_name])
+        scale[dt_name] = float(abs(outs["torch"]).max())
+    exact = exact_floor is not None
     paths = ("cuda", "torch") + (("float64",) if exact else ())
     res = {path: _path_grads(name, sd, batch, losses, path)
            for path in paths}
     text = (f"kernels vs plain twins, same weights: output max err bf16 "
-            f"{errs['bf16']:.3e}, fp32 {errs['fp32']:.3e} (tol "
-            f"{LOGIT_TOL} x max|out|)")
+            f"{errs['bf16']:.3e} ({errs['bf16'] / scale['bf16']:.2e} of "
+            f"max|out|), fp32 {errs['fp32']:.3e} "
+            f"({errs['fp32'] / scale['fp32']:.2e}) (tol {LOGIT_TOL} x "
+            f"max|out|)")
     grads = {}
     for what in losses:
         loss = {path: res[path][what][0] for path in paths}
@@ -3417,9 +3540,9 @@ def _two_input_gates(name, batch, losses, sd=None, exact=False):
         if exact:
             rel, cos, st = _check_grad_tree_exact(
                 f"{name} fp32 param grad of the {what}", g["cuda"],
-                g["torch"], g["float64"], *PARAM_GRAD_TOL)
+                g["torch"], g["float64"], *PARAM_GRAD_TOL[:2], exact_floor)
             vs_plain = _leaf_errs("kernels vs plain twins", g["cuda"],
-                                  g["torch"], PARAM_GRAD_TOL[2])
+                                  g["torch"], exact_floor)
             st["kernels_vs_plain_over_tol"] = sum(
                 1 for r, c in vs_plain.values()
                 if r > PARAM_GRAD_TOL[0] or c < PARAM_GRAD_TOL[1])
@@ -3433,7 +3556,10 @@ def _two_input_gates(name, batch, losses, sd=None, exact=False):
                 f"{st['kernels']['worst_cos']:.6f}), plain twins "
                 f"{st['plain']['leaves_over_tol']} (worst "
                 f"{st['plain']['worst_rel']:.2e} cos "
-                f"{st['plain']['worst_cos']:.6f}); median leaf rel-norm "
+                f"{st['plain']['worst_cos']:.6f}); leaves whose error is over "
+                f"the abs floor {exact_floor}, checked: kernels "
+                f"{st['kernels']['leaves_over_floor']}, plain twins "
+                f"{st['plain']['leaves_over_floor']}; median leaf rel-norm "
                 f"kernels {st['kernels']['median_rel']:.2e}, plain "
                 f"{st['plain']['median_rel']:.2e}; kernels vs plain twins "
                 f"{st['kernels_vs_plain_over_tol']}; every leaf of the "
@@ -3485,28 +3611,35 @@ def _check_launches(what, counters, want):
     return ", ".join(f"{k} {v}" for k, v in want.items() if v)
 
 
-def _moved(model, before):
-    """The parameters of ``model`` still equal to ``before``; raises if
-    any."""
+def _moved(model, before, unused=()):
+    """The parameters of ``model`` still equal to ``before``, but for those
+    whose names start with one of ``unused`` (which no loss reaches);
+    raises if any."""
     import torch
     still = sorted(n for n, p in model.named_parameters()
-                   if torch.equal(p.detach().cpu(), before[n].cpu()))
+                   if not n.startswith(tuple(unused))
+                   and torch.equal(p.detach().cpu(), before[n].cpu()))
     if still:
         raise AssertionError(f"{len(still)} parameters did not move: "
                              f"{still[:5]}")
     return len(before)
 
 
-def _step_profile(fn, split):
+def _step_profile(fn, split, top=0):
     """Device ms of one call of ``fn`` (torch.profiler), by ``split``
-    share and the rest."""
+    share and the rest; with ``top``, also the ``top`` kernels of the rest
+    by device ms, as a third item."""
     rows = [r for r in _profile(fn) if r["cpu_us"] == 0.0]
     hit = lambda r, pats: any(p in r["name"] for p in pats)
     times = {k: sum(r["device_us"] for r in rows if hit(r, pats)) / 1e3
              for k, pats in split.items()}
     total = sum(r["device_us"] for r in rows) / 1e3
     times["rest"] = total - sum(times.values())
-    return total, times
+    if not top:
+        return total, times
+    rest = [r for r in rows if not any(hit(r, p) for p in split.values())]
+    return total, times, [(r["name"][:70], r["count"], r["device_us"] / 1e3)
+                          for r in rest[:top]]
 
 
 def _resident_ms(fn):
@@ -3685,22 +3818,24 @@ def _write_pairs(root, n, seed):
                         np.clip(img, 0, 255).astype(np.uint8))
 
 
-def _fusion_batch(batch, seed):
+def _fusion_batch(batch, seed, channels=3):
     """A seeded pair batch on the card as the fusion trainer feeds it:
-    float32 [B, FUSION_SIZE, FUSION_SIZE, 3] in [0, 1]."""
+    float32 [B, FUSION_SIZE, FUSION_SIZE, channels] in [0, 1] (a grayscale
+    image repeated over the channels)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     shape = (batch, FUSION_SIZE, FUSION_SIZE, 1)
-    return _on_card(*(np.repeat(rng.random(shape, dtype=np.float32), 3, -1)
-                      for _ in range(2)))
+    return _on_card(*(np.repeat(rng.random(shape, dtype=np.float32),
+                                channels, -1) for _ in range(2)))
 
 
-def _fusion_cli_train(root, save, argv, counters, calls, steps):
+def _fusion_cli_train(root, save, argv, counters, calls, steps, unused=()):
     """cli/fusion_train.py's main() on ``root`` (counters at 0 just before
     it, read just after): launches exactly ``calls`` per step, forward
     and backward, over ``steps`` steps; finite losses; every parameter
-    moved from the CLI's own seeded init.  Returns (the model, the last
-    epoch's result, the launches' text)."""
+    (but the ``unused`` ones, see ``_moved``) moved from the CLI's own
+    seeded init.  Returns (the model, the last epoch's result, the
+    launches' text)."""
     import math
 
     import torch
@@ -3718,7 +3853,7 @@ def _fusion_cli_train(root, save, argv, counters, calls, steps):
     losses = [v for e in epochs for v in e["loss"]]
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"fusion_train {argv}: losses {losses}")
-    _moved(model, init)
+    _moved(model, init, unused)
     return model, epochs[-1], text
 
 
@@ -3788,7 +3923,7 @@ def phase_vfefm(card, num):
                              f"shapes {shapes}")
     gates, gates_text = _two_input_gates(
         name, _fusion_batch(FUSION_BATCH, 3), FUSION_GRAD_LOSSES,
-        exact=True)
+        exact_floor=PARAM_GRAD_TOL[2])
     fwd = runs["eval"]
     print(f"phase {num} {name} {FUSION_SIZE}x{FUSION_SIZE} b{FUSION_BATCH} "
           f"through cli/fusion_train.py ({FUSION_PAIRS} generated pairs, "
@@ -3829,7 +3964,7 @@ def phase_vfefm_2c1(card, num):
     del model
     gates, gates_text = _two_input_gates(
         name, _fusion_batch(FUSION_BATCH, 3), FUSION_GRAD_LOSSES,
-        exact=True)
+        exact_floor=PARAM_GRAD_TOL[2])
     print(f"phase {num} {name} {FUSION_SIZE}x{FUSION_SIZE} b{FUSION_BATCH} "
           f"fp32: one step through cli/fusion_train.py --single-decoder, "
           f"launches {text} (forward + backward), the other kernels none, "
@@ -3838,6 +3973,80 @@ def phase_vfefm_2c1(card, num):
           f"(batch {FUSION_BATCH}, seeded weights)", flush=True)
     return dict(loss=last["loss"][0], launches_per_step=_per_step(calls),
                 gates=gates)
+
+
+def phase_fusionmamba(card, num):
+    """FusionMamba at full width through cli/fusion_train.py --model
+    fusionmamba on the generated pairs (one channel, 256x256, batch 2) for
+    FUSION_EPOCHS epochs in fp32 (the CLI's default) and with --dtype bf16:
+    each run's launches exactly the path's (the scan pair only, K 4; the
+    counters at 0 just before each main() and read just after), finite
+    losses, every parameter moved but FM_UNUSED; pairs/s of the last epoch
+    (host data included); the resident wall ms and the device ms of a step
+    in each dtype (the scan forward, the scan backward, the rest) and of an
+    fp32 forward; the gates of ``_two_input_gates`` on the seeded weights
+    with the scan parameters off init (batch 2, the fp32 gradients against
+    the float64 step, on FM_GRAD_LOSSES, at the abs floor FM_GRAD_FLOOR)."""
+    import torch
+    from medical_image_classification_tpu_torch.train.eval_step import (
+        make_fusion_eval_step)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        make_fusion_train_step)
+    name, calls = "fusionmamba", CROSS_PATHS["fusionmamba"]
+    counters = _counters()
+    root = os.path.join(FUSION_DIR, "ctmri")
+    if not os.path.isdir(root):
+        _write_pairs(root, FUSION_PAIRS, 0)
+    steps = FUSION_EPOCHS * FUSION_PAIRS // FUSION_BATCH
+    runs = {}
+    for dt_name in ("fp32", "bf16"):
+        model, last, text = _fusion_cli_train(
+            root, os.path.join(FUSION_DIR, f"fusionmamba_{dt_name}.pt"),
+            ["--model", "fusionmamba", "--epochs", str(FUSION_EPOCHS),
+             "--dtype", dt_name], counters, calls, steps, FM_UNUSED)
+        opt = make_optimizer("adam", model.named_parameters())
+        step = make_fusion_train_step(model, opt, make_lr_scheduler(
+            opt, make_schedule("constant", 2e-4)))
+        batch = _fusion_batch(FUSION_BATCH, 4, channels=1)
+        total, times, top = _step_profile(lambda: step(*batch),
+                                          SCAN_SPLIT, 6)
+        runs[dt_name] = dict(
+            launches=text, loss=last["loss"][-1], pairs_s=last["pairs_s"],
+            resident_step_ms=_resident_ms(lambda: step(*batch)),
+            step=(total, times), rest_top=top)
+        if dt_name == "fp32":
+            infer = make_fusion_eval_step(model)
+            runs["eval"] = dict(
+                resident_forward_ms=_resident_ms(lambda: infer(*batch)),
+                forward=_step_profile(lambda: infer(*batch), SCAN_SPLIT))
+        del model, opt, step
+    t0 = time.perf_counter()
+    gates, gates_text = _two_input_gates(
+        name, [FM_DARK * t for t in _fusion_batch(FUSION_BATCH, 3, 1)],
+        FM_GRAD_LOSSES, exact_floor=FM_GRAD_FLOOR)
+    gates_s = time.perf_counter() - t0
+    fwd = runs["eval"]
+    print(f"phase {num} {name} {FUSION_SIZE}x{FUSION_SIZE} b{FUSION_BATCH} "
+          f"(one channel) through cli/fusion_train.py --model fusionmamba "
+          f"({FUSION_PAIRS} generated pairs, {FUSION_EPOCHS} epochs, {steps} "
+          f"steps): " + " | ".join(
+              f"{d}: launches {r['launches']} (forward + backward, K 4), the "
+              f"other kernels none, last loss {r['loss']:.4f}, every "
+              f"parameter moved but {FM_UNUSED[0]}* (nothing reads it), "
+              f"last epoch {r['pairs_s']:.2f} pairs/s (host data included), "
+              f"resident step {r['resident_step_ms']:.2f} ms, one step: "
+              f"{_ms_text(*r['step'])}, the rest's largest: " + ", ".join(
+                  f"{n} x{c} {ms:.2f} ms" for n, c, ms in r["rest_top"])
+              for d, r in runs.items() if d != "eval")
+          + f" | fp32 forward at b{FUSION_BATCH} resident "
+          f"{fwd['resident_forward_ms']:.2f} ms, {_ms_text(*fwd['forward'])}"
+          f" | {gates_text} (batch {FUSION_BATCH}, pairs x {FM_DARK}, "
+          f"seeded weights, scan parameters off init; {gates_s:.1f} s) | on "
+          f"{card}", flush=True)
+    return dict(runs=runs, launches_per_step=_per_step(calls), gates=gates,
+                gates_s=gates_s)
 
 
 def _entry(name, replaces, cases, launches, head, bound):
@@ -3920,6 +4129,8 @@ def main(argv=None):
         num += 1
     cross["vfefm_2b2"] = phase_vfefm(card, num)
     cross["vfefm_2c1"] = phase_vfefm_2c1(card, num + 1)
+    # FusionMamba through its CLI: the scan pair at K 4
+    fm = phase_fusionmamba(card, num + 2)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -4026,6 +4237,20 @@ def main(argv=None):
                     "save_bound_ms": c["save_bound"][0]}
                    if "save_ms" in c else {}))
         e["n64"] = n64
+    # rows 1-2 at K 4: FusionMamba's launches per train step, and its
+    # stage-0 shape (G 8, L / 4 1024, Dm 192) in fp32 (the CLI's default)
+    # and bf16
+    for e, k_cases in ((entries[0], cases), (entries[1], bwd["cases"])):
+        e["fusionmamba"] = dict(
+            launches_per_train_step=fm["launches_per_step"][e["name"]],
+            K=4, size=FUSION_SIZE, batch=FUSION_BATCH)
+        for c in k_cases:
+            if c["K"] == 4 and (c["L"], c["Dm"]) == FM_STAGES[0]:
+                e["fusionmamba"][c["dtype"]] = dict(
+                    shape=dict(G=c["G"], L=c["L"], Dm=c["Dm"], N=N),
+                    ms=c["ms"], plain_ms=c["plain_ms"],
+                    bound_ms=c["bound"][0], bound_by=c["bound"][1],
+                    max_abs_err=c["max_abs_err"])
     # rows 5/5b and 7/7b: launches per train step of each CrossMamba model
     for name in ("ssd_fused_dirs_fwd", "ssd_fused_dirs_bwd", "ssd_ydiag_fwd",
                  "ssd_ydiag_bwd"):
@@ -4089,7 +4314,7 @@ def main(argv=None):
                            v1_cases=v1_cases, v1_bwd=v1_bwd,
                            calib_cases=calib_cases, kernel_bench=bench,
                            ssd16_paths=ssd16_paths, ssd16_models=ssd16,
-                           crossmamba=cross),
+                           crossmamba=cross, fusionmamba=fm),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

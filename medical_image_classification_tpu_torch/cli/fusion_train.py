@@ -3,17 +3,20 @@
 
   python -m medical_image_classification_tpu_torch.cli.fusion_train \
       --data-path /data/CT_MRI --epochs 100 --batch-size 2 \
-      [--single-decoder] [--dtype bf16] [--device cuda]
+      [--single-decoder | --model fusionmamba] [--dtype bf16] \
+      [--device cuda]
 
 The defaults are the reference's: batch 2, Adam 2e-4 with the learning
 rate times 0.75 each epoch, 256x256 pairs repeated to 3 channels, the fused
 image clamped to [0, 1], fp32 compute.  ``--single-decoder`` trains the
-``_2c1`` variant (``vfefm_2c1``); ``--depths`` / ``--dims`` set the encoder
-and, reversed, the decoder.  After each epoch the model's ``state_dict``
-is written to ``--save-path`` (what ``cli/fusion_test.py --weights``
-loads).  It runs on the card unless ``--device cpu`` is given, and raises
-without one.  ``--model fusionmamba`` is not ported yet (ROADMAP.md Queue 1
-item 6).
+``_2c1`` variant (``vfefm_2c1``); ``--model fusionmamba`` the FusionMamba
+U-Net on one-channel pairs (d_state 16 unless ``--d-state`` is given;
+``--headdim``, ``--cat-method`` and ``--single-decoder`` do not apply to
+it and are ignored); ``--depths`` / ``--dims`` set the encoder and,
+reversed, the decoder.  After each epoch the model's ``state_dict`` is
+written to ``--save-path`` (``cli/fusion_test.py --weights`` loads a vfefm
+one).  It runs on the card unless ``--device cpu`` is given, and raises
+without one.
 """
 
 from __future__ import annotations
@@ -56,16 +59,19 @@ def device_of(args) -> torch.device:
 
 def model_kwargs(args) -> dict:
     """The U-Net's settings from the command line (shared with
-    ``cli/fusion_test.py``)."""
-    kw = dict(d_state=args.d_state or 128, cat_method=args.cat_method)
+    ``cli/fusion_test.py``, which has no ``--model``: vfefm)."""
+    if getattr(args, "model", "vfefm") == "fusionmamba":
+        kw = dict(d_state=args.d_state or 16)
+    else:
+        kw = dict(d_state=args.d_state or 128, cat_method=args.cat_method)
+        if args.headdim:
+            kw["ssd_headdim"] = args.headdim
     if args.depths:
         kw["depths"] = tuple(int(v) for v in args.depths.split(","))
         kw["depths_decoder"] = kw["depths"][::-1]
     if args.dims:
         kw["dims"] = tuple(int(v) for v in args.dims.split(","))
         kw["dims_decoder"] = kw["dims"][::-1]
-    if args.headdim:
-        kw["ssd_headdim"] = args.headdim
     if getattr(args, "dtype", "fp32") == "bf16":
         kw["dtype"] = torch.bfloat16        # params stay fp32, image fp32
     return kw
@@ -74,8 +80,9 @@ def model_kwargs(args) -> dict:
 def build_model(args, generator=None):
     """The fusion model ``args`` name (``--model``, ``--single-decoder``)."""
     if args.model == "fusionmamba":
-        return create_fusion_model("fusionmamba")      # raises: not ported
-    name = "vfefm_2c1" if args.single_decoder else "vfefm_2b2"
+        name = "fusionmamba"
+    else:
+        name = "vfefm_2c1" if args.single_decoder else "vfefm_2b2"
     return create_fusion_model(name, generator=generator,
                                **model_kwargs(args))
 
@@ -118,7 +125,8 @@ def main(args):
     pairs = scan_fusion_pairs(args.data_path, args.dir_a, args.dir_b,
                               length=args.max_pairs)
     loader = FusionLoader(pairs, args.batch_size, args.image_size,
-                          channels=3, seed=args.seed)
+                          channels=1 if args.model == "fusionmamba" else 3,
+                          seed=args.seed)
     spe = loader.steps_per_epoch()
     log.info("%d pairs, %d steps/epoch", len(pairs), spe)
     model = model.to(device)
@@ -143,7 +151,7 @@ def main(args):
 def add_model_args(p: argparse.ArgumentParser):
     """The options that fix the U-Net, shared with ``cli/fusion_test.py``."""
     p.add_argument("--d-state", type=int, default=None,
-                   help="default: 128")
+                   help="default: 128 (fusionmamba: 16)")
     p.add_argument("--cat-method", default="stack",
                    choices=["stack", "add", "none"])
     p.add_argument("--single-decoder", action="store_true")
@@ -166,8 +174,7 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--lr-decay", type=float, default=0.75)
     p.add_argument("--model", default="vfefm",
-                   choices=["vfefm", "fusionmamba"],
-                   help="fusionmamba is not ported yet")
+                   choices=["vfefm", "fusionmamba"])
     p.add_argument("--dtype", default="fp32", choices=["fp32", "bf16"],
                    help="compute dtype (the reference trains fp32)")
     p.add_argument("--seed", type=int, default=0)

@@ -33,12 +33,12 @@ import torch.nn.functional as F
 
 
 def _prep(u, delta, A, B, C, delta_bias, delta_softplus):
-    """fp32 operands, Δ with its bias and softplus, B/C with a group axis
-    (``_prep_inputs``)."""
-    f32 = torch.float32
-    u, delta = u.to(f32), delta.to(f32)
+    """fp32 operands (float64 stays float64: the exact reference), Δ with
+    its bias and softplus, B/C with a group axis (``_prep_inputs``)."""
+    wide = torch.promote_types(u.dtype, torch.float32)
+    u, delta = u.to(wide), delta.to(wide)
     if delta_bias is not None:
-        delta = delta + delta_bias.to(f32)
+        delta = delta + delta_bias.to(wide)
     if delta_softplus:
         # F.softplus's threshold branch returns x itself above 20, where
         # log1p(exp(x)) == x in fp32 anyway: the same values as
@@ -46,22 +46,23 @@ def _prep(u, delta, A, B, C, delta_bias, delta_softplus):
         delta = F.softplus(delta)
     if B.dim() == 3:
         B, C = B[:, :, None, :], C[:, :, None, :]
-    return u, delta, A.to(f32), B.to(f32), C.to(f32)
+    return u, delta, A.to(wide), B.to(wide), C.to(wide)
 
 
 def selective_scan_seq(u, delta, A, B, C, D=None, z=None, delta_bias=None,
                        delta_softplus=False, return_last_state=False,
                        initial_state=None):
-    """Sequential golden-model scan.  y has u's dtype; the state is fp32."""
+    """Sequential golden-model scan.  y has u's dtype; the state is fp32
+    (float64 for float64 operands)."""
     out_dtype = u.dtype
-    f32 = torch.float32
     u, delta, A, B, C = _prep(u, delta, A, B, C, delta_bias, delta_softplus)
+    wide = u.dtype
     batch, L, d = u.shape
     n = A.shape[1]
     rep = d // B.shape[2]
 
-    x = (torch.zeros(batch, d, n, dtype=f32, device=u.device)
-         if initial_state is None else initial_state.to(f32))
+    x = (torch.zeros(batch, d, n, dtype=wide, device=u.device)
+         if initial_state is None else initial_state.to(wide))
     ys = []
     for t in range(L):
         dt_t = delta[:, t]                                   # [batch, d]
@@ -71,9 +72,9 @@ def selective_scan_seq(u, delta, A, B, C, D=None, z=None, delta_bias=None,
         ys.append((x * c_t).sum(-1))
     y = torch.stack(ys, dim=1)                               # [batch, L, d]
     if D is not None:
-        y = y + u * D.to(f32)
+        y = y + u * D.to(wide)
     if z is not None:
-        y = y * F.silu(z.to(f32))
+        y = y * F.silu(z.to(wide))
     y = y.to(out_dtype)
     if return_last_state:
         return y, x

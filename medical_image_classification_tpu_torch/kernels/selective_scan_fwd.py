@@ -74,7 +74,9 @@ def scan_folded_fwd_ref(u, delta, A, B, C, D, bias, reverse: bool = False,
     chunk, indexed by the chunk's position in memory (a reverse scan enters
     from the right, and its first chunk scanned holds ``init``): the golden
     model runs chunk by chunk, each seeded with the state the last one
-    returned.  Returns y, then xsave, then the last state, as asked."""
+    returned.  Returns y, then xsave, then the last state, as asked.
+    Float64 operands (the exact reference) keep float64 throughout, and
+    torch.autograd differentiates this function."""
     G, L, Dm = u.shape
     K, _, N = A.shape
     batch = G // K
@@ -89,8 +91,9 @@ def scan_folded_fwd_ref(u, delta, A, B, C, D, bias, reverse: bool = False,
             A.reshape(K * Dm, N), unfold(B, N), unfold(C, N))
     kw = dict(D=D.reshape(-1), delta_bias=bias.reshape(-1),
               delta_softplus=softplus)
-    x = (torch.zeros(batch, K * Dm, N, dtype=torch.float32, device=u.device)
-         if init is None else _state_to_generic(init.float(), K))
+    wide = torch.promote_types(u.dtype, torch.float32)   # float64 stays
+    x = (torch.zeros(batch, K * Dm, N, dtype=wide, device=u.device)
+         if init is None else _state_to_generic(init.to(wide), K))
     if want_xsave:
         nT = -(-L // chunk)
         edges = [min(c * chunk, L) for c in range(nT + 1)]
@@ -318,7 +321,9 @@ def scan_folded_fwd(u, delta, A, B, C, D, bias, reverse: bool = False,
     plain version for a CPU tensor; ``"cuda"`` launches the kernel or
     raises; ``"torch"`` runs the plain version on any device.  The kernel
     never falls back: a failed build or launch raises.  Parameters (A, D,
-    bias) and ``init`` are cast to fp32 here, as the JAX entry does.
+    bias) and ``init`` are cast to fp32 here, as the JAX entry does; a
+    float64 ``u`` with ``impl="torch"`` keeps float64 throughout (the plain
+    version, differentiated by torch.autograd).
 
     With grad enabled and any input requiring grad, the call goes through
     ``ScanFolded`` (forward with saved states, backward kernel or plain
@@ -334,6 +339,13 @@ def scan_folded_fwd(u, delta, A, B, C, D, bias, reverse: bool = False,
     two-level kernels.
     """
     impl = resolve_impl(impl, u, "scan")
+    if impl == "torch" and u.dtype == torch.float64:
+        # the exact reference of a gradient check: the plain version keeps
+        # float64 (the parameters and ``init`` too), under torch.autograd
+        return scan_folded_fwd_ref(
+            u, delta, A.double(), B, C, D.double(), bias.double(),
+            reverse=reverse, softplus=softplus, want_state=want_state,
+            init=None if init is None else init.double())
     A, D, bias = (t.float().contiguous() for t in (A, D, bias))
     if init is not None:
         init = init.float().contiguous()

@@ -146,12 +146,15 @@ class DropPath(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """4x4 conv patchify of RGB + LayerNorm.  NHWC in/out."""
+    """4x4 conv patchify (of RGB, or ``in_chans`` channels) + LayerNorm.
+    NHWC in/out."""
 
-    def __init__(self, embed_dim: int = 96, patch_size: int = 4, dtype=None):
+    def __init__(self, embed_dim: int = 96, patch_size: int = 4, dtype=None,
+                 in_chans: int = 3):
         super().__init__()
         self.dtype = dtype
-        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
+                              stride=patch_size)
         # parity: Flax's LayerNorm eps is 1e-6, torch's default 1e-5
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
@@ -301,8 +304,9 @@ class ConvTConvPW(nn.Module):
 
 class ECALayer(nn.Module):
     """Efficient channel attention: global average pool -> 1-D conv over
-    the channel axis (k 3, no bias) -> sigmoid gate, in fp32, the gate
-    cast to the activation's dtype.  NHWC in/out."""
+    the channel axis (k 3, no bias) -> sigmoid gate, in fp32 (float64 for
+    a float64 stream), the gate cast to the activation's dtype.  NHWC
+    in/out."""
 
     def __init__(self):
         super().__init__()
@@ -313,7 +317,7 @@ class ECALayer(nn.Module):
         lecun_normal_(self.conv.weight, 3, generator)
 
     def forward(self, x):
-        y = x.float().mean(dim=(1, 2))[:, None, :]         # [B, 1, C]
+        y = x.to(_compute_dtype(None, x)).mean(dim=(1, 2))[:, None, :]
         y = torch.sigmoid(self.conv(y)[:, 0])
         return x * y.to(x.dtype)[:, None, None, :]
 

@@ -5,8 +5,7 @@ Port of ``medical_image_classification_tpu/models/registry.py``: the
 Mamba-1 MedMamba configurations, MedSSD, CNN-Mamba (with and without
 MIFA), ST-SSD, the in-block KAN models (kaninSSD, kanoutSSD) and MedSSD
 with each KAN head; and the dual-input fusion registry: the CrossMamba
-classifiers and fusion U-Nets (FusionMamba is not ported yet, ROADMAP.md
-Queue 1 item 6).
+classifiers and fusion U-Nets, and the FusionMamba U-Net.
 """
 
 from __future__ import annotations
@@ -16,6 +15,9 @@ from typing import Any, Callable, Dict
 from medical_image_classification_tpu_torch.models.crossmamba import (
     CrossVSSMClassifier,
     FusionVFEFM,
+)
+from medical_image_classification_tpu_torch.models.fusionmamba import (
+    VSSMFusion,
 )
 from medical_image_classification_tpu_torch.models.vssm import VSSM
 
@@ -170,10 +172,6 @@ def available_fusion_models():
 
 
 def create_fusion_model(name: str, **kw):
-    if name == "fusionmamba":
-        raise NotImplementedError(
-            "fusionmamba (models/fusionmamba.py) is not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
     if name not in _FUSION_REGISTRY:
         raise KeyError(f"unknown fusion model {name!r}; available: "
                        f"{available_fusion_models()}")
@@ -214,3 +212,10 @@ def cross_cls_4ef(num_classes=8, **kw):
 def cross_cls_3e1fadd1e(num_classes=8, **kw):
     """Fused branches summed, then one shared downsample and stage 4."""
     return _cross_cls(num_classes, "stage3_merged", kw)
+
+
+@register_fusion("fusionmamba")
+def fusionmamba(**kw):
+    """FusionMamba EfficientScan U-Net: depths 2-2-9-2, decoder 2-9-2-2,
+    dims 96..768, d_state 16, one-channel inputs."""
+    return VSSMFusion(**kw)

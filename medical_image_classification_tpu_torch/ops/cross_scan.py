@@ -1,12 +1,14 @@
-"""Four-direction 2-D cross-scan and cross-merge, time-major (NHWC).
+"""Four-direction 2-D cross-scan and cross-merge, time-major (NHWC), and
+the strided EfficientScan pair.
 
 Port of the time-major helpers of
 ``medical_image_classification_tpu/ops/cross_scan.py`` that the SSD core
-uses, and ``cross_stack_scan_order`` (the ST-SSD stack).  Directions: 0
-row-major, 1 column-major (the spatial transpose), 2 and 3 their sequence
-flips.  The JAX module's ``split_channels`` (a custom VJP that assembles
-the cotangent with one concatenate) is plain slicing here: autograd needs
-no help with it.
+uses, ``cross_stack_scan_order`` (the ST-SSD stack) and
+``efficient_scan`` / ``efficient_merge`` (FusionMamba's four strided
+sub-sequences).  Directions: 0 row-major, 1 column-major (the spatial
+transpose), 2 and 3 their sequence flips.  The JAX module's
+``split_channels`` (a custom VJP that assembles the cotangent with one
+concatenate) is plain slicing here: autograd needs no help with it.
 """
 
 from __future__ import annotations
@@ -72,3 +74,39 @@ def cross_stack_scan_order(ys):
     depend on the order of L: the ST-SSD token mixer sums over L, and its
     gate, channel max/mean and row softmax are per position."""
     return ys.movedim(2, 1)
+
+
+def _check_even(H, W):
+    # the JAX pair stacks sub-grids of unequal sizes (and reshapes the merge
+    # to H // 2 rows) where a side is odd: it fails there, and so does this
+    # one
+    if H % 2 or W % 2:
+        raise ValueError(f"EfficientScan needs both sides to be multiples "
+                         f"of the step 2; got {H}x{W}")
+
+
+def efficient_scan(x):
+    """Strided 4-way sub-sampling, step 2: [B, H, W, C] -> [B, 4, L / 4,
+    C].  Sub-sequence k = 2 j + i takes the pixels at row offset i = k % 2
+    and column offset j = k // 2, stride 2 in each, in raster order.  One
+    permuted copy."""
+    Bb, H, W, C = x.shape
+    _check_even(H, W)
+    h, w = H // 2, W // 2
+    # [b, y, i, x, j, c] -> [b, j, i, y, x, c]
+    return x.reshape(Bb, h, 2, w, 2, C).permute(0, 4, 2, 1, 3, 5) \
+        .reshape(Bb, 4, h * w, C)
+
+
+def efficient_merge(ys, H: int, W: int):
+    """Inverse of ``efficient_scan``: [B, 4, L / 4, C] -> [B, H, W, C],
+    each sub-sequence written back to its strided sub-grid."""
+    Bb, K, Ls, C = ys.shape
+    _check_even(H, W)
+    h, w = H // 2, W // 2
+    if K != 4 or Ls != h * w:
+        raise ValueError(f"ys has shape {tuple(ys.shape)}, expected "
+                         f"[B, 4, {h * w}, C] for {H}x{W}")
+    # [b, j, i, y, x, c] -> [b, y, i, x, j, c]
+    return ys.reshape(Bb, 2, 2, h, w, C).permute(0, 3, 2, 4, 1, 5) \
+        .reshape(Bb, H, W, C)

@@ -1,12 +1,13 @@
 """How far the fusion U-Nets' fp32 gradients lie from float64, per path.
 
     python -m medical_image_classification_tpu_torch.scripts.grad_conditioning \\
-        [--out FILE]
+        [--models vfefm_2c1 vfefm_2b2 fusionmamba] [--gate-paths] [--out FILE]
 
 Run from the repo's root (it uses ``chip_smoke.py``'s helpers: the
-seeded vfefm_2b2 / vfefm_2c1 weights at full width, the 256x256 pair batch
-of 2, ``_path_grads``).  For each model and each loss of the smoke's
-gradient gate (the fusion loss, mean(out)) it takes every parameter's
+seeded vfefm_2b2 / vfefm_2c1 / fusionmamba weights at full width, the
+256x256 pair batch of 2, ``_path_grads``).  For each model and each loss
+of the smoke's gradient gate (the fusion loss, mean(out); FusionMamba's
+FM_GRAD_LOSSES on its dark one-channel pairs) it takes every parameter's
 gradient in float64 through the plain einsums and in fp32 by four paths:
 the kernels, their plain twins, the kernels with Y_diag's plain twin in
 place of its kernel, the plain twins with Y_diag's kernel, and every SSD
@@ -17,7 +18,11 @@ path against float64 it prints the leaves beyond PARAM_GRAD_TOL (above its
 abs floor), counted by stage, and the worst and median leaf; for the
 kernels the leaves that ``_check_grad_tree_exact`` would refuse, and the
 leaves where the kernels and the plain twins miss PARAM_GRAD_TOL of each
-other.  Before
+other; and for each abs floor of FLOOR_SWEEP the kernel leaves the
+conditioned gate would check and refuse, beside the float64 gradient's
+norms.  ``--gate-paths`` takes only the gate's own paths (the kernels,
+the plain twins, float64) and the one-pass variance; FusionMamba (no SSD,
+no BatchNorm) always does.  Before
 that, the Y_diag kernel and its plain twin in fp32 against float64 at the
 U-Nets' shapes (BC 2, l 256, N 512, P 64, H 32 and 64), forward and every
 cotangent.  Needs a CUDA device.
@@ -89,6 +94,24 @@ def _stage(name):
         else parts[0]
 
 
+FLOOR_SWEEP = (2e-4, 1e-5, 1e-6, 1e-7, 0.0)
+
+
+def _refused(cs, errs, got, exact, floor):
+    """The kernel leaves over the abs ``floor`` and those of them the
+    conditioned gate refuses (``_check_grad_tree_exact``'s rule)."""
+    rtol, min_cos, _ = cs.PARAM_GRAD_TOL
+    checked, refused = 0, []
+    for n, (r, c) in errs["kernels"].items():
+        if float((got[n] - exact[n]).norm()) <= floor:
+            continue
+        checked += 1
+        cap = rtol + cs.COND_RATIO * errs["plain"][n][0]
+        if r > cap or c < min(min_cos, math.sqrt(max(0.0, 1 - cap * cap))):
+            refused.append((n, r, c, errs["plain"][n]))
+    return checked, refused
+
+
 def _report(cs, grads, what):
     """The per-path numbers of one loss against float64."""
     rtol, min_cos, floor = cs.PARAM_GRAD_TOL
@@ -109,13 +132,26 @@ def _report(cs, grads, what):
             worst=sorted(((round(big[n][0], 5), n) for n in over),
                          reverse=True)[:4],
             median_rel=rels[len(rels) // 2] if rels else 0.0)
-    refused = []
-    for n, (r, c) in errs["kernels"].items():
-        if float((grads["kernels"][what][1][n] - exact[n]).norm()) <= floor:
-            continue
-        cap = rtol + cs.COND_RATIO * errs["plain"][n][0]
-        if r > cap or c < min(min_cos, math.sqrt(max(0.0, 1 - cap * cap))):
-            refused.append((n, r, c, errs["plain"][n]))
+    got = grads["kernels"][what][1]
+    _, refused = _refused(cs, errs, got, exact, floor)
+    norms = sorted(float(v.norm()) for v in exact.values())
+    live = {n: v for n, v in errs["kernels"].items()
+            if float(exact[n].norm()) > 0}
+    rels = sorted(r for r, _ in live.values())
+    out["float64_norms"] = dict(
+        tree=math.sqrt(sum(v * v for v in norms)), largest_leaf=norms[-1],
+        smallest_nonzero_leaf=min((v for v in norms if v > 0), default=0.0),
+        zero_leaves=sum(1 for v in norms if v == 0))
+    out["kernels_every_nonzero_leaf"] = dict(
+        leaves=len(rels), worst_rel=rels[-1] if rels else 0.0,
+        median_rel=rels[len(rels) // 2] if rels else 0.0,
+        worst_cos=min((c for _, c in live.values()), default=1.0))
+    out["floor_sweep"] = {}
+    for f in FLOOR_SWEEP:
+        n_checked, bad = _refused(cs, errs, got, exact, f)
+        out["floor_sweep"][f] = dict(checked=n_checked, refused=len(bad),
+                                     worst_refused=sorted(
+                                         bad, key=lambda t: -t[1])[:3])
     vs_plain = cs._leaf_errs("kernels vs plain", grads["kernels"][what][1],
                              grads["plain"][what][1], floor)
     out["kernels_vs_plain_over"] = sum(
@@ -128,6 +164,10 @@ def _report(cs, grads, what):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="write the numbers as JSON")
+    p.add_argument("--models", nargs="+", default=["vfefm_2c1", "vfefm_2b2"],
+                   choices=["vfefm_2c1", "vfefm_2b2", "fusionmamba"])
+    p.add_argument("--gate-paths", action="store_true",
+                   help="only the gate's paths and the one-pass variance")
     args = p.parse_args(argv)
     import chip_smoke as cs
     import torch
@@ -154,12 +194,21 @@ def main(argv=None):
              "kernels, Y_diag plain": ("cuda", swap("torch")),
              "plain, Y_diag kernel": ("torch", swap("cuda")),
              "fp32 einsums": ("torch", einsum)}
-    for name in ("vfefm_2c1", "vfefm_2b2"):
-        batch = cs._fusion_batch(cs.FUSION_BATCH, 3)
+    gate = ("float64", "kernels", "plain")
+    for name in args.models:
+        fm = name == "fusionmamba"
+        batch = ([cs.FM_DARK * t for t in cs._fusion_batch(
+            cs.FUSION_BATCH, 3, 1)] if fm
+            else cs._fusion_batch(cs.FUSION_BATCH, 3))
+        losses = cs.FM_GRAD_LOSSES if fm else cs.FUSION_GRAD_LOSSES
         sd = cs._fusion_model(name, None, "torch").state_dict()
-        for variant in ("one-pass variance", "two-pass variance"):
+        variants = ("one-pass variance",) if fm or args.gate_paths else (
+            "one-pass variance", "two-pass variance")
+        for variant in variants:
             grads = {}
             for path, (impl, patches) in paths.items():
+                if (fm or args.gate_paths) and path not in gate:
+                    continue
                 if variant == "two-pass variance":
                     patches = patches + [(common, "batch_norm",
                                           _two_pass_batch_norm(
@@ -169,11 +218,11 @@ def main(argv=None):
                     setattr(m, a, v)
                 try:
                     grads[path] = cs._path_grads(
-                        name, sd, batch, cs.FUSION_GRAD_LOSSES, impl)
+                        name, sd, batch, losses, impl)
                 finally:
                     for m, a, v in saved:
                         setattr(m, a, v)
-            for what in cs.FUSION_GRAD_LOSSES:
+            for what in losses:
                 rep = _report(cs, grads, what)
                 result[f"{name} {variant} {what}"] = rep
                 print(f"{name}, {variant}, {what}: " + json.dumps(

@@ -1,14 +1,15 @@
 """Carry MedMamba, the MedSSD family (MedSSD, CNN-Mamba, ST-SSD, the KAN
-models), the CrossMamba family (the cross classifiers, the fusion U-Nets)
-and Mamba-1 LM weights from the JAX package to the port.
+models), the CrossMamba family (the cross classifiers, the fusion U-Nets),
+FusionMamba and Mamba-1 LM weights from the JAX package to the port.
 
 The reverse of ``medical_image_classification_tpu/utils/torch_import.py::
 import_medmamba_state_dict``, ``import_medssd_family_state_dict`` (with
 ``st_tokens=True`` for ST-SSD, ``conv_stem=True`` for CNN-Mamba and
-``head=`` for the KAN heads), ``import_cross_classifier_state_dict`` and
-``import_vfefm_state_dict``: the JAX ``params``, ``batch_stats`` and
-``kan_state`` trees (nested dicts of numpy arrays) become the port's
-``state_dict``, ready for ``load_state_dict(strict=True)``.  The port names
+``head=`` for the KAN heads), ``import_cross_classifier_state_dict``,
+``import_vfefm_state_dict`` and ``import_vssm_fusion_state_dict``: the
+JAX ``params``, ``batch_stats`` and ``kan_state`` trees (nested dicts of
+numpy arrays) become the port's ``state_dict``, ready for
+``load_state_dict(strict=True)``.  The port names
 its parameters as the reference ``state_dict`` does, so the JAX importers
 map a port ``state_dict()`` back to the JAX trees.  The reference has no
 names for MIFA (``mifa.*``) and the in-block KANs (``filter_kan``,
@@ -24,8 +25,11 @@ ST-SSD's ``stl``/``stf`` ``u1``, ``u2``, ``z`` ->
 ``learnable_*`` and the Dense(2 -> 1) ``mix`` kernel [2, 1] -> the
 ``conv1d`` weight [1, 2, 1], ``o_norm`` with its batch stats, ``o_linear``
 and ``k_weights``; CrossMamba's parameters as MedSSD's core's, and the
-U-Nets' scanned, vmapped block pairs [depth, 2, ...] unstacked.  The Mamba LM (``mamba_lm_state_dict``) is the exact
-inverse of ``import_mamba_lm_state_dict``, with the HF names.
+U-Nets' scanned, vmapped block pairs [depth, 2, ...] unstacked;
+FusionMamba's scan parameters as MedMamba's (off the JAX ``scan``
+sub-tree), the LDC's ``learnable_mask`` [in, out] -> [out, in].  The
+Mamba LM (``mamba_lm_state_dict``) is the exact inverse of
+``import_mamba_lm_state_dict``, with the HF names.
 """
 
 from __future__ import annotations
@@ -349,6 +353,111 @@ def cross_classifier_state_dict_from_jax(params, batch_stats,
             if name in params:
                 _merging(h, name, params[name])
     h["dense"]("head", params["head"])
+    return sd
+
+
+def _scan_params(h, q, scan):
+    """The efficient-scan parameters, flattened as the reference stores
+    them (``A_logs`` [4 D, N], ``Ds`` [4 D])."""
+    for name in ("x_proj_weight", "dt_projs_weight", "dt_projs_bias"):
+        h["put"](f"{q}.{name}", scan[name])
+    A = np.asarray(scan["A_logs"])
+    h["put"](q + ".A_logs", A.reshape(-1, A.shape[-1]))
+    h["put"](q + ".Ds", np.asarray(scan["Ds"]).reshape(-1))
+
+
+def _ldc(h, q, p):
+    """An LDC conv: the kernel, ``learnable_mask`` [in, out] -> [out, in],
+    ``learnable_theta``."""
+    h["conv"](q + ".conv", {"kernel": p["kernel"]})
+    h["put"](q + ".learnable_mask", np.asarray(p["learnable_mask"]).T)
+    h["put"](q + ".learnable_theta", p["learnable_theta"])
+
+
+def _eca(h, q, p):
+    h["put"](q + ".conv.weight",
+             np.asarray(p["conv"]["kernel"]).transpose(2, 1, 0))
+
+
+def _biattn(h, q, p):
+    h["ln"](q + ".norm", p["norm"])
+    h["dense"](q + ".global_reduce", p["global_reduce"])
+    h["dense"](q + ".channel_select", p["channel_select"])
+
+
+def _ss2d_efficient(h, q, p):
+    h["dense"](q + ".in_proj", p["in_proj"])
+    h["conv"](q + ".conv2d", p["conv2d"])
+    _scan_params(h, q, p["scan"])
+    h["ln"](q + ".out_norm", p["out_norm"])
+    h["dense"](q + ".out_proj", p["out_proj"])
+
+
+def _vssblock_new(h, q, p):
+    """A ``VSSBlockNew`` (``_vssblock_new`` of the JAX importer,
+    inverted)."""
+    h["ln"](q + ".norm", p["norm"])
+    _ss2d_efficient(h, q + ".op", p["op"])
+    _eca(h, q + ".self_attention_cross_channel", p["channel_attn"])
+    _ldc(h, q + ".conv_branch", p["conv_branch"])
+    _biattn(h, q + ".se", p["se"])
+    h["ln"](q + ".norm2", p["norm2"])
+    h["dense"](q + ".mlp.fc1", p["mlp_fc1"])
+    h["dense"](q + ".mlp.fc2", p["mlp_fc2"])
+
+
+def _cross_block(h, q, p):
+    """A ``VSSBlockCrossNew``: ``Cross_layer``, the LNs, the cross scan
+    layer and its ECA (``self_attention_cross_spatial``)."""
+    h["ln"](q + ".ln_1", p["ln_1"])
+    h["ln"](q + ".ln_2", p["ln_2"])
+    for name in ("texture_enhance1", "texture_enhance2"):
+        _ldc(h, f"{q}.Cross_layer.{name}", p["cross_layer"][name])
+    _cross_scan_layer(h, q + ".self_attention_cross",
+                      p["self_attention_cross"])
+    _eca(h, q + ".self_attention_cross_spatial", p["eca"])
+
+
+def _cross_scan_layer(h, q, p):
+    """An ``SS2DCrossEfficient``."""
+    for name in ("in_proj1", "in_proj2", "out_proj"):
+        h["dense"](f"{q}.{name}", p[name])
+    h["conv"](q + ".conv2d", p["conv2d"])
+    _scan_params(h, q, p["scan"])
+    h["ln"](q + ".out_norm", p["out_norm"])
+
+
+def vssm_fusion_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX ``VSSMFusion`` params -> the port's ``state_dict``: the exact
+    inverse of ``import_vssm_fusion_state_dict`` (FusionMamba has no
+    BatchNorm, so no batch stats).  ``layers_{i}_blocks_{j}`` ->
+    ``layers.{i}.blocks.{j}``, ``layers_{i}_downsample`` ->
+    ``layers.{i}.downsample``, ``layers_up_{i}_*`` -> ``layers_up.{i}.*``,
+    ``cross_block_{i}`` -> ``Cross_block.{i}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    h = _writer(sd)
+    _patch_embeds(h, params)
+    for key in sorted(params):
+        parts = key.split("_")
+        if key.startswith("layers_up_"):
+            q = f"layers_up.{parts[2]}"
+            rest = parts[3:]
+        elif key.startswith("layers_"):
+            q = f"layers.{parts[1]}"
+            rest = parts[2:]
+        elif key.startswith("cross_block_"):
+            _cross_block(h, f"Cross_block.{parts[2]}", params[key])
+            continue
+        else:
+            continue
+        if rest[0] == "blocks":
+            _vssblock_new(h, f"{q}.blocks.{rest[1]}", params[key])
+        elif rest[0] == "downsample":
+            _merging(h, q + ".downsample", params[key])
+        else:
+            _expand(h, q + ".upsample", params[key])
+    _expand(h, "final_up", params["final_up"])
+    h["conv"]("final_conv", params["final_conv"])
     return sd
 
 

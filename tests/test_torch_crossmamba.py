@@ -261,13 +261,20 @@ def test_patch_expands_match_jax(final):
 
 
 def test_fusion_registry_names_and_defaults():
-    """The five CrossMamba names with the JAX defaults: the classifiers at
-    d_state 128 over the class default of 16, the fusions at 128, headdim
-    64, chunk 256, "stack", full widths; the U-Nets at d_state 128, the
-    decoder 2-9-2-2; fusionmamba raises, naming its queue item."""
-    assert available_fusion_models() == [
+    """The six names of the JAX fusion registry with its defaults: the
+    classifiers at d_state 128 over the class default of 16, the fusions
+    at 128, headdim 64, chunk 256, "stack", full widths; the U-Nets at
+    d_state 128, the decoder 2-9-2-2; fusionmamba's EfficientScan U-Net
+    at patch 4, depths 2-2-9-2, decoder 2-9-2-2, dims 96..768 (decoder
+    reversed), d_state 16 in every scan layer (the JAX model passes it
+    through), dt_rank ceil(dim / 16), one-channel inputs, a cross block per
+    stage, drop path up to 0.1 (the decoder's schedule reversed)."""
+    from medical_image_classification_tpu.models.registry import (
+        available_fusion_models as jax_available_fusion_models)
+    from medical_image_classification_tpu_torch.models import fusionmamba
+    assert available_fusion_models() == jax_available_fusion_models() == [
         "cross_cls_3e1fadd1e", "cross_cls_4ef", "cross_cls_stage3",
-        "vfefm_2b2", "vfefm_2c1"]
+        "fusionmamba", "vfefm_2b2", "vfefm_2c1"]
     one_stage = dict(depths=(1,), dims=(128,))
     for name, mode in (("cross_cls_stage3", "stage3"),
                        ("cross_cls_4ef", "all"),
@@ -293,7 +300,26 @@ def test_fusion_registry_names_and_defaults():
                 for layer in m.layers_up] == [2, 9, 2, 2]
         assert [len(layer.blocks1) for layer in m.layers] == [2, 2, 4, 2]
         assert m.layers[0].fusion.d_ssm == 256
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        create_fusion_model("fusionmamba")
+    with torch.device("meta"):
+        m = create_fusion_model("fusionmamba")
+    assert isinstance(m, fusionmamba.VSSMFusion)
+    assert m.patch_embed1.proj.in_channels == 1
+    assert m.patch_embed1.proj.kernel_size == (4, 4)
+    assert [len(s.blocks) for s in m.layers] == [2, 2, 9, 2]
+    assert [len(s.blocks) for s in m.layers_up] == [2, 9, 2, 2]
+    assert [s.blocks[0].norm.normalized_shape[0] for s in m.layers] == \
+        [96, 192, 384, 768]
+    assert [s.blocks[0].norm.normalized_shape[0] for s in m.layers_up] == \
+        [768, 384, 192, 96]
+    assert len(m.Cross_block) == 4 and m.final_conv.in_channels == 24
+    scans = [mod for mod in m.modules()
+             if isinstance(mod, fusionmamba._ScanParams)]
+    assert len(scans) == 2 * 15 + 4 and {s.d_state for s in scans} == {16}
+    assert {(s.d_inner, s.dt_rank) for s in scans} == {
+        (192, 6), (384, 12), (768, 24), (1536, 48)}
+    rates = [b.drop_path.rate for s in m.layers for b in s.blocks]
+    rates_up = [b.drop_path.rate for s in m.layers_up for b in s.blocks]
+    assert rates[0] == 0.0 and rates[-1] == pytest.approx(0.1)
+    assert rates_up == pytest.approx(rates[::-1])
     with pytest.raises(KeyError):
         create_fusion_model("vfefm")

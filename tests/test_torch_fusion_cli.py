@@ -9,8 +9,9 @@ JAX CLI's: clamp, ``fusion_loss``, Adam 2e-4 on ``fusion_exp``) runs the
 same batches from the JAX loader: the per-step losses and their three
 parts agree within rtol 1e-2; the saved ``state_dict`` is the trained
 model's.  ``fusion_test.main`` writes one PNG a pair from those weights.
-Both CLIs default to the card and raise without one; fusionmamba raises,
-naming its queue item."""
+``--model fusionmamba`` trains the FusionMamba U-Net on one-channel pairs,
+its first loss the JAX step's.  Both CLIs default to the card and raise
+without one."""
 
 import copy
 import os
@@ -158,12 +159,63 @@ def test_fusion_clis_default_to_the_card_and_raise_without_one(
         cli.main(args)
 
 
-def test_fusionmamba_is_not_ported_yet(tmp_path):
-    args = fusion_train.parse_args(["--data-path", str(tmp_path),
-                                    "--model", "fusionmamba",
-                                    "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        fusion_train.main(args)
+def test_fusionmamba_is_not_ported_yet(pairs_root, tmp_path, monkeypatch):
+    """(Named for the check it replaces: ``--model fusionmamba`` raised
+    before FusionMamba was ported.)  ``--model fusionmamba --device cpu``
+    trains one epoch on the one-channel pairs at depths 1-1, dims 16/32
+    (d_state 16 by default; drop path off): ``--headdim``,
+    ``--cat-method`` and ``--single-decoder`` are ignored, as in the JAX
+    CLI; the first step's loss and its three parts equal the JAX fusion
+    step's loss on the same initial weights (carried by
+    ``import_vssm_fusion_state_dict``) and the JAX loader's first batch
+    within rtol 1e-2; the saved ``state_dict`` is the trained model's, and
+    the JAX importer reads it into the JAX model's parameter tree."""
+    from medical_image_classification_tpu.models.fusionmamba import (
+        VSSMFusion as JaxVSSMFusion)
+    from medical_image_classification_tpu.utils.torch_import import (
+        import_vssm_fusion_state_dict)
+    from medical_image_classification_tpu_torch.models.fusionmamba import (
+        VSSMFusion)
+    create = fusion_train.create_fusion_model
+    monkeypatch.setattr(fusion_train, "create_fusion_model",
+                        lambda name, **kw: create(name, drop_path_rate=0.0,
+                                                  **kw))
+    save = str(tmp_path / "fusionmamba.pt")
+    args = fusion_train.parse_args(
+        ["--data-path", pairs_root, "--model", "fusionmamba", "--epochs",
+         "1", "--device", "cpu", "--log-every", "1", "--save-path", save,
+         "--depths", "1,1", "--dims", "16,32", "--image-size", "32",
+         "--headdim", "4", "--cat-method", "add", "--single-decoder"])
+    cfg = dict(depths=(1, 1), depths_decoder=(1, 1), dims=(16, 32),
+               dims_decoder=(32, 16), d_state=16)
+    assert fusion_train.model_kwargs(args) == cfg
+    init = fusion_train.build_model(
+        args, torch.Generator().manual_seed(args.seed)).state_dict()
+    model, epochs = fusion_train.main(args)
+    assert isinstance(model, VSSMFusion) and epochs[0]["steps"] == 2
+    assert model.patch_embed1.proj.in_channels == 1
+
+    imp = lambda sd: import_vssm_fusion_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, depths=(1, 1),
+        depths_decoder=(1, 1), dims=(16, 32), d_state=16)
+    jmodel = JaxVSSMFusion(drop_path_rate=0.0, **cfg)
+    loader = jfd.FusionLoader(jfd.scan_fusion_pairs(pairs_root), 2, 32,
+                              channels=1, seed=0)
+    xa, xb = next(iter(loader.epoch(0)))
+    want = jax.jit(lambda p: jax_fusion_loss(xa, xb, jax.numpy.clip(
+        jmodel.apply({"params": p}, xa, xb, train=True), 0.0, 1.0)))(
+        imp(init))
+    got = [epochs[0][k][0] for k in ("loss", "in", "ssim", "grad")]
+    np.testing.assert_allclose(got, [float(v) for v in want], rtol=1e-2)
+
+    saved = torch.load(save, weights_only=True)
+    assert all(torch.equal(saved[k], v) for k, v in
+               model.state_dict().items())
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), xa, xb, train=False))["params"]
+    same = jax.tree_util.tree_map(lambda a, s: np.shape(a) == s.shape,
+                                  imp(saved), shapes)
+    assert all(jax.tree_util.tree_leaves(same))
 
 
 @pytest.mark.parametrize("channels", [1, 3])

@@ -26,7 +26,12 @@ pins each call site of ``cross_cls_stage3`` and ``cross_cls_4ef`` at
 encoder's sides), where the port and the JAX gates agree: the dirs
 kernels at the 56/28 (64/32) sides, Y_diag at N 512 at vfefm's 16x16
 (H 32 and 64), the einsums below.  ``cross_cls_3e1fadd1e`` has
-cross_cls_stage3's sites, ``vfefm_2c1`` a subset of vfefm_2b2's."""
+cross_cls_stage3's sites, ``vfefm_2c1`` a subset of vfefm_2b2's.
+
+FusionMamba runs the Mamba-1 scan (rows 1-2) at K 4, its strided
+sub-sequences folded into the sequence axis: ``FUSIONMAMBA_SITES`` pins
+each site's shape at 256x256 and 512x512, all on the two-level kernels
+where the JAX folded entry takes v2."""
 
 import pytest
 import torch
@@ -256,3 +261,75 @@ def test_chip_smoke_launches_per_forward_of_the_crossmamba_family(
             model(x, x)
     assert {k: calls.count(k) for k in set(calls)} == \
         chip_smoke.CROSS_PATHS[name]
+
+
+# FusionMamba (fusion registry "fusionmamba", the EfficientScan U-Net):
+# every scan site folds its four strided sub-sequences into the sequence
+# axis, G = batch x 4, K 4, N 16, L / 4 steps.  (L / 4, Dm) -> the sites
+# at that shape in one forward at 256x256: the encoder's blocks on both
+# inputs, the cross blocks of stages 1-3 (stage 0's is not run: nothing
+# reads it) and the decoder's blocks at the same side
+FUSIONMAMBA_SITES = {
+    256: {(1024, 192): 2 * 2 + 2, (256, 384): 2 * 2 + 1 + 2,
+          (64, 768): 2 * 9 + 1 + 9, (16, 1536): 2 * 2 + 1 + 2},
+    512: {(4096, 192): 2 * 2 + 2, (1024, 384): 2 * 2 + 1 + 2,
+          (256, 768): 2 * 9 + 1 + 9, (64, 1536): 2 * 2 + 1 + 2},
+}
+
+
+def _fusionmamba_scans(monkeypatch, size, batch=2):
+    """The scan calls of the full-width fusionmamba's forward on meta
+    tensors (bf16), the scan's entry point replaced by a stub that records
+    (G, L, Dm, K, N, reverse)."""
+    import medical_image_classification_tpu_torch.models.fusionmamba as tfm
+    from medical_image_classification_tpu_torch.models import (
+        create_fusion_model)
+    calls = []
+
+    def scan(u, delta, A, B, C, D, bias, reverse=False, impl="auto"):
+        calls.append(tuple(u.shape) + (A.shape[0], A.shape[2], reverse))
+        return torch.empty_like(u)
+
+    monkeypatch.setattr(tfm, "scan_folded_fwd", scan)
+    with torch.device("meta"):
+        model = create_fusion_model("fusionmamba",
+                                    dtype=torch.bfloat16).eval()
+        x = torch.empty(batch, size, size, 1)
+        with torch.no_grad():
+            assert model(x, x).shape == (batch, size, size, 1)
+    return calls
+
+
+@pytest.mark.parametrize("size", [256, 512])
+def test_fusionmamba_scan_sites_take_the_two_level_kernels(monkeypatch,
+                                                           size):
+    """Each site's (G, L / 4, Dm, K, N) at 256x256 and 512x512, forward
+    order (no reverse scan), and at each the port's two-level rows 1-2
+    (``v1_chunk`` None) exactly where the JAX folded entry takes v2
+    (``_choose_tiles`` gives a chunk the sub-block divides)."""
+    import medical_image_classification_tpu.kernels.selective_scan_pallas \
+        as ssp
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_v1 as v1)
+    calls = _fusionmamba_scans(monkeypatch, size)
+    sites = {}
+    for G, L, Dm, k, n, reverse in calls:
+        assert (G, k, n, reverse) == (2 * K, K, 16, False)
+        sites[L, Dm] = sites.get((L, Dm), 0) + 1
+    assert sites == FUSIONMAMBA_SITES[size]
+    for L, Dm in sites:
+        T, _ = ssp._choose_tiles(L, Dm, 16)
+        S = ssp._S_SUB if T % ssp._S_SUB == 0 else 8
+        assert T % S == 0, (L, Dm, T)               # JAX: v2
+        assert v1.v1_chunk(L, Dm, 16) is None, (L, Dm)
+
+
+def test_chip_smoke_launches_per_forward_of_fusionmamba(monkeypatch):
+    """chip_smoke.py's CROSS_PATHS["fusionmamba"] equals the scan calls of
+    the full-width model's forward at chip_smoke's fusion size and batch
+    (meta tensors)."""
+    import chip_smoke
+    calls = _fusionmamba_scans(monkeypatch, chip_smoke.FUSION_SIZE,
+                               chip_smoke.FUSION_BATCH)
+    assert chip_smoke.CROSS_PATHS["fusionmamba"] == {
+        "selective_scan_fwd": len(calls)}

@@ -180,7 +180,7 @@ def test_chip_smoke_conditioned_gradient_gate():
     A leaf where the plain twins miss by 3% passes at 6% and fails at 12%;
     where they are exact the plain tolerance holds (3% fails); a leaf
     turned against its reference fails; leaves under the abs floor
-    pass."""
+    pass, and a gate whose leaves all lie under it raises."""
     import chip_smoke
     rng = np.random.default_rng(0)
     exact = {f"leaf{i}": torch.from_numpy(rng.standard_normal(64))
@@ -208,8 +208,12 @@ def test_chip_smoke_conditioned_gradient_gate():
     flipped = dict(exact, leaf3=-exact["leaf3"])
     with pytest.raises(AssertionError, match="leaves beyond"):
         check("t", flipped, plain, exact, *tol)
-    tiny = {k: v * 1e-6 for k, v in exact.items()}
-    check("t", {k: -v for k, v in tiny.items()}, tiny, tiny, *tol)
+    tiny = dict(exact, leaf3=exact["leaf3"] * 1e-6)
+    check("t", dict(off([0.01, 0.0, 0.0, 0.0], 2), leaf3=-tiny["leaf3"]),
+          dict(plain, leaf3=tiny["leaf3"]), tiny, *tol)
+    with pytest.raises(AssertionError, match="checks none"):
+        check("t", dict(exact, leaf3=-tiny["leaf3"]), exact,
+              dict(exact, leaf3=tiny["leaf3"]), *tol)
 
 
 @pytest.mark.parametrize("name", ["vfefm_2b2", "vfefm_2c1"])
