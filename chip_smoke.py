@@ -193,7 +193,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      leaf whose error is not zero checked (FM_GRAD_FLOOR), pairs/s,
      resident wall and device ms of a step (the scan forward and backward
      apart, the rest's largest kernels) and of a forward.
-The model phases (3-32) also hold the v1 and calibration counters at 0.
+  33.-35. the evaluation tools: 33. cli/test.py --all-index --csv-out
+     (full-width medmamba, fp32, b32) on a generated 8-class ImageFolder of
+     40 PNGs: the scan's launches for two batches, the CSV's columns the
+     JAX CLI's, param_count the model's, the accuracy equal to and the AUC
+     within 1e-3 of the metrics of the same images through the plain
+     twins; 34. Grad-CAM, fp32: cli/cam.py on one PNG with medmamba, all
+     four stages (40 forward + 32 backward scan launches), then grad_cam
+     at b8 for medmamba, medssd and st_ssd: launches exactly CAM_PATHS'
+     (the forward kernels of every stage, the backward kernels of stages
+     1-3), each stage's map spanning over 1e-3, heatmaps within 2e-3 of
+     the plain twins', ms a call; 35. cli/export.py (torch.export, b8,
+     bf16) of medmamba and st_ssd at 224x224 and medssd at 240x240, which
+     together hold the six forward kernels as mic_torch ops: each program
+     loaded and run by cli/export.py's load_and_check in a fresh python3
+     that imports kernels/ops.py and nothing of the models, its launches
+     those of the eager forward, its logits within 1e-3 x max|logit| of
+     the eager module's (bit-identity printed), trace and save seconds and
+     the .pt2 sizes.
+The model phases (3-35) also hold the v1 and calibration counters at 0.
 Then one JSON line describing the fifteen kernels (launches in the training
 runs, in the bench's runs for v1 and the calibration; errors, times, the
 bound of each from this run's shapes; times and bounds at stage 0 in bf16,
@@ -202,7 +220,9 @@ layer call under "lm"; rows 5/5b also at N 64 under "n64", with their
 launches per cnn_mamba_mifa training step; rows 5/5b and 7/7b also the
 launches per train step of each CrossMamba model under "crossmamba";
 rows 1-2 also FusionMamba's launches per train step and their stage-0 K 4
-case under "fusionmamba"), the card's name
+case under "fusionmamba"; the rows the evaluation tools reach also their
+launches per grad_cam call and per loaded export's forward under
+"eval_tools"), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -349,6 +369,42 @@ CROSS_PATHS = {
 }
 CROSS_FULL, CROSS_STEP = "cross_cls_stage3", ("cross_cls_4ef",
                                               "cross_cls_3e1fadd1e")
+# The evaluation tools (phases 33-35), under EVAL_DIR.  --all-index: its
+# CSV header, the JAX CLI's; ALL_INDEX_PER_CLASS generated images a class
+# (40 at 224x224: a batch of 32 and a padded one).  Grad-CAM over all four
+# stages at CAM_BATCH, 224x224, fp32 (the JAX CLI's dtype): ({forward
+# kernel: launches}, {backward kernel: launches}) of one grad_cam call, the
+# forward kernels of every stage and the backward kernel of each call in
+# stages 1-3 (the gradient stops at stage 0's output;
+# tests/test_torch_gradcam.py pins them from a meta forward); its heatmaps
+# on the kernels against the plain twins within CAM_TOL on the [0, 1] map,
+# each stage's map spanning more than CAM_MIN_SPAN.  Export at EXPORT_BATCH,
+# bf16 (the JAX CLI's defaults) of each (model, size) in EXPORT_CASES, which
+# together carry the six forward ops; the loaded program's logits against
+# the eager model's within EXPORT_TOL x max|logit|
+EVAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_eval")
+ALL_INDEX_COLUMNS = ("accuracy", "precision_macro", "recall_macro",
+                     "specificity_macro", "f1_macro", "auc_ovr_macro",
+                     "param_count", "model")
+ALL_INDEX_PER_CLASS, ALL_INDEX_AUC_TOL = 5, 1e-3
+CAM_BATCH, CAM_TOL, CAM_MIN_SPAN = 8, 2e-3, 1e-3
+# the seeded models' head weight is scaled by this for grad_cam: the init's
+# (trunc-normal 0.02) gives medmamba stage maps that span ~5e-5 at stage 0
+# (on an NVIDIA H100 80GB HBM3 at 700 W), where the min-max scaling
+# magnifies rounding
+CAM_HEAD_SCALE = 100.0
+CAM_PATHS = {
+    "medmamba": ({"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
+                 {"selective_scan_bwd": 4 * (2 + 4 + 2)}),
+    # the dirs SSD in the blocks of stages 0-1, backward at stage 1
+    "medssd": ({"ssd_fused_dirs_fwd": 2 + 2}, {"ssd_fused_dirs_bwd": 2}),
+    # Y_diag at stage 0 only; the mixer and the gate at stages 0-1
+    "st_ssd": ({"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4, "stf_zgate_fwd": 4},
+               {"stl_mixer_bwd": 2, "stf_zgate_bwd": 2}),
+}
+EXPORT_BATCH, EXPORT_TOL = 8, 1e-3
+EXPORT_CASES = (("medmamba", SIZE), ("medssd", MEDSSD_240), ("st_ssd", SIZE))
 # the single-layout fused SSD's cases (B, L, chunk l, H, N), P 64: MedSSD
 # 240x240 stage 1, padded as ssd_chunked pads it, and an in-window shape
 # at the bottom of the chunk window with N 128
@@ -4049,6 +4105,315 @@ def phase_fusionmamba(card, num):
                 gates_s=gates_s)
 
 
+def _eval_folder(root, per_class, seed):
+    """CLASSES class folders of ``per_class`` seeded RGB PNGs, SIZE a side."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for c in range(CLASSES):
+        d = os.path.join(root, f"class_{c}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(per_class):
+            cv2.imwrite(os.path.join(d, f"{i}.png"), rng.integers(
+                0, 256, (SIZE, SIZE, 3), dtype=np.uint8))
+
+
+def _cam_want(name):
+    """Every kernel's expected launches in one grad_cam call of ``name``."""
+    want = {k: 0 for k in _counters()}
+    for calls in CAM_PATHS[name]:
+        want.update(calls)
+    return want
+
+
+def phase_all_index(card, num):
+    """cli/test.py's main() with --all-index --csv-out: full-width medmamba
+    (fp32, the CLI's dtype; seeded weights, scan parameters off init, a
+    torch.save'd state_dict) on a generated 8-class ImageFolder of
+    ALL_INDEX_PER_CLASS seeded PNGs a class (224x224, batch 32: a full batch
+    and a padded one): the scan's launches exactly the path's for two
+    batches, the CSV's columns JAX's (ALL_INDEX_COLUMNS), param_count
+    count_parameters of the model, and the metrics against
+    classification_metrics of the same images through the plain twins:
+    the accuracy equal, the AUC within ALL_INDEX_AUC_TOL."""
+    import csv
+    import shutil
+
+    import torch
+    from medical_image_classification_tpu_torch.cli import test as test_cli
+    from medical_image_classification_tpu_torch.data.image_folder import (
+        scan_image_folder)
+    from medical_image_classification_tpu_torch.data.loader import (
+        BatchLoader)
+    from medical_image_classification_tpu_torch.evaluate.metrics import (
+        classification_metrics, count_parameters)
+    name, calls = "medmamba", _path("medmamba")[0]
+    counters = _counters()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    root = os.path.join(EVAL_DIR, "oct")
+    _eval_folder(root, ALL_INDEX_PER_CLASS, 0)
+    n_img = CLASSES * ALL_INDEX_PER_CLASS
+    batches = -(-n_img // BATCH)
+    model = _model(name, None, "auto")
+    weights = os.path.join(EVAL_DIR, f"{name}_fp32.pt")
+    torch.save(model.state_dict(), weights)
+    csv_out = os.path.join(EVAL_DIR, "metrics.csv")
+    _zero(counters)
+    t0 = time.perf_counter()
+    m = test_cli.main(test_cli.parse_args(
+        ["--data-path", root, "--model", name, "--num-classes",
+         str(CLASSES), "--weights", weights, "--batch-size", str(BATCH),
+         "--image-size", str(SIZE), "--all-index", "--csv-out", csv_out]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = _want(calls, batches, False)
+    launched = _check_launches("--all-index", counters, want)
+    with open(csv_out, newline="") as f:
+        rows = list(csv.reader(f))
+    if len(rows) != 2 or tuple(rows[0]) != ALL_INDEX_COLUMNS:
+        raise AssertionError(f"--csv-out wrote {rows[:1]}, expected one row "
+                             f"under {ALL_INDEX_COLUMNS}")
+    row = dict(zip(rows[0], rows[1]))
+    params = count_parameters(model)
+    if (row["model"], int(row["param_count"]), m["param_count"]) != (
+            name, params, params):
+        raise AssertionError(f"CSV model / param_count {row['model']} / "
+                             f"{row['param_count']}, expected {name} / "
+                             f"{params}")
+    loader = BatchLoader(scan_image_folder(root), BATCH, SIZE, train=False)
+    _, y, logits = test_cli.run_eval(_model(name, None, "torch",
+                                            model.state_dict()),
+                                     loader, torch.device("cuda"))
+    _check_launches("the plain twins", counters, want)
+    scores = torch.softmax(torch.from_numpy(logits), dim=-1).numpy()
+    ref = classification_metrics(y, logits.argmax(-1), scores,
+                                 num_classes=CLASSES)
+    auc_err = abs(float(row["auc_ovr_macro"]) - ref["auc_ovr_macro"])
+    if float(row["accuracy"]) != ref["accuracy"] or \
+            auc_err > ALL_INDEX_AUC_TOL:
+        raise AssertionError(f"--all-index {row} against the plain twins' "
+                             f"{ref} (AUC tol {ALL_INDEX_AUC_TOL})")
+    print(f"phase {num} {name} {SIZE}x{SIZE} fp32 through cli/test.py "
+          f"--all-index --csv-out on {n_img} generated images "
+          f"({CLASSES} classes, batch {BATCH}, {batches} batches): launches "
+          f"{launched}, the other kernels none; CSV columns JAX's, "
+          f"param_count {params}; accuracy {float(row['accuracy']):.4f} "
+          f"equal to the plain twins', AUC {float(row['auc_ovr_macro']):.6f}"
+          f" (plain {ref['auc_ovr_macro']:.6f}, diff {auc_err:.2e}); "
+          f"{seconds:.2f} s with the PNG reads, on {card}", flush=True)
+    return dict(launches=_launches(counters), seconds=seconds, metrics=m,
+                plain=ref, auc_err=auc_err)
+
+
+def phase_grad_cam(card, num):
+    """Grad-CAM on the card, fp32 (the JAX CLI's dtype).  cli/cam.py's
+    main() on one generated PNG (224x224) with phase 33's medmamba weights,
+    all four stages: launches exactly CAM_PATHS' (the forward kernels of
+    every stage, the backward kernels of stages 1-3), a PNG of the image's
+    size.  Then grad_cam at CAM_BATCH (the target each image's argmax, the
+    JAX default) for medmamba, medssd and st_ssd (seeded weights, scan
+    parameters off init, the head's weight x CAM_HEAD_SCALE):
+    launches exactly CAM_PATHS', each stage's map spanning more than
+    CAM_MIN_SPAN, the heatmaps against the same call on the plain twins
+    within CAM_TOL (both under cuDNN's deterministic algorithms), ms of one
+    call on the kernels (cuDNN's defaults, as the CLI) and on the twins."""
+    import cv2
+    import numpy as np
+    import torch
+    from medical_image_classification_tpu_torch.cli import cam as cam_cli
+    from medical_image_classification_tpu_torch.evaluate.gradcam import (
+        grad_cam, resize_bilinear, stage_cam, stage_grads)
+    counters = _counters()
+    src = os.path.join(EVAL_DIR, "cam_in.png")
+    out = os.path.join(EVAL_DIR, "cam_out.png")
+    cv2.imwrite(src, np.random.default_rng(4).integers(
+        0, 256, (SIZE, SIZE, 3), dtype=np.uint8))
+    _zero(counters)
+    t0 = time.perf_counter()
+    heat = cam_cli.main(cam_cli.parse_args(
+        ["--image", src, "--model", "medmamba", "--num-classes",
+         str(CLASSES), "--weights", os.path.join(EVAL_DIR,
+                                                 "medmamba_fp32.pt"),
+         "--image-size", str(SIZE), "--out", out]))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launched = _check_launches("cli/cam.py", counters,
+                                   _cam_want("medmamba"))
+    written = cv2.imread(out)
+    if written is None or written.shape != (SIZE, SIZE, 3) or not (
+            np.isfinite(heat).all() and 0 <= heat.min() <= heat.max() <= 1):
+        raise AssertionError(f"cli/cam.py wrote {getattr(written, 'shape', None)}"
+                             f", heatmap [{heat.min()}, {heat.max()}]")
+    imgs = np.random.default_rng(5).integers(
+        0, 256, (CAM_BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    runs, texts = {}, []
+    for name in CAM_PATHS:
+        model = _model(name, None, "auto")
+        with torch.no_grad():
+            model.head.weight.mul_(CAM_HEAD_SCALE)
+        twin = _model(name, None, "torch", model.state_dict())
+        _zero(counters)
+        with _cudnn_deterministic():
+            cams = grad_cam(model, imgs)
+        torch.cuda.synchronize()
+        launched = _check_launches(f"grad_cam {name}", counters,
+                                   _cam_want(name))
+        per_call = _launches(counters)
+        t0 = time.perf_counter()
+        grad_cam(model, imgs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # the twins take the kernels' argmax: a near tie cannot swap a class
+        acts, grads, targets = stage_grads(model, imgs)
+        targets = targets.tolist()
+        spans = {n: float((m.amax((1, 2)) - m.amin((1, 2))).min())
+                 for n, m in ((n, resize_bilinear(stage_cam(acts[n], grads[n]),
+                                                   (SIZE, SIZE)))
+                              for n in acts)}
+        if min(spans.values()) <= CAM_MIN_SPAN:
+            raise AssertionError(f"grad_cam {name}: a stage map spans "
+                                 f"{spans}, not over {CAM_MIN_SPAN}")
+        del acts, grads
+        before = _launches(counters)
+        t0 = time.perf_counter()
+        with _cudnn_deterministic():
+            ref = grad_cam(twin, imgs, targets)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if _launches(counters) != before:
+            raise AssertionError(f"grad_cam {name} on the plain twins "
+                                 "launched a kernel")
+        err = float(np.abs(cams - ref).max())
+        if not np.isfinite(cams).all() or err > CAM_TOL:
+            raise AssertionError(f"grad_cam {name}: kernels vs plain twins "
+                                 f"max err {err:.3e} > {CAM_TOL}")
+        runs[name] = dict(launches={k: v for k, v in per_call.items() if v},
+                          ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                          min_span=spans)
+        texts.append(f"{name}: launches {launched}, heatmap max err "
+                     f"{err:.2e} (tol {CAM_TOL}), smallest stage span "
+                     f"{min(spans.values()):.3e}, {ms:.2f} ms a call "
+                     f"(plain twins {plain_ms:.2f})")
+        del model, twin
+    print(f"phase {num} Grad-CAM fp32 {SIZE}x{SIZE}: cli/cam.py medmamba on "
+          f"one PNG, all four stages: launches {cli_launched}, a {SIZE}x"
+          f"{SIZE} PNG, {cli_s:.2f} s | grad_cam b{CAM_BATCH} all stages, "
+          + " | ".join(texts) + f" | on {card}", flush=True)
+    return dict(cli_launches=cli_launched, cli_s=cli_s, runs=runs)
+
+
+# what a fresh interpreter runs on an exported program: cli/export.py's
+# load_and_check (which imports kernels/ops.py and nothing of the models),
+# the logits saved, the kernels' launches in that one forward and the
+# port's modules it imported printed as JSON
+_LOAD_CODE = (
+    "import json, sys\n"
+    "import numpy as np\n"
+    "from medical_image_classification_tpu_torch.cli.export import "
+    "load_and_check\n"
+    "out = load_and_check(sys.argv[1])\n"
+    "np.save(sys.argv[2], out.float().cpu().numpy())\n"
+    "import chip_smoke\n"
+    "pkg = 'medical_image_classification_tpu_torch.'\n"
+    "print(json.dumps(dict(launches={k: c.launches for k, c in\n"
+    "    chip_smoke._counters().items() if c.launches},\n"
+    "    modules=sorted(m[len(pkg):] for m in sys.modules\n"
+    "                   if m.startswith(pkg)))))\n")
+
+
+def phase_export(card, num):
+    """cli/export.py's main() on each of EXPORT_CASES at EXPORT_BATCH, bf16
+    (seeded weights, scan parameters off init): the program's mic_torch
+    calls exactly the path's forward launches; then ``--load``'s
+    load_and_check in a fresh python3 that imports kernels/ops.py and
+    nothing of the models (a module outside cli.export and kernels fails):
+    its one forward launches what the eager forward launches, and its
+    logits lie within EXPORT_TOL x max|logit| of the eager module's on the
+    same seeded batch (whether the bits are identical is printed).  The
+    three programs hold all six forward ops; trace and save seconds and the
+    .pt2 sizes."""
+    import numpy as np
+    import torch
+    from medical_image_classification_tpu_torch.cli import export
+    from medical_image_classification_tpu_torch.kernels import ops
+    counters = _counters()
+    runs, texts, seen = {}, [], set()
+    for name, size in EXPORT_CASES:
+        calls = _path(name, size)[0]
+        weights = os.path.join(EVAL_DIR, f"{name}_{size}_bf16.pt")
+        torch.save(_model(name, torch.bfloat16, "auto").state_dict(),
+                   weights)
+        pt2 = os.path.join(EVAL_DIR, f"{name}_{size}.pt2")
+        program, stats = export.main(export.parse_args(
+            ["--model", name, "--num-classes", str(CLASSES), "--weights",
+             weights, "--batch-size", str(EXPORT_BATCH), "--image-size",
+             str(size), "--dtype", "bf16", "--out", pt2]))
+        in_graph = export.op_calls(program)
+        if in_graph != {f"{ops.NAMESPACE}::{k}": v for k, v in calls.items()}:
+            raise AssertionError(f"{name} {size}: the program calls "
+                                 f"{in_graph}, the path launches {calls}")
+        seen |= set(in_graph)
+        del program
+        serve, _ = export.build_serve_module(
+            name, CLASSES, weights, EXPORT_BATCH, size, torch.bfloat16,
+            torch.device("cuda"))
+        x = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 256, (EXPORT_BATCH, size, size, 3), dtype=np.uint8)).cuda()
+        with torch.no_grad():
+            serve(x)
+            _zero(counters)
+            eager = serve(x).float().cpu().numpy()
+        want = _want(calls, 1, False)
+        launched = _check_launches(f"{name} {size} eager", counters, want)
+        del serve
+        npy = pt2 + ".logits.npy"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _LOAD_CODE, pt2, npy],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        load_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"loading {pt2} in a fresh interpreter "
+                                 f"failed: {proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        outside = [m for m in r["modules"] if m.split(".")[0] not in
+                   ("cli", "kernels") or m.startswith("cli.")
+                   and m != "cli.export"]
+        if outside:
+            raise AssertionError(f"loading {pt2} imported {outside}")
+        if r["launches"] != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{name} {size}: the loaded forward "
+                                 f"launched {r['launches']}, the eager "
+                                 f"forward {launched}")
+        loaded = np.load(npy)
+        scale = float(np.abs(eager).max())
+        err = float(np.abs(loaded - eager).max())
+        if loaded.shape != eager.shape or not np.isfinite(loaded).all() or \
+                err > EXPORT_TOL * scale:
+            raise AssertionError(f"{name} {size}: loaded logits "
+                                 f"{loaded.shape} max err {err:.3e} > "
+                                 f"{EXPORT_TOL} x {scale:.3f}")
+        same = bool(np.array_equal(loaded, eager))
+        runs[f"{name} {size}"] = dict(stats, load_run_s=load_s,
+                                      launches=r["launches"],
+                                      max_abs_err=err, identical=same)
+        texts.append(
+            f"{name} {size}x{size}: trace {stats['trace_s']:.2f} s, save "
+            f"{stats['save_s']:.2f} s, {stats['bytes'] / 2 ** 20:.1f} MiB; "
+            f"loaded in a fresh python3 ({load_s:.2f} s with the start), "
+            f"launches {launched} as eager, logits max err {err:.3e} (tol "
+            f"{EXPORT_TOL} x {scale:.3f}), bit-identical {same}")
+    every = {f"{ops.NAMESPACE}::{op._name}" for op in ops.OPS}
+    if seen != every:
+        raise AssertionError(f"the programs hold {sorted(seen)}, not every "
+                             f"op of {sorted(every)}")
+    print(f"phase {num} cli/export.py b{EXPORT_BATCH} bf16, all six ops in "
+          "the programs: " + " | ".join(texts) + f" | on {card}",
+          flush=True)
+    return runs
+
+
 def _entry(name, replaces, cases, launches, head, bound):
     """One kernel's record for the kernels line; ``head`` picks the case
     whose times it reports; ``replaces`` is file:line under the JAX
@@ -4131,6 +4496,10 @@ def main(argv=None):
     cross["vfefm_2c1"] = phase_vfefm_2c1(card, num + 1)
     # FusionMamba through its CLI: the scan pair at K 4
     fm = phase_fusionmamba(card, num + 2)
+    # the evaluation tools: --all-index, Grad-CAM, export
+    all_index = phase_all_index(card, num + 3)
+    cam = phase_grad_cam(card, num + 4)
+    exported = phase_export(card, num + 5)
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -4260,6 +4629,17 @@ def main(argv=None):
                     batch=FUSION_BATCH if m.startswith("vfefm")
                     else CROSS_BATCH)
             for m, r in cross.items() if r["launches_per_step"].get(name)}
+    # the evaluation tools' launches: per grad_cam call (all four stages,
+    # b8 fp32) and per forward of each loaded export (b8 bf16)
+    for e in entries:
+        tools = {f"grad_cam {m}": r["launches"][e["name"]]
+                 for m, r in cam["runs"].items()
+                 if e["name"] in r["launches"]}
+        tools.update({f"export {m}": r["launches"][e["name"]]
+                      for m, r in exported.items()
+                      if e["name"] in r["launches"]})
+        if tools:
+            e["eval_tools"] = tools
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)
@@ -4314,7 +4694,9 @@ def main(argv=None):
                            v1_cases=v1_cases, v1_bwd=v1_bwd,
                            calib_cases=calib_cases, kernel_bench=bench,
                            ssd16_paths=ssd16_paths, ssd16_models=ssd16,
-                           crossmamba=cross, fusionmamba=fm),
+                           crossmamba=cross, fusionmamba=fm,
+                           all_index=all_index, grad_cam=cam,
+                           export=exported),
                       f, indent=1)
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -4,7 +4,9 @@
 for a CPU tensor), "cuda" (launch the kernel or raise) or "torch" (the
 plain version on any device).  Under autograd each kernel's entry point
 goes through its ``torch.autograd.Function``, whose backward dispatches by
-the same rule, so no output of a kernel loses its ``grad_fn``.
+the same rule, so no output of a kernel loses its ``grad_fn``.  A forward
+kernel is reached through its ``torch.library`` op (``kernels/ops.py``,
+``via_op``), so that ``torch.export`` carries it into a program.
 """
 
 from __future__ import annotations
@@ -25,6 +27,14 @@ def resolve_impl(impl: str, t: torch.Tensor, what: str) -> str:
         raise ValueError(f"impl='cuda' needs CUDA tensors; the {what} "
                          f"operands are on {t.device}")
     return impl
+
+
+def via_op(impl: str, t: torch.Tensor) -> bool:
+    """Whether a forward resolved to ``impl`` for operand ``t`` goes through
+    its ``kernels/ops.py`` op, which takes ``impl`` on (the kernel for
+    "cuda", the plain version for "torch"): every call but one that asks
+    for the plain version on the card, which runs it directly."""
+    return impl == "cuda" or not t.is_cuda
 
 
 def dense(t: torch.Tensor) -> torch.Tensor:

@@ -23,15 +23,16 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from medical_image_classification_tpu_torch.kernels import ops
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     resolve_impl,
+    via_op,
 )
 from medical_image_classification_tpu_torch.kernels.selective_scan_fwd import (
     CHUNK,
     _check_cuda_args,
     chunked_operands,
-    _launch_cuda as _launch_fwd_cuda,
     _ptr,
     check_state,
     scan_folded_fwd_ref,
@@ -300,10 +301,14 @@ class ScanFolded(torch.autograd.Function):
                 selective_scan_v1 as v1)
             outs = v1.scan_v1_fwd(u, delta, A, B, C, D, bias, T,
                                   want_xsave=True, impl=impl)
+        elif via_op(impl, u):
+            outs = ops.selective_scan_fwd(u, delta, A, B, C, D, bias, init,
+                                          reverse, softplus, True, want_state,
+                                          impl)
         else:
-            run = _launch_fwd_cuda if impl == "cuda" else scan_folded_fwd_ref
-            outs = run(u, delta, A, B, C, D, bias, reverse, softplus,
-                       want_xsave=True, want_state=want_state, init=init)
+            outs = scan_folded_fwd_ref(u, delta, A, B, C, D, bias, reverse,
+                                       softplus, want_xsave=True,
+                                       want_state=want_state, init=init)
         ctx.save_for_backward(u, delta, A, B, C, D, bias, outs[1])
         ctx.flags = (reverse, softplus, impl, want_state, init is not None, T)
         return (outs[0], outs[2]) if want_state else outs[0]

@@ -27,9 +27,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from medical_image_classification_tpu_torch.kernels import ops
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     resolve_impl,
+    via_op,
 )
 from medical_image_classification_tpu_torch.kernels.selective_scan import (
     selective_scan_seq,
@@ -311,6 +313,20 @@ def _launch_cuda(u, delta, A, B, C, D, bias, reverse, softplus,
     return outs if len(outs) > 1 else y
 
 
+def op_forward(u, delta, A, B, C, D, bias, init, reverse, softplus,
+               want_xsave, want_state, impl):
+    """The body of ``ops.selective_scan_fwd``: the kernel (``impl``
+    "cuda") or the plain version ("torch"); [y, xsave?, last?]."""
+    kw = dict(want_xsave=want_xsave, want_state=want_state, init=init)
+    if impl == "cuda":
+        outs = _launch_cuda(u, delta, A, B, C, D, bias, reverse, softplus,
+                            **kw)
+    else:
+        outs = scan_folded_fwd_ref(u, delta, A, B, C, D, bias,
+                                   reverse=reverse, softplus=softplus, **kw)
+    return list(outs) if isinstance(outs, tuple) else [outs]
+
+
 def scan_folded_fwd(u, delta, A, B, C, D, bias, reverse: bool = False,
                     softplus: bool = True, impl: str = "auto",
                     want_state: bool = False, init=None,
@@ -365,11 +381,12 @@ def scan_folded_fwd(u, delta, A, B, C, D, bias, reverse: bool = False,
                                 init, T)
     if T is not None:
         return v1.scan_v1_fwd(*args, T, impl=impl)
-    if impl == "torch":
+    if not via_op(impl, u):
         return scan_folded_fwd_ref(*args, reverse=reverse, softplus=softplus,
                                    want_state=want_state, init=init)
-    return _launch_cuda(*args, reverse, softplus, want_state=want_state,
-                        init=init)
+    outs = ops.selective_scan_fwd(*args, init, reverse, softplus, False,
+                                  want_state, impl)
+    return tuple(outs) if want_state else outs[0]
 
 
 # Number of CUDA kernel launches so far; the wrapper adds one per launch,

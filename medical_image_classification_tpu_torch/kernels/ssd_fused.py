@@ -35,10 +35,12 @@ import ctypes
 
 import torch
 
+from medical_image_classification_tpu_torch.kernels import ops
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     dense,
     resolve_impl,
+    via_op,
 )
 
 _FWD_KERNEL = "ssd_fused_fwd"
@@ -441,9 +443,24 @@ def ssd_fused_fwd(Cc, Bc, acum, dte, cdec, dtp, x, want_save: bool = False,
                   impl: str = "auto"):
     """The forward: y, and Ssave when ``want_save``.  ``impl``: "auto",
     "cuda" or "torch" (``kernels/_dispatch.py``)."""
-    if resolve_impl(impl, Cc, "SSD") == "torch":
+    impl = resolve_impl(impl, Cc, "SSD")
+    if not via_op(impl, Cc):
         return ssd_fused_fwd_ref(Cc, Bc, acum, dte, cdec, dtp, x, want_save)
-    return _launch_fwd_cuda(Cc, Bc, acum, dte, cdec, dtp, x, want_save)
+    outs = ops.ssd_fused_fwd(Cc, Bc, acum, dte, cdec, dtp, x, want_save,
+                             impl)
+    return tuple(outs) if want_save else outs[0]
+
+
+def op_forward(Cc, Bc, acum, dte, cdec, dtp, x, want_save, impl):
+    """The body of ``ops.ssd_fused_fwd``: the kernel (``impl`` "cuda";
+    on dense copies where an operand is not 16-byte aligned) or the plain
+    version ("torch"); [y, Ssave?]."""
+    args = (Cc, Bc, acum, dte, cdec, dtp, x)
+    if impl == "cuda":
+        outs = _launch_fwd_cuda(*(dense(t) for t in args), want_save)
+    else:
+        outs = ssd_fused_fwd_ref(*args, want_save)
+    return list(outs) if want_save else [outs]
 
 
 def ssd_fused_bwd(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy,
@@ -452,7 +469,8 @@ def ssd_fused_bwd(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy,
     in ``ssd_fused_fwd``."""
     if resolve_impl(impl, Cc, "SSD") == "torch":
         return ssd_fused_bwd_ref(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy)
-    return _launch_bwd_cuda(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy)
+    return _launch_bwd_cuda(*(dense(t) for t in (Cc, Bc, acum, dte, cdec,
+                                                 dtp, x, Ssave, dy)))
 
 
 # Number of CUDA kernel launches so far; each wrapper adds one per launch,
@@ -478,7 +496,7 @@ class SSDFused(torch.autograd.Function):
     def backward(ctx, dy):
         *args, Ssave = ctx.saved_tensors
         x = args[-1]
-        return ssd_fused_bwd(*args, Ssave, dense(dy.to(x.dtype)),
+        return ssd_fused_bwd(*args, Ssave, dy.to(x.dtype).contiguous(),
                              impl=ctx.impl) + (None,)
 
 
@@ -486,11 +504,13 @@ def ssd_fused(Cc, Bc, acum, dte, cdec, dtp, x, impl: str = "auto"):
     """The single-layout fused SSD (see the module docstring).  With grad
     enabled and an input that requires grad, the call goes through
     ``SSDFused``; otherwise only the forward runs, without saved states.
-    acum, dte, cdec and dtp are taken to fp32 and every operand made dense
-    here, inside the autograd graph."""
+    acum, dte, cdec and dtp are taken to fp32 and every operand made
+    contiguous here, inside the autograd graph (the kernels' wrappers copy
+    an operand that is not 16-byte aligned)."""
     impl = resolve_impl(impl, Cc, "SSD")
-    args = (dense(Cc), dense(Bc)) + tuple(
-        dense(t.float()) for t in (acum, dte, cdec, dtp)) + (dense(x),)
+    args = (Cc.contiguous(), Bc.contiguous()) + tuple(
+        t.float().contiguous() for t in (acum, dte, cdec, dtp)) + (
+        x.contiguous(),)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return SSDFused.apply(*args, impl)
     return ssd_fused_fwd(*args, impl=impl)

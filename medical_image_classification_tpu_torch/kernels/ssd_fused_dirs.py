@@ -35,10 +35,12 @@ import ctypes
 
 import torch
 
+from medical_image_classification_tpu_torch.kernels import ops
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     dense,
     resolve_impl,
+    via_op,
 )
 from medical_image_classification_tpu_torch.kernels.ssd_fused import (
     _DTYPES,
@@ -282,11 +284,22 @@ def ssd_fused_dirs_fwd(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int,
     the CUDA kernel for a CUDA tensor and the plain version for a CPU
     tensor; "cuda" launches the kernel or raises; "torch" runs the plain
     version on any device."""
-    if resolve_impl(impl, stackr, "SSD") == "torch":
+    impl = resolve_impl(impl, stackr, "SSD")
+    if not via_op(impl, stackr):
         return ssd_fused_dirs_fwd_ref(stackr, acum, dte, cdec, dtp, Dsk,
                                       d_ssm, gn, want_save)
-    return _launch_fwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
-                            want_save)
+    outs = ops.ssd_fused_dirs_fwd(stackr, acum, dte, cdec, dtp, Dsk, d_ssm,
+                                  gn, want_save, impl)
+    return tuple(outs) if want_save else outs[0]
+
+
+def op_forward(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn, want_save,
+               impl):
+    """The body of ``ops.ssd_fused_dirs_fwd``: the kernel (``impl``
+    "cuda") or the plain version ("torch"); [y, Ssave?]."""
+    run = _launch_fwd_cuda if impl == "cuda" else ssd_fused_dirs_fwd_ref
+    outs = run(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn, want_save)
+    return list(outs) if want_save else [outs]
 
 
 def ssd_fused_dirs_bwd(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int,

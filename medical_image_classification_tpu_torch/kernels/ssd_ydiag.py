@@ -39,10 +39,12 @@ import ctypes
 
 import torch
 
+from medical_image_classification_tpu_torch.kernels import ops
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     dense,
     resolve_impl,
+    via_op,
 )
 from medical_image_classification_tpu_torch.kernels.ssd_fused import (
     _pass_info,
@@ -332,10 +334,19 @@ def bwd_pass_info(dtype) -> dict:
 def ydiag_fused_fwd(Cc, Bc, acum, dtx, impl: str = "auto"):
     """Y_diag [BC, H, l, P] (see the module docstring).  ``impl``: "auto",
     "cuda" or "torch" (``kernels/_dispatch.py``)."""
-    if resolve_impl(impl, Cc, "Y_diag") == "torch":
+    impl = resolve_impl(impl, Cc, "Y_diag")
+    if not via_op(impl, Cc):
         return ydiag_fused_ref(Cc, Bc, acum, dtx)
-    return _launch_fwd_cuda(dense(Cc), dense(Bc), dense(acum.float()),
-                            dense(dtx))
+    return ops.ssd_ydiag_fwd(Cc, Bc, acum, dtx, impl)
+
+
+def op_forward(Cc, Bc, acum, dtx, impl):
+    """The body of ``ops.ssd_ydiag_fwd``: the kernel (``impl`` "cuda";
+    on dense copies where needed) or the plain version ("torch")."""
+    if impl == "cuda":
+        return _launch_fwd_cuda(dense(Cc), dense(Bc), dense(acum.float()),
+                                dense(dtx))
+    return ydiag_fused_ref(Cc, Bc, acum, dtx)
 
 
 def ydiag_fused_bwd(Cc, Bc, acum, dtx, dy, impl: str = "auto"):
@@ -375,9 +386,11 @@ def ydiag_fused(Cc, Bc, acum, dtx, impl: str = "auto"):
     """Y_diag [BC, H, l, P] (see the module docstring).  With grad enabled
     and an operand that requires grad, the call goes through
     ``YDiagFused``; otherwise only the forward runs.  acum is taken to
-    fp32 and every operand made dense here, inside the autograd graph."""
+    fp32 and every operand made contiguous here, inside the autograd graph
+    (the kernels' wrappers copy an operand that is not 16-byte aligned)."""
     impl = resolve_impl(impl, Cc, "Y_diag")
-    args = (dense(Cc), dense(Bc), dense(acum.float()), dense(dtx))
+    args = (Cc.contiguous(), Bc.contiguous(), acum.float().contiguous(),
+            dtx.contiguous())
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return YDiagFused.apply(*args, impl)
     return ydiag_fused_fwd(*args, impl=impl)

@@ -29,11 +29,13 @@ import ctypes
 
 import torch
 
+from medical_image_classification_tpu_torch.kernels import ops
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     dense,
     pass_info,
     resolve_impl,
+    via_op,
 )
 # the kernels' step along the walked axis: the gate's passes run on the
 # mixer's tiles (Cfg::kStep), and the decomposition twins follow it
@@ -204,11 +206,20 @@ def bwd_pass_info(C: int, dtype) -> dict:
 def stf_zgate_fwd(pooledT, lz, U, impl: str = "auto"):
     """Y = sigmoid(pooledT lz) U (see the module docstring).  ``impl``:
     "auto", "cuda" or "torch" (``kernels/_dispatch.py``)."""
-    if resolve_impl(impl, pooledT, "STF gate") == "torch":
+    impl = resolve_impl(impl, pooledT, "STF gate")
+    if not via_op(impl, pooledT):
         return stf_zgate_fwd_ref(pooledT, lz, U)
-    mm = pooledT.dtype
-    return _launch_fwd_cuda(dense(pooledT), dense(lz.to(mm)),
-                            dense(U.to(mm)))
+    return ops.stf_zgate_fwd(pooledT, lz, U, impl)
+
+
+def op_forward(pooledT, lz, U, impl):
+    """The body of ``ops.stf_zgate_fwd``: the kernel (``impl`` "cuda";
+    on dense copies in pooledT's dtype) or the plain version ("torch")."""
+    if impl == "cuda":
+        mm = pooledT.dtype
+        return _launch_fwd_cuda(dense(pooledT), dense(lz.to(mm)),
+                                dense(U.to(mm)))
+    return stf_zgate_fwd_ref(pooledT, lz, U)
 
 
 def stf_zgate_bwd(pooledT, lz, U, dY, impl: str = "auto"):

@@ -30,11 +30,13 @@ import ctypes
 
 import torch
 
+from medical_image_classification_tpu_torch.kernels import ops
 from medical_image_classification_tpu_torch.kernels._dispatch import (
     call,
     dense,
     pass_info,
     resolve_impl,
+    via_op,
 )
 
 _FWD_KERNEL = "stl_mixer_fwd"
@@ -261,11 +263,21 @@ def stl_mixer_fwd(w, u1, V, impl: str = "auto", want_stats: bool = False):
     """U = softmax_P(w u1)^T V (see the module docstring), and with
     ``want_stats`` (U, lse).  ``impl``: "auto", "cuda" or "torch"
     (``kernels/_dispatch.py``)."""
-    if resolve_impl(impl, w, "STL mixer") == "torch":
+    impl = resolve_impl(impl, w, "STL mixer")
+    if not via_op(impl, w):
         return stl_mixer_fwd_ref(w, u1, V, want_stats)
-    U, lse = _launch_fwd_cuda(dense(w), dense(u1.to(w.dtype)),
-                              dense(V.to(w.dtype)))
+    U, lse = ops.stl_mixer_fwd(w, u1, V, impl)
     return (U, lse) if want_stats else U
+
+
+def op_forward(w, u1, V, impl):
+    """The body of ``ops.stl_mixer_fwd``: (U, lse) from the kernels
+    (``impl`` "cuda"; on dense copies in w's dtype) or from the plain
+    version ("torch")."""
+    if impl == "cuda":
+        return _launch_fwd_cuda(dense(w), dense(u1.to(w.dtype)),
+                                dense(V.to(w.dtype)))
+    return stl_mixer_fwd_ref(w, u1, V, True)
 
 
 def stl_mixer_bwd(w, u1, V, dU, impl: str = "auto", lse=None):

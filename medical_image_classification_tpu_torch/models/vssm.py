@@ -17,6 +17,7 @@ step gives the same numbers as an unchecked one.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import numpy as np
@@ -230,6 +231,46 @@ class VSSM(nn.Module):
     def seed_drop_path(self, seed: int):
         """Restart every DropPath mask stream from ``seed``."""
         self.drop_path_rng.manual_seed(seed)
+
+    def stage_names(self):
+        """The stages by the JAX package's module names, ``layers_0`` ..."""
+        return [f"layers_{i}" for i in range(len(self.layers))]
+
+    @contextlib.contextmanager
+    def stage_outputs(self, names=None):
+        """Within the block, each forward puts the output of each stage in
+        ``names`` (default: all), after its blocks and before its
+        PatchMerging (the JAX ``stage_out`` intermediate and the point of
+        its ``stage_perturb``), into the dict it yields under the stage's
+        name, as a tensor of the autograd graph that requires grad: with
+        grad enabled, ``torch.autograd.grad`` differentiates with respect
+        to it.  Hooks only: the forward, its launches and the state_dict
+        are those of the model without them."""
+        names = self.stage_names() if names is None else list(names)
+        unknown = sorted(set(names) - set(self.stage_names()))
+        if unknown:
+            raise ValueError(f"unknown stages {unknown}; the model has "
+                             f"{self.stage_names()}")
+        acts, handles = {}, []
+
+        def keep(name, t):
+            if not t.requires_grad:     # nothing before it requires grad
+                t.requires_grad_()
+            acts[name] = t
+
+        for name in names:
+            layer = self.layers[int(name.split("_")[1])]
+            if layer.downsample is not None:
+                handles.append(layer.downsample.register_forward_pre_hook(
+                    lambda m, args, name=name: keep(name, args[0])))
+            else:
+                handles.append(layer.register_forward_hook(
+                    lambda m, args, out, name=name: keep(name, out)))
+        try:
+            yield acts
+        finally:
+            for h in handles:
+                h.remove()
 
     def forward(self, x, update_grid: bool = False):
         if self.conv_T_conv is not None:

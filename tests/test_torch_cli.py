@@ -58,16 +58,20 @@ def test_eval_cli_on_image_folder(tmp_path, monkeypatch, caplog):
     assert "test top-1 accuracy" in caplog.text and "(6 images)" in caplog.text
 
 
-@pytest.mark.parametrize("cli", ["test", "train"])
+@pytest.mark.parametrize("cli", ["test", "train", "test_all_index", "cam",
+                                 "export"])
 def test_clis_default_to_the_card_and_raise_without_one(monkeypatch,
                                                         tmp_path, cli):
-    """Both CLIs run on the card unless asked for the CPU (--device cuda by
+    """The CLIs run on the card unless asked for the CPU (--device cuda by
     default), and without a card their main() raises before it reads the
-    data: nothing falls back to the CPU."""
+    data (the image, the weights): nothing falls back to the CPU."""
     import importlib
     mod = importlib.import_module(
         f"medical_image_classification_tpu_torch.cli.{cli}")
-    args = mod.parse_args(["--data-path", str(tmp_path / "missing")])
+    missing = str(tmp_path / "missing")
+    argv = {"cam": ["--image", missing, "--weights", missing],
+            "export": ["--weights", missing]}
+    args = mod.parse_args(argv.get(cli, ["--data-path", missing]))
     assert args.device == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -123,12 +127,14 @@ def test_port_imports_no_jax():
     ("vfefm_2b2", "--depths 1,1 --dims 8,16 --headdim 4 --d-state 4 "
                   "--image-size 16")])
 def test_cli_mains_on_image_folder_import_no_jax(tmp_path, model, tiny):
-    """cli.train.main (one epoch, then its val pass) and cli.test.main on a
-    generated 3-class ImageFolder, in a fresh interpreter, with a tiny
-    ``model`` put in the registry: both run, and afterwards no module of
-    jax, flax, optax or the JAX package is loaded.  For vfefm_2b2 the
-    fusion CLIs' mains, cli.fusion_train (one epoch) and cli.fusion_test,
-    on generated CT/MRI pairs at the tiny options ``tiny``."""
+    """cli.train.main (one epoch, then its val pass), cli.test.main (top-1
+    and --all-index), cli.test_all_index.main, cli.cam.main (one image)
+    and cli.export.main (export, then --load) on a generated 3-class
+    ImageFolder, in a fresh interpreter, with a tiny ``model`` put in the
+    registry: all run, and afterwards no module of jax, flax, optax or the
+    JAX package is loaded.  For vfefm_2b2 the fusion CLIs' mains,
+    cli.fusion_train (one epoch) and cli.fusion_test, on generated CT/MRI
+    pairs at the tiny options ``tiny``."""
     if model == "vfefm_2b2":
         return _fusion_mains_import_no_jax(tmp_path, tiny.split())
     root = tmp_path / "oct"
@@ -150,7 +156,8 @@ def test_cli_mains_on_image_folder_import_no_jax(tmp_path, model, tiny):
         f"    kw.update({tiny})\n"
         "    return orig(num_classes, **kw)\n"
         f"r._REGISTRY[{model!r}] = tiny\n"
-        "from medical_image_classification_tpu_torch.cli import test, train\n"
+        "from medical_image_classification_tpu_torch.cli import (\n"
+        "    cam, export, test, test_all_index, train)\n"
         f"train.main(train.parse_args(['--data-path', {str(root / 'train')!r},"
         f" '--model', {model!r}, '--num-classes', '3', '--epochs', '1',"
         " '--batch-size', '4', '--image-size', '16', '--device', 'cpu',"
@@ -160,6 +167,24 @@ def test_cli_mains_on_image_folder_import_no_jax(tmp_path, model, tiny):
         f" '--weights', {str(save) + '.best'!r}, '--batch-size', '4',"
         " '--image-size', '16', '--device', 'cpu']))\n"
         "assert 0.0 <= acc <= 1.0, acc\n"
+        f"common = ['--model', {model!r}, '--num-classes', '3', "
+        f"'--weights', {str(save) + '.best'!r}, '--image-size', '16', "
+        "'--device', 'cpu']\n"
+        f"data = ['--data-path', {str(root / 'val')!r}, '--batch-size', '4']\n"
+        f"csv = {str(tmp_path / 'm.csv')!r}\n"
+        "m = test.main(test.parse_args(common + data + ['--all-index', "
+        "'--csv-out', csv]))\n"
+        "assert m == test.main(test_all_index.parse_args(common + data + "
+        "['--csv-out', csv])), m\n"
+        f"img = {str(root / 'val' / 'c' / '1.png')!r}\n"
+        f"heat = cam.main(cam.parse_args(common + ['--image', img, '--out', "
+        f"{str(tmp_path / 'cam.png')!r}]))\n"
+        "assert heat.shape == (16, 16), heat.shape\n"
+        f"pt2 = {str(tmp_path / 'm.pt2')!r}\n"
+        "export.main(export.parse_args(common + ['--batch-size', '2', "
+        "'--dtype', 'fp32', '--out', pt2]))\n"
+        "assert export.main(export.parse_args(['--load', pt2])).shape == "
+        "(2, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', "
         "'medical_image_classification_tpu'))\n"
