@@ -211,7 +211,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      those of the eager forward, its logits within 1e-3 x max|logit| of
      the eager module's (bit-identity printed), trace and save seconds and
      the .pt2 sizes.
-The model phases (3-35) also hold the v1 and calibration counters at 0.
+  36.-37. data and sequence parallelism, as 2 ranks (spawned processes)
+     that share the card over gloo (NCCL takes one rank a GPU), which
+     holds them to one process's numbers: correctness, not scaling.
+     36. DP: cli/ddp_train.py --auto-resume under torchrun on phase 33's
+     40 images (global batch 32, SGD, an epoch of one step, evaluated on
+     the same images; TF32 off) over 2 gloo ranks and over one rank on
+     the CLI's default NCCL backend, their epoch-0 checkpoints against
+     each other (PAR_STATS_TOL, PAR_ULP_FLOOR), rank 0's log lines once;
+     beside them, the ranks of the step functions: the seeded medmamba
+     (224x224, fp32) one step through make_train_step on each rank's rows
+     of 8 images: rows 1-2 40 + 40 launches on each rank, the ranks'
+     averaged gradients identical and within PARAM_GRAD_TOL of one
+     process's on the 8, the loss within 1e-5.  37. SP (the same ranks'
+     steps): medmamba and medssd at 256x256 (every stage's L divides by
+     2), fp32, batch 4, sp 2: each rank's launches (medmamba rows 1-2
+     20 + 20, pass 1 with want_state and pass 2 with init, their
+     backwards with dlast and dinit; medssd Y_diag 2 + 2 on the stage-0
+     shards, nothing else), the loss, logits and every parameter's
+     gradient against the unsharded model in this process; then, with
+     the card to itself, each pass's device ms at medmamba's stage-0
+     shard beside its bound.  Each prints its seconds.
+The model phases (3-37) also hold the v1 and calibration counters at 0.
 Then one JSON line describing the fifteen kernels (launches in the training
 runs, in the bench's runs for v1 and the calibration; errors, times, the
 bound of each from this run's shapes; times and bounds at stage 0 in bf16,
@@ -222,7 +243,9 @@ launches per train step of each CrossMamba model under "crossmamba";
 rows 1-2 also FusionMamba's launches per train step and their stage-0 K 4
 case under "fusionmamba"; the rows the evaluation tools reach also their
 launches per grad_cam call and per loaded export's forward under
-"eval_tools"), the card's name
+"eval_tools"; rows 1-2 their launches a rank makes in a DP step and
+in an SP step, by state flag, with the passes' ms under "dp" / "sp",
+rows 7/7b medssd's SP launches under "sp"), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -2258,14 +2281,15 @@ def _perturb_scan_params(model, gen):
                     1.0, 16.0, generator=gen).log())
 
 
-def _model(name, dtype, scan_impl, state_dict=None):
+def _model(name, dtype, scan_impl, state_dict=None, **kw):
     """Seeded ``name`` on the card, in eval mode; without ``state_dict``
-    its scan parameters are drawn away from init."""
+    its scan parameters are drawn away from init.  ``kw`` goes to
+    create_model (``seq_axis``: the same weights, L-sharded scans)."""
     import torch
     from medical_image_classification_tpu_torch.models import create_model
     gen = torch.Generator().manual_seed(0)
     model = create_model(name, CLASSES, dtype=dtype, scan_impl=scan_impl,
-                         generator=gen)
+                         generator=gen, **kw)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:
@@ -4329,15 +4353,36 @@ def phase_export(card, num):
     nothing of the models (a module outside cli.export and kernels fails):
     its one forward launches what the eager forward launches, and its
     logits lie within EXPORT_TOL x max|logit| of the eager module's on the
-    same seeded batch (whether the bits are identical is printed).  The
-    three programs hold all six forward ops; trace and save seconds and the
-    .pt2 sizes."""
+    same seeded batch (whether the bits are identical is printed); each
+    load runs while the next program is exported.  The three programs hold
+    all six forward ops; trace and save seconds and the .pt2 sizes."""
+    from medical_image_classification_tpu_torch.kernels import ops
+    counters = _counters()
+    runs, texts, seen, pending = {}, [], set(), []
+    try:
+        _export_cases(counters, runs, texts, seen, pending)
+    finally:
+        for *_, proc in pending:       # a failed phase stops its loaders
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    every = {f"{ops.NAMESPACE}::{op._name}" for op in ops.OPS}
+    if seen != every:
+        raise AssertionError(f"the programs hold {sorted(seen)}, not every "
+                             f"op of {sorted(every)}")
+    print(f"phase {num} cli/export.py b{EXPORT_BATCH} bf16, all six ops in "
+          "the programs: " + " | ".join(texts) + f" | on {card}",
+          flush=True)
+    return runs
+
+
+def _export_cases(counters, runs, texts, seen, pending):
+    """phase_export's cases: export, check and load each program, filling
+    ``runs``, ``texts``, ``seen`` and ``pending`` (the loaders started)."""
     import numpy as np
     import torch
     from medical_image_classification_tpu_torch.cli import export
     from medical_image_classification_tpu_torch.kernels import ops
-    counters = _counters()
-    runs, texts, seen = {}, [], set()
     for name, size in EXPORT_CASES:
         calls = _path(name, size)[0]
         weights = os.path.join(EVAL_DIR, f"{name}_{size}_bf16.pt")
@@ -4367,16 +4412,25 @@ def phase_export(card, num):
         launched = _check_launches(f"{name} {size} eager", counters, want)
         del serve
         npy = pt2 + ".logits.npy"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", _LOAD_CODE, pt2, npy],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600)
+        # the fresh interpreter loads and runs the program while this one
+        # exports the next (its output to files: a pipe could fill)
+        with open(pt2 + ".out", "w") as out, open(pt2 + ".err", "w") as err:
+            pending.append((name, size, pt2, npy, eager, want, launched,
+                            stats, time.perf_counter(), subprocess.Popen(
+                                [sys.executable, "-c", _LOAD_CODE, pt2, npy],
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)), stdout=out, stderr=err)))
+    for (name, size, pt2, npy, eager, want, launched, stats, t0,
+         proc) in pending:
+        proc.wait(timeout=600)
         load_s = time.perf_counter() - t0
+        with open(pt2 + ".out") as f:
+            stdout = f.read()
         if proc.returncode != 0:
-            raise AssertionError(f"loading {pt2} in a fresh interpreter "
-                                 f"failed: {proc.stderr[-3000:]}")
-        r = json.loads(proc.stdout.strip().splitlines()[-1])
+            with open(pt2 + ".err") as f:
+                raise AssertionError(f"loading {pt2} in a fresh interpreter "
+                                     f"failed: {f.read()[-3000:]}")
+        r = json.loads(stdout.strip().splitlines()[-1])
         outside = [m for m in r["modules"] if m.split(".")[0] not in
                    ("cli", "kernels") or m.startswith("cli.")
                    and m != "cli.export"]
@@ -4401,17 +4455,512 @@ def phase_export(card, num):
         texts.append(
             f"{name} {size}x{size}: trace {stats['trace_s']:.2f} s, save "
             f"{stats['save_s']:.2f} s, {stats['bytes'] / 2 ** 20:.1f} MiB; "
-            f"loaded in a fresh python3 ({load_s:.2f} s with the start), "
-            f"launches {launched} as eager, logits max err {err:.3e} (tol "
-            f"{EXPORT_TOL} x {scale:.3f}), bit-identical {same}")
-    every = {f"{ops.NAMESPACE}::{op._name}" for op in ops.OPS}
-    if seen != every:
-        raise AssertionError(f"the programs hold {sorted(seen)}, not every "
-                             f"op of {sorted(every)}")
-    print(f"phase {num} cli/export.py b{EXPORT_BATCH} bf16, all six ops in "
-          "the programs: " + " | ".join(texts) + f" | on {card}",
-          flush=True)
-    return runs
+            f"loaded in a fresh python3 ({load_s:.2f} s with the start, "
+            f"beside the next export), launches {launched} as eager, logits "
+            f"max err {err:.3e} (tol {EXPORT_TOL} x {scale:.3f}), "
+            f"bit-identical {same}")
+
+
+# Data and sequence parallelism (phases 36-37).  The card machine has one
+# H100 and NCCL takes one rank a GPU, so the parallel phases run 2 ranks
+# that share the card over gloo: they hold the parallel paths to one
+# process's numbers (correctness, not scaling).  DP: the seeded medmamba at
+# SIZE in fp32, DP_BATCH images a step split over DP_RANKS ranks through the
+# step functions, beside cli/ddp_train.py on EVAL_DIR's images at BATCH,
+# an epoch, against one rank of the CLI's default NCCL backend.  SP (the
+# same ranks): medmamba and medssd at SP_SIZE (every stage's L divides by
+# 2), GRAD_BATCH images, fp32, sp SP_RANKS.  Files under PAR_DIR
+PAR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_parallel")
+DP_RANKS, DP_BATCH = 2, 8
+SP_RANKS, SP_SIZE = 2, 256
+# the forward kernels a rank launches in one SP train step at SP_SIZE, as
+# often as their backward: each SS2D scans its L-shard twice (pass 1 from
+# zero with want_state, pass 2 with init; 10 blocks), medssd's stage-0
+# shards take Y_diag (tests/test_torch_kernel_reach.py SP_SITES)
+SP_PATHS = {"medmamba": {"selective_scan_fwd": 2 * 10},
+            "medssd": {"ssd_ydiag_fwd": 2}}
+# the CLI runs: SGD (whose update is the gradient's; Adam's would turn the
+# fp32 noise on a zero gradient into a step of lr), an epoch of one step
+PAR_CLI_ARGS = ("--model", "medmamba", "--optimizer", "sgd", "--lr", "0.05",
+                "--num-workers", "4", "--log-every", "1")
+PAR_CLI_TIMEOUT = 600
+# a checkpoint's BatchNorm running stats against one process's: rel-norm
+# within PAR_STATS_TOL (the ranks' own batch statistics would land O(1e-2)
+# away on images whose halves differ)
+PAR_STATS_TOL = 1e-4
+# fp32's rounding of a weight after a step, as a share of the weight's
+# norm, that a checkpoint comparison allows beyond the update's tolerance
+PAR_ULP_FLOOR = 1e-6
+
+
+def _rank_main(rank, world, task, rdv, out):
+    """One rank of a parallel phase, on the card, in a spawned process:
+    joins the gloo group through ``rdv``, runs the task, saves its result
+    to ``out``_<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+    from medical_image_classification_tpu_torch.parallel.mesh import (
+        init_process_group)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_process_group("gloo", "cuda:0", rank=rank, world_size=world,
+                       init_method="file://" + rdv)
+    try:
+        result = ({"dp": _dp_rank(world), "sp": _sp_rank(world)}
+                  if task == "par" else _sp_rank(world))
+        torch.save(result, f"{out}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(task, world):
+    """``world`` ranks of ``task`` (spawned processes that share the card);
+    their results, rank by rank.  A rank that raises fails the phase."""
+    import torch
+    os.makedirs(PAR_DIR, exist_ok=True)
+    rdv, out = (os.path.join(PAR_DIR, f"{task}_{s}") for s in ("rdv", "out"))
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()       # the ranks share the card's memory
+    torch.multiprocessing.start_processes(
+        _rank_main, args=(world, task, rdv, out), nprocs=world,
+        start_method="spawn")
+    return [torch.load(f"{out}_{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _dp_step(rank, dp):
+    """One step of the seeded medmamba (fp32) through make_train_step on
+    the rows rank::dp of the DP batch (SGD at lr 0: the gradients stay and
+    the weights do not move; cuDNN's deterministic algorithms): the loss,
+    every parameter's gradient (after the data axis's mean) and the
+    kernels' launches."""
+    import torch
+    from medical_image_classification_tpu_torch.data.loader import (
+        SyntheticLoader)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        make_train_step)
+    imgs, labels = next(SyntheticLoader(DP_BATCH, SIZE, CLASSES, steps=1,
+                                        seed=3).epoch(0))
+    dev = torch.device("cuda")
+    with _cudnn_deterministic():
+        model = _model("medmamba", None, "auto")
+        model.seed_drop_path(7)
+        opt = make_optimizer("sgd", model.named_parameters())
+        step = make_train_step(model, opt, make_lr_scheduler(
+            opt, make_schedule("constant", 0.0)))
+        counters = _counters()
+        _zero(counters)
+        m = step(torch.from_numpy(imgs[rank::dp]).to(dev),
+                 torch.from_numpy(labels[rank::dp]).long().to(dev))
+        torch.cuda.synchronize()
+        launches = _launches(counters)
+    return dict(loss=float(m["loss"]), launches=launches,
+                grads={n: p.grad.detach().double().flatten().cpu()
+                       for n, p in model.named_parameters()})
+
+
+def _dp_rank(world):
+    from medical_image_classification_tpu_torch.parallel.mesh import (
+        make_mesh, set_current_mesh)
+    mesh = make_mesh(batch_size=DP_BATCH)
+    try:
+        return _dp_step(mesh.data_index, mesh.dp)
+    finally:
+        set_current_mesh(None)
+
+
+@contextlib.contextmanager
+def _scan_flag_spy():
+    """Counts of the scan kernels' launches by state flag inside the
+    block: forward with want_state and with init, backward with dlast and
+    with dinit."""
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_bwd as ssb, selective_scan_fwd as ssf)
+    flags = dict(fwd_want_state=0, fwd_init=0, bwd_dlast=0, bwd_dinit=0)
+    fwd, bwd = ssf._launch_cuda, ssb._launch_cuda
+
+    def spy_fwd(*a, want_state=False, init=None, **k):
+        flags["fwd_want_state"] += bool(want_state)
+        flags["fwd_init"] += init is not None
+        return fwd(*a, want_state=want_state, init=init, **k)
+
+    def spy_bwd(*a, dlast=None, want_dinit=False, **k):
+        flags["bwd_dlast"] += dlast is not None
+        flags["bwd_dinit"] += bool(want_dinit)
+        return bwd(*a, dlast=dlast, want_dinit=want_dinit, **k)
+
+    ssf._launch_cuda, ssb._launch_cuda = spy_fwd, spy_bwd
+    try:
+        yield flags
+    finally:
+        ssf._launch_cuda, ssb._launch_cuda = fwd, bwd
+
+
+def _sp_step(name, seq):
+    """One fp32 train-mode forward and backward of the seeded ``name`` at
+    SP_SIZE on GRAD_BATCH images (cuDNN's deterministic algorithms), its
+    scans L-sharded over the current mesh's seq axis with ``seq``: the
+    loss, the logits, every parameter's gradient, the kernels' launches
+    and the scan's by flag, and the step's wall seconds."""
+    import torch
+    from medical_image_classification_tpu_torch.data.image_folder import (
+        normalize_batch)
+    from medical_image_classification_tpu_torch.data.loader import (
+        SyntheticLoader)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        cross_entropy_loss)
+    imgs, labels = next(SyntheticLoader(GRAD_BATCH, SP_SIZE, CLASSES,
+                                        steps=1, seed=4).epoch(0))
+    dev = torch.device("cuda")
+    imgs = torch.from_numpy(imgs).to(dev)
+    labels = torch.from_numpy(labels).long().to(dev)
+    with _cudnn_deterministic():
+        model = _model(name, None, "auto",
+                       **({"seq_axis": "seq"} if seq else {})).train()
+        model.seed_drop_path(7)
+        counters = _counters()
+        _zero(counters)
+        with _scan_flag_spy() as flags:
+            t0 = time.perf_counter()
+            logits = model(normalize_batch(imgs))
+            loss = cross_entropy_loss(logits, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = _launches(counters)
+    return dict(loss=float(loss.detach()), logits=logits.detach().cpu(),
+                launches=launches, flags=flags, seconds=seconds,
+                grads={n: p.grad.detach().double().flatten().cpu()
+                       for n, p in model.named_parameters()})
+
+
+def _sp_pass_ms():
+    """Device ms of the two passes at medmamba's stage-0 shard (G
+    GRAD_BATCH x 4, L / SP_RANKS, Dm 96, N 16, fp32) from CUDA events over
+    20 calls after a warm-up:
+    pass 1's forward (want_state) and backward (dlast), pass 2's forward
+    (init) and backward (dinit); and the unsharded scan's at the whole L;
+    each beside its bound (``_scan_bound``)."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_bwd as ssb, selective_scan_fwd as ssf)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    L0, Dm = (SP_SIZE // 4) ** 2, 96
+    out = {}
+    for what, L in (("shard", L0 // SP_RANKS), ("unsharded", L0)):
+        G = 4 * GRAD_BATCH
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+        u, delta, B, C, dy = (rnd(G, L, Dm), 0.5 * rnd(G, L, Dm),
+                              rnd(G, L, N), rnd(G, L, N), rnd(G, L, Dm))
+        A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32
+                          ).expand(4, Dm, N).contiguous()
+        D, bias = rnd(4, Dm), 0.1 * rnd(4, Dm)
+        init = rnd(G, N, Dm)
+        args = (u, delta, A, B, C, D, bias)
+        _, xsave, _ = ssf._launch_cuda(*args, False, True, want_xsave=True,
+                                       want_state=True)
+        fwd = lambda **k: ssf._launch_cuda(*args, False, True, **k)
+        bwd = lambda **k: ssb._launch_cuda(*args, xsave, dy, False, True,
+                                           **k)
+        calls = ({"pass1_fwd": lambda: fwd(want_state=True),
+                  "pass2_fwd": lambda: fwd(init=init),
+                  "pass1_bwd": lambda: bwd(dlast=init),
+                  "pass2_bwd": lambda: bwd(want_dinit=True)}
+                 if what == "shard" else
+                 {"unsharded_fwd": fwd, "unsharded_bwd": bwd})
+        for key, fn in calls.items():
+            fn()                                        # warm-up
+            out[key + "_ms"] = _events_ms(fn, 20)
+    # each call's bound (the passes' with the state flags' bytes)
+    for key, L, backward, flags in (
+            ("pass_fwd", L0 // SP_RANKS, False, True),
+            ("pass_bwd", L0 // SP_RANKS, True, True),
+            ("unsharded_fwd", L0, False, False),
+            ("unsharded_bwd", L0, True, False)):
+        out[key + "_bound_ms"] = _scan_bound(L, Dm, "fp32", backward,
+                                             g=4 * GRAD_BATCH,
+                                             flags=flags)[0]
+    return out
+
+
+def _sp_rank(world):
+    from medical_image_classification_tpu_torch.parallel.mesh import (
+        make_mesh, set_current_mesh)
+    make_mesh(sp=world)
+    try:
+        return {name: _sp_step(name, True) for name in SP_PATHS}
+    finally:
+        set_current_mesh(None)
+
+
+def _torchrun(nproc, args, log):
+    """Start cli/ddp_train.py under torchrun (``nproc`` ranks on this
+    host), its output to ``log``; ``_torchrun_wait`` ends it."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", "-m",
+           "medical_image_classification_tpu_torch.cli.ddp_train", *args]
+    # fp32 without TF32 (the CLIs leave cuDNN's default, TF32 convolutions,
+    # whose rounding differs between batch sizes by more than the
+    # comparison's tolerance)
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True,
+                                cwd=os.path.dirname(
+                                    os.path.abspath(__file__)))
+    return proc, log, time.perf_counter()
+
+
+def _torchrun_kill(run):
+    """Stop a ``_torchrun``, its ranks too (its own session: a failed
+    phase stops what it started)."""
+    import signal
+    proc = run[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _torchrun_wait(run):
+    """Wait for a ``_torchrun``; raises with the log's tail unless every
+    rank exited 0 within PAR_CLI_TIMEOUT (the job is killed then).
+    Returns its wall seconds."""
+    proc, log, t0 = run
+    try:
+        code = proc.wait(timeout=PAR_CLI_TIMEOUT)
+    finally:
+        _torchrun_kill(run)
+    if code:
+        with open(log) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"{' '.join(proc.args)} exited {code}:\n"
+                             f"{tail}")
+    return time.perf_counter() - t0
+
+
+def _same_checkpoint(got, want, init, what):
+    """Two composite checkpoints of SGD runs from the weights ``init``: the
+    step equal; each parameter leaf within PARAM_GRAD_TOL's rel-norm of
+    one process's update (weight - init), plus PAR_ULP_FLOOR of the weight
+    (fp32 rounds each weight after each step: the update cannot be read
+    back to better than that) and lr x steps x PARAM_GRAD_TOL's abs floor
+    (the gradient's floor through SGD: a conv bias that feeds a BatchNorm
+    has a true gradient of 0 and moves by its fp32 noise); the BatchNorm
+    running stats within PAR_STATS_TOL rel-norm.  Returns the worst (error
+    / update over the leaves beyond the floors, running-stat rel-norm)."""
+    import torch
+    if got["step"] != want["step"]:
+        raise AssertionError(f"{what}: step {got['step']}, one process "
+                             f"{want['step']}")
+    lr = float(PAR_CLI_ARGS[PAR_CLI_ARGS.index("--lr") + 1])
+    abs_floor = lr * want["step"] * PARAM_GRAD_TOL[2]
+    worst, worst_stats = 0.0, 0.0
+    for k, w in want["model"].items():
+        g = got["model"][k]
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what} {k}: {g} vs {w}")
+            continue
+        err = float((g - w).double().norm())
+        if k in init:
+            upd = float((w - init[k]).double().norm())
+            floor = PAR_ULP_FLOOR * float(w.double().norm()) + abs_floor
+            if err > floor:
+                worst = max(worst, err / (upd + 1e-30))
+            if err > PARAM_GRAD_TOL[0] * upd + floor:
+                raise AssertionError(
+                    f"{what} {k}: |DP - one process| {err:.3e}, one "
+                    f"process's update {upd:.3e} (tol {PARAM_GRAD_TOL[0]} "
+                    f"x update + {floor:.3e})")
+            continue
+        r = err / float(w.double().norm())
+        worst_stats = max(worst_stats, r)
+        if r > PAR_STATS_TOL:
+            raise AssertionError(f"{what} {k}: rel-norm {r:.3e} from one "
+                                 f"process (tol {PAR_STATS_TOL})")
+    return worst, worst_stats
+
+
+def phase_dp(card, num):
+    """Data parallelism on the card: DP_RANKS ranks that share it over
+    gloo.  cli/ddp_train.py under torchrun starts first, on EVAL_DIR's 40
+    images, global batch BATCH (a step an epoch), --auto-resume, evaluated
+    on the same images, over the gloo ranks and over one rank on the CLI's
+    default NCCL backend (one process on the global batch).  Beside them,
+    the ranks of the step functions (``_spawn("par")``, which also take
+    phase_sp's steps): one step of the seeded full-width medmamba (fp32,
+    224x224) through make_train_step on each rank's rows of DP_BATCH
+    images: rows 1-2 launched 40 + 40 times on each rank, every other
+    kernel none; the ranks' averaged gradients identical, and against one
+    process's on the whole batch every parameter's within PARAM_GRAD_TOL,
+    the loss (the data axis's mean) within 1e-5.  Then the CLIs' epoch-0
+    checkpoints against each other: the weights within PARAM_GRAD_TOL's
+    rel-norm of one process's update (and fp32's rounding), the running
+    stats within PAR_STATS_TOL; rank 0 alone logs."""
+    import torch
+    import shutil
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()       # the CLIs' ranks share the card's memory
+    root = os.path.join(EVAL_DIR, "oct")
+    if not os.path.isdir(root):
+        _eval_folder(root, ALL_INDEX_PER_CLASS, 0)
+    common = ["--data-path", root, "--num-classes", str(CLASSES),
+              "--batch-size", str(BATCH), "--image-size", str(SIZE),
+              "--epochs", "1", *PAR_CLI_ARGS]
+    for sub in ("dp", "one"):
+        shutil.rmtree(os.path.join(PAR_DIR, sub), ignore_errors=True)
+        os.makedirs(os.path.join(PAR_DIR, sub))
+    save = {s: os.path.join(PAR_DIR, s, "m.ckpt") for s in ("dp", "one")}
+    # the CLIs run beside the step functions' ranks (all on the card at
+    # once: their seconds are wall seconds under that load)
+    started = {
+        "dp": _torchrun(DP_RANKS, common + [
+            "--val-path", root, "--save-path", save["dp"], "--auto-resume",
+            "--dist-backend", "gloo"], os.path.join(PAR_DIR, "dp.log")),
+        "nccl 1 rank": _torchrun(1, common + ["--save-path", save["one"]],
+                                 os.path.join(PAR_DIR, "one.log"))}
+    try:
+        ranks = _spawn("par", DP_RANKS)
+        one = _dp_step(0, 1)
+    except BaseException:
+        for r in started.values():
+            _torchrun_kill(r)
+        raise
+    _PAR_RANKS[:] = [r["sp"] for r in ranks]      # phase_sp's
+    ranks = [r["dp"] for r in ranks]
+    want = _want(_path("medmamba")[0], 1, True)
+    for r, out in enumerate(ranks):
+        if out["launches"] != want:
+            raise AssertionError(f"DP rank {r}: kernel launches "
+                                 f"{out['launches']}, expected {want}")
+        if abs(out["loss"] - one["loss"]) > 1e-5 * abs(one["loss"]):
+            raise AssertionError(f"DP rank {r} loss {out['loss']} vs one "
+                                 f"process {one['loss']}")
+        if any(not torch.equal(g, ranks[0]["grads"][n])
+               for n, g in out["grads"].items()):
+            raise AssertionError(f"DP rank {r}'s gradients are not rank "
+                                 f"0's")
+    rel, cos = _check_grad_tree("DP param grad", ranks[0]["grads"],
+                                one["grads"], *PARAM_GRAD_TOL)
+    runs = {k: _torchrun_wait(r) for k, r in started.items()}
+    with open(os.path.join(PAR_DIR, "dp", "train.log")) as f:
+        log = f.read()
+    for line in ("mesh {'data': 2, 'model': 1, 'seq': 1}", "epoch 0 done",
+                 "epoch 0 val top-1"):
+        if log.count(line) != 1:
+            raise AssertionError(f"the DP run's train.log holds {line!r} "
+                                 f"{log.count(line)} times, expected once")
+    ckpt = lambda s: torch.load(os.path.join(save[s], "epoch_0.pt"),
+                                map_location="cpu", weights_only=True)
+    from medical_image_classification_tpu_torch.models import create_model
+    init = dict(create_model("medmamba", CLASSES, generator=torch.Generator()
+                             .manual_seed(0)).named_parameters())
+    init = {n: p.detach() for n, p in init.items()}
+    worst = _same_checkpoint(ckpt("dp"), ckpt("one"), init, "DP CLI")
+    seconds = time.perf_counter() - t0
+    print(f"phase {num} data parallelism, {DP_RANKS} ranks sharing the card "
+          f"over gloo (correctness, not scaling) | medmamba {SIZE}x{SIZE} "
+          f"fp32, {DP_BATCH} images over {DP_RANKS} ranks through "
+          f"make_train_step: launches on each rank "
+          + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+          + f", the other kernels none; loss {ranks[0]['loss']:.6f} vs one "
+          f"process {one['loss']:.6f}; averaged gradients identical on the "
+          f"ranks, against one process worst leaf rel-norm {rel:.2e} cos "
+          f"{cos:.6f} (tol {PARAM_GRAD_TOL}) | cli/ddp_train.py --auto-resume "
+          f"on {CLASSES * ALL_INDEX_PER_CLASS} images, global batch {BATCH}, "
+          f"SGD, an epoch (wall s from each start to its wait, beside the "
+          f"step functions): {DP_RANKS} gloo ranks {runs['dp']:.1f} s, one "
+          f"NCCL rank {runs['nccl 1 rank']:.1f} s; weights within "
+          f"{worst[0]:.2e} of one process's update at worst (tol "
+          f"{PARAM_GRAD_TOL[0]} + {PAR_ULP_FLOOR} of the weight), running "
+          f"stats worst rel-norm {worst[1]:.2e} (tol {PAR_STATS_TOL}); rank 0 "
+          f"alone logged | {seconds:.1f} s on {card}", flush=True)
+    return dict(launches_per_rank=ranks[0]["launches"], loss=ranks[0]["loss"],
+                one_loss=one["loss"], grad_rel=rel, grad_cos=cos,
+                cli_seconds=runs, ckpt_update_rel=worst[0],
+                ckpt_stats_rel=worst[1], seconds=seconds)
+
+
+# the SP ranks' results of phase_dp's spawn, which phase_sp takes
+_PAR_RANKS = []
+
+
+def phase_sp(card, num):
+    """Sequence parallelism on the card: SP_RANKS ranks that share it over
+    gloo, each L-shard's scan on the kernels (the ranks of phase_dp's
+    spawn, or its own).  medmamba and medssd at SP_SIZE, fp32, one
+    train-mode forward and backward on GRAD_BATCH images, against the
+    unsharded model in this process on the same weights and images: the
+    loss within 1e-5, the logits within LOGIT_TOL, every parameter's
+    gradient within PARAM_GRAD_TOL; on each rank the launches SP_PATHS says
+    (medmamba: rows 1-2 20 + 20, half of the forwards with want_state and
+    half with init, half of the backwards with dlast and half with dinit;
+    medssd: Y_diag 2 + 2 on the stage-0 shards), every other kernel none.
+    The passes' device ms are ``phase_sp_passes``'."""
+    t0 = time.perf_counter()
+    ranks = list(_PAR_RANKS) or _spawn("sp", SP_RANKS)
+    _PAR_RANKS.clear()
+    parts, out = [], {}
+    for name, calls in SP_PATHS.items():
+        ref = _sp_step(name, False)
+        want = _want(calls, 1, True)
+        n = calls.get("selective_scan_fwd", 0) // 2
+        want_flags = dict(fwd_want_state=n, fwd_init=n, bwd_dlast=n,
+                          bwd_dinit=n)
+        for r, res in enumerate(ranks):
+            got = res[name]
+            if got["launches"] != want or got["flags"] != want_flags:
+                raise AssertionError(
+                    f"SP {name} rank {r}: launches {got['launches']}, by "
+                    f"flag {got['flags']}; expected {want}, {want_flags}")
+            if abs(got["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+                raise AssertionError(f"SP {name} rank {r} loss "
+                                     f"{got['loss']} vs {ref['loss']}")
+            _check_logits(f"SP {name} rank {r}", got["logits"].numpy(),
+                          ref["logits"].numpy(), LOGIT_TOL["fp32"])
+            rel, cos = _check_grad_tree(f"SP {name} rank {r} param grad",
+                                        got["grads"], ref["grads"],
+                                        *PARAM_GRAD_TOL)
+        out[name] = dict(launches_per_rank=got["launches"],
+                         flags=got["flags"], loss=got["loss"],
+                         ref_loss=ref["loss"], grad_rel=rel, grad_cos=cos,
+                         seconds=got["seconds"], ref_seconds=ref["seconds"])
+        parts.append(
+            f"{name}: launches on each rank "
+            + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+            + (f" (forward {n} with want_state + {n} with init, backward "
+               f"{n} with dlast + {n} with dinit)" if n else "")
+            + f", the other kernels none; loss {got['loss']:.6f} vs "
+            f"unsharded {ref['loss']:.6f}, logits within "
+            f"{LOGIT_TOL['fp32']}, worst gradient leaf rel-norm {rel:.2e} "
+            f"cos {cos:.6f} (tol {PARAM_GRAD_TOL}); step {got['seconds']:.3f}"
+            f" s on a rank, {ref['seconds']:.3f} s unsharded")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase {num} sequence parallelism, sp {SP_RANKS} as ranks "
+          f"sharing the card over gloo (correctness, not scaling), "
+          f"{SP_SIZE}x{SP_SIZE} fp32, batch {GRAD_BATCH} | "
+          + " | ".join(parts) + f" | {out['seconds']:.1f} s here (the "
+          f"ranks' steps ran in phase 36's spawn) on {card}", flush=True)
+    return out
+
+
+def phase_sp_passes(card, num):
+    """The SP scan's passes on the card alone (after the parallel phases:
+    nothing else runs on it), ``_sp_pass_ms``; printed and returned."""
+    passes = _sp_pass_ms()
+    print(f"phase {num} SP scan passes at medmamba's stage-0 shard (G "
+          f"{4 * GRAD_BATCH}, L {(SP_SIZE // 4) ** 2 // SP_RANKS}, Dm 96, "
+          f"fp32, CUDA events), ms: "
+          + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in passes.items())
+          + f" on {card}", flush=True)
+    return passes
 
 
 def _entry(name, replaces, cases, launches, head, bound):
@@ -4437,39 +4986,76 @@ def main(argv=None):
                    help="write the per-case numbers here as JSON")
     args = p.parse_args(argv)
 
+    seconds, clock = {}, [time.perf_counter()]
+
+    def lap(key):
+        # the wall seconds of phase ``key``: since the last lap
+        now = time.perf_counter()
+        seconds[key], clock[0] = round(now - clock[0], 1), now
+
     card = phase_device_and_build()
+    lap("1")
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cases = phase_kernel_vs_plain()
+    lap("2")
     bwd = phase_bwd_vs_plain()
+    lap("2b")
     ssd_cases = phase_ssd_fwd_vs_plain()
+    lap("2c")
     ssd_bwd = phase_ssd_bwd_vs_plain()
+    lap("2d")
     yd_cases = phase_ydiag_vs_plain()
+    lap("2e")
     stl_cases = phase_stl_vs_plain()
+    lap("2f")
     stf_cases = phase_stf_vs_plain()
+    lap("2g")
     yd_bwd = phase_ydiag_bwd_vs_plain()
+    lap("2h")
     stl_bwd = phase_stl_bwd_vs_plain()
+    lap("2i")
     stf_bwd = phase_stf_bwd_vs_plain()
+    lap("2j")
     fused_cases = phase_fused_fwd_vs_plain()
+    lap("2k")
     fused_bwd = phase_fused_bwd_vs_plain()
+    lap("2l")
     flag_cases = phase_scan_fwd_flags()
+    lap("2m")
     flag_bwd = phase_scan_bwd_flags()
+    lap("2n")
     v1_cases = phase_v1_fwd_vs_plain()
+    lap("2o")
     v1_bwd = phase_v1_bwd_vs_plain()
+    lap("2p")
     calib_cases = phase_calib_vs_plain()
+    lap("2q")
     ssd16_paths = phase_ssd16_paths()
+    lap("2r")
     full = phase_full_model(card, "medmamba", 3)
+    lap("3")
     train = phase_train(card, "medmamba", 4)
+    lap("4")
     ssd_full = phase_full_model(card, "medssd", 5)
+    lap("5")
     ssd_train = phase_train(card, "medssd", 6)
+    lap("6")
     st_full = phase_full_model(card, "st_ssd", 7)
+    lap("7")
     st_train = phase_train(card, "st_ssd", 8)
+    lap("8")
     ssd240_full = phase_full_model(card, "medssd", 9, MEDSSD_240)
+    lap("9")
     ssd240_train = phase_train(card, "medssd", 10, MEDSSD_240)
+    lap("10")
     lm = phase_lm_scoring(card)
+    lap("11")
     lm_gen = phase_lm_generate(card)
+    lap("12")
     bench = phase_kernel_bench(card)
+    lap("13")
     # the SSD models at d_state 16: two through the full eval and training
     # phases, the other seven one forward and one step each, the two
     # re-gridding heads once on the card
@@ -4477,29 +5063,47 @@ def main(argv=None):
     for name in SSD16_FULL:
         ssd16[name] = dict(eval=phase_full_model(card, name, num),
                            train=phase_train(card, name, num + 1))
+        lap(f"{num}-{num + 1}")
         num += 2
     for name in SSD16_STEP:
         ssd16[name] = phase_model_step(card, name, num)
+        lap(str(num))
         num += 1
     for name in SSD16_REGRID:
         ssd16[name + " regrid"] = phase_kan_regrid(card, name, num)
+        lap(str(num))
         num += 1
     # the CrossMamba family: cross_cls_stage3 through full eval and
     # training, the other two classifiers a forward and a step each, the
     # fusion U-Nets through their CLIs
     cross = {CROSS_FULL: phase_cross_full(card, CROSS_FULL, num)}
+    lap(str(num))
     num += 1
     for name in CROSS_STEP:
         cross[name] = phase_cross_step(card, name, num)
+        lap(str(num))
         num += 1
     cross["vfefm_2b2"] = phase_vfefm(card, num)
+    lap(str(num))
     cross["vfefm_2c1"] = phase_vfefm_2c1(card, num + 1)
+    lap(str(num + 1))
     # FusionMamba through its CLI: the scan pair at K 4
     fm = phase_fusionmamba(card, num + 2)
+    lap(str(num + 2))
     # the evaluation tools: --all-index, Grad-CAM, export
     all_index = phase_all_index(card, num + 3)
+    lap(str(num + 3))
     cam = phase_grad_cam(card, num + 4)
+    lap(str(num + 4))
     exported = phase_export(card, num + 5)
+    lap(str(num + 5))
+    # data and sequence parallelism: ranks that share the card over gloo
+    dp = phase_dp(card, num + 6)
+    lap(str(num + 6))
+    sp = phase_sp(card, num + 7)
+    lap(str(num + 7))
+    sp["passes"] = phase_sp_passes(card, num + 7)
+    lap(str(num + 7) + " passes")
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -4640,6 +5244,26 @@ def main(argv=None):
                       if e["name"] in r["launches"]})
         if tools:
             e["eval_tools"] = tools
+    # rows 1-2 under DP (a rank's launches in one step) and SP (a rank's
+    # launches in one medmamba step, by state flag, and the passes' ms);
+    # rows 7/7b under SP (medssd's stage-0 shards)
+    for e, key in ((entries[0], "selective_scan_fwd"),
+                   (entries[1], "selective_scan_bwd")):
+        flags = {k: v for k, v in sp["medmamba"]["flags"].items()
+                 if k.startswith(key[-3:])}
+        e["dp"] = dict(ranks=DP_RANKS, model="medmamba", size=SIZE,
+                       batch=DP_BATCH,
+                       launches_per_rank_step=dp["launches_per_rank"][key])
+        e["sp"] = dict(ranks=SP_RANKS, model="medmamba", size=SP_SIZE,
+                       batch=GRAD_BATCH, launches_per_rank_step=sp[
+                           "medmamba"]["launches_per_rank"][key],
+                       by_flag=flags, passes_ms={
+                           k: v for k, v in sp["passes"].items()
+                           if key[-3:] in k})
+    for name in ("ssd_ydiag_fwd", "ssd_ydiag_bwd"):
+        next(e for e in entries if e["name"] == name)["sp"] = dict(
+            ranks=SP_RANKS, model="medssd", size=SP_SIZE, batch=GRAD_BATCH,
+            launches_per_rank_step=sp["medssd"]["launches_per_rank"][name])
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)
@@ -4696,8 +5320,11 @@ def main(argv=None):
                            ssd16_paths=ssd16_paths, ssd16_models=ssd16,
                            crossmamba=cross, fusionmamba=fm,
                            all_index=all_index, grad_cam=cam,
-                           export=exported),
+                           export=exported, dp=dp, sp=sp,
+                           phase_seconds=seconds),
                       f, indent=1)
+    print(f"phase seconds (wall, each phase with its checks): {seconds}",
+          flush=True)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,23 @@ BatchNorm stat moves and Adam's state stays with its parameters; the grids
 are buffers, saved in the checkpoint and restored by ``--resume``.  The
 other heads and the in-block KANs take no re-grid, as in the JAX package.
 
-Not ported yet: data parallelism (``cli/ddp_train.py``), ``--tp`` and
-``--sp``.
+Parallel training (the JAX CLI's mesh): launched under torchrun, every
+process is a rank of a (dp, tp, sp) mesh over the job (``parallel/
+mesh.py``; ``--dist-backend`` nccl by default, one rank a GPU, or gloo).
+Each rank trains on ``--batch-size`` // dp images a step, its data rank's
+strided shard of every global batch (the seq ranks of one data rank read
+the same shard); the gradients are averaged and the BatchNorm statistics
+summed over the data axis, so a step is one process's step on the global
+batch.  ``--sp N`` L-shards every SS2D scan over N ranks
+(``parallel/sequence_parallel.py``; every stage's L must divide by N).
+Every rank evaluates the whole validation set with the same weights; rank
+0's count of correct images decides, rank 0 alone logs and writes the
+checkpoints, and every rank waits for each write.  ``--tp`` is not ported
+yet and raises.
+
+  torchrun --nproc-per-node 2 -m \
+      medical_image_classification_tpu_torch.cli.train \
+      --data-path /data/oct/train --sp 2
 """
 
 from __future__ import annotations
@@ -40,6 +55,13 @@ from medical_image_classification_tpu_torch.data.image_folder import (
 )
 from medical_image_classification_tpu_torch.data.loader import BatchLoader
 from medical_image_classification_tpu_torch.models import create_model
+from medical_image_classification_tpu_torch.parallel.mesh import (
+    init_process_group,
+    is_main_process,
+    main_process_value,
+    make_mesh,
+    set_current_mesh,
+)
 from medical_image_classification_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -61,6 +83,9 @@ from medical_image_classification_tpu_torch.utils.config import (
     add_args,
     check_ported,
     from_args,
+)
+from medical_image_classification_tpu_torch.utils.logging_utils import (
+    get_logger,
 )
 
 log = logging.getLogger("mic_torch")
@@ -102,26 +127,41 @@ def run_train(model, optimizer, scheduler, loader, device, epoch: int = 0,
 
 def main(cfg: TrainConfig) -> float:
     check_ported(cfg)
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device")
+    device = init_process_group(cfg.dist_backend, cfg.device)
+    mesh = make_mesh(tp=cfg.tp, sp=cfg.sp, batch_size=cfg.batch_size)
+    try:
+        return _train(cfg, device, mesh)
+    finally:
+        set_current_mesh(None)
+
+
+def _train(cfg: TrainConfig, device, mesh) -> float:
     save_dir = os.path.dirname(cfg.save_path) or "."
-    os.makedirs(save_dir, exist_ok=True)
+    get_logger("mic_torch", os.path.join(save_dir, "train.log"))
+    log.info("device %s, mesh %s", device, mesh.shape)
+    local_bs = cfg.batch_size // mesh.dp
 
     train_ds = scan_image_folder(cfg.data_path)
     val_path = cfg.val_path or os.path.join(
         os.path.dirname(cfg.data_path.rstrip("/")), "val")
     val_ds = scan_image_folder(val_path) if os.path.isdir(val_path) else None
-    dump_class_indices(train_ds, os.path.join(save_dir, "class_indices.json"))
+    if is_main_process():
+        os.makedirs(save_dir, exist_ok=True)
+        dump_class_indices(train_ds,
+                           os.path.join(save_dir, "class_indices.json"))
     log.info("train images: %d  classes: %s", len(train_ds), train_ds.classes)
-    train_loader = BatchLoader(train_ds, cfg.batch_size, cfg.image_size,
+    # the seq ranks of one data rank read the same shard
+    train_loader = BatchLoader(train_ds, local_bs, cfg.image_size,
                                train=True, seed=cfg.seed,
-                               num_threads=cfg.num_workers)
+                               num_threads=cfg.num_workers,
+                               shard_index=mesh.data_index,
+                               shard_count=mesh.dp)
 
     model = create_model(cfg.model, num_classes=cfg.num_classes,
                          use_checkpoint=cfg.use_checkpoint,
                          scan_impl=cfg.scan_impl,
-                         generator=torch.Generator().manual_seed(cfg.seed))
+                         generator=torch.Generator().manual_seed(cfg.seed),
+                         **({"seq_axis": "seq"} if cfg.sp > 1 else {}))
     model = model.to(device)
     model.seed_drop_path(cfg.seed + 1)
     schedule = make_schedule(cfg.schedule, cfg.lr,
@@ -144,7 +184,7 @@ def main(cfg: TrainConfig) -> float:
         m = run_train(model, optimizer, scheduler, train_loader, device,
                       epoch, cfg.label_smoothing, state, cfg.log_every)
         log.info("epoch %d done: loss %.4f acc %.4f (%.1f img/s)", epoch,
-                 m["loss"], m["accuracy"], m["img_s"])
+                 m["loss"], m["accuracy"], m["img_s"] * mesh.dp)
         every = cfg.kan_update_grid_every
         if every and (epoch + 1) % every == 0 and has_kan_grids(model):
             batches = train_loader.epoch(epoch)
@@ -153,10 +193,12 @@ def main(cfg: TrainConfig) -> float:
             kan_grid_update(model, torch.from_numpy(imgs0).to(device))
             log.info("KAN grids updated at epoch %d", epoch)
         if val_ds is not None:
-            val_loader = BatchLoader(val_ds, cfg.batch_size, cfg.image_size,
+            val_loader = BatchLoader(val_ds, local_bs, cfg.image_size,
                                      train=False)
             n_correct, labels, _ = run_eval(model, val_loader, device)
-            acc = n_correct / max(len(labels), 1)
+            # every rank evaluates the whole set; rank 0's count decides,
+            # so that every rank takes the same branch below
+            acc = main_process_value(n_correct, device) / max(len(labels), 1)
             log.info("epoch %d val top-1: %.4f", epoch, acc)
             if acc > state.best_acc:
                 state.best_acc = acc
@@ -174,6 +216,4 @@ def parse_args(argv=None) -> TrainConfig:
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
     main(parse_args())

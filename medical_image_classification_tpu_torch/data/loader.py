@@ -29,12 +29,19 @@ class BatchLoader:
     """Deterministic, epoch-seeded, prefetching loader of an ImageFolder.
 
     Each epoch shuffles with (seed, epoch) in train mode; each image's
-    augmentation draws from (seed, epoch, batch, index).  Yields
-    (images uint8 [B, H, W, 3], labels int32 [B])."""
+    augmentation draws from (seed, epoch, batch, index).  With
+    ``shard_index`` / ``shard_count`` (data parallelism: one shard a data
+    rank) the epoch's order is padded by wrap-around to a multiple of the
+    shards and each rank takes every ``shard_count``-th index from its
+    own, as the JAX loader does: batch b of the shards together is batch
+    b of one process at ``shard_count`` x the batch size, the shard's
+    rows at positions index::count.  Yields (images uint8 [B, H, W, 3],
+    labels int32 [B])."""
 
     def __init__(self, dataset: ImageFolder, batch_size: int, image_size: int,
                  train: bool, seed: int = 0, num_threads: int = 8,
-                 prefetch: int = 4, drop_last: Optional[bool] = None):
+                 prefetch: int = 4, drop_last: Optional[bool] = None,
+                 shard_index: int = 0, shard_count: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
         self.image_size = image_size
@@ -43,15 +50,23 @@ class BatchLoader:
         self.num_threads = max(1, num_threads)
         self.prefetch = prefetch
         self.drop_last = train if drop_last is None else drop_last
+        self.shard_index = shard_index
+        self.shard_count = shard_count
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
-        idx = np.arange(len(self.ds))
+        n = len(self.ds)
+        idx = np.arange(n)
         if self.train:
             np.random.default_rng((self.seed, epoch)).shuffle(idx)
+        if self.shard_count > 1:
+            # pad to equal shards (wrap-around), then take our slice
+            per = -(-n // self.shard_count)
+            idx = np.concatenate([idx, idx[: per * self.shard_count - n]])
+            idx = idx[self.shard_index::self.shard_count]
         return idx
 
     def steps_per_epoch(self) -> int:
-        n = len(self.ds)
+        n = len(self._epoch_indices(0))
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
 

@@ -143,7 +143,7 @@ def ssd_chunked_dirs(stackr, A, D, dt_bias, chunk_size: int, *, d_ssm: int,
 
 
 def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
-                impl: str = "auto"):
+                impl: str = "auto", return_final_state: bool = False):
     """Chunked block-matmul SSD scan (the JAX package's einsum path, with
     the models' settings: the step is softplus(dt + dt_bias), the chunk is
     ``_pick_chunk``'s, the scan starts from a zero state and adds the D
@@ -154,7 +154,13 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
       4. state contribution    : Y_off  = C S_in * decay_from_start
     Matmul operands are in x's dtype with the same outputs as the JAX
     einsums (the chunk states accumulate in fp32); dt, the cumsums and the
-    carried state are fp32.  D is [H].  The gates decide from the shapes
+    carried state are fp32.  D is [H], or None for no skip.
+    ``return_final_state`` also returns the state after the last step,
+    [B, H, P, N] fp32, from steps 2-3 as plain torch ops (so autograd
+    differentiates it; the JAX function rounds it to x's dtype), and then
+    the single-layout fused SSD, which keeps no final state, is never
+    taken (the JAX gate's ``not return_final_state``).  The gates decide
+    from the shapes
     (and, for a CUDA tensor, the CUDA kernels' limits), in the JAX
     package's order:
       - ``ssd_fused_supported``: steps 1-4 are ``ssd_fused`` (the CUDA
@@ -194,10 +200,10 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
     A_cum_t = torch.cumsum((dtc * A.to(f32)).transpose(2, 3), dim=-1)
     A_cum = A_cum_t.transpose(2, 3)                         # [B, nc, l, H]
     xs = x.reshape(Bsz, Lp, H, P)[:, :L]
-    D_skip = xs * D.to(mm)[None, None, :, None]
+    D_skip = 0.0 if D is None else xs * D.to(mm)[None, None, :, None]
 
-    if not exact and ssd_fused_supported(l, N, P, G, nc, card=x.is_cuda,
-                                         batch=Bsz, dtype=mm):
+    if not exact and not return_final_state and ssd_fused_supported(
+            l, N, P, G, nc, card=x.is_cuda, batch=Bsz, dtype=mm):
         dte = torch.exp(A_cum_t[..., -1:] - A_cum_t)        # [B, nc, H, l]
         cdec = torch.exp(A_cum_t[..., -1])                  # [B, nc, H]
         y = ssd_fused(Cc.to(mm).reshape(Bsz, nc, l, N),
@@ -248,8 +254,10 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int, D, dt_bias,
     Y_off = torch.einsum("bclgn,bcgrpn->bclgrp", Cc.to(mm), S_in)
     Y_off = Y_off.reshape(Bsz, nc, l, H, P) * decay_from_start[..., None]
 
-    y = (Y_diag + Y_off).reshape(Bsz, Lp, H, P)[:, :L]
-    return y + D_skip
+    y = (Y_diag + Y_off).reshape(Bsz, Lp, H, P)[:, :L] + D_skip
+    if return_final_state:
+        return y, S_carry.reshape(Bsz, H, P, N)
+    return y
 
 
 def ssd_seq_ref(x, dt, A, B, C, D=None, z=None, dt_bias=None,

@@ -23,6 +23,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from medical_image_classification_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+)
+from medical_image_classification_tpu_torch.parallel.mesh import data_axis
+
 
 def trunc_normal_02_(w, generator=None):
     """Flax ``truncated_normal(stddev=0.02)``, the Dense kernel init: N(0, 1)
@@ -117,7 +122,13 @@ class DropPath(nn.Module):
     """Per-sample stochastic depth; the identity in eval mode.
 
     Masks come from ``rng`` (a ``SeededGenerators`` the model owns and
-    shares among its blocks; a private one seeded 0 if none is given)."""
+    shares among its blocks; a private one seeded 0 if none is given).
+    Under data parallelism (a current mesh whose data axis has dp > 1)
+    each rank draws the global batch's mask, dp x its own batch, and keeps
+    the rows index::dp: the rows the loader's strided shards give this
+    rank in the global batch (``data/loader.py``), so that the masks are
+    those of one process on that batch; the seq ranks of one data rank
+    draw the same."""
 
     def __init__(self, rate: float = 0.0, rng: SeededGenerators | None = None):
         super().__init__()
@@ -129,9 +140,12 @@ class DropPath(nn.Module):
         the identity (eval, or rate 0)."""
         if not self.training or self.rate == 0.0:
             return None
-        return torch.empty((x.shape[0],) + (1,) * (x.dim() - 1),
+        axis = data_axis()
+        n = x.shape[0] if axis is None else x.shape[0] * axis.size
+        mask = torch.empty((n,) + (1,) * (x.dim() - 1),
                            device=x.device).bernoulli_(
             1.0 - self.rate, generator=self.rng.get(x.device))
+        return mask if axis is None else mask[axis.index::axis.size]
 
     def drop(self, x, mask):
         """Zero the samples ``mask`` drops and scale the kept ones by
@@ -226,14 +240,28 @@ def batch_norm(mod: nn.modules.batchnorm._BatchNorm, x, training: bool,
     would update running_var with the unbiased n/(n-1)); the running stats
     move by ``mod.momentum`` unless ``update_stats`` is False (an
     activation-checkpoint recompute of the same forward).  fp64 stays
-    fp64."""
+    fp64.  Under data parallelism (a current mesh whose data axis has
+    dp > 1) the statistics are the global batch's, as GSPMD's are in the
+    JAX package: the sums of x and x^2 and the counts are all-reduced over
+    the data axis (sum forward, sum backward: ``all_reduce_sum``), and the
+    running stats move once, from the global statistics.  The seq axis
+    holds replicas and takes no part."""
     x = x.to(_compute_dtype(None, x))
     if not training:
         return F.batch_norm(x, mod.running_mean, mod.running_var,
                             mod.weight, mod.bias, False, 0.0, mod.eps)
     dims = (0,) + tuple(range(2, x.dim()))
-    mean = x.mean(dims)
-    var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+    axis = data_axis()
+    if axis is None:
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+    else:
+        c = x.shape[1]
+        sums = all_reduce_sum(torch.cat([
+            x.sum(dims), (x * x).sum(dims),
+            x.new_full((1,), x.numel() // c)]), axis)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
     if update_stats:
         # the running stats are buffers: updated in place, outside
         # autograd, ra = (1 - m) ra + m stat (Flax: 0.9 ra + 0.1 stat)

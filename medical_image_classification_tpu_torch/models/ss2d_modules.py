@@ -87,11 +87,14 @@ class SS2D(nn.Module):
 
     in_proj -> depthwise 3x3 conv -> SiLU -> scan core -> out_norm
     -> * silu(z) -> out_proj.  ``A_logs`` and ``Ds`` are stored flattened
-    to [K * d_inner, ...], as in the reference ``state_dict``."""
+    to [K * d_inner, ...], as in the reference ``state_dict``.
+    ``seq_axis`` L-shards the scan over that axis of the current mesh
+    (sequence parallelism, ``ops/ss2d.py``)."""
 
     def __init__(self, d_model: int, d_state: int = 16,
-                 scan_impl: str = "auto", dtype=None):
+                 scan_impl: str = "auto", dtype=None, seq_axis=None):
         super().__init__()
+        self.seq_axis = seq_axis
         self.d_inner = d_inner = 2 * d_model               # expand 2
         self.dt_rank = R = math.ceil(d_model / 16)
         self.d_state = N = d_state
@@ -123,7 +126,8 @@ class SS2D(nn.Module):
             xpart, self.x_proj_weight, self.dt_projs_weight,
             self.dt_projs_bias, self.A_logs.view(K, self.d_inner, -1),
             self.Ds.view(K, self.d_inner), d_state=self.d_state,
-            dt_rank=self.dt_rank, impl=self.scan_impl)
+            dt_rank=self.dt_rank, impl=self.scan_impl,
+            seq_axis=self.seq_axis)
         # out_norm returns fp32; y * silu(z) stays fp32 until out_proj casts
         y = layer_norm(self.out_norm, y.to(x.dtype))
         y = y * F.silu(z)
@@ -273,13 +277,17 @@ class SS2DSSD(nn.Module):
     efficient-KAN (kaninSSD, ``in_proj_kan``).  Both compute in fp32 and
     return their input's dtype (fp32 after the block's LayerNorm).  The
     JAX module's ``dropout`` is 0 in every model (no VSSLayer passes its
-    blocks an ``attn_drop``), so the layer has none."""
+    blocks an ``attn_drop``), so the layer has none.  ``seq_axis``
+    L-shards the scan over that axis of the current mesh (sequence
+    parallelism, ``ops/ss2d.py``)."""
 
     def __init__(self, d_model: int, d_state: int = 64, headdim: int = 64,
                  chunk_size: int = 256, st_tokens: int | None = None,
                  kan_in: bool = False, kan_filter: bool = False,
-                 kan_spline_order: int = 1, scan_impl: str = "auto", dtype=None):
+                 kan_spline_order: int = 1, scan_impl: str = "auto", dtype=None,
+                 seq_axis=None):
         super().__init__()
+        self.seq_axis = seq_axis
         self.d_model = d_model
         self.d_ssm = d_ssm = 2 * d_model                   # expand 2
         self.headdim = headdim
@@ -338,7 +346,7 @@ class SS2DSSD(nn.Module):
             self.Ds.view(K, self.nheads), d_ssm=self.d_ssm,
             d_state=self.d_state, nheads=self.nheads, headdim=self.headdim,
             chunk_size=self.chunk_size, merge=not st, stack_scan_order=st,
-            impl=self.scan_impl)
+            seq_axis=self.seq_axis, impl=self.scan_impl)
         if st:
             y = self._st_tail(u, y, update_stats)
         # the core returns the compute dtype; the layer continues in u's

@@ -86,21 +86,22 @@ class SSConvBlock(nn.Module):
                  kan_filter: bool = False, kan_spline_order: int = 1,
                  scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
-                 rng: SeededGenerators | None = None):
+                 rng: SeededGenerators | None = None, seq_axis=None):
         super().__init__()
         half = hidden_dim // 2
         self.use_checkpoint = use_checkpoint
         self.ln_1 = nn.LayerNorm(half, eps=1e-6)          # parity: Flax eps
         if core == "mamba1":
             self.self_attention = SS2D(d_model=half, d_state=d_state,
-                                       scan_impl=scan_impl, dtype=dtype)
+                                       scan_impl=scan_impl, dtype=dtype,
+                                       seq_axis=seq_axis)
         elif core == "ssd":
             self.self_attention = SS2DSSD(
                 d_model=half, d_state=d_state, headdim=ssd_headdim,
                 chunk_size=ssd_chunk_size, st_tokens=st_tokens,
                 kan_in=kan_in, kan_filter=kan_filter,
                 kan_spline_order=kan_spline_order, scan_impl=scan_impl,
-                dtype=dtype)
+                dtype=dtype, seq_axis=seq_axis)
         else:
             raise ValueError(f"unknown core: {core!r}")
         self.drop_path = DropPath(drop_path, rng=rng)
@@ -143,7 +144,7 @@ class VSSLayer(nn.Module):
                  kan_filter: bool = False, kan_spline_order: int = 1,
                  downsample: bool = True, scan_impl: str = "auto",
                  dtype=None, use_checkpoint: bool = False,
-                 rng: SeededGenerators | None = None):
+                 rng: SeededGenerators | None = None, seq_axis=None):
         super().__init__()
         self.blocks = nn.ModuleList(
             SSConvBlock(dim, drop_path=dp, d_state=d_state, core=core,
@@ -152,7 +153,8 @@ class VSSLayer(nn.Module):
                         kan_in=kan_in, kan_filter=kan_filter,
                         kan_spline_order=kan_spline_order,
                         scan_impl=scan_impl, dtype=dtype,
-                        use_checkpoint=use_checkpoint, rng=rng)
+                        use_checkpoint=use_checkpoint, rng=rng,
+                        seq_axis=seq_axis)
             for dp in drop_paths)
         self.downsample = PatchMerging(dim, dtype=dtype) if downsample \
             else None
@@ -176,6 +178,9 @@ class VSSM(nn.Module):
     tensor's device), "cuda" or "torch".  ``generator`` seeds the
     init.  The model owns ``drop_path_rng``, the source of every
     DropPath mask; a trainer seeds it with ``seed_drop_path``.
+    ``seq_axis`` (None, or the name of the current mesh's sequence axis)
+    L-shards every SS2D / SS2DSSD scan over it: sequence parallelism, the
+    rest of the model replicated.
 
     ``conv_stem`` puts CNN-Mamba's ConvTConvPW in front of the patch
     embed (fp32, before the cast to ``dtype``), ``use_mifa`` a MIFA block
@@ -199,7 +204,7 @@ class VSSM(nn.Module):
                  kan_filter: bool = False, kan_spline_order: int = 1,
                  head: str = "linear", scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, seq_axis=None):
         super().__init__()
         self.dtype = dtype
         self.drop_path_rng = SeededGenerators(0)
@@ -217,7 +222,8 @@ class VSSM(nn.Module):
                      kan_spline_order=kan_spline_order,
                      downsample=i < len(depths) - 1,
                      scan_impl=scan_impl, dtype=dtype,
-                     use_checkpoint=use_checkpoint, rng=self.drop_path_rng)
+                     use_checkpoint=use_checkpoint, rng=self.drop_path_rng,
+                     seq_axis=seq_axis)
             for i in range(len(depths)))
         self.head_kind = head
         for name, mod in head_modules(dims[-1], num_classes, head,

@@ -1,8 +1,10 @@
 """Functional SS2D cores: the four-direction 2-D scans.
 
 Port of ``medical_image_classification_tpu/ops/ss2d.py``:
-``ss2d_core_mamba1`` (its flip-free branch), ``ss2d_core_ssd`` (ref_flat,
-one group; merged, or the ST-SSD scan-order stack) and ``rmsnorm_gated``.
+``ss2d_core_mamba1`` (its flip-free branch, and its sequence-parallel
+branch), ``ss2d_core_ssd`` (ref_flat, one group; merged, or the ST-SSD
+scan-order stack; L-sharded under sequence parallelism) and
+``rmsnorm_gated``.
 The directions are k = rev * 2 + layout (0 = row, 1 = column, 2 = row
 reversed, 3 = column reversed).  Directions 2 and 3 read the same
 unflipped bytes as directions 0 and 1 wherever a kernel can: the Mamba-1
@@ -29,10 +31,44 @@ from medical_image_classification_tpu_torch.ops.cross_scan import (
     cross_scan_time_major2_roles,
     cross_stack_scan_order,
 )
+from medical_image_classification_tpu_torch.parallel.mesh import (
+    seq_axis as mesh_axis,
+)
+from medical_image_classification_tpu_torch.parallel.sequence_parallel import (
+    check_divisible,
+    scan_sequence_parallel,
+    ssd_scan_sequence_parallel,
+)
+
+
+def _scan_seq_parallel_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds,
+                              d_state, dt_rank, seq_axis, impl):
+    """The JAX SP path (``ops/ss2d.py:177-197``): the four directions
+    materialised by ``cross_scan_time_major`` (2 and 3 flipped), so that
+    every direction scans forward and an incoming state always comes from
+    the shards before; the two-stage Δ projection; the directions folded
+    into the scan's groups (G = batch x 4, A, D and the bias per
+    direction); the scan L-sharded over the mesh axis ``seq_axis``."""
+    Bb, H, W, D = x.shape
+    L, K, N = H * W, 4, d_state
+    axis = mesh_axis(seq_axis)
+    check_divisible(L, axis)
+    xs = cross_scan_time_major(x).transpose(1, 2)        # [B, 4, L, D]
+    x_dbl = torch.einsum("bkld,kcd->bklc", xs, x_proj_w.to(x.dtype))
+    dts = torch.einsum("bklr,kdr->bkld", x_dbl[..., :dt_rank],
+                       dt_proj_w.to(x.dtype))
+    fold = lambda t: t.reshape(Bb * K, L, t.shape[-1]).contiguous()
+    y = scan_sequence_parallel(
+        fold(xs), fold(dts), -torch.exp(A_log.float()),
+        fold(x_dbl[..., dt_rank:dt_rank + N]), fold(x_dbl[..., dt_rank + N:]),
+        Ds.float(), dt_proj_b.float(), axis, impl=impl)
+    return cross_merge_time_major(y.reshape(Bb, K, L, D).transpose(1, 2),
+                                  H, W)
 
 
 def ss2d_core_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds, *,
-                     d_state: int, dt_rank: int, impl: str = "auto"):
+                     d_state: int, dt_rank: int, impl: str = "auto",
+                     seq_axis=None):
     """Mamba-1 4-direction 2-D scan.
 
     x         : [B, H, W, D]  (post depthwise-conv + SiLU, channel-last)
@@ -42,10 +78,18 @@ def ss2d_core_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds, *,
     A_log     : [4, D, d_state]
     Ds        : [4, D]
     impl      : scan implementation, see ``scan_folded_fwd``
+    seq_axis  : None, or the name of the current mesh's axis over which
+                the scan is L-sharded (sequence parallelism: the JAX
+                package's path, ``_scan_seq_parallel_mamba1``; L must
+                divide by the axis size, else ``ValueError``)
 
     Returns [B, H, W, D] in x's dtype: the sum of the four direction
     outputs, un-permuted to row order.
     """
+    if seq_axis is not None:
+        return _scan_seq_parallel_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b,
+                                         A_log, Ds, d_state, dt_rank,
+                                         seq_axis, impl)
     Bb, H, W, D = x.shape
     L = H * W
     N = d_state
@@ -106,6 +150,11 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     A_log, dt_bias, Ds : [4, nheads]
     impl   : the kernels' implementation ("auto", "cuda", "torch"; the
              fused dirs SSD, or the Y_diag of ``ssd_chunked``)
+    seq_axis : None, or the current mesh's axis over which the scan is
+             L-sharded: the four-direction stack goes through
+             ``parallel/sequence_parallel.py::ssd_sequence_parallel`` (the
+             fused dirs path is off, as in the JAX package; L must divide
+             by the axis size, else ``ValueError``)
 
     The directions fold into the head axis (direction-major).  B and C are
     one group whose state is K d_state wide and shared by every head
@@ -121,8 +170,7 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     for unported, what in (
             (not (merge or stack_scan_order),
              "merge=False without stack_scan_order (the aligned stack)"),
-            (bc_layout != "ref_flat", f"bc_layout={bc_layout!r}"),
-            (seq_axis is not None, f"seq_axis={seq_axis!r} (the SP scans)")):
+            (bc_layout != "ref_flat", f"bc_layout={bc_layout!r}")):
         if unported:
             raise NotImplementedError(
                 f"ss2d_core_ssd {what} is not ported yet (ROADMAP.md Queue "
@@ -131,6 +179,10 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     L = H * W
     K = 4
     gn = d_state
+    axis = None
+    if seq_axis is not None:
+        axis = mesh_axis(seq_axis)
+        check_divisible(L, axis)
     wide = torch.promote_types(xBCdt.dtype, torch.float32)
     A = -torch.exp(A_log.to(wide)).reshape(K * nheads)
     Df = Ds.to(wide).reshape(-1)
@@ -139,7 +191,7 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     # float64 (the exact reference) takes the einsums of ``ssd_chunked``
     eff_c = ssd_dirs_chunk(L, chunk_size, K * d_state, headdim, K * nheads,
                            d_ssm, card=xBCdt.is_cuda) \
-        if merge and wide == torch.float32 else None
+        if merge and wide == torch.float32 and axis is None else None
     if eff_c is not None:
         stackr = cross_scan_time_major2_roles(xBCdt, d_ssm, gn)
         y = ssd_chunked_dirs(stackr, A, Df, dtb, eff_c, d_ssm=d_ssm, gn=gn,
@@ -153,7 +205,11 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     Ch = xs_all[..., d_ssm + gn:d_ssm + 2 * gn].reshape(Bb, L, 1,
                                                          K * d_state)
     dth = xs_all[..., d_ssm + 2 * gn:].reshape(Bb, L, K * nheads)
-    y = ssd_chunked(xh, dth, A, Bh, Ch, chunk_size, Df, dtb, impl=impl)
+    if axis is None:
+        y = ssd_chunked(xh, dth, A, Bh, Ch, chunk_size, Df, dtb, impl=impl)
+    else:
+        y = ssd_scan_sequence_parallel(xh, dth, A, Bh, Ch, chunk_size, Df,
+                                       dtb, axis, impl=impl)
     ys = y.reshape(Bb, L, K, d_ssm)
     if merge:
         return cross_merge_time_major(ys, H, W)

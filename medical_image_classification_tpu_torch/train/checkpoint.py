@@ -6,7 +6,9 @@ Port of ``medical_image_classification_tpu/train/checkpoint.py`` with
 best_acc, drop_path_rng} and keeps the newest ``max_to_keep``;
 ``save_params_only`` writes the model's ``state_dict`` alone (what
 ``cli/test.py --weights`` loads), ``load_params_only`` reads it back into a
-model (``cli/fusion_test.py --weights``).
+model (``cli/fusion_test.py --weights``).  In a job of several ranks every
+rank holds the same state: rank 0 alone writes, and every rank waits on a
+barrier after each save, so a restore on any rank reads a whole file.
 """
 
 from __future__ import annotations
@@ -15,6 +17,11 @@ import os
 import re
 
 import torch
+
+from medical_image_classification_tpu_torch.parallel.mesh import (
+    barrier,
+    is_main_process,
+)
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
 
@@ -33,7 +40,15 @@ def _path(ckpt_dir: str, epoch: int) -> str:
 def save_checkpoint(ckpt_dir: str, model, optimizer, scheduler, state,
                     epoch: int, max_to_keep: int = 3):
     """Write epoch ``epoch``'s composite checkpoint, then drop all but the
-    newest ``max_to_keep``."""
+    newest ``max_to_keep`` (rank 0; every rank waits for it)."""
+    if is_main_process():
+        _save_checkpoint(ckpt_dir, model, optimizer, scheduler, state, epoch,
+                         max_to_keep)
+    barrier()
+
+
+def _save_checkpoint(ckpt_dir, model, optimizer, scheduler, state, epoch,
+                     max_to_keep):
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "model": model.state_dict(),
@@ -75,9 +90,12 @@ def restore_checkpoint(ckpt_dir: str, model, optimizer, scheduler, state,
 
 def save_params_only(path: str, model):
     """The best-model save: the model's ``state_dict`` (parameters and
-    BatchNorm running stats, no optimizer state)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(model.state_dict(), path)
+    BatchNorm running stats, no optimizer state); rank 0 writes, every
+    rank waits for it."""
+    if is_main_process():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(model.state_dict(), path)
+    barrier()
 
 
 def load_params_only(path: str, model):

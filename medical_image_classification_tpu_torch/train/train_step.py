@@ -10,6 +10,13 @@ The JAX step is a pure function of a ``TrainState``; here the model and the
 optimizer carry the parameters, the BatchNorm running stats and the
 optimizer state, updated in place, and ``TrainState`` keeps what is left:
 the step count and the best validation accuracy.
+
+Under data parallelism (a current mesh whose data axis has dp > 1,
+``parallel/mesh.py``) the classifiers' step averages the gradients over
+the data axis before the optimizer steps (GSPMD's mean over the global
+batch in the JAX step; the seq axis already holds full, identical
+gradients and takes no part), its loss and accuracy are the data axis's
+means, and ``kan_grid_update`` re-grids on the global batch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,11 @@ import torch.nn.functional as F
 from medical_image_classification_tpu_torch.data.image_folder import (
     normalize_batch,
 )
+from medical_image_classification_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_reduce_,
+)
+from medical_image_classification_tpu_torch.parallel.mesh import data_axis
 from medical_image_classification_tpu_torch.train.fusion_losses import (
     fusion_loss,
 )
@@ -52,22 +64,52 @@ def make_train_step(model, optimizer, scheduler=None,
     (0-d tensors on the batch's device, not synchronised).  One call runs
     the model in train mode (batch statistics, BatchNorm running stats
     updated, DropPath on), back-propagates, steps the optimizer and the
-    learning-rate scheduler, and counts the step in ``state``."""
+    learning-rate scheduler, and counts the step in ``state``.  Under
+    data parallelism the images are this rank's shard of the global
+    batch, the gradients are averaged over the data axis and the metrics
+    are the global batch's."""
 
     def step_fn(images, labels):
         model.train()
         logits = model(normalize_batch(images))
         loss = cross_entropy_loss(logits, labels, label_smoothing)
-        _update(loss, optimizer, scheduler, state)
+        _update(loss, optimizer, scheduler, state, sync=True)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "accuracy": acc}
+        return _data_mean({"loss": loss.detach(), "accuracy": acc})
 
     return step_fn
 
 
-def _update(loss, optimizer, scheduler, state):
+def average_gradients(optimizer) -> None:
+    """Average the gradients of ``optimizer``'s parameters over the current
+    mesh's data axis (one all-reduce of the flattened gradients); nothing
+    without a data axis of more than one rank.  Every rank holds the same
+    model, so the same parameters have gradients on every rank."""
+    axis = data_axis()
+    if axis is None:
+        return
+    grads = [p.grad for group in optimizer.param_groups
+             for p in group["params"] if p.grad is not None]
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), axis)
+    flat /= axis.size
+    for g, piece in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(piece.view_as(g))
+
+
+def _data_mean(metrics):
+    """The metrics' means over the data axis (as they are)."""
+    axis = data_axis()
+    if axis is None:
+        return metrics
+    vals = all_reduce_(torch.stack(list(metrics.values())).float(), axis)
+    return dict(zip(metrics, (vals / axis.size).unbind(0)))
+
+
+def _update(loss, optimizer, scheduler, state, sync: bool = False):
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if sync:
+        average_gradients(optimizer)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
@@ -125,7 +167,15 @@ def kan_grid_update(model, images):
     their spline weights to keep the function, in place, so an optimizer's
     state stays attached to the parameter.  The other heads and the
     in-block KANs ignore it, as in the JAX package.  The model's mode is
-    given back."""
+    given back.  Under data parallelism ``images`` is this rank's shard
+    of the batch: the shards are gathered over the data axis into the
+    global batch (the loader's order, rank r's rows at r::dp), so that
+    every rank re-grids on the same batch to the same grids."""
+    axis = data_axis()
+    if axis is not None:
+        shards = all_gather(images, axis)               # [dp, b, H, W, 3]
+        images = shards.transpose(0, 1).reshape(
+            (-1,) + tuple(images.shape[1:]))
     was_training = model.training
     model.eval()
     try:

@@ -2,9 +2,10 @@
 
 A copy of ``medical_image_classification_tpu/utils/config.py``
 (``TrainConfig``, ``add_args``, ``from_args``), kept here so that the
-port's training path imports nothing of the JAX package, plus ``device``.
-``tp`` and ``sp`` are accepted, and any value but the default raises
-(``check_ported``).
+port's training path imports nothing of the JAX package, plus the port's
+own ``device`` and ``dist_backend`` (the process group's backend: "nccl",
+one rank a GPU, or "gloo").  ``tp`` is accepted, and any value but the
+default raises (``check_ported``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ class TrainConfig:
     label_smoothing: float = 0.0
     grad_clip: Optional[float] = None
     seed: int = 0
-    # parallelism (not ported yet)
+    # parallelism: tensor parallelism (not ported yet), sequence
+    # parallelism (the SS2D scans L-sharded over sp ranks)
     tp: int = 1
     sp: int = 1
     # io
@@ -49,11 +51,12 @@ class TrainConfig:
     kan_update_grid_every: int = 0
     # the port's own
     device: str = "cuda"
+    dist_backend: str = "nccl"
 
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise for the options whose code paths are not ported yet."""
-    for name in ("tp", "sp"):
+    for name in ("tp",):
         default = getattr(TrainConfig, name)
         if getattr(cfg, name) != default:
             raise NotImplementedError(

@@ -59,7 +59,7 @@ def test_eval_cli_on_image_folder(tmp_path, monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("cli", ["test", "train", "test_all_index", "cam",
-                                 "export"])
+                                 "export", "ddp_train"])
 def test_clis_default_to_the_card_and_raise_without_one(monkeypatch,
                                                         tmp_path, cli):
     """The CLIs run on the card unless asked for the CPU (--device cuda by
@@ -79,8 +79,9 @@ def test_clis_default_to_the_card_and_raise_without_one(monkeypatch,
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and a train epoch and an eval pass
-    through run_train and run_eval run, without jax, flax, optax or the JAX
+    """Every module of the port imports (the parallel/ modules and
+    cli/ddp_train among them), and a train epoch and an eval pass through
+    run_train and run_eval run, without jax, flax, optax or the JAX
     package."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -109,7 +110,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'optax', 'medical_image_classification_tpu')]\n"
         "assert not bad, bad\n"
-        "for m in ('cli.test', 'cli.train'):\n"
+        "for m in ('cli.test', 'cli.train', 'cli.ddp_train', 'parallel.mesh',"
+        " 'parallel.collectives', 'parallel.sequence_parallel'):\n"
         "    assert 'medical_image_classification_tpu_torch.' + m in "
         "sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

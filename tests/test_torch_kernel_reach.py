@@ -31,7 +31,13 @@ cross_cls_stage3's sites, ``vfefm_2c1`` a subset of vfefm_2b2's.
 FusionMamba runs the Mamba-1 scan (rows 1-2) at K 4, its strided
 sub-sequences folded into the sequence axis: ``FUSIONMAMBA_SITES`` pins
 each site's shape at 256x256 and 512x512, all on the two-level kernels
-where the JAX folded entry takes v2."""
+where the JAX folded entry takes v2.
+
+Under sequence parallelism (sp 2 at 256x256) each stage scans its
+L-shard: ``SP_SITES`` pins the kernel of every shard of medssd and st_ssd
+(Y_diag or the einsums, the gates of ``ssd_chunked`` with
+``return_final_state``, the port's and the JAX package's alike) and the
+shapes of medmamba's two scan passes, on the two-level kernels."""
 
 import pytest
 import torch
@@ -107,9 +113,11 @@ def _jax_path(L, N, H, d_ssm, merge):
     return ("einsum", c, nc)
 
 
-def _port_path(monkeypatch, side, d_state, d_ssm, merge):
+def _port_path(monkeypatch, side, d_state, d_ssm, merge, seq_axis=None,
+               sp=1):
     """The port's dispatch: ``ss2d_core_ssd`` on meta tensors with the
-    card's gates, the kernels' entry points recording their chunk shapes."""
+    card's gates, the kernels' entry points recording their chunk shapes;
+    with ``seq_axis``, on L-shards of side^2 / ``sp``."""
     calls = []
 
     def card(gate):
@@ -143,9 +151,9 @@ def _port_path(monkeypatch, side, d_state, d_ssm, merge):
     y = tss2d.ss2d_core_ssd(xBCdt, rows(), rows(), rows(), d_ssm=d_ssm,
                             d_state=d_state, nheads=nheads, headdim=HEADDIM,
                             chunk_size=CHUNK, merge=merge,
-                            stack_scan_order=not merge)
+                            stack_scan_order=not merge, seq_axis=seq_axis)
     assert y.dtype == torch.bfloat16
-    L = side * side
+    L = side * side // sp
     if not calls:
         c = tssd._pick_chunk(L, CHUNK, K * d_state)
         return ("einsum", c, -(-L // c))
@@ -333,3 +341,157 @@ def test_chip_smoke_launches_per_forward_of_fusionmamba(monkeypatch):
                                chip_smoke.FUSION_BATCH)
     assert chip_smoke.CROSS_PATHS["fusionmamba"] == {
         "selective_scan_fwd": len(calls)}
+
+
+# Sequence parallelism at 256x256 with sp 2, batch 32, bf16: each stage's
+# L-shard (L / 2) and the kernel it takes.  The SSD models run
+# ``ssd_chunked(..., return_final_state=True)`` on the shard (the dirs and
+# single-layout fused kernels are off: (path, chunk l, chunks nc)); medmamba
+# runs the folded scan twice on the shard (pass 1 from zero with
+# want_state, pass 2 with init), its four directions as groups (G 32 x 4,
+# K 4): (L / 2, Dm)
+SP_SIZE, SP = 256, 2
+SP_SITES = {
+    "medssd": [("ydiag", 256, 8), ("einsum", 512, 1), ("einsum", 128, 1),
+               ("einsum", 32, 1)],
+    "st_ssd": [("ydiag", 256, 8), ("ydiag", 256, 2), ("einsum", 128, 1),
+               ("einsum", 32, 1)],
+    "medmamba": [(2048, 96), (512, 192), (128, 384), (32, 768)],
+}
+
+
+def _meta_seq_axis(monkeypatch):
+    """A current mesh with an sp-2 seq axis whose collectives act on meta
+    tensors as one rank of two would see their shapes."""
+    from medical_image_classification_tpu_torch.parallel import (
+        mesh as tmesh, sequence_parallel as tsp)
+    n = lambda t, dim: t.narrow(dim, 0, t.shape[dim] // SP)
+    monkeypatch.setattr(tsp, "shard", lambda t, dim, axis: n(t, dim))
+    monkeypatch.setattr(tsp, "unshard",
+                        lambda t, dim, axis: torch.cat([t] * SP, dim))
+    monkeypatch.setattr(tsp, "reduce_grad", lambda t, axis: t)
+    monkeypatch.setattr(tsp, "gather_pieces",
+                        lambda t, axis: torch.stack([t] * SP))
+    tmesh.set_current_mesh(tmesh.Mesh(1, 1, SP, 0))
+    return tsp
+
+
+@pytest.mark.parametrize("model", ["medssd", "st_ssd"])
+def test_sp_shards_reach_the_kernels_the_jax_gates_pick(monkeypatch, model):
+    """The SSD models' stages at 256x256 under sp 2: the port's
+    ``ss2d_core_ssd`` with ``seq_axis`` on meta tensors (the card's gates)
+    takes SP_SITES' kernel on each L-shard; the JAX gates of
+    ``ssd_chunked(return_final_state=True)`` (no fused SSD, Y_diag where
+    its gate passes) pick the same."""
+    from medical_image_classification_tpu_torch.parallel import mesh as tmesh
+    for mod in (jsfd, jsf, jyd):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+    _meta_seq_axis(monkeypatch)
+    d_state, merge = MODELS[model]
+    N = K * d_state
+    got, want = [], []
+    try:
+        for side, d_ssm in zip(_sides(SP_SIZE), D_SSM):
+            L, H = side * side // SP, K * d_ssm // HEADDIM
+            c = jssd._effective_chunk(L, CHUNK, N, HEADDIM, 1, H, 2, False)
+            want.append(("ydiag" if jyd.ydiag_supported(
+                c, N, HEADDIM, 1, H, 2) else "einsum", c, -(-L // c)))
+            with monkeypatch.context() as mp:
+                got.append(_port_path(mp, side, d_state, d_ssm, merge,
+                                      seq_axis="seq", sp=SP))
+    finally:
+        tmesh.set_current_mesh(None)
+    assert got == SP_SITES[model]
+    assert want == SP_SITES[model]
+
+
+def test_sp_medmamba_shards_take_the_two_level_kernels(monkeypatch):
+    """Full-width medmamba at 256x256 under sp 2 on meta tensors: every
+    SS2D runs the folded scan twice on its L-shard (pass 1 with
+    want_state from zero, pass 2 with init), G 128 = 32 x 4 directions as
+    groups, forward order, on the two-level kernels (``v1_chunk`` None)
+    where the JAX folded entry's tiles take v2: 2 x 10 calls a forward."""
+    import medical_image_classification_tpu.kernels.selective_scan_pallas \
+        as ssp
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_v1 as v1)
+    from medical_image_classification_tpu_torch.models import create_model
+    from medical_image_classification_tpu_torch.parallel import mesh as tmesh
+    tsp = _meta_seq_axis(monkeypatch)
+    calls = []
+
+    def scan(u, delta, A, B, C, D, bias, reverse=False, impl="auto",
+             want_state=False, init=None):
+        calls.append((tuple(u.shape), A.shape[0], reverse, want_state,
+                      init is not None))
+        G, _, Dm = u.shape
+        last = u.new_empty(G, A.shape[2], Dm, dtype=torch.float32)
+        return (torch.empty_like(u), last) if want_state else \
+            torch.empty_like(u)
+
+    monkeypatch.setattr(tsp, "scan_folded_fwd", scan)
+    try:
+        with torch.device("meta"):
+            model = create_model("medmamba", 8, dtype=torch.bfloat16,
+                                 seq_axis="seq").eval()
+            with torch.no_grad():
+                model(torch.empty(BATCH, SP_SIZE, SP_SIZE, 3))
+    finally:
+        tmesh.set_current_mesh(None)
+    assert len(calls) == 2 * 10
+    import chip_smoke
+    assert chip_smoke.SP_PATHS["medmamba"] == {"selective_scan_fwd": 20}
+    sites = []
+    for (shape, k, reverse, want_state, init), nxt in zip(calls[::2],
+                                                          calls[1::2]):
+        assert (k, reverse, want_state, init) == (K, False, True, False)
+        assert nxt == (shape, K, False, False, True)
+        assert shape[0] == BATCH * K
+        if shape[1:] not in sites:
+            sites.append(shape[1:])
+    assert sites == SP_SITES["medmamba"]
+    for L, Dm in sites:
+        T, _ = ssp._choose_tiles(L, Dm, 16)
+        S = ssp._S_SUB if T % ssp._S_SUB == 0 else 8
+        assert T % S == 0, (L, Dm, T)               # JAX: v2
+        assert v1.v1_chunk(L, Dm, 16) is None, (L, Dm)
+
+
+def test_chip_smoke_launches_per_sp_step_of_medssd(monkeypatch):
+    """chip_smoke.py's SP_PATHS["medssd"]: the full-width medssd's forward
+    at SP_SIZE under sp 2 on meta tensors (the card's gates, the kernels'
+    entry points as stubs) calls Y_diag in stage 0's two blocks and no
+    other SSD kernel."""
+    import chip_smoke
+    from medical_image_classification_tpu_torch.models import create_model
+    from medical_image_classification_tpu_torch.parallel import mesh as tmesh
+    assert (chip_smoke.SP_SIZE, chip_smoke.SP_RANKS) == (SP_SIZE, SP)
+    _meta_seq_axis(monkeypatch)
+    calls = []
+
+    def card(gate):
+        return lambda *a, **k: gate(*a, **{**k, "card": True})
+
+    def stub(what):
+        def run(*a, **k):
+            raise AssertionError(f"the SP path called the {what} SSD")
+        return run
+
+    monkeypatch.setattr(tssd, "ssd_fused_supported",
+                        card(tssd.ssd_fused_supported))
+    monkeypatch.setattr(tssd, "ydiag_supported", card(tssd.ydiag_supported))
+    monkeypatch.setattr(tssd, "ydiag_fused",
+                        lambda Cc, Bc, acum, dtx, impl: calls.append(
+                            "ydiag") or torch.empty_like(dtx))
+    monkeypatch.setattr(tssd, "ssd_fused", stub("fused"))
+    monkeypatch.setattr(tss2d, "ssd_chunked_dirs", stub("dirs"))
+    try:
+        with torch.device("meta"):
+            model = create_model("medssd", 8, dtype=torch.bfloat16,
+                                 seq_axis="seq").eval()
+            with torch.no_grad():
+                model(torch.empty(BATCH, SP_SIZE, SP_SIZE, 3))
+    finally:
+        tmesh.set_current_mesh(None)
+    assert calls == ["ydiag"] * 2
+    assert chip_smoke.SP_PATHS["medssd"] == {"ssd_ydiag_fwd": len(calls)}

@@ -151,12 +151,17 @@ def test_dirs_and_einsum_paths_agree():
 
 
 def test_unported_options_raise():
+    """The aligned stack and the per-direction B/C layout are not ported;
+    ``seq_axis`` is (sequence parallelism), and without a registered mesh
+    it raises before any scan."""
     arrs, kw = _core_args()
     x = [torch.from_numpy(a) for a in arrs]
     for opt in (dict(merge=False),
-                dict(bc_layout="per_direction"), dict(seq_axis="seq")):
+                dict(bc_layout="per_direction")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tss2d.ss2d_core_ssd(*x, **kw, **opt)
+    with pytest.raises(ValueError, match="needs a registered mesh"):
+        tss2d.ss2d_core_ssd(*x, **kw, seq_axis="seq")
 
 
 def test_cross_scan_helpers_match_jax():
