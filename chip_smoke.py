@@ -166,8 +166,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      warm-up and 4 Adam steps (8 dirs launches a forward, 8 + 8 a step);
      28.-29. cross_cls_4ef (12 a forward) and cross_cls_3e1fadd1e (8) one
      forward and one step each; 30. vfefm_2b2 (256x256, batch 2) through
-     cli/fusion_train.py's main() on 8 generated CT/MRI PNG pairs for 2
-     epochs in fp32 (the CLI's default) and with --dtype bf16 (44 dirs +
+     cli/fusion_train.py's main() on 8 generated CT/MRI PNG pairs for an
+     epoch in fp32 (the CLI's default) and with --dtype bf16 (44 dirs +
      16 Y_diag launches a forward, as many backward), then
      cli/fusion_test.py's main() on the pairs with the fp32 run's weights
      (one PNG a pair); 31. vfefm_2c1 one step through
@@ -179,11 +179,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      PARAM_GRAD_TOL (cuDNN's deterministic algorithms; for the U-Nets,
      of the fusion loss and of mean(out), both fp32 paths against the
      same step in float64, on every leaf the kernels within
-     PARAM_GRAD_TOL + COND_RATIO x the plain twins' own error); pairs/s,
-     resident wall and device ms of a forward and a step;
+     PARAM_GRAD_TOL + COND_RATIO x the plain twins' own error, the U-Nets'
+     gates at one block a stage, GATE_DEPTHS); pairs/s, resident wall and
+     device ms of a forward and a step;
   32. fusionmamba (the EfficientScan U-Net, 256x256, batch 2, one-channel
      pairs) through cli/fusion_train.py --model fusionmamba on the
-     generated pairs for 2 epochs in fp32 and with --dtype bf16: the
+     generated pairs for an epoch in fp32 and with --dtype bf16: the
      Mamba-1 scan pair at K 4, 48 forward launches a forward and as many
      backward a step (the encoder's 15 blocks on both inputs, the cross
      blocks of stages 1-3, the decoder's 15 blocks), every other kernel
@@ -232,7 +233,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      gradient against the unsharded model in this process; then, with
      the card to itself, each pass's device ms at medmamba's stage-0
      shard beside its bound.  Each prints its seconds.
-The model phases (3-37) also hold the v1 and calibration counters at 0.
+  38. tensor parallelism, tp 2 as 2 ranks sharing the card over gloo:
+     the seeded full-width medmamba, medssd, cnn_mamba_mifa and st_ssd
+     (224x224, fp32, batch 8) one train step each through make_train_step
+     with each SS2D / SS2DSSD layer's channels or heads split over the
+     ranks, against the unsharded step in this process: each rank's
+     launches exactly TP_PATHS' (medmamba rows 1-2 40 + 40 at d_inner / 2;
+     medssd dirs 2 + 2 at stage 1 and the single-layout fused SSD 2 + 2
+     at stage 0, whose per-rank d_ssm the dirs kernels do not take;
+     cnn_mamba_mifa dirs 4 + 4; st_ssd Y_diag 2 + 2, the mixer and the
+     gate 4 + 4 each on the channels gathered over the ranks), the loss
+     within 1e-5, the logits within LOGIT_TOL, every gradient leaf joined
+     over the ranks within PARAM_GRAD_TOL; beside them cli/ddp_train.py
+     --tp 2 (gloo, phase 36's arguments), its full checkpoint against
+     phase 36's NCCL rank; then, the card to itself, rows 1-2, 5/5b and
+     6/6b at a rank's shapes against their plain versions, each beside
+     its bound.
+The model phases (3-38) also hold the v1 and calibration counters at 0.
 Then one JSON line describing the fifteen kernels (launches in the training
 runs, in the bench's runs for v1 and the calibration; errors, times, the
 bound of each from this run's shapes; times and bounds at stage 0 in bf16,
@@ -245,7 +262,9 @@ case under "fusionmamba"; the rows the evaluation tools reach also their
 launches per grad_cam call and per loaded export's forward under
 "eval_tools"; rows 1-2 their launches a rank makes in a DP step and
 in an SP step, by state flag, with the passes' ms under "dp" / "sp",
-rows 7/7b medssd's SP launches under "sp"), the card's name
+rows 7/7b medssd's SP launches under "sp"; every row a TP rank reaches
+its launches a rank makes in each model's tp-2 step, and rows 1-2, 5/5b
+and 6/6b their times at a rank's shapes, under "tp"), the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.  Without
 a CUDA device it exits non-zero before printing any result.  ``--out``
 writes the per-case numbers and the profiles as JSON.
@@ -367,7 +386,11 @@ SSD16_CORE = ((56, 128), (28, 256))
 # fusion there (two calls), Y_diag at N 512 at the U-Nets' 16x16, the
 # einsums below (tests/test_torch_kernel_reach.py pins each call site)
 CROSS_BATCH, FUSION_SIZE, FUSION_BATCH = 8, 256, 2
-FUSION_PAIRS, FUSION_EPOCHS = 8, 2
+FUSION_PAIRS, FUSION_EPOCHS = 8, 1
+# the U-Nets' gates against the float64 step (phases 30-32) build their
+# models one block a stage, encoder and decoder, at full width: every kind
+# of block at every stage's width, a fraction of the float64 plain scans
+GATE_DEPTHS = dict(depths=(1, 1, 1, 1), depths_decoder=(1, 1, 1, 1))
 FUSION_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "chip_smoke_fusion")
 CROSS_PATHS = {
@@ -574,16 +597,17 @@ def phase_device_and_build():
     return card
 
 
-def _scan_cases():
+def _scan_cases(stages=None):
     """The 16 stage cases, then FusionMamba's 4: (L, Dm, dtype name,
     reverse, args, G), args the folded scan's (u, delta, A, B, C, D, bias)
     on the card.  MedMamba's stages at G 32 with one parameter group (K 1)
     and A its S4D-real init, forward and reverse; FusionMamba's stages 0
     and 3 (FM_STAGES) at G 8 with K 4, forward (its only order), A = -U(1,
-    16), D and the bias drawn per group and channel."""
+    16), D and the bias drawn per group and channel.  ``stages``: other
+    (L, Dm, G, K) cases in their place."""
     import torch
     dev = torch.device("cuda")
-    stages = [(L, Dm, G, 1) for L, Dm in STAGES] + [
+    stages = stages or [(L, Dm, G, 1) for L, Dm in STAGES] + [
         (L, Dm, FM_G, 4) for L, Dm in FM_STAGES]
     for i, (L, Dm, g, K) in enumerate(stages):
         gen = torch.Generator(device=dev).manual_seed(i)
@@ -747,15 +771,15 @@ def phase_bwd_vs_plain():
     return dict(cases=cases, autograd_err=auto_err)
 
 
-def _ssd_cases():
-    """The dirs SSD's cases, SSD_CASES in fp32 and bf16: (L, l, dtype
-    name, args, d_ssm, dy, gn), args the kernel's (stackr, acum, dte, cdec,
-    dtp, Dsk) on the card, built as ssd_chunked_dirs builds them (dtp a
-    softplus, acum its cumsum against A = -U(1, 4))."""
+def _ssd_cases(cases=SSD_CASES):
+    """The dirs SSD's cases, SSD_CASES (or ``cases``) in fp32 and bf16: (L,
+    l, dtype name, args, d_ssm, dy, gn), args the kernel's (stackr, acum,
+    dte, cdec, dtp, Dsk) on the card, built as ssd_chunked_dirs builds them
+    (dtp a softplus, acum its cumsum against A = -U(1, 4))."""
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    for i, (L, l, H4, d_ssm, gn, *batch) in enumerate(SSD_CASES):
+    for i, (L, l, H4, d_ssm, gn, *batch) in enumerate(cases):
         B = batch[0] if batch else BATCH
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
@@ -1517,8 +1541,9 @@ def phase_stf_bwd_vs_plain():
     return dict(cases=cases, autograd_err=auto)
 
 
-def _fused_cases():
-    """The single-layout fused SSD's cases (FUSED_CASES), fp32 and bf16:
+def _fused_cases(cases=FUSED_CASES):
+    """The single-layout fused SSD's cases (FUSED_CASES, or ``cases``),
+    fp32 and bf16:
     (case dict, dtype name, (Cc, Bc, acum, dte, cdec, dtp, x), dy), built
     as ssd_chunked builds them: the steps a softplus, padded with dt = 0
     and zero operands up to whole chunks (after the softplus), acum their
@@ -1527,7 +1552,7 @@ def _fused_cases():
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    for i, (B, L, l, H, N) in enumerate(FUSED_CASES):
+    for i, (B, L, l, H, N) in enumerate(cases):
         gen = torch.Generator(device=dev).manual_seed(500 + i)
         rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
         nc = -(-L // l)
@@ -3452,15 +3477,17 @@ def phase_kernel_bench(card):
 
 # --- the CrossMamba family: the cross classifiers and the fusion U-Nets ---
 
-def _fusion_model(name, dtype, scan_impl, state_dict=None):
+def _fusion_model(name, dtype, scan_impl, state_dict=None, **kw):
     """Seeded fusion-registry ``name`` on the card, in eval mode; without
     ``state_dict`` its scan parameters (the blocks' and the CrossMamba
-    fusions') are drawn away from init."""
+    fusions') are drawn away from init.  ``kw`` goes to
+    create_fusion_model (``GATE_DEPTHS``)."""
     import torch
     from medical_image_classification_tpu_torch.models import (
         create_fusion_model)
     gen = torch.Generator().manual_seed(0)
-    kw = dict(num_classes=CLASSES) if name.startswith("cross") else {}
+    if name.startswith("cross"):
+        kw = dict(kw, num_classes=CLASSES)
     model = create_fusion_model(name, dtype=dtype, scan_impl=scan_impl,
                                 generator=gen, **kw)
     if state_dict is not None:
@@ -3540,7 +3567,7 @@ FM_DARK = 0.25
 FM_GRAD_FLOOR = 0.0
 
 
-def _path_grads(name, sd, batch, losses, path):
+def _path_grads(name, sd, batch, losses, path, **kw):
     """{loss: (value, every parameter's gradient as float64)} of ``name``
     at the weights ``sd`` on ``batch`` in train mode (DropPath masks of
     seed 7, cuDNN's deterministic algorithms), by ``path``: "cuda" (the
@@ -3549,7 +3576,7 @@ def _path_grads(name, sd, batch, losses, path):
     einsums)."""
     import torch
     model = _fusion_model(name, None, "cuda" if path == "cuda" else "torch",
-                          sd).train()
+                          sd, **kw).train()
     if path == "float64":
         model = model.double()
         batch = [t.double() if t.is_floating_point() else t for t in batch]
@@ -3588,25 +3615,27 @@ def _two_input_gates(name, batch, losses, sd=None, exact_floor=None):
     With ``exact_floor`` (the fusion U-Nets): both fp32 paths against the
     same step in float64, on every leaf whose error is over that abs
     floor the kernels within PARAM_GRAD_TOL plus COND_RATIO x the plain
-    twins' own error (``_check_grad_tree_exact``).  Returns the numbers
-    and a line that states them."""
+    twins' own error (``_check_grad_tree_exact``), every model of the gates
+    at ``GATE_DEPTHS``.  Returns the numbers and a line that states
+    them."""
     import torch
+    exact = exact_floor is not None
+    kw = GATE_DEPTHS if exact else {}
     if sd is None:
-        sd = _fusion_model(name, None, "torch").state_dict()
+        sd = _fusion_model(name, None, "torch", **kw).state_dict()
     errs, scale = {}, {}
     for dt_name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
         outs = {}
         for impl in ("cuda", "torch"):
             with torch.inference_mode():
-                outs[impl] = _fusion_model(name, dtype, impl, sd)(
+                outs[impl] = _fusion_model(name, dtype, impl, sd, **kw)(
                     *batch[:2]).float().cpu().numpy()
         errs[dt_name] = _check_logits(f"{name} {dt_name} output",
                                       outs["cuda"], outs["torch"],
                                       LOGIT_TOL[dt_name])
         scale[dt_name] = float(abs(outs["torch"]).max())
-    exact = exact_floor is not None
     paths = ("cuda", "torch") + (("float64",) if exact else ())
-    res = {path: _path_grads(name, sd, batch, losses, path)
+    res = {path: _path_grads(name, sd, batch, losses, path, **kw)
            for path in paths}
     text = (f"kernels vs plain twins, same weights: output max err bf16 "
             f"{errs['bf16']:.3e} ({errs['bf16'] / scale['bf16']:.2e} of "
@@ -4508,7 +4537,8 @@ def _rank_main(rank, world, task, rdv, out):
                        init_method="file://" + rdv)
     try:
         result = ({"dp": _dp_rank(world), "sp": _sp_rank(world)}
-                  if task == "par" else _sp_rank(world))
+                  if task == "par" else _tp_rank(world) if task == "tp"
+                  else _sp_rank(world))
         torch.save(result, f"{out}_{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4963,6 +4993,320 @@ def phase_sp_passes(card, num):
     return passes
 
 
+# Tensor parallelism (phase 38): TP_RANKS ranks that share the card over
+# gloo, each SS2D / SS2DSSD layer's d_inner channels (or heads) split over
+# them (parallel/sharding.py), correctness, not scaling.  The seeded
+# full-width models at SIZE in fp32, TP_BATCH images, one train step each
+# through make_train_step (SGD at lr 0), against the unsharded step in this
+# process on the same weights; then cli/ddp_train.py --tp over the ranks on
+# EVAL_DIR's images against phase 36's one NCCL rank
+TP_RANKS, TP_BATCH = 2, 8
+# a rank's forward launches in one train step (its backward kernels as
+# often): medmamba's 40 scans at d_inner / 2; medssd's stage 1 on the dirs
+# kernels at half the heads (H4 8) and its stage 0 (d_ssm 64 a rank, which
+# gn 128 does not divide: no dirs) on the single-layout fused SSD at l 224;
+# cnn_mamba_mifa's stages 0-1 on the dirs kernels at N 64 (H4 4 and 8);
+# st_ssd's stage-0 Y_diag at H 4, the mixer and the gate on the channels
+# gathered over the ranks (tests/test_torch_kernel_reach.py TP_SITES)
+TP_PATHS = {"medmamba": {"selective_scan_fwd": SCAN_CALLS_PER_FORWARD},
+            "medssd": {"ssd_fused_dirs_fwd": 2, "ssd_fused_fwd": 2},
+            "cnn_mamba_mifa": {"ssd_fused_dirs_fwd": 2 + 2},
+            "st_ssd": {"ssd_ydiag_fwd": 2, "stl_mixer_fwd": 4,
+                       "stf_zgate_fwd": 4}}
+# the kernels at a rank's shapes at TP_BATCH: rows 1-2 at medmamba's
+# stage 0 (G 8, L 3136, Dm 48; the unsharded Dm 96 beside it), rows 5/5b
+# at medssd's stage 1 (L 784, l 196, H4 8, d_ssm 128, gn 128) and
+# cnn_mamba_mifa's stage 0 (L 3136, l 224, H4 4, d_ssm 64, gn 16), rows
+# 6/6b at medssd's stage 0 (L 3136, l 224, H 4, N 512)
+TP_SCAN_CASES = ((3136, 96 // TP_RANKS, TP_BATCH, 1), (3136, 96, TP_BATCH, 1))
+TP_SSD_CASES = ((784, 196, 8, 128, SSD_GN, TP_BATCH),
+                (3136, 224, 4, 64, SSD16_GN, TP_BATCH))
+TP_FUSED_CASES = ((TP_BATCH, 3136, 224, 4, 4 * SSD_GN),)
+
+
+def _tp_step(name, mesh=None):
+    """One train step of the seeded full-width ``name`` (fp32, SIZE) on
+    TP_BATCH images through make_train_step with SGD at lr 0 (the
+    gradients stay, the weights do not move; cuDNN's deterministic
+    algorithms); with ``mesh`` (tp > 1) the model built with
+    ``model_axis`` and loaded with this rank's pieces of the same seeded
+    weights.  The loss, the logits, every parameter's gradient (joined over
+    the model axis: the full tree), the kernels' launches, the step's wall
+    seconds."""
+    import torch
+    from medical_image_classification_tpu_torch.data.loader import (
+        SyntheticLoader)
+    from medical_image_classification_tpu_torch.parallel.sharding import (
+        gather_state_dict, shard_state_dict)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        make_train_step)
+    imgs, labels = next(SyntheticLoader(TP_BATCH, SIZE, CLASSES, steps=1,
+                                        seed=6).epoch(0))
+    dev = torch.device("cuda")
+    with _cudnn_deterministic():
+        model = _model(name, None, "auto")
+        if mesh is not None:
+            model = _model(name, None, "auto", model_axis="model",
+                           state_dict=shard_state_dict(model.state_dict(),
+                                                       mesh))
+        model.seed_drop_path(7)
+        opt = make_optimizer("sgd", model.named_parameters())
+        step = make_train_step(model, opt, make_lr_scheduler(
+            opt, make_schedule("constant", 0.0)))
+        logits = []
+        hook = model.register_forward_hook(
+            lambda m, args, out: logits.append(out.detach().cpu()))
+        counters = _counters()
+        _zero(counters)
+        t0 = time.perf_counter()
+        m = step(torch.from_numpy(imgs).to(dev),
+                 torch.from_numpy(labels).long().to(dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches(counters)
+        hook.remove()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    if mesh is not None:
+        grads = gather_state_dict(grads, mesh)
+    return dict(loss=float(m["loss"]), logits=logits[0], launches=launches,
+                seconds=seconds, grads={n: g.double().flatten().cpu()
+                                        for n, g in grads.items()})
+
+
+def _tp_rank(world):
+    from medical_image_classification_tpu_torch.parallel.mesh import (
+        make_mesh, set_current_mesh)
+    mesh = make_mesh(tp=world)
+    try:
+        return {name: _tp_step(name, mesh) for name in TP_PATHS}
+    finally:
+        set_current_mesh(None)
+
+
+def phase_tp(card, num):
+    """Tensor parallelism on the card: TP_RANKS ranks that share it over
+    gloo (``_spawn("tp")``).  Each model of TP_PATHS, one train step of the
+    seeded full-width model at SIZE, fp32, TP_BATCH images, against the
+    unsharded step in this process: the loss within 1e-5, the logits
+    within LOGIT_TOL, every parameter's gradient joined over the ranks
+    within PARAM_GRAD_TOL, and on each rank exactly TP_PATHS' launches,
+    every other kernel none.  Beside them cli/ddp_train.py --tp over the
+    ranks (gloo, phase 36's arguments: EVAL_DIR's images, global batch
+    BATCH, SGD, an epoch), its epoch-0 checkpoint (the full state_dict)
+    against phase 36's one NCCL rank (or its own where phase 36 did not
+    run) as phase 36 holds its DP run."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.join(EVAL_DIR, "oct")
+    if not os.path.isdir(root):
+        _eval_folder(root, ALL_INDEX_PER_CLASS, 0)
+    common = ["--data-path", root, "--num-classes", str(CLASSES),
+              "--batch-size", str(BATCH), "--image-size", str(SIZE),
+              "--epochs", "1", *PAR_CLI_ARGS]
+    save = {s: os.path.join(PAR_DIR, s, "m.ckpt") for s in ("tp", "one")}
+    shutil.rmtree(os.path.join(PAR_DIR, "tp"), ignore_errors=True)
+    os.makedirs(os.path.join(PAR_DIR, "tp"))
+    started = {"tp": _torchrun(TP_RANKS, common + [
+        "--val-path", root, "--save-path", save["tp"], "--tp",
+        str(TP_RANKS), "--dist-backend", "gloo"],
+        os.path.join(PAR_DIR, "tp.log"))}
+    if not os.path.exists(os.path.join(save["one"], "epoch_0.pt")):
+        os.makedirs(os.path.join(PAR_DIR, "one"), exist_ok=True)
+        started["nccl 1 rank"] = _torchrun(
+            1, common + ["--save-path", save["one"]],
+            os.path.join(PAR_DIR, "one.log"))
+    try:
+        ranks = _spawn("tp", TP_RANKS)
+        parts, out = [], {"models": {}}
+        for name, calls in TP_PATHS.items():
+            ref = _tp_step(name)
+            want = _want(calls, 1, True)
+            for r, res in enumerate(ranks):
+                got = res[name]
+                if got["launches"] != want:
+                    raise AssertionError(
+                        f"TP {name} rank {r}: launches {got['launches']}, "
+                        f"expected {want}")
+                if abs(got["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+                    raise AssertionError(f"TP {name} rank {r} loss "
+                                         f"{got['loss']} vs {ref['loss']}")
+                err = _check_logits(f"TP {name} rank {r}",
+                                    got["logits"].numpy(),
+                                    ref["logits"].numpy(), LOGIT_TOL["fp32"])
+                rel, cos = _check_grad_tree(f"TP {name} rank {r} param grad",
+                                            got["grads"], ref["grads"],
+                                            *PARAM_GRAD_TOL)
+            out["models"][name] = dict(
+                launches_per_rank=got["launches"], loss=got["loss"],
+                ref_loss=ref["loss"], logit_err=err, grad_rel=rel,
+                grad_cos=cos, seconds=got["seconds"],
+                ref_seconds=ref["seconds"])
+            parts.append(
+                f"{name}: launches on each rank "
+                + ", ".join(f"{k} {v}" for k, v in want.items() if v)
+                + f", the other kernels none; loss {got['loss']:.6f} vs "
+                f"unsharded {ref['loss']:.6f}, logits max err {err:.2e} "
+                f"(tol {LOGIT_TOL['fp32']} x max), joined gradients worst "
+                f"leaf rel-norm {rel:.2e} cos {cos:.6f} (tol "
+                f"{PARAM_GRAD_TOL}); step {got['seconds']:.3f} s on a rank, "
+                f"{ref['seconds']:.3f} s unsharded")
+    except BaseException:
+        for r in started.values():
+            _torchrun_kill(r)
+        raise
+    runs = {k: _torchrun_wait(r) for k, r in started.items()}
+    with open(os.path.join(PAR_DIR, "tp", "train.log")) as f:
+        log = f.read()
+    mesh_line = f"mesh {{'data': 1, 'model': {TP_RANKS}, 'seq': 1}}"
+    for line in (mesh_line, "epoch 0 done", "epoch 0 val top-1"):
+        if log.count(line) != 1:
+            raise AssertionError(f"the TP run's train.log holds {line!r} "
+                                 f"{log.count(line)} times, expected once")
+    ckpt = lambda s: torch.load(os.path.join(save[s], "epoch_0.pt"),
+                                map_location="cpu", weights_only=True)
+    from medical_image_classification_tpu_torch.models import create_model
+    init = dict(create_model("medmamba", CLASSES, generator=torch.Generator()
+                             .manual_seed(0)).named_parameters())
+    init = {n: p.detach() for n, p in init.items()}
+    got, one = ckpt("tp"), ckpt("one")
+    shapes = lambda c: {k: tuple(v.shape) for k, v in c["model"].items()}
+    if shapes(got) != shapes(one):
+        raise AssertionError("the TP checkpoint is not the full state_dict")
+    worst = _same_checkpoint(got, one, init, "TP CLI")
+    out.update(cli_seconds=runs, ckpt_update_rel=worst[0],
+               ckpt_stats_rel=worst[1], seconds=time.perf_counter() - t0)
+    print(f"phase {num} tensor parallelism, tp {TP_RANKS} as ranks sharing "
+          f"the card over gloo (correctness, not scaling), {SIZE}x{SIZE} "
+          f"fp32, batch {TP_BATCH}, one train step a model | "
+          + " | ".join(parts)
+          + f" | cli/ddp_train.py --tp {TP_RANKS} on "
+          f"{CLASSES * ALL_INDEX_PER_CLASS} images, global batch {BATCH}, "
+          f"SGD, an epoch (wall s from its start to its wait): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in runs.items())
+          + f"; its checkpoint the full state_dict, weights within "
+          f"{worst[0]:.2e} of one NCCL process's update at worst (tol "
+          f"{PARAM_GRAD_TOL[0]} + {PAR_ULP_FLOOR} of the weight), running "
+          f"stats worst rel-norm {worst[1]:.2e} (tol {PAR_STATS_TOL}) | "
+          f"{out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+def _tp_case(what, run_k, run_p, names, check, bound, reps):
+    """A kernel at a TP rank's shape: its outputs against the plain
+    version's (``check(what, got, want)``), device ms by CUDA events over
+    ``reps`` calls after a warm-up, the plain version's over the one call
+    the check reads."""
+    import torch
+    as_tuple = lambda x: tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    gk = as_tuple(run_k())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    gp = as_tuple(run_p())
+    end.record()
+    torch.cuda.synchronize()
+    err = max(check(f"{what} {nm}", a, b) for nm, a, b in zip(names, gk, gp))
+    del gk, gp
+    return dict(max_abs_err=err, ms=_events_ms(run_k, reps),
+                plain_ms=start.elapsed_time(end), bound=bound)
+
+
+def phase_tp_kernels(card, num):
+    """The kernels at a TP rank's shapes, the card to themselves (after
+    the parallel phases): rows 1-2 at TP_SCAN_CASES (forward order, K 1),
+    rows 5/5b at TP_SSD_CASES and rows 6/6b at TP_FUSED_CASES, fp32 and
+    bf16, each against its plain version and beside its bound."""
+    import torch
+    from medical_image_classification_tpu_torch.kernels import (
+        selective_scan_bwd as ssb, selective_scan_fwd as ssf,
+        ssd_fused as sf, ssd_fused_dirs as sfd)
+    cases = []
+    for L, Dm, dt_name, reverse, args, g in _scan_cases(TP_SCAN_CASES):
+        if reverse:
+            continue
+        _, xsave = ssf.scan_folded_fwd_ref(*args, want_xsave=True)
+        dy = torch.randn(args[0].shape, device="cuda", generator=torch
+                         .Generator(device="cuda").manual_seed(L + Dm)
+                         ).to(args[0].dtype)
+        shape = dict(G=g, L=L, Dm=Dm, N=N)
+        for kernel, run_k, run_p, names, tol, reps in (
+                ("selective_scan_fwd",
+                 lambda: ssf.scan_folded_fwd(*args, impl="cuda"),
+                 lambda: ssf.scan_folded_fwd_ref(*args), ("y",),
+                 lambda w, a, b: _check_close(w, a, b, *TOL[dt_name]), 20),
+                ("selective_scan_bwd",
+                 lambda: ssb.scan_folded_bwd(*args, xsave, dy, impl="cuda"),
+                 lambda: ssb.scan_folded_bwd_ref(*args, xsave, dy),
+                 GRAD_NAMES,
+                 lambda w, a, b: _check_close(w, a, b, *GRAD_TOL[dt_name]),
+                 10)):
+            c = _tp_case(f"TP {kernel} {shape} {dt_name}", run_k, run_p,
+                         names, tol, _scan_bound(
+                             L, Dm, dt_name, kernel.endswith("bwd"), g),
+                         reps)
+            cases.append(dict(c, kernel=kernel, shape=shape, dtype=dt_name,
+                              per_rank=Dm != 96))
+    for L, l, dt_name, args, d_ssm, dy, gn in _ssd_cases(TP_SSD_CASES):
+        _, Ssave = sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, gn,
+                                              want_save=True)
+        shape = dict(B=args[0].shape[0], L=L, l=l, H4=args[1].shape[2],
+                     d_ssm=d_ssm, N=4 * gn)
+        for kernel, run_k, run_p, names, tol, reps in (
+                ("ssd_fused_dirs_fwd",
+                 lambda: sfd.ssd_fused_dirs_fwd(*args, d_ssm, gn,
+                                                impl="cuda"),
+                 lambda: sfd.ssd_fused_dirs_fwd_ref(*args, d_ssm, gn),
+                 ("y",), lambda w, a, b: _check_scaled(
+                     w, a, b, *SSD_TOL[dt_name]), 10),
+                ("ssd_fused_dirs_bwd",
+                 lambda: sfd.ssd_fused_dirs_bwd(*args, d_ssm, gn, Ssave, dy,
+                                                impl="cuda"),
+                 lambda: sfd.ssd_fused_dirs_bwd_ref(*args, d_ssm, gn, Ssave,
+                                                    dy),
+                 SSD_GRAD_NAMES, lambda w, a, b: _check_scaled(
+                     w, a, b, *SSD_GRAD_TOL[dt_name]), 5)):
+            c = _tp_case(f"TP {kernel} {shape} {dt_name}", run_k, run_p,
+                         names, tol, _ssd_bound(
+                             args, d_ssm, 4 * gn, dt_name,
+                             kernel.endswith("bwd")), reps)
+            cases.append(dict(c, kernel=kernel, shape=shape, dtype=dt_name,
+                              per_rank=True))
+        del Ssave
+    for case, dt_name, args, dy in _fused_cases(TP_FUSED_CASES):
+        _, Ssave = sf.ssd_fused_fwd_ref(*args, want_save=True)
+        for kernel, run_k, run_p, names, tol, reps in (
+                ("ssd_fused_fwd", lambda: sf.ssd_fused_fwd(*args,
+                                                           impl="cuda"),
+                 lambda: sf.ssd_fused_fwd_ref(*args), ("y",),
+                 lambda w, a, b: _check_scaled(w, a, b, *SSD_TOL[dt_name]),
+                 10),
+                ("ssd_fused_bwd",
+                 lambda: sf.ssd_fused_bwd(*args, Ssave, dy, impl="cuda"),
+                 lambda: sf.ssd_fused_bwd_ref(*args, Ssave, dy),
+                 FUSED_GRAD_NAMES, lambda w, a, b: _check_scaled(
+                     w, a, b, *SSD_GRAD_TOL[dt_name]), 5)):
+            c = _tp_case(f"TP {kernel} {case['shape']} {dt_name}", run_k,
+                         run_p, names, tol, _fused_bound(
+                             args, dt_name, kernel.endswith("bwd")), reps)
+            cases.append(dict(c, kernel=kernel, shape=case["shape"],
+                              dtype=dt_name, per_rank=True))
+        del Ssave
+    print(f"phase {num} the kernels at a TP rank's shapes (CUDA events, the "
+          f"card to themselves), each within its phase-2 tolerance of its "
+          f"plain version: "
+          + "; ".join(f"{c['kernel']} {c['shape']} {c['dtype']} "
+                      f"{c['ms']:.4f} ms (plain {c['plain_ms']:.2f} ms, "
+                      f"bound {c['bound'][0]:.4f} ms {c['bound'][1]}, err "
+                      f"{c['max_abs_err']:.2e})" for c in cases)
+          + f" on {card}", flush=True)
+    return cases
+
+
 def _entry(name, replaces, cases, launches, head, bound):
     """One kernel's record for the kernels line; ``head`` picks the case
     whose times it reports; ``replaces`` is file:line under the JAX
@@ -5104,6 +5448,12 @@ def main(argv=None):
     lap(str(num + 7))
     sp["passes"] = phase_sp_passes(card, num + 7)
     lap(str(num + 7) + " passes")
+    # tensor parallelism: ranks that share the card over gloo, then the
+    # kernels at a rank's shapes
+    tp = phase_tp(card, num + 8)
+    lap(str(num + 8))
+    tp["kernels"] = phase_tp_kernels(card, num + 8)
+    lap(str(num + 8) + " kernels")
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -5264,6 +5614,20 @@ def main(argv=None):
         next(e for e in entries if e["name"] == name)["sp"] = dict(
             ranks=SP_RANKS, model="medssd", size=SP_SIZE, batch=GRAD_BATCH,
             launches_per_rank_step=sp["medssd"]["launches_per_rank"][name])
+    # under TP: a rank's launches in one train step of each model, and the
+    # times at a rank's shapes (rows 1-2, 5/5b, 6/6b)
+    for e in entries:
+        per = {m: r["launches_per_rank"][e["name"]]
+               for m, r in tp["models"].items()
+               if r["launches_per_rank"].get(e["name"])}
+        shapes = [dict(shape=c["shape"], dtype=c["dtype"],
+                       per_rank=c["per_rank"], ms=c["ms"],
+                       plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+                       bound_by=c["bound"][1], max_abs_err=c["max_abs_err"])
+                  for c in tp["kernels"] if c["kernel"] == e["name"]]
+        if per or shapes:
+            e["tp"] = dict(ranks=TP_RANKS, size=SIZE, batch=TP_BATCH,
+                           launches_per_rank_step=per, shapes=shapes)
     # the bench's kernels: launches in its --t-cap 50 and --calibrate runs;
     # times and bounds at its stage 0 in bf16 (v1 at T 50; the calibration
     # in the bench's default fp32 compute, bf16 compute beside it)
@@ -5320,7 +5684,7 @@ def main(argv=None):
                            ssd16_paths=ssd16_paths, ssd16_models=ssd16,
                            crossmamba=cross, fusionmamba=fm,
                            all_index=all_index, grad_cam=cam,
-                           export=exported, dp=dp, sp=sp,
+                           export=exported, dp=dp, sp=sp, tp=tp,
                            phase_seconds=seconds),
                       f, indent=1)
     print(f"phase seconds (wall, each phase with its checks): {seconds}",

@@ -8,7 +8,7 @@ rank:
   torchrun --nproc-per-node N -m \\
       medical_image_classification_tpu_torch.cli.ddp_train \\
       --data-path /data/oct/train --epochs 100 --batch-size 32 \\
-      [--sp 2] [--dist-backend gloo] [--auto-resume]
+      [--tp 2] [--sp 2] [--dist-backend gloo] [--auto-resume]
 
 The backend is NCCL by default (one rank a GPU on ``cuda:LOCAL_RANK``);
 ``--dist-backend gloo`` lets ranks share a card or run on the CPU

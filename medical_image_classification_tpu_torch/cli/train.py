@@ -28,14 +28,19 @@ the same shard); the gradients are averaged and the BatchNorm statistics
 summed over the data axis, so a step is one process's step on the global
 batch.  ``--sp N`` L-shards every SS2D scan over N ranks
 (``parallel/sequence_parallel.py``; every stage's L must divide by N).
-Every rank evaluates the whole validation set with the same weights; rank
+``--tp N`` splits every SS2D / SS2DSSD layer's d_inner channels, or
+heads, over N ranks (tensor parallelism, ``parallel/sharding.py``; N must
+divide every stage's d_inner and heads): the model is initialised at full
+width from ``--seed`` and each rank keeps its pieces, so a run starts from
+the weights a one-process run starts from, and the checkpoints hold the
+full model.  The tp ranks of one data rank read the same shard.  Every
+rank evaluates the whole validation set with the same weights; rank
 0's count of correct images decides, rank 0 alone logs and writes the
-checkpoints, and every rank waits for each write.  ``--tp`` is not ported
-yet and raises.
+checkpoints, and every rank waits for each write.
 
   torchrun --nproc-per-node 2 -m \
       medical_image_classification_tpu_torch.cli.train \
-      --data-path /data/oct/train --sp 2
+      --data-path /data/oct/train --sp 2    # or --tp 2, or 4 ranks: both
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from medical_image_classification_tpu_torch.parallel.mesh import (
     set_current_mesh,
 )
 from medical_image_classification_tpu_torch.train.checkpoint import (
+    load_full_state_dict,
     restore_checkpoint,
     save_checkpoint,
     save_params_only,
@@ -81,7 +87,6 @@ from medical_image_classification_tpu_torch.train.train_step import (
 from medical_image_classification_tpu_torch.utils.config import (
     TrainConfig,
     add_args,
-    check_ported,
     from_args,
 )
 from medical_image_classification_tpu_torch.utils.logging_utils import (
@@ -126,7 +131,6 @@ def run_train(model, optimizer, scheduler, loader, device, epoch: int = 0,
 
 
 def main(cfg: TrainConfig) -> float:
-    check_ported(cfg)
     device = init_process_group(cfg.dist_backend, cfg.device)
     mesh = make_mesh(tp=cfg.tp, sp=cfg.sp, batch_size=cfg.batch_size)
     try:
@@ -150,18 +154,24 @@ def _train(cfg: TrainConfig, device, mesh) -> float:
         dump_class_indices(train_ds,
                            os.path.join(save_dir, "class_indices.json"))
     log.info("train images: %d  classes: %s", len(train_ds), train_ds.classes)
-    # the seq ranks of one data rank read the same shard
+    # the model and seq ranks of one data rank read the same shard
     train_loader = BatchLoader(train_ds, local_bs, cfg.image_size,
                                train=True, seed=cfg.seed,
                                num_threads=cfg.num_workers,
                                shard_index=mesh.data_index,
                                shard_count=mesh.dp)
 
-    model = create_model(cfg.model, num_classes=cfg.num_classes,
-                         use_checkpoint=cfg.use_checkpoint,
-                         scan_impl=cfg.scan_impl,
-                         generator=torch.Generator().manual_seed(cfg.seed),
-                         **({"seq_axis": "seq"} if cfg.sp > 1 else {}))
+    build = lambda **kw: create_model(
+        cfg.model, num_classes=cfg.num_classes,
+        use_checkpoint=cfg.use_checkpoint, scan_impl=cfg.scan_impl,
+        generator=torch.Generator().manual_seed(cfg.seed),
+        **({"seq_axis": "seq"} if cfg.sp > 1 else {}), **kw)
+    model = build()
+    if mesh.tp > 1:
+        # the full-width init from the seed, each rank keeping its pieces
+        full = model.state_dict()
+        model = build(model_axis="model")
+        load_full_state_dict(model, full)
     model = model.to(device)
     model.seed_drop_path(cfg.seed + 1)
     schedule = make_schedule(cfg.schedule, cfg.lr,

@@ -3,11 +3,17 @@
 Port of ``medical_image_classification_tpu/models/ss2d_modules.py``:
 ``SS2D`` (Mamba-1 core), ``SS2DSSD`` (Mamba-2 / SSD core, linear in_proj,
 with the ST-SSD tail: ``STL``, ``STF`` and the WMF merge) and their init
-helpers.  Init follows the JAX modules: Δ-projection weight
-U(-r^-0.5, r^-0.5), Δ-bias the softplus-inverse of a log-uniform draw in
-[dt_min, dt_max] (one draw repeated over the K directions), A = -exp(A_log)
-with S4D-real A_log (Mamba-1) or log U(1, 16) per head (SSD, one draw
-repeated over K), D = 1.
+helpers.  Both take ``model_axis`` (tensor parallelism: the name of the
+current mesh's axis whose ranks split the layer's d_inner channels, or
+heads, as ``parallel/sharding.py`` lays them out): the layer holds its
+rank's parameters at local width, enters its region through
+``reduce_grad`` (column-parallel in_proj) and leaves it through
+``reduce_out`` (row-parallel out_proj); GSPMD's placement of the same
+collectives in the JAX package.  Init follows the JAX modules:
+Δ-projection weight U(-r^-0.5, r^-0.5), Δ-bias the softplus-inverse of a
+log-uniform draw in [dt_min, dt_max] (one draw repeated over the K
+directions), A = -exp(A_log) with S4D-real A_log (Mamba-1) or log U(1, 16)
+per head (SSD, one draw repeated over K), D = 1.
 """
 
 from __future__ import annotations
@@ -38,9 +44,19 @@ from medical_image_classification_tpu_torch.models.kan_modules import (
     KANLinear,
 )
 from medical_image_classification_tpu_torch.ops.ss2d import (
+    layer_norm_sharded,
     rmsnorm_gated,
     ss2d_core_mamba1,
     ss2d_core_ssd,
+)
+from medical_image_classification_tpu_torch.parallel.collectives import (
+    gather_pieces,
+    reduce_grad,
+    reduce_out,
+)
+from medical_image_classification_tpu_torch.parallel.mesh import mesh_axis
+from medical_image_classification_tpu_torch.parallel.sharding import (
+    ssd_in_proj_split,
 )
 
 K = 4  # scan directions
@@ -73,6 +89,20 @@ def a_log_init_uniform_(t, generator=None, lo=1.0, hi=16.0):
         return t.copy_(torch.log(per).repeat(K).reshape(t.shape))
 
 
+def _tp_ranks(model_axis, what: str, widths) -> int:
+    """The size of the mesh axis ``model_axis`` (1 without one); raises
+    ``ValueError`` where it does not divide each of ``widths``."""
+    if model_axis is None:
+        return 1
+    tp = mesh_axis(model_axis).size
+    for name, width in widths:
+        if width % tp:
+            raise ValueError(f"tensor parallelism over {tp} ranks: the "
+                             f"{what}'s {name} {width} does not divide by "
+                             f"{tp}")
+    return tp
+
+
 def uniform_pm_(t, std, generator=None):
     return nn.init.uniform_(t, -std, std, generator=generator)
 
@@ -89,27 +119,31 @@ class SS2D(nn.Module):
     -> * silu(z) -> out_proj.  ``A_logs`` and ``Ds`` are stored flattened
     to [K * d_inner, ...], as in the reference ``state_dict``.
     ``seq_axis`` L-shards the scan over that axis of the current mesh
-    (sequence parallelism, ``ops/ss2d.py``)."""
+    (sequence parallelism, ``ops/ss2d.py``); ``model_axis`` splits d_inner
+    over that axis (tensor parallelism: ``d_local`` channels a rank, and
+    ``out_norm``'s statistics over all of them)."""
 
     def __init__(self, d_model: int, d_state: int = 16,
-                 scan_impl: str = "auto", dtype=None, seq_axis=None):
+                 scan_impl: str = "auto", dtype=None, seq_axis=None,
+                 model_axis=None):
         super().__init__()
-        self.seq_axis = seq_axis
-        self.d_inner = d_inner = 2 * d_model               # expand 2
+        self.seq_axis, self.model_axis = seq_axis, model_axis
+        self.d_inner = 2 * d_model                         # expand 2
+        tp = _tp_ranks(model_axis, "SS2D", (("d_inner", self.d_inner),))
+        self.d_local = D = self.d_inner // tp
         self.dt_rank = R = math.ceil(d_model / 16)
         self.d_state = N = d_state
         self.scan_impl = scan_impl
         self.dtype = dtype
-        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
-        self.conv2d = nn.Conv2d(d_inner, d_inner, 3, groups=d_inner,
-                                padding=1)
-        self.x_proj_weight = nn.Parameter(torch.empty(K, R + 2 * N, d_inner))
-        self.dt_projs_weight = nn.Parameter(torch.empty(K, d_inner, R))
-        self.dt_projs_bias = nn.Parameter(torch.empty(K, d_inner))
-        self.A_logs = nn.Parameter(torch.empty(K * d_inner, N))
-        self.Ds = nn.Parameter(torch.ones(K * d_inner))
-        self.out_norm = nn.LayerNorm(d_inner, eps=1e-6)   # parity: Flax eps
-        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.in_proj = nn.Linear(d_model, 2 * D, bias=False)
+        self.conv2d = nn.Conv2d(D, D, 3, groups=D, padding=1)
+        self.x_proj_weight = nn.Parameter(torch.empty(K, R + 2 * N, D))
+        self.dt_projs_weight = nn.Parameter(torch.empty(K, D, R))
+        self.dt_projs_bias = nn.Parameter(torch.empty(K, D))
+        self.A_logs = nn.Parameter(torch.empty(K * D, N))
+        self.Ds = nn.Parameter(torch.ones(K * D))
+        self.out_norm = nn.LayerNorm(D, eps=1e-6)         # parity: Flax eps
+        self.out_proj = nn.Linear(D, d_model, bias=False)
 
     def reset_scan_parameters(self, generator=None):
         torch_linear_rowmajor_(self.x_proj_weight, generator)
@@ -119,19 +153,25 @@ class SS2D(nn.Module):
         nn.init.ones_(self.Ds)
 
     def forward(self, x):
+        tp = self.model_axis
+        if tp is not None:
+            x = reduce_grad(x, mesh_axis(tp))
         xz = linear(self.in_proj, x, self.dtype)
         xpart, z = xz.chunk(2, dim=-1)
         xpart = F.silu(conv_nhwc(self.conv2d, xpart, self.dtype))
         y = ss2d_core_mamba1(
             xpart, self.x_proj_weight, self.dt_projs_weight,
-            self.dt_projs_bias, self.A_logs.view(K, self.d_inner, -1),
-            self.Ds.view(K, self.d_inner), d_state=self.d_state,
+            self.dt_projs_bias, self.A_logs.view(K, self.d_local, -1),
+            self.Ds.view(K, self.d_local), d_state=self.d_state,
             dt_rank=self.dt_rank, impl=self.scan_impl,
-            seq_axis=self.seq_axis)
+            seq_axis=self.seq_axis, model_axis=tp)
         # out_norm returns fp32; y * silu(z) stays fp32 until out_proj casts
-        y = layer_norm(self.out_norm, y.to(x.dtype))
-        y = y * F.silu(z)
-        return linear(self.out_proj, y, self.dtype)
+        y = y.to(x.dtype)
+        norm = self.out_norm
+        y = layer_norm(norm, y) if tp is None else layer_norm_sharded(
+            y, norm.weight, norm.bias, norm.eps, tp)
+        y = linear(self.out_proj, y * F.silu(z), self.dtype)
+        return y if tp is None else reduce_out(y, mesh_axis(tp))
 
 
 class RMSNormGated(nn.Module):
@@ -279,15 +319,20 @@ class SS2DSSD(nn.Module):
     JAX module's ``dropout`` is 0 in every model (no VSSLayer passes its
     blocks an ``attn_drop``), so the layer has none.  ``seq_axis``
     L-shards the scan over that axis of the current mesh (sequence
-    parallelism, ``ops/ss2d.py``)."""
+    parallelism, ``ops/ss2d.py``).  ``model_axis`` splits the heads over
+    that axis (tensor parallelism): a rank holds ``h_local`` heads,
+    ``d_local`` channels of z and x, and B and C whole (one group, every
+    head reads them); ``in_proj_kan`` computes the whole projection and
+    each rank keeps its blocks; the ST tail runs on all d_ssm channels,
+    gathered over the axis, and each rank keeps its own of its output."""
 
     def __init__(self, d_model: int, d_state: int = 64, headdim: int = 64,
                  chunk_size: int = 256, st_tokens: int | None = None,
                  kan_in: bool = False, kan_filter: bool = False,
                  kan_spline_order: int = 1, scan_impl: str = "auto", dtype=None,
-                 seq_axis=None):
+                 seq_axis=None, model_axis=None):
         super().__init__()
-        self.seq_axis = seq_axis
+        self.seq_axis, self.model_axis = seq_axis, model_axis
         self.d_model = d_model
         self.d_ssm = d_ssm = 2 * d_model                   # expand 2
         self.headdim = headdim
@@ -297,20 +342,25 @@ class SS2DSSD(nn.Module):
         self.st_tokens = st_tokens
         self.scan_impl = scan_impl
         self.dtype = dtype
-        conv_dim = d_ssm + 2 * d_state + nheads
+        tp = _tp_ranks(model_axis, "SS2DSSD", (("heads", nheads),))
+        d, h = d_ssm // tp, nheads // tp
+        self.d_local, self.h_local = d, h
+        conv_dim = d + 2 * d_state + h
+        self.proj_split = ssd_in_proj_split(d_ssm, nheads, d_state, dim=-1)
         kan = lambda out: KANLinear(d_model, out,
                                     spline_order=kan_spline_order)
         self.filter_kan = kan(d_model) if kan_filter else None
-        self.in_proj_kan = kan(d_ssm + conv_dim) if kan_in else None
+        self.in_proj_kan = kan(2 * d_ssm + 2 * d_state + nheads) \
+            if kan_in else None
         self.in_proj = None if kan_in else nn.Linear(
-            d_model, d_ssm + conv_dim, bias=False)
+            d_model, d + conv_dim, bias=False)
         self.conv2d = nn.Conv2d(conv_dim, conv_dim, 3, groups=conv_dim,
                                 padding=1)
-        self.dt_bias = nn.Parameter(torch.empty(K, nheads))
-        self.A_logs = nn.Parameter(torch.empty(K * nheads))
-        self.Ds = nn.Parameter(torch.ones(K * nheads))
-        self.norm = RMSNormGated(d_ssm)
-        self.out_proj = nn.Linear(d_ssm, d_model, bias=False)
+        self.dt_bias = nn.Parameter(torch.empty(K, h))
+        self.A_logs = nn.Parameter(torch.empty(K * h))
+        self.Ds = nn.Parameter(torch.ones(K * h))
+        self.norm = RMSNormGated(d)
+        self.out_proj = nn.Linear(d, d_model, bias=False)
         if st_tokens is not None:
             self.stl = STL(st_tokens, d_ssm, scan_impl, dtype)
             self.stf = STF(st_tokens, d_ssm, scan_impl, dtype)
@@ -333,30 +383,42 @@ class SS2DSSD(nn.Module):
         stats of ``o_norm`` (False in an activation-checkpoint recompute)."""
         if self.filter_kan is not None:
             u = self.filter_kan(u)
+        tp = self.model_axis
+        axis = None if tp is None else mesh_axis(tp)
+        if axis is not None:
+            u = reduce_grad(u, axis)
         if self.in_proj_kan is not None:
             zxbcdt = self.in_proj_kan(u)
+            if axis is not None:
+                zxbcdt = self.proj_split.piece(zxbcdt, axis.size, axis.index)
         else:
             zxbcdt = linear(self.in_proj, u, self.dtype)
-        z, xBCdt = zxbcdt.split([self.d_ssm, zxbcdt.shape[-1] - self.d_ssm],
-                                dim=-1)
+        d, h = self.d_local, self.h_local
+        z, xBCdt = zxbcdt.split([d, zxbcdt.shape[-1] - d], dim=-1)
         xBCdt = F.silu(conv_nhwc(self.conv2d, xBCdt, self.dtype))
         st = self.st_tokens is not None
         y = ss2d_core_ssd(
-            xBCdt, self.A_logs.view(K, self.nheads), self.dt_bias,
-            self.Ds.view(K, self.nheads), d_ssm=self.d_ssm,
-            d_state=self.d_state, nheads=self.nheads, headdim=self.headdim,
+            xBCdt, self.A_logs.view(K, h), self.dt_bias, self.Ds.view(K, h),
+            d_ssm=d, d_state=self.d_state, nheads=h, headdim=self.headdim,
             chunk_size=self.chunk_size, merge=not st, stack_scan_order=st,
             seq_axis=self.seq_axis, impl=self.scan_impl)
         if st:
-            y = self._st_tail(u, y, update_stats)
+            y = self._st_tail(u, y, update_stats, axis)
         # the core returns the compute dtype; the layer continues in u's
         # (fp32 after the block's LayerNorm) until out_proj casts
-        y = rmsnorm_gated(y.to(u.dtype), z, self.norm.weight)
-        return linear(self.out_proj, y, self.dtype)
+        y = rmsnorm_gated(y.to(u.dtype), z, self.norm.weight, model_axis=tp)
+        y = linear(self.out_proj, y, self.dtype)
+        return y if axis is None else reduce_out(y, axis)
 
-    def _st_tail(self, u, ys, update_stats):
-        """ys [B, 4, L, d_ssm] (scan order) -> [B, H, W, d_ssm]."""
+    def _st_tail(self, u, ys, update_stats, axis=None):
+        """ys [B, 4, L, d] (scan order) -> [B, H, W, d]: d = d_ssm, or under
+        tensor parallelism (``axis``) this rank's d_local channels, the
+        tail run on all d_ssm of them gathered over the axis (its gradient
+        summed over the ranks' shares: ``gather_pieces``)."""
         Bb, H, W, _ = u.shape
+        if axis is not None:
+            ys = gather_pieces(ys, axis)             # [tp, B, 4, L, d]
+            ys = ys.permute(1, 2, 3, 0, 4).flatten(3)
         L, p = H * W, self.st_tokens
         if p * p != L:
             raise ValueError(f"st_tokens^2 ({p * p}) must equal L ({L})")
@@ -367,4 +429,8 @@ class SS2DSSD(nn.Module):
         U4 = U4.reshape(Bb, K, L, -1)
         w = torch.softmax(self.k_weights, dim=0)
         U_m = torch.einsum("k,bkpc->bpc", w.to(U4.dtype), U4)
-        return self.stf(z_feat, U_m, w.sum()).reshape(Bb, H, W, -1)
+        y = self.stf(z_feat, U_m, w.sum()).reshape(Bb, H, W, -1)
+        if axis is None:
+            return y
+        d = self.d_local
+        return y.narrow(-1, axis.index * d, d)

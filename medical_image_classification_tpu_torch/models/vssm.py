@@ -86,7 +86,8 @@ class SSConvBlock(nn.Module):
                  kan_filter: bool = False, kan_spline_order: int = 1,
                  scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
-                 rng: SeededGenerators | None = None, seq_axis=None):
+                 rng: SeededGenerators | None = None, seq_axis=None,
+                 model_axis=None):
         super().__init__()
         half = hidden_dim // 2
         self.use_checkpoint = use_checkpoint
@@ -94,14 +95,15 @@ class SSConvBlock(nn.Module):
         if core == "mamba1":
             self.self_attention = SS2D(d_model=half, d_state=d_state,
                                        scan_impl=scan_impl, dtype=dtype,
-                                       seq_axis=seq_axis)
+                                       seq_axis=seq_axis,
+                                       model_axis=model_axis)
         elif core == "ssd":
             self.self_attention = SS2DSSD(
                 d_model=half, d_state=d_state, headdim=ssd_headdim,
                 chunk_size=ssd_chunk_size, st_tokens=st_tokens,
                 kan_in=kan_in, kan_filter=kan_filter,
                 kan_spline_order=kan_spline_order, scan_impl=scan_impl,
-                dtype=dtype, seq_axis=seq_axis)
+                dtype=dtype, seq_axis=seq_axis, model_axis=model_axis)
         else:
             raise ValueError(f"unknown core: {core!r}")
         self.drop_path = DropPath(drop_path, rng=rng)
@@ -144,7 +146,8 @@ class VSSLayer(nn.Module):
                  kan_filter: bool = False, kan_spline_order: int = 1,
                  downsample: bool = True, scan_impl: str = "auto",
                  dtype=None, use_checkpoint: bool = False,
-                 rng: SeededGenerators | None = None, seq_axis=None):
+                 rng: SeededGenerators | None = None, seq_axis=None,
+                 model_axis=None):
         super().__init__()
         self.blocks = nn.ModuleList(
             SSConvBlock(dim, drop_path=dp, d_state=d_state, core=core,
@@ -154,7 +157,7 @@ class VSSLayer(nn.Module):
                         kan_spline_order=kan_spline_order,
                         scan_impl=scan_impl, dtype=dtype,
                         use_checkpoint=use_checkpoint, rng=rng,
-                        seq_axis=seq_axis)
+                        seq_axis=seq_axis, model_axis=model_axis)
             for dp in drop_paths)
         self.downsample = PatchMerging(dim, dtype=dtype) if downsample \
             else None
@@ -180,7 +183,11 @@ class VSSM(nn.Module):
     DropPath mask; a trainer seeds it with ``seed_drop_path``.
     ``seq_axis`` (None, or the name of the current mesh's sequence axis)
     L-shards every SS2D / SS2DSSD scan over it: sequence parallelism, the
-    rest of the model replicated.
+    rest of the model replicated.  ``model_axis`` (None, or the name of
+    the current mesh's model axis) splits every SS2D / SS2DSSD layer's
+    d_inner channels, or heads, over it: tensor parallelism, the layers
+    at local widths (``parallel/sharding.py``), the rest replicated; a
+    stage whose width the axis does not divide raises ``ValueError``.
 
     ``conv_stem`` puts CNN-Mamba's ConvTConvPW in front of the patch
     embed (fp32, before the cast to ``dtype``), ``use_mifa`` a MIFA block
@@ -204,7 +211,8 @@ class VSSM(nn.Module):
                  kan_filter: bool = False, kan_spline_order: int = 1,
                  head: str = "linear", scan_impl: str = "auto", dtype=None,
                  use_checkpoint: bool = False,
-                 generator: torch.Generator | None = None, seq_axis=None):
+                 generator: torch.Generator | None = None, seq_axis=None,
+                 model_axis=None):
         super().__init__()
         self.dtype = dtype
         self.drop_path_rng = SeededGenerators(0)
@@ -213,18 +221,22 @@ class VSSM(nn.Module):
         self.patch_embed = PatchEmbed(dims[0], dtype=dtype)
         self.mifa = MIFABlock(dims[0]) if use_mifa else None
         dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
-        self.layers = nn.ModuleList(
-            VSSLayer(dims[i], dpr[sum(depths[:i]):sum(depths[:i + 1])],
-                     d_state=d_state, core=core,
-                     ssd_chunk_size=ssd_chunk_size, ssd_headdim=ssd_headdim,
-                     st_tokens=st_tokens[i] if st_tokens else None,
-                     kan_in=kan_in, kan_filter=kan_filter,
-                     kan_spline_order=kan_spline_order,
-                     downsample=i < len(depths) - 1,
-                     scan_impl=scan_impl, dtype=dtype,
-                     use_checkpoint=use_checkpoint, rng=self.drop_path_rng,
-                     seq_axis=seq_axis)
-            for i in range(len(depths)))
+        self.layers = nn.ModuleList()
+        for i in range(len(depths)):
+            try:
+                self.layers.append(VSSLayer(
+                    dims[i], dpr[sum(depths[:i]):sum(depths[:i + 1])],
+                    d_state=d_state, core=core,
+                    ssd_chunk_size=ssd_chunk_size, ssd_headdim=ssd_headdim,
+                    st_tokens=st_tokens[i] if st_tokens else None,
+                    kan_in=kan_in, kan_filter=kan_filter,
+                    kan_spline_order=kan_spline_order,
+                    downsample=i < len(depths) - 1,
+                    scan_impl=scan_impl, dtype=dtype,
+                    use_checkpoint=use_checkpoint, rng=self.drop_path_rng,
+                    seq_axis=seq_axis, model_axis=model_axis))
+            except ValueError as e:
+                raise ValueError(f"stage {i} (dim {dims[i]}): {e}") from e
         self.head_kind = head
         for name, mod in head_modules(dims[-1], num_classes, head,
                                       kan_spline_order).items():

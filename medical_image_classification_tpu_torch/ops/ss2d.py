@@ -4,7 +4,10 @@ Port of ``medical_image_classification_tpu/ops/ss2d.py``:
 ``ss2d_core_mamba1`` (its flip-free branch, and its sequence-parallel
 branch), ``ss2d_core_ssd`` (ref_flat, one group; merged, or the ST-SSD
 scan-order stack; L-sharded under sequence parallelism) and
-``rmsnorm_gated``.
+``rmsnorm_gated``; and the pieces of tensor parallelism (``model_axis``:
+a rank holds some of the d_inner channels, or of the heads): the Mamba-1
+core's projections summed over the axis, ``rmsnorm_gated`` and
+``layer_norm_sharded`` with their statistics summed over it.
 The directions are k = rev * 2 + layout (0 = row, 1 = column, 2 = row
 reversed, 3 = column reversed).  Directions 2 and 3 read the same
 unflipped bytes as directions 0 and 1 wherever a kernel can: the Mamba-1
@@ -31,9 +34,10 @@ from medical_image_classification_tpu_torch.ops.cross_scan import (
     cross_scan_time_major2_roles,
     cross_stack_scan_order,
 )
-from medical_image_classification_tpu_torch.parallel.mesh import (
-    seq_axis as mesh_axis,
+from medical_image_classification_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
 )
+from medical_image_classification_tpu_torch.parallel.mesh import mesh_axis
 from medical_image_classification_tpu_torch.parallel.sequence_parallel import (
     check_divisible,
     scan_sequence_parallel,
@@ -42,19 +46,23 @@ from medical_image_classification_tpu_torch.parallel.sequence_parallel import (
 
 
 def _scan_seq_parallel_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds,
-                              d_state, dt_rank, seq_axis, impl):
+                              d_state, dt_rank, seq_axis, impl, model=None):
     """The JAX SP path (``ops/ss2d.py:177-197``): the four directions
     materialised by ``cross_scan_time_major`` (2 and 3 flipped), so that
     every direction scans forward and an incoming state always comes from
     the shards before; the two-stage Δ projection; the directions folded
     into the scan's groups (G = batch x 4, A, D and the bias per
-    direction); the scan L-sharded over the mesh axis ``seq_axis``."""
+    direction); the scan L-sharded over the mesh axis ``seq_axis``.  With
+    ``model`` (the 'model' Axis), x holds this rank's channels and the
+    projection's partial sums are summed over it."""
     Bb, H, W, D = x.shape
     L, K, N = H * W, 4, d_state
     axis = mesh_axis(seq_axis)
     check_divisible(L, axis)
     xs = cross_scan_time_major(x).transpose(1, 2)        # [B, 4, L, D]
     x_dbl = torch.einsum("bkld,kcd->bklc", xs, x_proj_w.to(x.dtype))
+    if model is not None:
+        x_dbl = all_reduce_sum(x_dbl, model)
     dts = torch.einsum("bklr,kdr->bkld", x_dbl[..., :dt_rank],
                        dt_proj_w.to(x.dtype))
     fold = lambda t: t.reshape(Bb * K, L, t.shape[-1]).contiguous()
@@ -66,9 +74,43 @@ def _scan_seq_parallel_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds,
                                   H, W)
 
 
+def _core_mamba1_tp(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds, d_state,
+                    dt_rank, model, impl):
+    """The flip-free core on this rank's channels of x (the 'model' Axis
+    ``model``): the projection x -> [Δ-rank | B | C] of each direction is
+    a sum over all d_inner channels, so each rank's partial product
+    (all four directions at once) is summed over the axis, and Δ takes the
+    two-stage form, x_dbl's rank columns through this rank's rows of the
+    Δ projection (the fold into one [D, D] weight needs every channel)."""
+    Bb, H, W, D = x.shape
+    L, N, R = H * W, d_state, dt_rank
+    x_row = x.reshape(Bb, L, D).contiguous()
+    x_col = x.transpose(1, 2).reshape(Bb, L, D).contiguous()
+    Wp = x_proj_w.reshape(2, 2, -1, D).to(x.dtype)       # [r, j, R + 2N, D]
+    # [B, L, j, r, R + 2N]: every direction's partial x_dbl, summed once
+    x_dbl = all_reduce_sum(torch.stack([
+        torch.einsum("bld,rcd->blrc", xj, Wp[:, j])
+        for j, xj in enumerate((x_row, x_col))], dim=2), model)
+    dtw = dt_proj_w.reshape(2, 2, D, R).to(x.dtype)      # [r, j, e, q]
+    A2 = -torch.exp(A_log.float()).reshape(2, 2, D, N)
+    D2 = Ds.float().reshape(2, 2, D)
+    b2 = dt_proj_b.float().reshape(2, 2, D)
+    ys = {}
+    for j, xj in enumerate((x_row, x_col)):
+        for r in range(2):
+            xd = x_dbl[:, :, j, r]
+            ys[r, j] = scan_folded_fwd(
+                xj, (xd[..., :R] @ dtw[r, j].T).contiguous(),
+                A2[r, j][None], xd[..., R:R + N].contiguous(),
+                xd[..., R + N:].contiguous(), D2[r, j][None],
+                b2[r, j][None], reverse=bool(r), impl=impl)
+    y_col = (ys[0, 1] + ys[1, 1]).reshape(Bb, W, H, D).transpose(1, 2)
+    return (ys[0, 0] + ys[1, 0]).reshape(Bb, H, W, D) + y_col
+
+
 def ss2d_core_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds, *,
                      d_state: int, dt_rank: int, impl: str = "auto",
-                     seq_axis=None):
+                     seq_axis=None, model_axis=None):
     """Mamba-1 4-direction 2-D scan.
 
     x         : [B, H, W, D]  (post depthwise-conv + SiLU, channel-last)
@@ -82,14 +124,23 @@ def ss2d_core_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds, *,
                 the scan is L-sharded (sequence parallelism: the JAX
                 package's path, ``_scan_seq_parallel_mamba1``; L must
                 divide by the axis size, else ``ValueError``)
+    model_axis: None, or the name of the current mesh's axis over which
+                the channels are split (tensor parallelism): x and the
+                per-channel parameters hold this rank's D channels of
+                d_inner, ``x_proj_w`` its columns, and the projection's
+                partial sums are summed over the axis
 
     Returns [B, H, W, D] in x's dtype: the sum of the four direction
     outputs, un-permuted to row order.
     """
+    model = None if model_axis is None else mesh_axis(model_axis)
     if seq_axis is not None:
         return _scan_seq_parallel_mamba1(x, x_proj_w, dt_proj_w, dt_proj_b,
                                          A_log, Ds, d_state, dt_rank,
-                                         seq_axis, impl)
+                                         seq_axis, impl, model)
+    if model is not None:
+        return _core_mamba1_tp(x, x_proj_w, dt_proj_w, dt_proj_b, A_log, Ds,
+                               d_state, dt_rank, model, impl)
     Bb, H, W, D = x.shape
     L = H * W
     N = d_state
@@ -216,12 +267,35 @@ def ss2d_core_ssd(xBCdt, A_log, dt_bias, Ds, *, d_ssm: int, d_state: int,
     return cross_stack_scan_order(ys)
 
 
-def rmsnorm_gated(x, z, weight, *, eps: float = 1e-5):
+def rmsnorm_gated(x, z, weight, *, eps: float = 1e-5, model_axis=None):
     """Gated RMSNorm in fp32 (fp64 for fp64 x), returned in x's dtype:
     rmsnorm(x * silu(z)) over the last axis, times ``weight`` (the JAX
     function with the models' settings: the gate before the norm, one
-    group)."""
+    group).  With ``model_axis`` (tensor parallelism: x, z and ``weight``
+    hold this rank's channels) the mean square is over every rank's
+    channels: the sum of squares is summed over the axis."""
     wide = torch.promote_types(x.dtype, torch.float32)
     g = x.to(wide) * F.silu(z.to(wide))
-    y = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps)
+    if model_axis is None:
+        ms = g.square().mean(-1, keepdim=True)
+    else:
+        axis = mesh_axis(model_axis)
+        ms = all_reduce_sum(g.square().sum(-1, keepdim=True), axis) / (
+            g.shape[-1] * axis.size)
+    y = g * torch.rsqrt(ms + eps)
     return (y * weight.to(wide)).to(x.dtype)
+
+
+def layer_norm_sharded(x, weight, bias, eps: float, model_axis: str):
+    """LayerNorm over the last axis of a tensor whose channels are split
+    over the mesh axis ``model_axis`` (x, ``weight`` and ``bias`` hold this
+    rank's): fp32 (fp64 stays), returned in fp32, as ``models/common.py::
+    layer_norm``.  Two passes, as torch's: the mean from the sums over the
+    axis, then the biased variance from the centred squares' sums."""
+    axis = mesh_axis(model_axis)
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    n = x.shape[-1] * axis.size
+    mean = all_reduce_sum(x.sum(-1, keepdim=True), axis) / n
+    xc = x - mean
+    var = all_reduce_sum(xc.square().sum(-1, keepdim=True), axis) / n
+    return xc * torch.rsqrt(var + eps) * weight + bias

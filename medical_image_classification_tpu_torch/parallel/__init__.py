@@ -1,5 +1,6 @@
-"""Data and sequence parallelism: the mesh of process groups, the
-collectives with their gradients, and the L-sharded scans."""
+"""Data, sequence and tensor parallelism: the mesh of process groups, the
+collectives with their gradients, the L-sharded scans and the layout of
+the tensor-parallel layers' parameters."""
 
 from medical_image_classification_tpu_torch.parallel.mesh import (
     Mesh,

@@ -1,4 +1,5 @@
-"""The collectives of data and sequence parallelism, with their gradients.
+"""The collectives of data, sequence and tensor parallelism, with their
+gradients.
 
 Port-only: the JAX package writes ``lax.all_gather`` / ``psum`` inside a
 ``shard_map`` and lets JAX transpose them; here each is a
@@ -26,7 +27,18 @@ and only the scan is L-sharded, so every rank's loss is the same loss:
   the ranks' parts.
 * ``all_reduce_sum`` — sum forward, sum backward: BatchNorm's statistics
   over the data axis, whose backward sums every rank's cotangent of the
-  global statistics.
+  global statistics; under tensor parallelism, the sums over the model
+  axis that feed rank-local work again (``x_proj``'s partial products,
+  the statistics of the norms over sharded channels).
+* ``reduce_out``     — sum forward, identity backward: the row-parallel
+  out-projection's partial outputs leaving a tensor-parallel region, whose
+  sum feeds replicated work, so every rank's cotangent is already the full
+  one.
+
+A tensor-parallel layer (``models/ss2d_modules.py``) enters its region
+through ``reduce_grad`` (its input is replicated, each rank's part of the
+input's gradient flows back from its own channels) and leaves it through
+``reduce_out``.
 """
 
 from __future__ import annotations
@@ -156,3 +168,19 @@ def all_reduce_sum(t, axis):
     """The sum of ``t`` over ``axis`` on every rank; its backward is the
     same sum of the cotangents."""
     return _AllReduceSum.apply(t, axis)
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return all_reduce_(t.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_out(t, axis):
+    """The sum of ``t`` over ``axis`` on every rank; its backward hands
+    the cotangent on as it is."""
+    return _ReduceOut.apply(t, axis)

@@ -15,8 +15,11 @@ the JAX array's order, rank = (d * tp + m) * sp + s:
             SS2D scans are L-sharded over it
             (``parallel/sequence_parallel.py``); everything else is
             replicated, and every seq rank holds the full gradients.
-  'model' — tensor parallelism: not ported yet.  ``make_mesh`` keeps its
-            arithmetic and builds no group for it.
+  'model' — tensor parallelism: the ranks with the same (d, s).  Each
+            SS2D / SS2DSSD layer holds its rank's channels (or heads) of
+            the d_inner-wide parameters (``parallel/sharding.py``), its
+            in- and out-projections column- and row-parallel; everything
+            outside the layers is replicated.
 
 Two differences from the JAX package.  A rank cannot sit out a
 collective, so where ``batch_size`` shrinks the data axis and leaves ranks
@@ -57,6 +60,7 @@ class Mesh:
     rank: int
     data_group: object = None
     seq_group: object = None
+    model_group: object = None
 
     @property
     def shape(self):
@@ -67,17 +71,20 @@ class Mesh:
         return self.rank // (self.tp * self.sp)
 
     @property
+    def model_index(self) -> int:
+        return (self.rank // self.sp) % self.tp
+
+    @property
     def seq_index(self) -> int:
         return self.rank % self.sp
 
     def axis(self, name: str) -> Axis:
         if name == "data":
             return Axis(self.data_group, self.dp, self.data_index)
+        if name == "model":
+            return Axis(self.model_group, self.tp, self.model_index)
         if name == "seq":
             return Axis(self.seq_group, self.sp, self.seq_index)
-        if name == "model":
-            raise NotImplementedError("the 'model' axis (tensor "
-                                      "parallelism) is not ported yet")
         raise ValueError(f"unknown mesh axis {name!r}; the mesh has {AXES}")
 
 
@@ -87,7 +94,9 @@ def mesh_shape(world: int, tp: int = 1, sp: int = 1,
     divide by tp * sp, dp = world // (tp * sp), shrunk until it divides
     ``batch_size``."""
     if world % (tp * sp):
-        raise ValueError(f"{world} ranks not divisible by tp*sp={tp * sp}")
+        raise ValueError(f"{world} ranks not divisible by tp*sp={tp * sp} "
+                         f"(a multiple of {tp * sp} ranks needed, {world} "
+                         f"given)")
     dp = world // (tp * sp)
     if batch_size is not None:
         while dp > 1 and batch_size % dp:
@@ -118,7 +127,7 @@ def make_mesh(tp: int = 1, sp: int = 1,
             f"leaves {world - dp * tp * sp} of the {world} ranks outside the "
             f"(dp {dp}, tp {tp}, sp {sp}) mesh; give a batch size divisible "
             f"by {world // (tp * sp)} or launch fewer ranks")
-    data_group = seq_group = None
+    data_group = model_group = seq_group = None
     at = lambda d, m, s: (d * tp + m) * sp + s
     for m in range(tp):
         for s in range(sp):
@@ -127,18 +136,25 @@ def make_mesh(tp: int = 1, sp: int = 1,
             if rank in ranks:
                 data_group = g
     for d in range(dp):
+        for s in range(sp):
+            ranks = [at(d, m, s) for m in range(tp)]
+            g = _group(ranks)
+            if rank in ranks:
+                model_group = g
+    for d in range(dp):
         for m in range(tp):
             ranks = [at(d, m, s) for s in range(sp)]
             g = _group(ranks)
             if rank in ranks:
                 seq_group = g
-    mesh = Mesh(dp, tp, sp, rank, data_group, seq_group)
+    mesh = Mesh(dp, tp, sp, rank, data_group, seq_group, model_group)
     set_current_mesh(mesh)
     return mesh
 
 
-# the ambient mesh: the SP scans, BatchNorm, DropPath and the train step
-# look it up here; trainers register it through make_mesh/set_current_mesh
+# the ambient mesh: the SP scans, the TP layers, BatchNorm, DropPath and
+# the train step look it up here; trainers register it through
+# make_mesh/set_current_mesh
 _CURRENT_MESH: Optional[Mesh] = None
 
 
@@ -160,12 +176,12 @@ def data_axis() -> Optional[Axis]:
     return mesh.axis("data")
 
 
-def seq_axis(name: str) -> Axis:
-    """The current mesh's axis ``name`` for an L-sharded scan; raises where
-    no mesh is registered."""
+def mesh_axis(name: str) -> Axis:
+    """The current mesh's axis ``name`` (a layer's ``seq_axis`` or
+    ``model_axis``); raises where no mesh is registered."""
     if _CURRENT_MESH is None:
-        raise ValueError(f"seq_axis={name!r} needs a registered mesh with "
-                         "that axis (parallel.mesh.make_mesh(sp=...))")
+        raise ValueError(f"the mesh axis {name!r} needs a registered mesh "
+                         "(parallel.mesh.make_mesh(tp=..., sp=...))")
     return _CURRENT_MESH.axis(name)
 
 

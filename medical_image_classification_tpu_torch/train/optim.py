@@ -11,6 +11,12 @@ and 8 schedules by name, each matching its optax counterpart step for step.
 - ``grad_clip`` is optax's ``clip_by_global_norm``, run as a step pre-hook:
   gradients are scaled by max_norm / norm when the global norm reaches
   max_norm, with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6).
+- Under tensor parallelism (an optimizer made under a current mesh with
+  tp > 1, over the parameters of a model built with ``model_axis``) the
+  norms that span a tensor, the clip's global norm and lamb's per-tensor
+  norms, are those of the full tensors, as GSPMD computes them: the
+  squares of a split leaf's split blocks are summed over the model axis,
+  replicated blocks and leaves count once (``parallel/sharding.py``).
 
 Where torch's class computes something else, the optimizer is written here
 from optax's formulas: rmsprop (optax: decay 0.9, eps inside the square
@@ -27,6 +33,15 @@ import math
 
 import torch
 import torch.nn as nn
+
+from medical_image_classification_tpu_torch.parallel.collectives import (
+    all_reduce_,
+)
+from medical_image_classification_tpu_torch.parallel.mesh import current_mesh
+from medical_image_classification_tpu_torch.parallel.sharding import (
+    split_rules,
+    split_sq_sums,
+)
 
 # parameters never decayed: the JAX mask's leaf names (a norm layer's
 # weight is Flax's "scale")
@@ -191,9 +206,10 @@ class Lamb(_Optax):
     decay, scaled per tensor by |p| / |update| (1 where either is 0)."""
 
     def __init__(self, params, lr=1.0, b1=0.9, b2=0.999, eps=1e-6,
-                 weight_decay=0.0):
+                 weight_decay=0.0, tp_rules=None):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
                                       weight_decay=weight_decay))
+        self.tp_rules = tp_rules
 
     def _apply(self, p, g, st, group):
         if not st:
@@ -209,7 +225,10 @@ class Lamb(_Optax):
         u = mu_hat / (nu_hat.sqrt() + group["eps"])
         if group["weight_decay"]:
             u = u + group["weight_decay"] * p
-        pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        if self.tp_rules is None:
+            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        else:
+            pn, un = (_tp_norm(t, self.tp_rules.get(p)) for t in (p, u))
         ratio = torch.where((pn == 0) | (un == 0), 1.0, pn / un)
         p.sub_(group["lr"] * u * ratio)
 
@@ -233,14 +252,42 @@ class Lion(_Optax):
         p.sub_(group["lr"] * u)
 
 
-def _clip_hook(max_norm):
-    """optax.clip_by_global_norm before the step."""
+def _tp_norm(t, rule):
+    """The norm of the full tensor of which ``t`` is this model rank's
+    (``rule`` its Split, None: replicated)."""
+    axis = current_mesh().axis("model")
+    split, rep = split_sq_sums(t, rule, axis.size)
+    return torch.sqrt(all_reduce_(split, axis) + rep)
+
+
+def _tp_rules(named):
+    """{parameter: Split} of the split parameters among ``named`` under the
+    current mesh's tensor parallelism, or None without it."""
+    mesh = current_mesh()
+    if mesh is None or mesh.tp == 1:
+        return None
+    rules = split_rules({n: tuple(p.shape) for n, p in named}, mesh.tp,
+                        local=True)
+    return {p: rules[n] for n, p in named if n in rules}
+
+
+def _clip_hook(max_norm, tp_rules=None):
+    """optax.clip_by_global_norm before the step; with ``tp_rules`` the
+    norm of the full tree over the model axis (one all-reduce)."""
     def hook(optimizer, args, kwargs):
-        grads = [p.grad for group in optimizer.param_groups
-                 for p in group["params"] if p.grad is not None]
+        params = [p for group in optimizer.param_groups
+                  for p in group["params"] if p.grad is not None]
+        grads = [p.grad for p in params]
         if not grads:
             return
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        if tp_rules is None:
+            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        else:
+            axis = current_mesh().axis("model")
+            sums = [split_sq_sums(p.grad, tp_rules.get(p), axis.size)
+                    for p in params]
+            norm = torch.sqrt(all_reduce_(sum(s for s, _ in sums), axis)
+                              + sum(r for _, r in sums))
         if not bool(norm < max_norm):
             for g in grads:
                 g.div_(norm).mul_(max_norm)
@@ -256,6 +303,7 @@ def make_optimizer(name: str, named_params, weight_decay: float = 0.0,
     ``no_decay_mask`` marks True (all of them without a mask).  Every group
     has lr 1.0: pair the optimizer with ``make_lr_scheduler``."""
     named = list(named_params)
+    tp_rules = _tp_rules(named)
     decays = name in ("adamw", "lamb", "lion")
     if decays and no_decay_mask is not None:
         groups = [dict(params=[p for n, p in named if no_decay_mask[n]],
@@ -282,11 +330,11 @@ def make_optimizer(name: str, named_params, weight_decay: float = 0.0,
     elif name == "adagrad":
         opt = Adagrad(groups)
     elif name == "lamb":
-        opt = Lamb(groups)
+        opt = Lamb(groups, tp_rules=tp_rules)
     elif name == "lion":
         opt = Lion(groups)
     else:
         raise ValueError(f"unknown optimizer: {name}")
     if grad_clip:
-        opt.register_step_pre_hook(_clip_hook(grad_clip))
+        opt.register_step_pre_hook(_clip_hook(grad_clip, tp_rules))
     return opt

@@ -16,7 +16,13 @@ Under data parallelism (a current mesh whose data axis has dp > 1,
 the data axis before the optimizer steps (GSPMD's mean over the global
 batch in the JAX step; the seq axis already holds full, identical
 gradients and takes no part), its loss and accuracy are the data axis's
-means, and ``kan_grid_update`` re-grids on the global batch.
+means, and ``kan_grid_update`` re-grids on the global batch.  Under
+tensor parallelism (tp > 1, the model built with ``model_axis``) the
+gradients of the replicated parameters that every model rank computes
+inside a layer's region, each rank only its share
+(``parallel/sharding.py::redundant_grads``), are first summed over the
+model axis; the split leaves' gradients are each rank's own and the rest
+are full on every rank.
 """
 
 from __future__ import annotations
@@ -34,7 +40,13 @@ from medical_image_classification_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce_,
 )
-from medical_image_classification_tpu_torch.parallel.mesh import data_axis
+from medical_image_classification_tpu_torch.parallel.mesh import (
+    current_mesh,
+    data_axis,
+)
+from medical_image_classification_tpu_torch.parallel.sharding import (
+    redundant_grads,
+)
 from medical_image_classification_tpu_torch.train.fusion_losses import (
     fusion_loss,
 )
@@ -67,24 +79,39 @@ def make_train_step(model, optimizer, scheduler=None,
     learning-rate scheduler, and counts the step in ``state``.  Under
     data parallelism the images are this rank's shard of the global
     batch, the gradients are averaged over the data axis and the metrics
-    are the global batch's."""
+    are the global batch's; under tensor parallelism the model is the
+    mesh's (``model_axis``), and the redundant gradients are summed over
+    the model axis first."""
+    mesh = current_mesh()
+    redundant = redundant_grads(model.named_parameters(), mesh.tp) \
+        if mesh is not None and mesh.tp > 1 else []
 
     def step_fn(images, labels):
         model.train()
         logits = model(normalize_batch(images))
         loss = cross_entropy_loss(logits, labels, label_smoothing)
-        _update(loss, optimizer, scheduler, state, sync=True)
+        _update(loss, optimizer, scheduler, state, sync=True,
+                redundant=redundant)
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return _data_mean({"loss": loss.detach(), "accuracy": acc})
 
     return step_fn
 
 
-def average_gradients(optimizer) -> None:
+def average_gradients(optimizer, redundant=()) -> None:
     """Average the gradients of ``optimizer``'s parameters over the current
     mesh's data axis (one all-reduce of the flattened gradients); nothing
-    without a data axis of more than one rank.  Every rank holds the same
-    model, so the same parameters have gradients on every rank."""
+    without a data axis of more than one rank.  Every rank of the axis
+    holds the same model, so the same parameters have gradients on every
+    rank.  First, the gradient pieces ``redundant`` lists ((parameter,
+    index), ``parallel/sharding.py::redundant_grads``) are summed over the
+    model axis, once (one all-reduce)."""
+    pieces = [p.grad[i] for p, i in redundant if p.grad is not None]
+    if pieces:
+        flat = all_reduce_(torch.cat([t.reshape(-1) for t in pieces]),
+                           current_mesh().axis("model"))
+        for t, piece in zip(pieces, flat.split([t.numel() for t in pieces])):
+            t.copy_(piece.view_as(t))
     axis = data_axis()
     if axis is None:
         return
@@ -105,11 +132,12 @@ def _data_mean(metrics):
     return dict(zip(metrics, (vals / axis.size).unbind(0)))
 
 
-def _update(loss, optimizer, scheduler, state, sync: bool = False):
+def _update(loss, optimizer, scheduler, state, sync: bool = False,
+            redundant=()):
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     if sync:
-        average_gradients(optimizer)
+        average_gradients(optimizer, redundant)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()

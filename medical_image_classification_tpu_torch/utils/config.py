@@ -4,8 +4,7 @@ A copy of ``medical_image_classification_tpu/utils/config.py``
 (``TrainConfig``, ``add_args``, ``from_args``), kept here so that the
 port's training path imports nothing of the JAX package, plus the port's
 own ``device`` and ``dist_backend`` (the process group's backend: "nccl",
-one rank a GPU, or "gloo").  ``tp`` is accepted, and any value but the
-default raises (``check_ported``).
+one rank a GPU, or "gloo").
 """
 
 from __future__ import annotations
@@ -39,8 +38,9 @@ class TrainConfig:
     label_smoothing: float = 0.0
     grad_clip: Optional[float] = None
     seed: int = 0
-    # parallelism: tensor parallelism (not ported yet), sequence
-    # parallelism (the SS2D scans L-sharded over sp ranks)
+    # parallelism: tensor parallelism (each SS2D layer's d_inner channels,
+    # or heads, split over tp ranks), sequence parallelism (the SS2D scans
+    # L-sharded over sp ranks)
     tp: int = 1
     sp: int = 1
     # io
@@ -52,16 +52,6 @@ class TrainConfig:
     # the port's own
     device: str = "cuda"
     dist_backend: str = "nccl"
-
-
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise for the options whose code paths are not ported yet."""
-    for name in ("tp",):
-        default = getattr(TrainConfig, name)
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} {getattr(cfg, name)}: not "
-                f"ported yet (only the default {default} runs)")
 
 
 def add_args(parser: argparse.ArgumentParser, cfg) -> None:

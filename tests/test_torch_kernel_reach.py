@@ -37,7 +37,13 @@ Under sequence parallelism (sp 2 at 256x256) each stage scans its
 L-shard: ``SP_SITES`` pins the kernel of every shard of medssd and st_ssd
 (Y_diag or the einsums, the gates of ``ssd_chunked`` with
 ``return_final_state``, the port's and the JAX package's alike) and the
-shapes of medmamba's two scan passes, on the two-level kernels."""
+shapes of medmamba's two scan passes, on the two-level kernels.
+
+Under tensor parallelism (tp 2 at 224x224) a rank scans half of each
+layer's heads or channels: ``TP_SITES`` pins each stage's kernel at a
+rank's shapes (medssd's stage 0, whose per-rank d_ssm 64 its gn 128 does
+not divide, on the single-layout fused SSD), and the full models' meta
+forwards pin ``chip_smoke.TP_PATHS``."""
 
 import pytest
 import torch
@@ -495,3 +501,133 @@ def test_chip_smoke_launches_per_sp_step_of_medssd(monkeypatch):
         tmesh.set_current_mesh(None)
     assert calls == ["ydiag"] * 2
     assert chip_smoke.SP_PATHS["medssd"] == {"ssd_ydiag_fwd": len(calls)}
+
+
+# Under tensor parallelism (tp 2 at 224x224) each SS2DSSD scans its rank's
+# half of the heads (d_ssm / 2, H4 / 2; B and C whole) and each SS2D its
+# half of d_inner: ``TP_SITES`` pins a rank's SSD kernel at every stage
+# (the port's card gates at the rank's shapes) and the Mamba-1 scan's (L,
+# Dm) per stage.  medssd's stage 0 (d_ssm 64 a rank, which its gn 128 does
+# not divide) leaves the dirs kernels for the single-layout fused SSD at
+# l 224 over 14 chunks.
+TP, TP_SIZE = 2, 224
+TP_SITES = {
+    "medssd": [("fused", 224, 14), ("dirs", 196, 4), ("einsum", 200, 1),
+               ("einsum", 56, 1)],
+    "st_ssd": [("ydiag", 224, 14), ("einsum", 196, 4), ("einsum", 200, 1),
+               ("einsum", 56, 1)],
+    "cnn_mamba": [("dirs", 224, 14), ("dirs", 196, 4), ("einsum", 200, 1),
+                  ("einsum", 56, 1)],
+    "medmamba": [(3136, 48), (784, 96), (196, 192), (49, 384)],
+}
+
+
+@pytest.mark.parametrize("model", ["medssd", "st_ssd", "cnn_mamba"])
+def test_tp_ranks_reach_the_kernels_at_their_shapes(monkeypatch, model):
+    """A rank's ``ss2d_core_ssd`` call at each stage under tp 2 (its
+    d_ssm and heads halved) on meta tensors with the card's gates."""
+    d_state, merge = MODELS[model]
+    got = []
+    for side, d_ssm in zip(_sides(TP_SIZE), D_SSM):
+        with monkeypatch.context() as mp:
+            got.append(_port_path(mp, side, d_state, d_ssm // TP, merge))
+    assert got == TP_SITES[model]
+
+
+def _meta_tp(monkeypatch):
+    """A current mesh with a tp-2 model axis whose collectives act on meta
+    tensors as one rank of two would see their shapes; the SSD and ST
+    kernels' entry points record (kernel, heads or channels) and the
+    Mamba-1 scan its (L, Dm)."""
+    from medical_image_classification_tpu_torch.models import (
+        ss2d_modules as tsm)
+    from medical_image_classification_tpu_torch.parallel import mesh as tmesh
+    calls = []
+
+    def card(gate):
+        return lambda *a, **k: gate(*a, **{**k, "card": True})
+
+    def dirs(stackc, acum, *a, **k):
+        calls.append(("dirs", acum.shape[2]))
+        B, nc, l, _ = stackc.shape
+        return stackc.new_empty(B, nc, l, acum.shape[2] * HEADDIM)
+
+    def fused(Cc, Bc, acum, dte, cdec, dtp, x, impl):
+        calls.append(("fused", acum.shape[2]))
+        return torch.empty_like(x)
+
+    def ydiag(Cc, Bc, acum, dtx, impl):
+        calls.append(("ydiag", dtx.shape[1]))
+        return torch.empty_like(dtx)
+
+    def scan(u, *a, **k):
+        calls.append(("scan", tuple(u.shape[1:])))
+        return torch.empty_like(u)
+
+    def mixer(w, u1, u2, impl):
+        calls.append(("stl_mixer", w.shape[-1]))
+        return w.new_empty(w.shape[0], u1.shape[1], w.shape[-1])
+
+    def gate(pooledT, lz, U, impl):
+        calls.append(("stf_zgate", U.shape[-1]))
+        return torch.empty_like(U)
+
+    monkeypatch.setattr(tss2d, "ssd_dirs_chunk", card(tssd.ssd_dirs_chunk))
+    monkeypatch.setattr(tssd, "ssd_fused_supported",
+                        card(tssd.ssd_fused_supported))
+    monkeypatch.setattr(tssd, "ydiag_supported", card(tssd.ydiag_supported))
+    monkeypatch.setattr(tssd, "ssd_fused_dirs", dirs)
+    monkeypatch.setattr(tssd, "ssd_fused", fused)
+    monkeypatch.setattr(tssd, "ydiag_fused", ydiag)
+    monkeypatch.setattr(tss2d, "scan_folded_fwd", scan)
+    monkeypatch.setattr(tsm, "stl_mixer", mixer)
+    monkeypatch.setattr(tsm, "stf_zgate", gate)
+    monkeypatch.setattr(tss2d, "all_reduce_sum", lambda t, axis: t)
+    monkeypatch.setattr(tsm, "reduce_grad", lambda t, axis: t)
+    monkeypatch.setattr(tsm, "reduce_out", lambda t, axis: t)
+    monkeypatch.setattr(tsm, "gather_pieces",
+                        lambda t, axis: torch.stack([t] * TP))
+    tmesh.set_current_mesh(tmesh.Mesh(1, TP, 1, 0))
+    return calls
+
+
+def test_chip_smoke_launches_per_tp_step(monkeypatch):
+    """chip_smoke.py's TP_PATHS: each full-width model's forward at
+    TP_SIZE under tp 2 on meta tensors (a rank's widths, the card's gates,
+    the kernels' entry points as stubs): medmamba's 40 scans at TP_SITES'
+    shapes; medssd's fused SSD at H 4 in stage 0's blocks and dirs at H4
+    8 in stage 1's; cnn_mamba_mifa's dirs at H4 4 and 8; st_ssd's Y_diag
+    at H 4 and its mixer and gate on the whole 128 and 256 channels."""
+    import chip_smoke
+    from medical_image_classification_tpu_torch.models import create_model
+    from medical_image_classification_tpu_torch.parallel import mesh as tmesh
+    assert (chip_smoke.TP_RANKS, chip_smoke.SIZE) == (TP, TP_SIZE)
+    depth = dict(zip(TP_SITES["medmamba"], (2, 2, 4, 2)))
+    want = {
+        # each block's four directions
+        "medmamba": [("scan", s) for s in TP_SITES["medmamba"]
+                     for _ in range(4 * depth[s])],
+        "medssd": [("fused", 4)] * 2 + [("dirs", 8)] * 2,
+        "cnn_mamba_mifa": [("dirs", 4)] * 2 + [("dirs", 8)] * 2,
+        "st_ssd": [("ydiag", 4), ("stl_mixer", 128), ("stf_zgate", 128)]
+        * 2 + [("stl_mixer", 256), ("stf_zgate", 256)] * 2}
+    assert set(want) == set(chip_smoke.TP_PATHS)
+    for name, expected in want.items():
+        with monkeypatch.context() as mp:
+            calls = _meta_tp(mp)
+            try:
+                with torch.device("meta"):
+                    model = create_model(name, 8, dtype=torch.bfloat16,
+                                         model_axis="model").eval()
+                    with torch.no_grad():
+                        model(torch.empty(BATCH, TP_SIZE, TP_SIZE, 3))
+            finally:
+                tmesh.set_current_mesh(None)
+        assert calls == expected, name
+        counts = {}
+        for kind, _ in calls:
+            key = {"scan": "selective_scan_fwd", "dirs": "ssd_fused_dirs_fwd",
+                   "fused": "ssd_fused_fwd", "ydiag": "ssd_ydiag_fwd"}.get(
+                kind, kind + "_fwd")
+            counts[key] = counts.get(key, 0) + 1
+        assert chip_smoke.TP_PATHS[name] == counts, name

@@ -178,7 +178,8 @@ def _image_folder(root, n=4, size=32):
 
 def test_train_cli_epochs_best_and_resume(tmp_path, monkeypatch, caplog):
     """Two epochs on the CPU write the per-epoch checkpoints, the class
-    indices and the best weights; ``--resume`` continues at epoch 2."""
+    indices and the best weights; ``--resume`` continues at epoch 2;
+    ``--tp 2`` in one process is refused by the mesh (2 ranks needed)."""
     root = str(tmp_path / "oct")
     _image_folder(root)
     orig = registry._REGISTRY["medmamba"]
@@ -208,5 +209,6 @@ def test_train_cli_epochs_best_and_resume(tmp_path, monkeypatch, caplog):
     assert "epoch 2 done" in caplog.text and "epoch 0 done" not in caplog.text
     assert sorted(os.listdir(save)) == ["epoch_0.pt", "epoch_1.pt",
                                         "epoch_2.pt"]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # tensor parallelism needs its ranks: one process is refused by the mesh
+    with pytest.raises(ValueError, match="2 ranks needed, 1 given"):
         main(parse_args(argv + ["--tp", "2"]))

@@ -1,4 +1,5 @@
-"""Rank processes for the port's data- and sequence-parallel tests.
+"""Rank processes for the port's data-, sequence- and tensor-parallel
+tests.
 
 ``spawn(task, world, tmp_path, payload)`` starts ``world`` CPU processes
 (spawned, one thread each) that join a gloo process group through a
@@ -170,45 +171,65 @@ def recorded_masks():
         DropPath.mask = orig
 
 
-def run_step(p, rank=0, dp=1):
+def run_step(p, rank=0, dp=1, mesh=None):
     """One train step of ``p['name']`` (create_model kwargs ``p['cfg']``,
     weights ``p['sd']``) on this rank's rows (rank::dp) of the global batch
     ``p['images']`` / ``p['labels']``, by ``make_train_step`` with
-    ``p['opt']`` at ``p['lr']``, DropPath seeded ``p.get('seed', 1)``.
-    Returns the metrics, every parameter's gradient and the state_dict
-    after the step, and the DropPath masks drawn."""
+    ``p['opt']`` at ``p['lr']`` (and ``p['clip']``'s global-norm clip),
+    DropPath seeded ``p.get('seed', 1)``.  Returns the metrics, the
+    logits, every parameter's gradient and the state_dict after the step,
+    and the DropPath masks drawn.  Under tensor parallelism (``mesh`` with
+    tp > 1, ``p['cfg']`` naming the model axis) the rank loads its pieces
+    of ``p['sd']`` and the gradients and the state_dict come back joined
+    over the model axis: the full ones."""
     from medical_image_classification_tpu_torch.models import create_model
+    from medical_image_classification_tpu_torch.parallel.sharding import (
+        gather_state_dict, shard_state_dict)
     from medical_image_classification_tpu_torch.train.optim import (
         make_lr_scheduler, make_optimizer, make_schedule)
     from medical_image_classification_tpu_torch.train.train_step import (
         TrainState, make_train_step)
+    tp = mesh is not None and mesh.tp > 1
     model = create_model(p["name"], p["classes"], **p["cfg"])
-    model.load_state_dict(p["sd"], strict=True)
+    model.load_state_dict(shard_state_dict(p["sd"], mesh) if tp else p["sd"],
+                          strict=True)
     model.seed_drop_path(p.get("seed", 1))
-    opt = make_optimizer(p["opt"], model.named_parameters())
+    opt = make_optimizer(p["opt"], model.named_parameters(),
+                         grad_clip=p.get("clip"))
     sched = make_lr_scheduler(opt, make_schedule("constant", p["lr"]))
     step = make_train_step(model, opt, sched, state=TrainState())
     imgs = torch.from_numpy(p["images"][rank::dp])
     labels = torch.from_numpy(p["labels"][rank::dp]).long()
+    logits = []
+    hook = model.register_forward_hook(
+        lambda m, args, out: logits.append(out.detach().clone()))
     with recorded_masks() as masks:
         m = step(imgs, labels)
+    hook.remove()
+    grads = {n: q.grad.detach().clone() for n, q in model.named_parameters()
+             if q.grad is not None}
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if tp:
+        grads, sd = gather_state_dict(grads, mesh), gather_state_dict(sd, mesh)
     return dict(loss=float(m["loss"]), accuracy=float(m["accuracy"]),
-                grads={n: q.grad.detach().clone()
-                       for n, q in model.named_parameters()
-                       if q.grad is not None},
-                sd={k: v.detach().clone()
-                    for k, v in model.state_dict().items()},
-                masks=masks)
+                logits=logits[0], grads=grads, sd=sd, masks=masks)
 
 
 def _step(rank, world, p):
     from medical_image_classification_tpu_torch.parallel.mesh import (
         make_mesh, set_current_mesh)
-    mesh = make_mesh(sp=p.get("sp", 1), batch_size=len(p["labels"]))
+    mesh = make_mesh(tp=p.get("tp", 1), sp=p.get("sp", 1),
+                     batch_size=len(p["labels"]))
     try:
-        return run_step(p, mesh.data_index, mesh.dp)
+        return run_step(p, mesh.data_index, mesh.dp, mesh)
     finally:
         set_current_mesh(None)
+
+
+def _steps(rank, world, ps):
+    """``_step`` of each payload of ``ps`` in turn (one spawn, several
+    models or meshes)."""
+    return [_step(rank, world, p) for p in ps]
 
 
 # ---------------------------------------------------------------- KAN
@@ -257,4 +278,5 @@ def _cli(rank, world, p):
     return None
 
 
-TASKS = dict(scans=_scans, step=_step, regrid=_regrid, cli=_cli)
+TASKS = dict(scans=_scans, step=_step, steps=_steps, regrid=_regrid,
+             cli=_cli)
