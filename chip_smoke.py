@@ -249,7 +249,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      phase 36's NCCL rank; then, the card to itself, rows 1-2, 5/5b and
      6/6b at a rank's shapes against their plain versions, each beside
      its bound.
-The model phases (3-38) also hold the v1 and calibration counters at 0.
+  39. the profiled train steps (``utils/profiling.py``): medmamba, medssd
+     and st_ssd at 224x224, b32, bf16, and st_ssd in fp32, three steps
+     each after a warm-up through ``profiling.trace`` (which opens with
+     its own warm-up launches: a capture's first kernel records can be
+     lost), read by ``profiling.attribute`` in a fresh process: the device
+     time by category and by source line printed, the trace's total
+     against the capture's own event list (and key_averages() for
+     medmamba) within 0.5%, at least 99% of the kernel time on a port
+     line, every kernel in a named category, the path's launches by
+     source on ops/ and models/ lines; the forward's and the step's FLOPs
+     on the card (FlopCounterMode) against a fresh CPU process's count on
+     fake tensors, and TFLOP/s.
+The model phases (3-39) also hold the v1 and calibration counters at 0.
 Then one JSON line describing the fifteen kernels (launches in the training
 runs, in the bench's runs for v1 and the calibration; errors, times, the
 bound of each from this run's shapes; times and bounds at stage 0 in bf16,
@@ -534,6 +546,12 @@ BF16_GRAD_RATIO = 1.5
 # A gate whose leaves all lie under its abs floor checks nothing: it raises
 COND_RATIO = 2.0
 GRAD_BATCH = 4
+# A model's gradient check at fewer blocks where its plain path is slow:
+# medmamba's plain scan walks each sequence step by step, and at depths
+# 2-2-4-2 the check took most of phase 4; one block a stage keeps the
+# widths, the data and every kind of block, as the fusion models' float64
+# gates do (GATE_DEPTHS)
+GRAD_DEPTHS = {"medmamba": dict(depths=(1, 1, 1, 1))}
 # The Mamba-1 LM at mamba-130m width (models/mamba_lm.py MambaConfig's
 # defaults: d_model 768, 24 layers, vocab 50277 padded to 50280, d_state
 # 16, expand 2), fp32: scoring LM_BATCH x LM_LEN tokens; the gradient check
@@ -2501,21 +2519,61 @@ def phase_full_model(card, name, num, size=SIZE):
                 profile=prof_rows)
 
 
+# the captures ``_profile`` takes of a call before it gives up on one
+# whose device records are short
+PROFILE_TAKES = 3
+
+
 def _profile(fn):
-    """Time by op and kernel over one call of ``fn`` (torch.profiler), after
-    one warm-up call; rows with no CPU time are device kernels.  A
-    record_function region (the optimizer's step) also shows on the device
-    as a span over its kernels, a row of its name with no CPU time: it is
-    dropped, or the sums would count those kernels twice."""
+    """Device time by kernel over one call of ``fn`` (torch.profiler, no
+    stacks), after one warm-up call: the capture's Chrome trace read by
+    ``utils/profiling.py`` (``_rows_of_trace``); a row a kernel name, with
+    no CPU time.  The capture opens with ``profiling.warm_up``; one in
+    which a launch outside it has no device record is taken again, up to
+    PROFILE_TAKES captures, then raises (``profiling.LostRecords``)."""
+    import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from medical_image_classification_tpu_torch.utils import profiling
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for left in range(PROFILE_TAKES - 1, -1, -1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiling.warm_up()
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            prof.export_chrome_trace(os.path.join(
+                d, "p" + profiling.TRACE_SUFFIX))
+            try:
+                return _rows_of_trace(profiling.load_trace(d))
+            except profiling.LostRecords:
+                if not left:
+                    raise
+
+
+def _rows_of_trace(tr):
+    """The device events of a loaded trace (``profiling.attribute``; never
+    a gpu_user_annotation span) as rows {name, count, device_us, cpu_us
+    0}, by kernel name, longest first."""
+    from medical_image_classification_tpu_torch.utils import profiling
+    rows = {}
+    for r in profiling.attribute(tr):
+        row = rows.setdefault(r["name"], dict(name=r["name"], count=0,
+                                              device_us=0.0, cpu_us=0.0))
+        row["count"] += 1
+        row["device_us"] += r["us"]
+    return sorted(rows.values(), key=lambda r: -r["device_us"])
+
+
+def _rows_of_key_averages(events):
+    """The rows of a capture's ``key_averages()`` (``_profile``'s reader
+    before the trace's, kept as phase 39's cross-check): rows with no CPU
+    time are device kernels; a record_function region (the optimizer's
+    step) also shows on the device as a span over its kernels, a row of
+    its name with no CPU time, which is dropped, or the sums would count
+    those kernels twice."""
     cpu_names = {ev.key for ev in events if ev.cpu_time_total > 0}
     rows = []
     for ev in events:
@@ -2639,10 +2697,10 @@ def _cudnn_deterministic():
         torch.backends.cudnn.deterministic = was
 
 
-def _trained_state(name, size):
+def _trained_state(name, size, **kw):
     """The weights of phase_train's training (the seeded model, one warm-up
-    step and STEPS Adam steps on the same batches) made again under cuDNN's
-    deterministic algorithms, so that the gradient check sees the same
+    step and STEPS Adam steps on the same batches; ``kw`` to create_model,
+    GRAD_DEPTHS) made again under cuDNN's deterministic algorithms, so that the gradient check sees the same
     weights in every run: with cuDNN's defaults cnn_mamba_mifa's stem and
     MIFA convs sum their weight gradients in another order from run to
     run."""
@@ -2655,7 +2713,7 @@ def _trained_state(name, size):
     from medical_image_classification_tpu_torch.train.train_step import (
         TrainState)
     with _cudnn_deterministic():
-        model = _model(name, torch.bfloat16, "auto")
+        model = _model(name, torch.bfloat16, "auto", **kw)
         model.seed_drop_path(1)
         opt = make_optimizer("adam", model.named_parameters())
         sched = make_lr_scheduler(opt, make_schedule("constant", 1e-4))
@@ -2668,9 +2726,9 @@ def _trained_state(name, size):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _grad_check(name, sd, imgs, labels):
-    """Every parameter's gradient of ``name`` at the weights ``sd`` on one
-    batch (the same DropPath masks), kernels against the plain versions,
+def _grad_check(name, sd, imgs, labels, **kw):
+    """Every parameter's gradient of ``name`` (``kw`` to create_model) at
+    the weights ``sd`` on one batch (the same DropPath masks), kernels against the plain versions,
     under cuDNN's deterministic algorithms: in fp32 leaf-wise within
     PARAM_GRAD_TOL of the plain gradients, in bf16 each path's median leaf
     distance from the fp32 plain gradients, the kernels' at most
@@ -2682,7 +2740,7 @@ def _grad_check(name, sd, imgs, labels):
         for impl in ("cuda", "torch"):
             with _cudnn_deterministic():
                 loss[dt_name, impl], grads[dt_name, impl] = _param_grads(
-                    _model(name, dtype, impl, sd), imgs, labels, 7)
+                    _model(name, dtype, impl, sd, **kw), imgs, labels, 7)
     ref = grads["fp32", "torch"]
     rel32, cos32 = _check_grad_tree("fp32 param grad", grads["fp32", "cuda"],
                                     ref, *PARAM_GRAD_TOL)
@@ -2754,14 +2812,15 @@ def phase_train(card, name, num, size=SIZE):
                              f"{STEPS} Adam steps: {still[:5]}")
 
     # every parameter's gradient: kernels against the plain versions, same
-    # weights (this training's, made again deterministically), same batch
-    # of GRAD_BATCH, same DropPath masks
+    # weights (this training's, made again deterministically, at
+    # GRAD_DEPTHS), same batch of GRAD_BATCH, same DropPath masks
     imgs, labels = next(SyntheticLoader(GRAD_BATCH, size, CLASSES, steps=1,
                                         seed=3).epoch(0))
     imgs = torch.from_numpy(imgs).to(dev)
     labels = torch.from_numpy(labels).long().to(dev)
-    grad_check, gc = _grad_check(name, _trained_state(name, size), imgs,
-                                 labels)
+    kw = GRAD_DEPTHS.get(name, {})
+    grad_check, gc = _grad_check(name, _trained_state(name, size, **kw),
+                                 imgs, labels, **kw)
 
     step = make_train_step(model, opt, sched, state=state)
     x = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
@@ -2794,7 +2853,9 @@ def phase_train(card, name, num, size=SIZE):
           f"all {len(before)} parameters moved | train {m['img_s']:.2f} img/s "
           f"({m['seconds']:.3f} s for {BATCH * STEPS} images, host data and "
           f"copies included) on {card} | param grads kernels vs plain, "
-          f"batch {GRAD_BATCH}: {gc} | step wall time: "
+          f"batch {GRAD_BATCH}"
+          + (f", depths {kw['depths']}" if kw else "") + f": {gc} | step "
+          f"wall time: "
           f"{m['seconds'] / STEPS * 1e3:.2f} ms through run_train, "
           f"{resident_ms:.2f} ms on a batch already on the card | one step: "
           f"{total_ms:.2f} ms device time in kernels ("
@@ -5307,6 +5368,311 @@ def phase_tp_kernels(card, num):
     return cases
 
 
+# Phase 39: the profiled train steps (``utils/profiling.py``) and their
+# FLOPs (``utils/flops.py``): each (model, compute dtype) at SIZE, BATCH.
+PROFILE_CASES = (("medmamba", "bf16"), ("medssd", "bf16"),
+                 ("st_ssd", "bf16"), ("st_ssd", "fp32"))
+PROFILE_STEPS = 3
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_profile")
+# two readers of one capture: the trace's device events as
+# ``profiling.attribute`` counts them against the capture's own event list
+# (the records the trace was written from, so this checks the reader's
+# filters: the warm-up, the annotation spans) and against key_averages()
+# (torch's own aggregate); and the share of kernel time that must have a
+# source line of the port
+PROFILE_READERS_TOL = 5e-3
+PROFILE_ATTRIBUTED = 0.99
+# the captures also read by key_averages() (11-18 s each with stacks on)
+PROFILE_KEY_AVERAGES = ("medmamba",)
+
+# each kernel's category and the pass it launches once a call, by which a
+# capture's launches are counted by source (the fp32 Y_diag backward runs
+# other passes than the bf16 one)
+PROFILE_MARKERS = {
+    "selective_scan_fwd": ("port row 1: scan", "chunk_carry_kernel<false>"),
+    "selective_scan_bwd": ("port row 2: scan backward", "bwd_local_kernel"),
+    "ssd_fused_dirs_fwd": ("port row 5: SSD dirs", "fwd::prep_kernel"),
+    "ssd_fused_dirs_bwd": ("port row 5b: SSD dirs backward",
+                           "bwd::prep_kernel"),
+    "ssd_ydiag_fwd": ("port row 7: Y_diag", "ssd_ydiag::rows_kernel"),
+    "ssd_ydiag_bwd": ("port row 7b: Y_diag backward",
+                      {"bf16": "ssd_ydiag::cols_kernel",
+                       "fp32": "f32::grad_kernel"}),
+    "stl_mixer_fwd": ("port row 8: STL mixer", "mixer_fwd_rows_kernel"),
+    "stl_mixer_bwd": ("port row 8b: STL mixer backward",
+                      "mixer_bwd_cols_kernel"),
+    "stf_zgate_fwd": ("port row 9: STF gate", "zgate_fwd_rows_kernel"),
+    "stf_zgate_bwd": ("port row 9b: STF gate backward",
+                      "zgate_bwd_cols_kernel"),
+}
+# the CPU's count: a fresh process without the card counts each case's
+# forward and train step on fake tensors while the card profiles
+_FLOPS_CODE = (
+    "import json, sys, torch\n"
+    "import torch.nn.functional as F\n"
+    "from medical_image_classification_tpu_torch.models import create_model\n"
+    "from medical_image_classification_tpu_torch.utils import flops\n"
+    "cases, batch, size, classes = json.loads(sys.argv[1])\n"
+    "x = torch.zeros(batch, size, size, 3)\n"
+    "onehot = F.one_hot(torch.arange(batch) % classes, classes).float()\n"
+    "loss = lambda out, *a: -(onehot * F.log_softmax(out.float(), -1))"
+    ".sum(-1).mean()\n"
+    "out = {}\n"
+    "for name, dt in cases:\n"
+    "    kw = {'dtype': torch.bfloat16} if dt == 'bf16' else {}\n"
+    "    m = create_model(name, classes, generator=torch.Generator()"
+    ".manual_seed(0), **kw)\n"
+    "    out[name + ' ' + dt] = [flops.model_flops(m, x), "
+    "flops.train_flops(m, x, loss)]\n"
+    "print(json.dumps(out))\n")
+
+
+def _kineto_device_us(prof):
+    """The device time of a capture from its own event list (what
+    key_averages() is built from), gpu_user_annotation spans left out,
+    and the kernels inside ``profiling.trace``'s warm-up span."""
+    from torch.autograd import DeviceType
+    from medical_image_classification_tpu_torch.utils import profiling
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    warm = [(e.start_ns(), e.end_ns()) for e in dev
+            if e.is_user_annotation() and e.name() == profiling.WARMUP]
+    return sum(e.duration_ns() for e in dev if not e.is_user_annotation()
+               and not any(a <= e.start_ns() <= b for a, b in warm)) / 1e3
+
+
+def _launches_by_source(records, calls, dt_name, steps):
+    """{kernel: {source: launches a step}} of the path's kernels
+    (``calls``: forward kernels and their launches a forward; each one's
+    backward launches as often), counted by each kernel's marker pass in
+    its category, from ``profiling.attribute``'s records."""
+    out = {}
+    for fwd in calls:
+        for k in (fwd, fwd[:-len("fwd")] + "bwd"):
+            cat, marker = PROFILE_MARKERS[k]
+            marker = marker[dt_name] if isinstance(marker, dict) else marker
+            by = {}
+            for r in records:
+                if r["category"] == cat and marker in r["name"]:
+                    by[r["source"]] = by.get(r["source"], 0) + 1
+            out[k] = {src: n / steps for src, n in by.items()}
+    return out
+
+
+# a capture read in a fresh process while the card profiles the next case
+# (``utils/profiling.py`` reads a trace without torch): the kernel launches
+# outside the warm-up without a device record, and where there are none
+# the counted events
+_READ_CODE = (
+    "import json, sys\n"
+    "from medical_image_classification_tpu_torch.utils import profiling\n"
+    "tr = profiling.load_trace(sys.argv[1])\n"
+    "lost = profiling.lost_launches([e for e in tr['traceEvents']\n"
+    "                                if e.get('ph') == 'X'])\n"
+    "recs = [] if lost else profiling.attribute(tr)\n"
+    "print(json.dumps([lost, [[r['name'], r['category'], r['source'],\n"
+    "                          r['us']] for r in recs]]))\n")
+
+
+def _python(code, *args, env=None):
+    """A fresh ``python -c code args`` from the repo's root, its output
+    piped."""
+    return subprocess.Popen([sys.executable, "-c", code, *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _output(proc, what, timeout=600):
+    """The last line of a ``_python`` process's output; raises if it
+    failed."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} failed: {err[-2000:]}")
+    return out.strip().splitlines()[-1]
+
+
+def phase_profile(card, num):
+    """Phase 39: three train steps after warm-up of medmamba, medssd and
+    st_ssd at 224x224, batch 32, in bf16 and st_ssd in fp32 (the CLIs'
+    default), each traced by ``utils/profiling.trace`` and read by
+    ``profiling.attribute`` (in a fresh process, beside the next case):
+    the device time by category and by source line, printed (the "rest"
+    split by line); gated: every kernel launch outside the warm-up with
+    its device record (``profiling.lost_launches`` 0), the trace's total
+    against the capture's own event list within PROFILE_READERS_TOL (and
+    against key_averages() for PROFILE_KEY_AVERAGES), at least
+    PROFILE_ATTRIBUTED of the kernel time with a port source line, every kernel in a named category, each
+    kernel of the path launched as PATHS says, every launch on a line of
+    ops/ or models/.  The forward's and the train step's FLOPs counted on
+    the card (FlopCounterMode over a real forward and a real step) equal
+    the CPU's count on fake tensors, from a fresh process; TFLOP/s = the
+    step's FLOPs over its device ms.  Every case's numbers are printed
+    before a failed gate raises."""
+    import shutil
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from medical_image_classification_tpu_torch.data.image_folder import (
+        normalize_batch)
+    from medical_image_classification_tpu_torch.train.optim import (
+        make_lr_scheduler, make_optimizer, make_schedule)
+    from medical_image_classification_tpu_torch.train.train_step import (
+        make_train_step)
+    from medical_image_classification_tpu_torch.utils import flops, profiling
+    procs = {"flops": _python(_FLOPS_CODE, json.dumps(
+        [PROFILE_CASES, BATCH, SIZE, CLASSES]),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))}
+    results, texts, failed = {}, [], []
+    try:
+        gen = torch.Generator().manual_seed(7)
+        imgs = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3),
+                             dtype=torch.uint8, generator=gen).cuda()
+        labels = (torch.arange(BATCH) % CLASSES).cuda()
+        for name, dt_name in PROFILE_CASES:
+            key = f"{name} {dt_name}"
+            dtype = torch.bfloat16 if dt_name == "bf16" else torch.float32
+            model = _model(name, dtype, "auto")
+            model.seed_drop_path(1)
+            opt = make_optimizer("adam", model.named_parameters())
+            step = make_train_step(model, opt, make_lr_scheduler(
+                opt, make_schedule("constant", 1e-4)))
+            with FlopCounterMode(display=False) as fc:
+                step(imgs, labels)                          # warm-up
+            model.eval()
+            with torch.no_grad():
+                fwd_flops = flops.cost_analysis(
+                    lambda: model(normalize_batch(imgs)))["flops"]
+            model.train()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(imgs, labels)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+            logdir = os.path.join(PROFILE_DIR, key.replace(" ", "_"))
+            counters = _counters()
+            want = _want(_path(name)[0], PROFILE_STEPS, True)
+            shutil.rmtree(logdir, ignore_errors=True)
+            _zero(counters)
+            t0 = time.perf_counter()
+            with profiling.trace(logdir) as prof:
+                for _ in range(PROFILE_STEPS):
+                    step(imgs, labels)
+            if _launches(counters) != want:
+                failed.append(f"{key}: the wrappers launched "
+                              f"{_launches(counters)} in the capture, "
+                              f"expected {want}")
+            procs[key] = _python(_READ_CODE, logdir)
+            r = results[key] = dict(
+                trace_s=time.perf_counter() - t0, wall_ms=wall_ms,
+                own_ms=_kineto_device_us(prof) / 1e3 / PROFILE_STEPS,
+                key_averages_ms=None, fwd_flops=fwd_flops,
+                step_flops=fc.get_total_flops())
+            t0 = time.perf_counter()
+            if name in PROFILE_KEY_AVERAGES and dt_name == "bf16":
+                r["key_averages_ms"] = sum(
+                    row["device_us"] for row in _rows_of_key_averages(
+                        prof.key_averages()) if row["cpu_us"] == 0.0) \
+                    / 1e3 / PROFILE_STEPS
+            r["key_averages_s"] = time.perf_counter() - t0
+            del model, opt, step, prof
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for (name, dt_name), (key, r) in zip(PROFILE_CASES, results.items()):
+            lost, rows = json.loads(_output(procs.pop(key),
+                                            f"reading {key}'s trace"))
+            r["lost_launches"] = lost
+            if lost:
+                failed.append(f"{key}: {lost} kernel launches outside the "
+                              "warm-up have no device record")
+                texts.append(f"{key}: {lost} launches lost")
+                continue
+            records = [dict(name=n, category=c, source=src, us=us)
+                       for n, c, src, us in rows]
+            summary = profiling.summarize_records(records, PROFILE_STEPS)
+            total, own_ms = summary["total_ms"], r["own_ms"]
+            ka_ms = r["key_averages_ms"]
+            for what, ms in (("the capture's own", own_ms),
+                             ("key_averages()'", ka_ms)):
+                if ms is not None and abs(total - ms) > \
+                        PROFILE_READERS_TOL * ms:
+                    failed.append(f"{key}: the trace's {total:.3f} ms a "
+                                  f"step against {what} {ms:.3f}")
+            attributed = 1.0 - summary["by_source"].get("?", 0.0) / total
+            if attributed < PROFILE_ATTRIBUTED:
+                failed.append(f"{key}: {attributed:.4f} of the kernel time "
+                              "has a source line")
+            other = sorted({x["name"][:80] for x in records
+                            if x["category"] == profiling.OTHER})
+            if other:
+                failed.append(f"{key}: kernels in no named category: "
+                              f"{other[:5]}")
+            calls = _path(name)[0]
+            by_src = _launches_by_source(records, calls, dt_name,
+                                         PROFILE_STEPS)
+            for k, srcs in by_src.items():
+                want = calls[k[:-len("bwd")] + "fwd"]
+                bad = [x for x in srcs
+                       if not x.startswith(("ops/", "models/"))]
+                if sum(srcs.values()) != want or bad:
+                    failed.append(f"{key}: {k} launches by source {srcs}, "
+                                  f"expected {want} a step on ops/ or "
+                                  "models/ lines")
+            port = sum(v for c, v in summary["by_category"].items()
+                       if c.startswith("port"))
+            r.update(device_ms=total, attributed=attributed,
+                     rest_ms=total - port, by_category=summary["by_category"],
+                     by_source=dict(list(summary["by_source"].items())[:25]),
+                     by_op=dict(list(summary["by_op"].items())[:25]),
+                     launches_by_source=by_src,
+                     tflops=r["step_flops"] / (total * 1e-3) / 1e12)
+            texts.append(
+                f"{key}: {total:.2f} ms device a step (the capture's own "
+                f"{own_ms:.2f}" + (f", key_averages {ka_ms:.2f}"
+                                   if ka_ms is not None else "") +
+                f"), every launch recorded, wall {r['wall_ms']:.2f} ms a "
+                f"step, rest "
+                f"{total - port:.2f} ms, {attributed * 100:.2f}% attributed, "
+                f"{r['step_flops'] / BATCH / 1e9:.2f} GF/img a step "
+                f"({r['fwd_flops'] / BATCH / 1e9:.2f} forward), "
+                f"{r['tflops']:.2f} TFLOP/s; launches by source "
+                + "; ".join(f"{k} " + ", ".join(f"{x} {n:g}"
+                                                for x, n in v.items())
+                            for k, v in by_src.items())
+                + "; by category " + ", ".join(
+                    f"{c} {v:.2f}" for c, v in
+                    list(summary["by_category"].items())[:8])
+                + "; by source " + ", ".join(
+                    f"{x} {v:.2f}" for x, v in
+                    list(summary["by_source"].items())[:10])
+                + f" (trace {r['trace_s']:.1f} s, key_averages "
+                f"{r['key_averages_s']:.1f} s)")
+        counted = json.loads(_output(procs.pop("flops"),
+                                     "the CPU's FLOP count"))
+        wait_s = time.perf_counter() - t0
+        for key, r in results.items():
+            r["cpu_fwd_flops"], r["cpu_step_flops"] = counted[key]
+            if [r["fwd_flops"], r["step_flops"]] != counted[key]:
+                failed.append(f"{key}: FLOPs on the card forward "
+                              f"{r['fwd_flops']}, step {r['step_flops']}; "
+                              f"on the CPU {counted[key]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    text = " | ".join(texts) + f" | then {wait_s:.1f} s for the readers"
+    if failed:
+        print(f"phase {num}: {text}", flush=True)
+        raise AssertionError(f"phase {num}: " + "; ".join(failed))
+    print(f"phase {num} profiled train steps ({card}; {PROFILE_STEPS} steps "
+          f"after warm-up, b{BATCH} {SIZE}x{SIZE}, FLOPs on the card equal "
+          f"the CPU's fake count): {text}", flush=True)
+    return results
+
+
 def _entry(name, replaces, cases, launches, head, bound):
     """One kernel's record for the kernels line; ``head`` picks the case
     whose times it reports; ``replaces`` is file:line under the JAX
@@ -5336,6 +5702,7 @@ def main(argv=None):
         # the wall seconds of phase ``key``: since the last lap
         now = time.perf_counter()
         seconds[key], clock[0] = round(now - clock[0], 1), now
+        print(f"phase {key} took {seconds[key]} s", flush=True)
 
     card = phase_device_and_build()
     lap("1")
@@ -5454,6 +5821,10 @@ def main(argv=None):
     lap(str(num + 8))
     tp["kernels"] = phase_tp_kernels(card, num + 8)
     lap(str(num + 8) + " kernels")
+    # the profiled train steps: device time by category and source line,
+    # FLOPs on the card against the CPU's count
+    profiled = phase_profile(card, num + 9)
+    lap(str(num + 9))
 
     leaked = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "flax", "optax"))
@@ -5685,7 +6056,7 @@ def main(argv=None):
                            crossmamba=cross, fusionmamba=fm,
                            all_index=all_index, grad_cam=cam,
                            export=exported, dp=dp, sp=sp, tp=tp,
-                           phase_seconds=seconds),
+                           profile=profiled, phase_seconds=seconds),
                       f, indent=1)
     print(f"phase seconds (wall, each phase with its checks): {seconds}",
           flush=True)

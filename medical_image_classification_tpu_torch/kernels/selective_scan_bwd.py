@@ -265,12 +265,26 @@ def scan_folded_bwd(u, delta, A, B, C, D, bias, xsave, dy,
     ``impl`` as in ``scan_folded_fwd``: the CUDA kernel for CUDA tensors
     ("auto"/"cuda", which raises rather than fall back) or the plain
     version ("torch", or "auto" on the CPU)."""
-    if resolve_impl(impl, u, "scan") == "torch":
+    impl = resolve_impl(impl, u, "scan")
+    if not via_op(impl, u):
         return scan_folded_bwd_ref(u, delta, A, B, C, D, bias, xsave, dy,
                                    reverse=reverse, softplus=softplus,
                                    dlast=dlast, want_dinit=want_dinit)
-    return _launch_cuda(u, delta, A, B, C, D, bias, xsave, dy, reverse,
-                        softplus, dlast=dlast, want_dinit=want_dinit)
+    return tuple(ops.selective_scan_bwd(u, delta, A, B, C, D, bias, xsave,
+                                        dy, dlast, reverse, softplus,
+                                        want_dinit, impl))
+
+
+def op_backward(u, delta, A, B, C, D, bias, xsave, dy, dlast, reverse,
+                softplus, want_dinit, impl):
+    """The body of ``ops.selective_scan_bwd``: the kernel (``impl``
+    "cuda") or the plain version ("torch"); the cotangents in their
+    primals' dtypes, then dinit."""
+    run = _launch_cuda if impl == "cuda" else scan_folded_bwd_ref
+    grads = run(u, delta, A, B, C, D, bias, xsave, dy, reverse, softplus,
+                dlast=dlast, want_dinit=want_dinit)
+    primals = (u, delta, A, B, C, D, bias)
+    return [g.to(p.dtype) for g, p in zip(grads, primals)] + list(grads[7:])
 
 
 # Number of CUDA kernel launches so far; the wrapper adds one per launch,
@@ -325,10 +339,14 @@ class ScanFolded(torch.autograd.Function):
             grads = v1.scan_v1_bwd(*saved, dy.contiguous(), T, impl=impl)
             return tuple(g.to(p.dtype) for g, p in zip(grads, saved)) + (
                 None,) * 6
-        run = _launch_cuda if impl == "cuda" else scan_folded_bwd_ref
         if dlast is not None:
             dlast = dlast.float().contiguous()
-        grads = run(*saved, dy.contiguous(), reverse, softplus, dlast=dlast,
-                    want_dinit=has_init)
+        if via_op(impl, dy):
+            grads = ops.selective_scan_bwd(*saved, dy.contiguous(), dlast,
+                                           reverse, softplus, has_init, impl)
+        else:
+            grads = scan_folded_bwd_ref(*saved, dy.contiguous(), reverse,
+                                        softplus, dlast=dlast,
+                                        want_dinit=has_init)
         return tuple(g.to(p.dtype) for g, p in zip(grads[:7], saved)) + (
             None, None, None, None, grads[7] if has_init else None, None)

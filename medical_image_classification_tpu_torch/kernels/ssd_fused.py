@@ -467,10 +467,23 @@ def ssd_fused_bwd(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy,
                   impl: str = "auto"):
     """The backward: (dC, dB, dacum, ddte, dcdec, ddtp, dx).  ``impl`` as
     in ``ssd_fused_fwd``."""
-    if resolve_impl(impl, Cc, "SSD") == "torch":
+    impl = resolve_impl(impl, Cc, "SSD")
+    if not via_op(impl, Cc):
         return ssd_fused_bwd_ref(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy)
-    return _launch_bwd_cuda(*(dense(t) for t in (Cc, Bc, acum, dte, cdec,
-                                                 dtp, x, Ssave, dy)))
+    return tuple(ops.ssd_fused_bwd(Cc, Bc, acum, dte, cdec, dtp, x, Ssave,
+                                   dy, impl))
+
+
+def op_backward(Cc, Bc, acum, dte, cdec, dtp, x, Ssave, dy, impl):
+    """The body of ``ops.ssd_fused_bwd``: the kernel (``impl`` "cuda";
+    on dense copies where needed) or the plain version ("torch"); the
+    cotangents in their primals' dtypes."""
+    args = (Cc, Bc, acum, dte, cdec, dtp, x)
+    if impl == "cuda":
+        grads = _launch_bwd_cuda(*(dense(t) for t in args + (Ssave, dy)))
+    else:
+        grads = ssd_fused_bwd_ref(*args, Ssave, dy)
+    return [g.to(p.dtype) for g, p in zip(grads, args)]
 
 
 # Number of CUDA kernel launches so far; each wrapper adds one per launch,

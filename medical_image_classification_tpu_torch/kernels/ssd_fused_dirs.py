@@ -306,11 +306,23 @@ def ssd_fused_dirs_bwd(stackr, acum, dte, cdec, dtp, Dsk, d_ssm: int,
                        gn: int, Ssave, dy, impl: str = "auto"):
     """The backward: the cotangents of (stackr, acum, dte, cdec, dtp, Dsk).
     ``impl`` as in ``ssd_fused_dirs_fwd``."""
-    if resolve_impl(impl, stackr, "SSD") == "torch":
+    impl = resolve_impl(impl, stackr, "SSD")
+    if not via_op(impl, stackr):
         return ssd_fused_dirs_bwd_ref(stackr, acum, dte, cdec, dtp, Dsk,
                                       d_ssm, gn, Ssave, dy)
-    return _launch_bwd_cuda(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn,
-                            Ssave, dy)
+    return tuple(ops.ssd_fused_dirs_bwd(stackr, acum, dte, cdec, dtp, Dsk,
+                                        d_ssm, gn, Ssave, dy, impl))
+
+
+def op_backward(stackr, acum, dte, cdec, dtp, Dsk, d_ssm, gn, Ssave, dy,
+                impl):
+    """The body of ``ops.ssd_fused_dirs_bwd``: the kernel (``impl``
+    "cuda") or the plain version ("torch"); the cotangents in their
+    primals' dtypes."""
+    args = (stackr, acum, dte, cdec, dtp, Dsk)
+    run = _launch_bwd_cuda if impl == "cuda" else ssd_fused_dirs_bwd_ref
+    grads = run(*args, d_ssm, gn, Ssave, dy)
+    return [g.to(p.dtype) for g, p in zip(grads, args)]
 
 
 # Number of CUDA kernel launches so far; each wrapper adds one per launch,

@@ -352,10 +352,22 @@ def op_forward(Cc, Bc, acum, dtx, impl):
 def ydiag_fused_bwd(Cc, Bc, acum, dtx, dy, impl: str = "auto"):
     """The backward: (dCc, dBc, dacum, ddtx).  ``impl`` as in
     ``ydiag_fused_fwd``."""
-    if resolve_impl(impl, Cc, "Y_diag") == "torch":
+    impl = resolve_impl(impl, Cc, "Y_diag")
+    if not via_op(impl, Cc):
         return ydiag_fused_bwd_ref(Cc, Bc, acum, dtx, dy)
-    return _launch_bwd_cuda(dense(Cc), dense(Bc), dense(acum.float()),
-                            dense(dtx), dense(dy))
+    return tuple(ops.ssd_ydiag_bwd(Cc, Bc, acum, dtx, dy, impl))
+
+
+def op_backward(Cc, Bc, acum, dtx, dy, impl):
+    """The body of ``ops.ssd_ydiag_bwd``: the kernel (``impl`` "cuda";
+    on dense copies where needed) or the plain version ("torch"); the
+    cotangents in their primals' dtypes."""
+    if impl == "cuda":
+        grads = _launch_bwd_cuda(dense(Cc), dense(Bc), dense(acum.float()),
+                                 dense(dtx), dense(dy))
+    else:
+        grads = ydiag_fused_bwd_ref(Cc, Bc, acum, dtx, dy)
+    return [g.to(p.dtype) for g, p in zip(grads, (Cc, Bc, acum, dtx))]
 
 
 # Number of CUDA kernel launches so far; each wrapper adds one per launch,

@@ -225,11 +225,23 @@ def op_forward(pooledT, lz, U, impl):
 def stf_zgate_bwd(pooledT, lz, U, dY, impl: str = "auto"):
     """The backward: (dpooledT, dlz, dU).  ``impl`` as in
     ``stf_zgate_fwd``."""
-    if resolve_impl(impl, pooledT, "STF gate") == "torch":
+    impl = resolve_impl(impl, pooledT, "STF gate")
+    if not via_op(impl, pooledT):
         return stf_zgate_bwd_ref(pooledT, lz, U, dY)
-    mm = pooledT.dtype
-    return _launch_bwd_cuda(dense(pooledT), dense(lz.to(mm)),
-                            dense(U.to(mm)), dense(dY.to(mm)))
+    return tuple(ops.stf_zgate_bwd(pooledT, lz, U, dY, impl))
+
+
+def op_backward(pooledT, lz, U, dY, impl):
+    """The body of ``ops.stf_zgate_bwd``: the kernels (``impl`` "cuda";
+    on dense copies in pooledT's dtype) or the plain version ("torch");
+    the cotangents in their primals' dtypes."""
+    if impl == "cuda":
+        mm = pooledT.dtype
+        grads = _launch_bwd_cuda(dense(pooledT), dense(lz.to(mm)),
+                                 dense(U.to(mm)), dense(dY.to(mm)))
+    else:
+        grads = stf_zgate_bwd_ref(pooledT, lz, U, dY)
+    return [g.to(p.dtype) for g, p in zip(grads, (pooledT, lz, U))]
 
 
 # Number of CUDA kernel launches so far; each wrapper adds one per launch,

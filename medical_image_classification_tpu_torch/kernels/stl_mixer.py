@@ -284,15 +284,27 @@ def stl_mixer_bwd(w, u1, V, dU, impl: str = "auto", lse=None):
     """The backward: (dw, du1, dV), E from the forward's ``lse`` (the
     kernels need it; the plain version takes the softmax without it).
     ``impl`` as in ``stl_mixer_fwd``."""
-    if resolve_impl(impl, w, "STL mixer") == "torch":
+    impl = resolve_impl(impl, w, "STL mixer")
+    if not via_op(impl, w):
         return stl_mixer_bwd_ref(w, u1, V, dU, lse)
-    if lse is None:
+    if impl == "cuda" and lse is None:
         raise ValueError("the STL mixer's backward kernels take the "
                          "forward's lse (stl_mixer_fwd(..., want_stats="
                          "True))")
-    mm = w.dtype
-    return _launch_bwd_cuda(dense(w), dense(u1.to(mm)), dense(V.to(mm)),
-                            dense(dU.to(mm)), dense(lse))
+    return tuple(ops.stl_mixer_bwd(w, u1, V, dU, lse, impl))
+
+
+def op_backward(w, u1, V, dU, lse, impl):
+    """The body of ``ops.stl_mixer_bwd``: the kernels (``impl`` "cuda";
+    on dense copies in w's dtype) or the plain version ("torch"); the
+    cotangents in their primals' dtypes."""
+    if impl == "cuda":
+        mm = w.dtype
+        grads = _launch_bwd_cuda(dense(w), dense(u1.to(mm)), dense(V.to(mm)),
+                                 dense(dU.to(mm)), dense(lse))
+    else:
+        grads = stl_mixer_bwd_ref(w, u1, V, dU, lse)
+    return [g.to(p.dtype) for g, p in zip(grads, (w, u1, V))]
 
 
 # Number of CUDA kernel launches so far; each wrapper adds one per launch,

@@ -123,7 +123,11 @@ class OKANLayer(nn.Module):
             self.scale_base.copy_(r / math.sqrt(in_dim))
             self.scale_sp.copy_(self.mask)
 
-    def forward(self, x, update_grid: bool = False):
+    def forward(self, x, update_grid: bool = False,
+                return_acts: bool = False):
+        """y [..., out] in x's dtype; with ``return_acts`` (y, preacts,
+        postacts, postspline) as ``kan_ops.okan_forward`` gives them, y
+        in fp32 (the JAX layer's)."""
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         if update_grid:
@@ -132,9 +136,13 @@ class OKANLayer(nn.Module):
                     x2.float(), self.grid, self.coef, self.k, self.num)
                 self.grid.copy_(grid)
                 self.coef.copy_(coef)
-        y = kan_ops.okan_forward(x2, self.grid, self.coef, self.scale_base,
-                                 self.scale_sp, self.mask, self.k)
-        return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
+        out = kan_ops.okan_forward(x2, self.grid, self.coef, self.scale_base,
+                                   self.scale_sp, self.mask, self.k,
+                                   return_acts=return_acts)
+        if return_acts:
+            y, pre, post, postsp = out
+            return (y.reshape(lead + (y.shape[-1],)), pre, post, postsp)
+        return out.reshape(lead + (out.shape[-1],)).to(x.dtype)
 
 
 def _bn1d(features: int) -> nn.BatchNorm1d:

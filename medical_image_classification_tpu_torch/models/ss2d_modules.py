@@ -235,8 +235,11 @@ def _adaptive_bins(n_in: int, n_out: int, device: torch.device,
     Cached per device and dtype: a constant of the model, as in the JAX
     module, not a host-to-device copy on every forward.  Built outside
     inference mode, so that a matrix first made by an eval forward is still
-    one that a later training step can save for its backward."""
-    with torch.inference_mode(False):
+    one that a later training step can save for its backward, and outside
+    any FakeTensorMode (a FLOP count, ``utils/flops.py``), so that the cache
+    holds values."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with torch.inference_mode(False), unset_fake_temporarily():
         M = torch.zeros(n_in, n_out)
         for i in range(n_out):
             a = (i * n_in) // n_out

@@ -4,14 +4,17 @@ Port of ``medical_image_classification_tpu/ops/kan.py``: the efficient-KAN
 core (``make_grid``, ``extend_grid``, ``b_splines``, ``curve2coeff``,
 ``kan_linear``, ``kan_update_grid``) and the original-pykan ("o-KAN") core
 (``coef2curve``, ``okan_curve2coef``, ``sparse_mask``, ``okan_forward``,
-``okan_update_grid``).  Plain PyTorch: the JAX functions are XLA code, not
-Pallas kernels, and the spline contractions here are one matmul each over
-[batch, in x coeff], never a [batch, out, in, coeff] broadcast.
+``okan_update_grid``), and the helpers no model calls:
+``kan_regularization``, ``okan_forward``'s ``return_acts``,
+``okan_get_subset``, ``okan_swap`` and ``okan_refine_grid``.  Plain
+PyTorch: the JAX functions are XLA code, not Pallas kernels, and the
+spline contractions here are one matmul each over [batch, in x coeff],
+never a [batch, out, in, coeff] broadcast.
 
 The re-gridding functions pick sample indices with the JAX package's
 float32 formulas (``_linspace_f32``, ``_okan_ids``), so that both packages
-take the same samples as knots; ``torch.linspace`` rounds otherwise and can
-land one index off.
+take the same samples as knots (and ``okan_refine_grid`` the same knots);
+``torch.linspace`` rounds otherwise and can land one index off.
 """
 
 from __future__ import annotations
@@ -151,6 +154,18 @@ def kan_update_grid(x, grid, spline_weight, spline_scaler, *,
     return new_grid, new_w
 
 
+def kan_regularization(spline_weight, regularize_activation: float = 1.0,
+                       regularize_entropy: float = 1.0):
+    """The e-KAN regulariser over spline weights [out, in, coeff]: the sum
+    of the mean |w| of each edge (L1), plus the entropy of those means
+    normalised to a distribution, each by its factor."""
+    l1 = spline_weight.abs().mean(-1)
+    act = l1.sum()
+    p = l1 / (act + 1e-12)
+    ent = -(p * torch.log(p + 1e-12)).sum()
+    return regularize_activation * act + regularize_entropy * ent
+
+
 def coef2curve(x, grid, coef, k: int):
     """Per-edge splines: x [batch, in], coef [in, out, coeff] ->
     [batch, in, out]."""
@@ -175,12 +190,23 @@ def sparse_mask(in_dim: int, out_dim: int):
     return mask
 
 
-def okan_forward(x, grid, coef, scale_base, scale_sp, mask, k: int):
+def okan_forward(x, grid, coef, scale_base, scale_sp, mask, k: int,
+                 return_acts: bool = False):
     """o-KAN forward in fp32:
     y[b, o] = sum_i mask[i, o] (scale_base[i, o] silu(x[b, i])
                                 + scale_sp[i, o] spline_io(x[b, i])),
-    each sum over i one matmul."""
+    each sum over i one matmul.  With ``return_acts`` the per-edge terms
+    are formed and summed instead, and (y, preacts, postacts, postspline)
+    come back in the JAX layout, each [batch, out, in]: x broadcast over
+    the outputs, the masked edge terms and the bare splines."""
     x = x.float()
+    if return_acts:
+        postspline = coef2curve(x, grid, coef, k)            # [b, in, out]
+        post = mask * (scale_base * F.silu(x)[..., None]
+                       + scale_sp * postspline)
+        preacts = x[:, None, :].expand(x.shape[0], coef.shape[1], x.shape[1])
+        return (post.sum(1), preacts, post.transpose(1, 2),
+                postspline.transpose(1, 2))
     base = F.silu(x) @ (mask * scale_base)
     w = coef * (mask * scale_sp)[..., None]                  # [in, out, c]
     return base + _spline_matmul(b_splines(x, grid, k), w.transpose(0, 1))
@@ -204,3 +230,41 @@ def okan_update_grid(x, grid, coef, k: int, num: int,
     new_grid = new_grid + iota[None, :] * 1e-4 * span
     new_grid = extend_grid(new_grid, k)
     return new_grid, okan_curve2coef(x_sorted, y_eval, new_grid, k)
+
+
+def okan_get_subset(grid, coef, scale_base, scale_sp, mask, in_idx,
+                    out_idx):
+    """o-KAN pruning: the layer restricted to the edges from the inputs
+    ``in_idx`` to the outputs ``out_idx`` (in that order).  Returns (grid,
+    coef, scale_base, scale_sp, mask)."""
+    i = torch.as_tensor(in_idx, dtype=torch.int64, device=grid.device)
+    o = torch.as_tensor(out_idx, dtype=torch.int64, device=grid.device)
+    return (grid[i],) + tuple(t[i][:, o] for t in
+                              (coef, scale_base, scale_sp, mask))
+
+
+def okan_swap(arrs, i: int, j: int, axis: int):
+    """o-KAN neuron swap: every tensor of ``arrs`` with its entries i and j
+    along ``axis`` exchanged (new tensors; the inputs are not changed)."""
+    out = []
+    for a in arrs:
+        idx = torch.arange(a.shape[axis], device=a.device)
+        idx[i], idx[j] = j, i
+        out.append(a.index_select(axis, idx))
+    return out
+
+
+def okan_refine_grid(grid, coef, new_num: int, k: int, samples=None,
+                     n_eval: int = 256):
+    """Grid refinement: the layer refit on a grid of ``new_num`` intervals
+    over the same range, keeping its function: the splines are sampled at
+    ``samples`` [n, in] (by default ``n_eval`` even points of each input's
+    range) and refit on the new knots.  Returns (new_grid, new_coef)."""
+    lo = grid[:, k][:, None]
+    hi = grid[:, -(k + 1)][:, None]
+    span = lambda n: _linspace_f32(0.0, 1.0, n).to(grid.device)[None, :]
+    if samples is None:
+        samples = (lo + (hi - lo) * span(n_eval)).t()        # [n_eval, in]
+    y_eval = coef2curve(samples, grid, coef, k)              # [n, in, out]
+    new_grid = extend_grid(lo + (hi - lo) * span(new_num + 1), k)
+    return new_grid, okan_curve2coef(samples, y_eval, new_grid, k)

@@ -59,18 +59,24 @@ def test_eval_cli_on_image_folder(tmp_path, monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("cli", ["test", "train", "test_all_index", "cam",
-                                 "export", "ddp_train"])
+                                 "export", "ddp_train",
+                                 "scripts.profile_step",
+                                 "scripts.profile_fusion_step",
+                                 "scripts.trace_ops", "scripts.flops_report"])
 def test_clis_default_to_the_card_and_raise_without_one(monkeypatch,
                                                         tmp_path, cli):
-    """The CLIs run on the card unless asked for the CPU (--device cuda by
-    default), and without a card their main() raises before it reads the
-    data (the image, the weights): nothing falls back to the CPU."""
+    """The CLIs (and the profiling and FLOP scripts) run on the card unless
+    asked for the CPU (--device cuda by default), and without a card their
+    main() raises before it reads the data (the image, the weights, the
+    capture): nothing falls back to the CPU."""
     import importlib
-    mod = importlib.import_module(
-        f"medical_image_classification_tpu_torch.cli.{cli}")
+    mod = importlib.import_module("medical_image_classification_tpu_torch."
+                                  + (cli if "." in cli else f"cli.{cli}"))
     missing = str(tmp_path / "missing")
     argv = {"cam": ["--image", missing, "--weights", missing],
-            "export": ["--weights", missing]}
+            "export": ["--weights", missing],
+            "scripts.profile_step": [], "scripts.profile_fusion_step": [],
+            "scripts.trace_ops": [missing], "scripts.flops_report": []}
     args = mod.parse_args(argv.get(cli, ["--data-path", missing]))
     assert args.device == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -80,9 +86,10 @@ def test_clis_default_to_the_card_and_raise_without_one(monkeypatch,
 
 def test_port_imports_no_jax():
     """Every module of the port imports (the parallel/ modules and
-    cli/ddp_train among them), and a train epoch and an eval pass through
-    run_train and run_eval run, without jax, flax, optax or the JAX
-    package."""
+    cli/ddp_train among them, the profiling and FLOP modules and their
+    scripts), and a train epoch and an eval pass through run_train and
+    run_eval run, an eval pass traced and summarised and a forward's FLOPs
+    counted, without jax, flax, optax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torch\n"
@@ -107,11 +114,23 @@ def test_port_imports_no_jax():
         "m = run_train(model, opt, sched, loader, torch.device('cpu'))\n"
         "assert m['steps'] == 2 and m['loss'] == m['loss'], m\n"
         "run_eval(model, loader, torch.device('cpu'))\n"
+        "import tempfile\n"
+        "from medical_image_classification_tpu_torch.utils import flops, "
+        "profiling\n"
+        "d = tempfile.mkdtemp()\n"
+        "with profiling.trace(d):\n"
+        "    run_eval(model, loader, torch.device('cpu'))\n"
+        "s = profiling.summarize_trace(d)\n"
+        "assert s['total_ms'] > 0 and '?' not in s['by_source'], s\n"
+        "assert flops.model_flops(model, torch.zeros(2, 32, 32, 3)) > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'optax', 'medical_image_classification_tpu')]\n"
         "assert not bad, bad\n"
         "for m in ('cli.test', 'cli.train', 'cli.ddp_train', 'parallel.mesh',"
-        " 'parallel.collectives', 'parallel.sequence_parallel'):\n"
+        " 'parallel.collectives', 'parallel.sequence_parallel',"
+        " 'utils.profiling', 'utils.flops', 'scripts.profile_step',"
+        " 'scripts.profile_fusion_step', 'scripts.trace_ops',"
+        " 'scripts.flops_report'):\n"
         "    assert 'medical_image_classification_tpu_torch.' + m in "
         "sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,8 +1,8 @@
-"""The forward kernels as ``torch.library`` custom ops and ``cli/export.py``
-on the CPU.  ``torch.library.opcheck`` for each of the six ops (schema,
-fake tensors, aot dispatch) at small shapes, each op's output the plain
-version's bit for bit; reduced medmamba and st_ssd exported through
-``torch.export``, saved, loaded and run: the program holds the
+"""The kernels as ``torch.library`` custom ops and ``cli/export.py`` on the
+CPU.  ``torch.library.opcheck`` for each of the six forward ops and the six
+backward ops (schema, fake tensors, aot dispatch) at small shapes, each
+op's output the plain version's bit for bit; reduced medmamba and st_ssd
+exported through ``torch.export``, saved, loaded and run: the program holds the
 ``mic_torch`` ops, its logits equal the eager forward's (rtol 1e-5, as
 ``tests/test_cli_train.py::test_export_roundtrip``), and a fresh
 interpreter that imports only ``kernels/ops.py`` loads and runs it (and
@@ -23,6 +23,7 @@ import medical_image_classification_tpu_torch.kernels.stl_mixer as tsmp
 from medical_image_classification_tpu_torch.cli import export
 from medical_image_classification_tpu_torch.kernels import (
     ops,
+    selective_scan_bwd as ssb,
     selective_scan_fwd as ssf,
     ssd_fused as sf,
     ssd_fused_dirs as sfd,
@@ -92,11 +93,83 @@ def test_op_passes_opcheck_and_equals_the_plain_version(i):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+def _bwd_cases():
+    """(backward op, args without impl, the plain backward's cotangents in
+    their primals' dtypes), each at the forward cases' shapes, fp32 and
+    bf16 where the forward has both."""
+    from test_torch_ssd_dirs import _inputs as dirs_inputs, _torch
+    from test_torch_ssd_fused import _cast, _inputs as fused_inputs
+    from test_torch_st_kernels import _ydiag_args, _stl_args, _stf_args
+    rng = np.random.default_rng(1)
+    t = lambda args: tuple(torch.from_numpy(a) for a in args)
+    like = lambda ref: torch.from_numpy(
+        rng.standard_normal(ref.shape).astype(np.float32)).to(ref.dtype)
+    cast = lambda grads, prim: [g.to(p.dtype) for g, p in zip(grads, prim)]
+    cases = []
+    for init, reverse in ((False, False), (True, True)):
+        a = _scan_args(rng, init)
+        y, xsave, last = ssf.scan_folded_fwd_ref(
+            *a[:7], reverse=reverse, want_xsave=True, want_state=True,
+            init=a[7])
+        dy, dlast = like(y), like(last) if init else None
+        want = ssb.scan_folded_bwd_ref(*a[:7], xsave, dy, reverse=reverse,
+                                       softplus=True, dlast=dlast,
+                                       want_dinit=init)
+        cases.append((ops.selective_scan_bwd,
+                      a[:7] + (xsave, dy, dlast, reverse, True, init),
+                      cast(want, a[:7]) + list(want[7:])))
+    for dt in (torch.float32, torch.bfloat16):
+        args, _, d_ssm, gn = dirs_inputs(B=1, seed=5)
+        a = _torch(args, dt)
+        y, Ssave = sfd.ssd_fused_dirs_fwd_ref(*a, d_ssm, gn, True)
+        b = a + (d_ssm, gn, Ssave, like(y))
+        cases.append((ops.ssd_fused_dirs_bwd, b,
+                      cast(sfd.ssd_fused_dirs_bwd_ref(*b), a)))
+        args, _ = fused_inputs(B=1, seed=5)
+        a = _cast(args, tdt=dt)
+        y, Ssave = sf.ssd_fused_fwd_ref(*a, True)
+        b = a + (Ssave, like(y))
+        cases.append((ops.ssd_fused_bwd, b, cast(sf.ssd_fused_bwd_ref(*b),
+                                                 a)))
+    a = t(_ydiag_args(rng, 3, 24, 2, 8, 64)[0])
+    b = a + (like(tyd.ydiag_fused_ref(*a)),)
+    cases.append((ops.ssd_ydiag_bwd, b, cast(tyd.ydiag_fused_bwd_ref(*b), a)))
+    a = t(_stl_args(rng, 2, 24, 16, 128)[0])
+    U, lse = tsmp.stl_mixer_fwd_ref(*a, True)
+    b = a + (like(U), lse)
+    cases.append((ops.stl_mixer_bwd, b, cast(tsmp.stl_mixer_bwd_ref(*b), a)))
+    a = t(_stf_args(rng, 2, 16, 128)[0])
+    b = a + (like(tszp.stf_zgate_fwd_ref(*a)),)
+    cases.append((ops.stf_zgate_bwd, b, cast(tszp.stf_zgate_bwd_ref(*b), a)))
+    return cases
+
+
+BWD_CASES = _bwd_cases()
+
+
+@pytest.mark.parametrize("i", range(len(BWD_CASES)),
+                         ids=[f"{c[0]._name}-{i}"
+                              for i, c in enumerate(BWD_CASES)])
+def test_backward_op_passes_opcheck_and_equals_the_plain_version(i):
+    """Each backward op: opcheck (its fake's shapes and dtypes against the
+    body's), and its cotangents the plain backward's bit for bit, each in
+    its primal's dtype."""
+    op, args, want = BWD_CASES[i]
+    args = args + ("torch",)
+    torch.library.opcheck(op, args)
+    got = op(*args)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
 def test_six_ops_one_per_forward_kernel():
     assert sorted(op._qualname for op in ops.OPS) == sorted(
         f"mic_torch::{k}" for k in (
             "selective_scan_fwd", "ssd_fused_dirs_fwd", "ssd_fused_fwd",
             "ssd_ydiag_fwd", "stl_mixer_fwd", "stf_zgate_fwd"))
+    assert [op._qualname for op in ops.BWD_OPS] == [
+        op._qualname[:-len("fwd")] + "bwd" for op in ops.OPS]
 
 
 TINY = {

@@ -493,12 +493,16 @@ def test_full_width_parameters_match_jax():
 
 def test_chip_smoke_profile_counts_kernels_not_annotation_spans(
         monkeypatch):
-    """chip_smoke.py's profile rows: kernels (no CPU time) and ops are kept;
-    a record_function region's span on the device (the optimizer step's:
-    its name, no CPU time), which lies over kernels already counted, is
-    dropped, by its name or by its annotation flag, so a step's device
-    time counts each kernel once (on an H100 the Adam step's span was
-    19.53 of FusionMamba's 90.87 ms)."""
+    """chip_smoke.py's profile rows: kernels are kept; a record_function
+    region's span on the device (the optimizer step's: its name, no CPU
+    time), which lies over kernels already counted, is dropped, so a
+    step's device time counts each kernel once (on an H100 the Adam step's
+    span was 19.53 of FusionMamba's 90.87 ms).  ``_profile`` reads the
+    capture's Chrome trace (device events only; a span is a
+    ``gpu_user_annotation``, never summed); the key_averages() reader it
+    replaced keeps its rows: kernels and ops kept, the span dropped by its
+    name or by its annotation flag."""
+    import json
     import types
 
     import chip_smoke
@@ -514,6 +518,15 @@ def test_chip_smoke_profile_counts_kernels_not_annotation_spans(
               ev("aten::add", 400.0, 30.0),
               ev("multi_tensor_apply_kernel", 19000.0, 0.0),
               ev("scan_fwd_chunk_kernel", 1100.0, 0.0)]
+    x = lambda cat, name, ts, dur, tid=7, **a: dict(
+        ph="X", cat=cat, name=name, pid=0, tid=tid, ts=ts, dur=dur, args=a)
+    trace = dict(traceEvents=[
+        x("user_annotation", "Optimizer.step#Adam.step", 0, 900, tid=1),
+        x("cpu_op", "aten::add", 0, 30, tid=1),
+        x("gpu_user_annotation", "Optimizer.step#Adam.step", 100, 19530),
+        x("gpu_user_annotation", "ProfilerStep#1", 0, 5000),
+        x("kernel", "multi_tensor_apply_kernel", 200, 19000),
+        x("kernel", "scan_fwd_chunk_kernel", 50, 1100)])
 
     class Prof:
         def __init__(self, **kw):
@@ -525,8 +538,9 @@ def test_chip_smoke_profile_counts_kernels_not_annotation_spans(
         def __exit__(self, *a):
             return False
 
-        def key_averages(self):
-            return events
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump(trace, f)
 
     monkeypatch.setattr(torch.profiler, "profile", Prof)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -535,8 +549,13 @@ def test_chip_smoke_profile_counts_kernels_not_annotation_spans(
     assert len(calls) == 2                  # a warm-up, then the window
     assert [(r["name"], r["cpu_us"] == 0.0) for r in rows] == [
         ("multi_tensor_apply_kernel", True),
+        ("scan_fwd_chunk_kernel", True)]
+    old = chip_smoke._rows_of_key_averages(events)
+    assert [(r["name"], r["cpu_us"] == 0.0) for r in old] == [
+        ("multi_tensor_apply_kernel", True),
         ("scan_fwd_chunk_kernel", True), ("aten::add", False),
         ("Optimizer.step#Adam.step", False)]
+    assert [r for r in old if r["cpu_us"] == 0.0] == rows
     total, times = chip_smoke._step_profile(lambda: None,
                                             chip_smoke.SCAN_SPLIT)
     assert total == pytest.approx(20.1)
